@@ -27,6 +27,28 @@ Phases, each printing one JSON line:
 6. profile — where a 10-iteration flagship fit spends its time:
    ``torch.profiler`` device time by kernel, the device's idle share, and
    the host binning pass timed alone.
+7. collectives — the ring kernels of ``csrc/ring.cu`` on D ∈ {2, 4}
+   virtual shards of the card: ``ring_allreduce`` against its plain twin
+   on the flagship payload (50, 256, 3) and a ragged (13, 17, 3), exactly
+   (``torch.equal``); ``fused_segment_hist_ring`` against its twin on the
+   flagship matrix split over D shards, segments of 1, 777 and 100,000
+   rows per shard, float32 within the kernels' tolerance and int32
+   exactly.  Median times of the kernel's wrapper call, the twin and a
+   one-call yardstick (``torch.stack(parts).sum(0)``; ``index_add_`` over
+   every shard's segment), the kernel's device time alone
+   (``torch.profiler``), and the bound.
+8. mesh_path — the flagship classifier data-parallel over
+   ``build_mesh(data=4, devices=["cuda:0"] * 4)`` with
+   ``collective="ring"``, under ``histogramMethod="auto"`` and
+   ``"pallas_ring"``, each a warm-up fit and a timed fit: train AUC must
+   reach 0.955, and the timed fit must launch ``ring_allreduce`` once per
+   tree and split (auto) or once per tree with ``fused_segment_hist_ring``
+   once per split (pallas_ring).  Then a 20,000 × 50, 5-iteration D = 4
+   fit on the card and on ``devices=["cpu"] * 4``: identical first tree,
+   AUCs within 0.002.
+9. collectives_cross_card — phase 7's checks with one shard per card,
+   D = min(cards, 4), where the host has at least two cards; elsewhere it
+   prints ``"ran": false`` (not a failure).
 
 Then the ``{"kernels": [...]}`` line, the card line, and last the
 ``{"ok": true, ...}`` line.  Any failed phase makes the script exit 1
@@ -51,11 +73,23 @@ SEGMENT_COUNTS = (1, 777, 200_000)
 #: (m-1) u sum|x|, and by about sqrt(m) u sum|x| for random orders — about
 #: 40 u sum|x| at the ~1,600 rows of a cell at 400,000 rows and 256 bins.
 RTOL, ATOL_ULPS = 1e-5, 256
+#: ring collectives: virtual shard counts, payloads and per-shard segments
+RING_SHARDS = (2, 4)
+RING_SHAPES = ((50, 256, 3), (13, 17, 3))
+SHARD_SEGMENT_COUNTS = (1, 777, 100_000)
+MESH_SHARDS = 4
 REPLACES = {
     "hist_full": "mmlspark_tpu/ops/pallas_histogram.py:384",
     "hist_segment": "mmlspark_tpu/ops/pallas_histogram.py:148",
+    "ring_allreduce": "mmlspark_tpu/ops/pallas_collectives.py:196",
+    "fused_segment_hist_ring": "mmlspark_tpu/ops/pallas_collectives.py:406",
 }
-SOURCE = "mmlspark_tpu_torch/csrc/histogram.cu"
+SOURCES = {
+    "hist_full": "mmlspark_tpu_torch/csrc/histogram.cu",
+    "hist_segment": "mmlspark_tpu_torch/csrc/histogram.cu",
+    "ring_allreduce": "mmlspark_tpu_torch/csrc/ring.cu",
+    "fused_segment_hist_ring": "mmlspark_tpu_torch/csrc/ring.cu",
+}
 #: the card the kernels and the main path run on
 DEV = "cuda"
 
@@ -101,6 +135,24 @@ def median_ms(fn, reps=20, warm=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel, reps=20):
+    """Mean device time per call of the kernels whose name holds
+    ``kernel``, over ``reps`` calls of ``fn`` under ``torch.profiler``.
+    Unlike ``median_ms`` it leaves out the host's enqueue time, which
+    bounds a call whose kernel is shorter than its wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or 0
+             for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / reps
 
 
 def bound_ms(n_bytes, n_ops):
@@ -363,22 +415,284 @@ def phase_profile():
                             for k, v in top]}
 
 
+def ring_bytes(payload_bytes, shards):
+    """Bytes a ring all-reduce of D partials must move through device
+    memory with all D shards on one card: each rank reads its partial,
+    writes its output, and writes and reads 2(D-1)/D of the payload
+    through the comm slots."""
+    return 2 * shards * payload_bytes + 4 * (shards - 1) * payload_bytes
+
+
+def _ring_rows(devices, tag):
+    """ring_allreduce against its twin, exactly, on the mesh ``devices``."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core.mesh import build_mesh
+    from mmlspark_tpu_torch.ops import collectives as co
+    from mmlspark_tpu_torch.ops import cuda_ring as cr
+    mesh = build_mesh(devices=devices)
+    D = len(mesh)
+    one_card = len(set(mesh.devices)) == 1
+    rows = []
+    for k, shape in enumerate(RING_SHAPES):
+        rng = np.random.default_rng(100 * D + k)
+        parts = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 .to(d) for d in mesh.devices]
+        got = co.ring_allreduce(parts, mesh)
+        want = co.ring_allreduce_plain(parts)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(g.to(want.device), want) for g in got)
+        err = max(float((g.to(want.device) - want).abs().max())
+                  for g in got)
+        if one_card:
+            def library():
+                return torch.stack(parts).sum(0)
+        else:
+            def library():
+                return torch.cuda.comm.reduce_add(parts, mesh.devices[0])
+        total = want.numel()
+        bms, by = bound_ms(ring_bytes(total * 4, D), (D - 1) * total)
+        rows.append({"kernel": "ring_allreduce", "mesh": tag, "shards": D,
+                     "shape": list(shape), "accum": "float32",
+                     "match": exact, "max_abs_err": err,
+                     "ms": median_ms(lambda: cr.ring_allreduce_cuda(parts,
+                                                                    mesh)),
+                     "device_ms": device_ms(
+                         lambda: cr.ring_allreduce_cuda(parts, mesh),
+                         "ring_allreduce_kernel"),
+                     "plain_ms": median_ms(
+                         lambda: co.ring_allreduce_plain(parts)),
+                     "library_ms": median_ms(library),
+                     "bound_ms": bms, "bound_by": by})
+    return rows
+
+
+def _fused_rows(devices, tag, inputs):
+    """fused_segment_hist_ring against its twin on the flagship matrix cut
+    into len(devices) shards (shard d holds rows [d·S, (d+1)·S))."""
+    import torch
+    from mmlspark_tpu_torch.core.mesh import build_mesh
+    from mmlspark_tpu_torch.ops import collectives as co
+    from mmlspark_tpu_torch.ops import cuda_histogram as ch
+    from mmlspark_tpu_torch.ops import cuda_ring as cr
+    bins, B, gh, gh_int = inputs
+    mesh = build_mesh(devices=devices)
+    D = len(mesh)
+    n, f = bins.shape
+    S = n // D
+    g = torch.Generator(device="cpu").manual_seed(D)
+    local = [(bins[d * S:(d + 1) * S].to(dev),
+              torch.randperm(S, generator=g).to(torch.int32).to(dev), d)
+             for d, dev in enumerate(mesh.devices)]
+    rows = []
+    for accum in ("float32", "int32"):
+        ghm = gh_int if accum == "int32" else gh
+        ghv = ch._gh_values(ghm, accum)
+        for cnt in SHARD_SEGMENT_COUNTS:
+            cnt = min(cnt, S)
+            offs = [(S - cnt) // (3 + d) for d in range(D)]
+
+            def shards_of(values):
+                return [(b, values[d * S:(d + 1) * S].to(b.device), o,
+                         offs[d], cnt) for b, o, d in local]
+
+            shards = shards_of(ghm)
+            got = co.fused_segment_hist_ring(shards, B, mesh, accum)
+            want = co.fused_segment_hist_ring_plain(shards, B, accum)
+            torch.cuda.synchronize()
+            abs_hist = co.fused_segment_hist_ring_plain(
+                shards_of(ghv.abs().float()), B)
+            checks = [compare(x.to(want.device), want, abs_hist, accum)
+                      for x in got]
+            good = all(c[0] for c in checks)
+            err = max(c[1] for c in checks)
+            # yardstick: one index_add_ over every shard's segment
+            segs = [o[off:off + cnt].long() + d * S
+                    for (_, o, d), off in zip(local, offs)]
+            seg = torch.cat([s.to(bins.device) for s in segs])
+            flat = (bins[seg].long()
+                    + torch.arange(f, device=bins.device) * B).reshape(-1)
+            rep = ghv[seg].repeat_interleave(f, 0)
+            lib_out = torch.zeros(f * B, 3, dtype=want.dtype,
+                                  device=bins.device)
+            total = f * B * 3
+            bms, by = bound_ms(D * cnt * (f + 12 + 4)
+                               + ring_bytes(total * 4, D),
+                               D * cnt * f * 3 + (D - 1) * total)
+            rows.append({"kernel": "fused_segment_hist_ring", "mesh": tag,
+                         "shards": D, "accum": accum, "rows": cnt,
+                         "match": good, "max_abs_err": err,
+                         "ms": median_ms(
+                             lambda: cr.fused_segment_hist_ring_cuda(
+                                 shards, B, mesh, accum)),
+                         "device_ms": device_ms(
+                             lambda: cr.fused_segment_hist_ring_cuda(
+                                 shards, B, mesh, accum),
+                             "fused_hist_ring_kernel"),
+                         "plain_ms": median_ms(
+                             lambda: co.fused_segment_hist_ring_plain(
+                                 shards, B, accum)),
+                         "library_ms": median_ms(
+                             lambda: lib_out.index_add_(0, flat, rep)),
+                         "bound_ms": bms, "bound_by": by})
+            del flat, rep, lib_out
+    return rows
+
+
+def _check_rows(rows):
+    bad = [r for r in rows if not r["match"]]
+    if bad:
+        raise AssertionError("a ring kernel disagrees with its plain twin: "
+                             + json.dumps(bad))
+
+
+def phase_collectives(state):
+    import torch
+    dev = torch.device(DEV, 0)
+    inputs = kernel_inputs()
+    rows = []
+    for D in RING_SHARDS:
+        rows += _ring_rows([dev] * D, "virtual")
+        rows += _fused_rows([dev] * D, "virtual", inputs)
+    state["ring_rows"] = rows
+    _check_rows(rows)
+    return {"rows": rows, "tolerance": "ring_allreduce exact "
+            "(torch.equal); fused_segment_hist_ring int32 exact, f32 "
+            f"|k-p| <= {RTOL}|p| + {ATOL_ULPS}*2^-24*sum|gh| per cell",
+            "bound": "bytes: per rank its partial read, its output written "
+            "and 2(D-1)/D of the payload written and read through the comm "
+            "slots, plus each segment row's bins, gh and row id; at "
+            "3.35 TB/s"}
+
+
+def phase_collectives_cross_card():
+    import torch
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        return {"ran": False, "cards": cards}
+    devices = [torch.device(DEV, i) for i in range(min(cards, 4))]
+    rows = _ring_rows(devices, "cards") + _fused_rows(
+        devices, "cards", kernel_inputs())
+    _check_rows(rows)
+    return {"ran": True, "cards": cards, "rows": rows}
+
+
+def phase_mesh_path(state):
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import build_mesh
+    from mmlspark_tpu_torch.gbdt.grower import grow_tree
+    from mmlspark_tpu_torch.ops import cuda_histogram as ch
+    from mmlspark_tpu_torch.ops import cuda_ring as cr
+    counters = {"hist_full": ch.histogram_cuda,
+                "hist_segment": ch.histogram_cuda_fused,
+                "ring_allreduce": cr.ring_allreduce_cuda,
+                "fused_segment_hist_ring": cr.fused_segment_hist_ring_cuda}
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    table = {"features": X, "label": y}
+    mesh = build_mesh(data=MESH_SHARDS,
+                      devices=[f"{DEV}:0"] * MESH_SHARDS)
+    fits = {}
+    for method in ("auto", "pallas_ring"):
+        est = _classifier(numIterations=50, device=DEV, collective="ring",
+                          histogramMethod=method).setMesh(mesh)
+        est.fit(table)                               # warm-up
+        for fn in counters.values():
+            fn.launches = 0
+        grow_tree.host_syncs = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        prob = model.transform(table)["probability"][:, 1]
+        trees = model.getModel().trees
+        splits = sum(t.num_leaves - 1 for t in trees)
+        res = {"shards": MESH_SHARDS, "fit_s": fit_s,
+               "train_auc": auc(y, prob), "trees": len(trees),
+               "splits": splits, "launches": launches,
+               "host_syncs": grow_tree.host_syncs}
+        fits[method] = res
+        if prob.shape != (N_ROWS,) or not np.isfinite(prob).all():
+            raise AssertionError(f"{method}: probabilities not finite of "
+                                 f"shape ({N_ROWS},): {res}")
+        want = ({"ring_allreduce": len(trees) + splits,
+                 "fused_segment_hist_ring": 0} if method == "auto" else
+                {"ring_allreduce": len(trees),
+                 "fused_segment_hist_ring": splits})
+        got = {k: launches[k] for k in want}
+        if got != want or launches["hist_full"] != MESH_SHARDS * len(trees) \
+                or (method == "auto" and launches["hist_segment"] == 0):
+            raise AssertionError(f"{method}: launch counts {launches} do "
+                                 f"not match {len(trees)} trees / {splits} "
+                                 f"splits on {MESH_SHARDS} shards: {res}")
+        if not res["train_auc"] >= 0.955:
+            raise AssertionError(f"{method}: train AUC {res['train_auc']} "
+                                 f"< 0.955: {res}")
+    state["mesh_launches"] = {
+        "ring_allreduce": fits["auto"]["launches"]["ring_allreduce"],
+        "fused_segment_hist_ring":
+            fits["pallas_ring"]["launches"]["fused_segment_hist_ring"]}
+    return {"rows": N_ROWS, "features": N_FEATURES, "iterations": 50,
+            "fits": fits, "card_vs_cpu": _mesh_card_vs_cpu()}
+
+
+def _mesh_card_vs_cpu():
+    """A 20,000 × 50, 5-iteration D = 4 ring fit on the card (both
+    histogram methods) and on ``devices=["cpu"] * 4``."""
+    import numpy as np
+    from mmlspark_tpu_torch import build_mesh
+    X, y = bench_data(20_000, N_FEATURES)
+    table = {"features": X, "label": y}
+    keys = ("split_feature", "threshold", "left_child", "right_child")
+    fits = {}
+    for name, dev, method in (("cpu", "cpu", "auto"),
+                              ("cuda_auto", f"{DEV}:0", "auto"),
+                              ("cuda_pallas_ring", f"{DEV}:0",
+                               "pallas_ring")):
+        est = _classifier(numIterations=5, device=dev.split(":")[0],
+                          collective="ring", histogramMethod=method)
+        fits[name] = est.setMesh(build_mesh(
+            devices=[dev] * MESH_SHARDS)).fit(table)
+    ref = fits.pop("cpu")
+    res = {"auc_cpu": auc(y, ref.transform(table)["probability"][:, 1])}
+    for name, m in fits.items():
+        same = all(np.array_equal(getattr(m.getModel().trees[0], k),
+                                  getattr(ref.getModel().trees[0], k))
+                   for k in keys)
+        a = auc(y, m.transform(table)["probability"][:, 1])
+        res[name] = {"first_tree_equal": same, "auc": a}
+        if not same or abs(a - res["auc_cpu"]) > 0.002:
+            raise AssertionError(f"{name}: the D = {MESH_SHARDS} card fit "
+                                 f"differs from the cpu mesh fit: {res}")
+    return res
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r["accum"] == "float32"
             and r["rows"] in (N_ROWS, max(SEGMENT_COUNTS))}
+    for r in state.get("ring_rows", []):
+        if r["shards"] == MESH_SHARDS and r["accum"] == "float32" and (
+                r.get("shape") == list(RING_SHAPES[0])
+                or r.get("rows") == max(SHARD_SEGMENT_COUNTS)):
+            rows[r["kernel"]] = r
+    launches = {**state.get("launches", {}),
+                **state.get("mesh_launches", {})}
     out = []
-    for name in ("hist_full", "hist_segment"):
+    for name in REPLACES:
         r = rows.get(name, {})
-        out.append({"name": name, "route": "cuda", "source": SOURCE,
+        out.append({"name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name],
-                    "launches": state.get("launches", {}).get(name, 0),
+                    "launches": launches.get(name, 0),
                     "max_abs_err": r.get("max_abs_err"),
                     "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                     "bound_ms": r.get("bound_ms"),
                     "bound_by": r.get("bound_by"),
                     "library_ms": r.get("library_ms"),
-                    "rows": r.get("rows")})
+                    "device_ms": r.get("device_ms"),
+                    "rows": r.get("rows"), "shards": r.get("shards", 1)})
     return {"kernels": out}
 
 
@@ -401,7 +715,10 @@ def main() -> int:
               ("kernels", lambda: phase_kernels(state)),
               ("main_path", lambda: phase_main_path(state)),
               ("cuda_vs_cpu", phase_cuda_vs_cpu),
-              ("profile", phase_profile)]
+              ("profile", phase_profile),
+              ("collectives", lambda: phase_collectives(state)),
+              ("mesh_path", lambda: phase_mesh_path(state)),
+              ("collectives_cross_card", phase_collectives_cross_card)]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

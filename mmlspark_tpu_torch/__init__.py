@@ -1,17 +1,20 @@
 """mmlspark_tpu_torch — the PyTorch/CUDA port of ``mmlspark_tpu``.
 
-First slice: single-device LightGBM fit → transform
-(:class:`LightGBMClassifier`, :class:`LightGBMRegressor`) with the
-gradient-histogram kernels written by hand in CUDA for Hopper
-(``csrc/histogram.cu``).  Entry points run on ``"cuda"`` unless the caller
-asks for ``"cpu"``.  The package imports torch and numpy, never jax and
-nothing of ``mmlspark_tpu``.
+LightGBM fit → transform (:class:`LightGBMClassifier`,
+:class:`LightGBMRegressor`) on one device, or data-parallel over the
+shards of a :class:`Mesh` (:func:`build_mesh`, pinned with ``setMesh``),
+with the gradient-histogram kernels (``csrc/histogram.cu``) and the ring
+collectives (``csrc/ring.cu``) written by hand in CUDA for Hopper.  Entry
+points run on ``"cuda"`` unless the caller asks for ``"cpu"``.  The
+package imports torch and numpy, never jax and nothing of
+``mmlspark_tpu``.
 """
 
+from .core.mesh import Mesh, build_mesh
 from .device import resolve_device
 from .gbdt import (LightGBMClassifier, LightGBMClassificationModel,
                    LightGBMRegressor, LightGBMRegressionModel, Booster)
 
-__all__ = ["resolve_device", "LightGBMClassifier",
+__all__ = ["resolve_device", "Mesh", "build_mesh", "LightGBMClassifier",
            "LightGBMClassificationModel", "LightGBMRegressor",
            "LightGBMRegressionModel", "Booster"]

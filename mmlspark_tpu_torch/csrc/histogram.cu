@@ -35,94 +35,24 @@
 // privatisation keeps the atomics on chip, and feature groups of eight keep
 // a block's histogram at 24 KB so that eight blocks share an SM.
 //
-// accum modes: 0 = float32; 1 = bfloat16 (each gh value rounded to bf16,
-// round-to-nearest-even, then summed in f32, as _hist_kernel does); 2 =
-// int32 (integer codes, exact).  Float atomics make f32 sums depend on the
+// accum modes (hist_block.cuh): 0 = float32; 1 = bfloat16; 2 = int32
+// (integer codes, exact).  Float atomics make f32 sums depend on the
 // order the rows arrive in, run to run; int32 sums are exact.
 //
 // The kernels allocate nothing (the caller zeroes `out`), launch on the
 // caller's stream and do not synchronise; each entry returns
 // cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hist_block.cuh"
+
 namespace {
 
-constexpr int kGroup = 8;      // features per block
-constexpr int kThreads = 256;  // threads per block
-
-template <int kMode>
-struct Accum;
-
-template <>
-struct Accum<0> {
-  using T = float;
-  static __device__ __forceinline__ float load(const float* p) {
-    return __ldg(p);
-  }
-};
-
-template <>
-struct Accum<1> {
-  using T = float;
-  static __device__ __forceinline__ float load(const float* p) {
-    return __bfloat162float(__float2bfloat16_rn(__ldg(p)));
-  }
-};
-
-template <>
-struct Accum<2> {
-  using T = int32_t;
-  static __device__ __forceinline__ int32_t load(const int32_t* p) {
-    return __ldg(p);
-  }
-};
-
-// One block: feature group blockIdx.x, rows [blockIdx.y * rows_per_block,
-// +rows_per_block) of the row list.  kGather: the row list is
-// row_order[off + i]; otherwise it is the identity.
-template <int kMode, bool kGather>
-__device__ __forceinline__ void accumulate(
-    const uint8_t* __restrict__ bins, const typename Accum<kMode>::T* __restrict__ gh,
-    const int32_t* __restrict__ row_order, int64_t off, int64_t cnt, int f,
-    int num_bins, int64_t rows_per_block, typename Accum<kMode>::T* __restrict__ out) {
-  using T = typename Accum<kMode>::T;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* hist = reinterpret_cast<T*>(smem_raw);
-
-  const int f0 = blockIdx.x * kGroup;
-  const int fg = min(kGroup, f - f0);
-  const int cells = fg * num_bins * 3;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = T(0);
-  __syncthreads();
-
-  const int64_t i0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
-  const int64_t i1 = (i0 + rows_per_block < cnt) ? i0 + rows_per_block : cnt;
-  for (int64_t i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
-    const int64_t r = kGather ? static_cast<int64_t>(__ldg(row_order + off + i)) : i;
-    const T g = Accum<kMode>::load(gh + r * 3 + 0);
-    const T h = Accum<kMode>::load(gh + r * 3 + 1);
-    const T c = Accum<kMode>::load(gh + r * 3 + 2);
-    const uint8_t* row = bins + r * f + f0;
-    for (int j = 0; j < fg; ++j) {
-      const int b = row[j];
-      if (b >= num_bins) continue;  // out-of-range bins are dropped
-      T* cell = hist + (j * num_bins + b) * 3;
-      atomicAdd(cell + 0, g);
-      atomicAdd(cell + 1, h);
-      atomicAdd(cell + 2, c);
-    }
-  }
-  __syncthreads();
-
-  T* dst = out + static_cast<int64_t>(f0) * num_bins * 3;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const T v = hist[i];
-    if (v != T(0)) atomicAdd(dst + i, v);
-  }
-}
+using hist::Accum;
+using hist::kGroup;
+using hist::kThreads;
 
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
@@ -130,7 +60,12 @@ hist_full_kernel(const uint8_t* __restrict__ bins,
                  const typename Accum<kMode>::T* __restrict__ gh, int64_t n, int f,
                  int num_bins, int64_t rows_per_block,
                  typename Accum<kMode>::T* __restrict__ out) {
-  accumulate<kMode, false>(bins, gh, nullptr, 0, n, f, num_bins, rows_per_block, out);
+  using T = typename Accum<kMode>::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t i0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
+  const int64_t i1 = (i0 + rows_per_block < n) ? i0 + rows_per_block : n;
+  hist::accumulate_tile<kMode, false>(bins, gh, nullptr, 0, i0, i1, f, blockIdx.x * kGroup,
+                                      num_bins, reinterpret_cast<T*>(smem_raw), out);
 }
 
 template <int kMode>
@@ -140,8 +75,12 @@ hist_segment_kernel(const uint8_t* __restrict__ bins,
                     const int32_t* __restrict__ row_order, int64_t off, int64_t cnt,
                     int f, int num_bins, int64_t rows_per_block,
                     typename Accum<kMode>::T* __restrict__ out) {
-  accumulate<kMode, true>(bins, gh, row_order, off, cnt, f, num_bins, rows_per_block,
-                          out);
+  using T = typename Accum<kMode>::T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int64_t i0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
+  const int64_t i1 = (i0 + rows_per_block < cnt) ? i0 + rows_per_block : cnt;
+  hist::accumulate_tile<kMode, true>(bins, gh, row_order, off, i0, i1, f, blockIdx.x * kGroup,
+                                     num_bins, reinterpret_cast<T*>(smem_raw), out);
 }
 
 template <int kMode>

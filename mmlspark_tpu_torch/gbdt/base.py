@@ -2,9 +2,11 @@
 
 The port's counterpart of ``mmlspark_tpu/gbdt/base.py``: bin the features
 on the host (:func:`.binning.fit_bin_mapper`), build the objective, and
-run the serial boosting loop (:func:`.engine.train`) on ``device``.  Param
-names mirror the reference's (and so the reference's public API); the
-port adds ``device``.  Params whose feature is not ported yet are
+run the boosting loop (:func:`.engine.train`) on ``device`` — serially, or
+data-parallel over the shards of a mesh pinned with :meth:`setMesh` or, on
+a host with more than one card, built over all of them for a fit of at
+least ``autoMeshMinRows`` rows.  Param names mirror the reference's (and
+so the reference's public API); the port adds ``device``.  Params whose feature is not ported yet are
 declared so that asking for one raises ``NotImplementedError`` instead of
 training something else.
 """
@@ -14,14 +16,17 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..core.params import (Param, Params, TypeConverters, HasFeaturesCol,
                            HasLabelCol, HasPredictionCol, HasWeightCol,
                            HasValidationIndicatorCol)
 from ..core.pipeline import Estimator, Model
 from ..core.schema import DataTable, features_matrix
+from ..device import resolve_device
 from .binning import fit_bin_mapper
 from .booster import Booster
+from .distributed import resolve_mesh
 from .engine import TrainParams, train
 from .objectives import get_objective
 
@@ -83,8 +88,30 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
                             "Histogram backend: auto, pallas, pallas_fused "
                             "(the CUDA kernels on a GPU), pallas_bf16 (the "
                             "kernels in bf16 accumulation), segment or "
-                            "onehot (plain, CPU only)", default="auto",
+                            "onehot (plain, CPU only); pallas_ring fuses "
+                            "the segment gather, histogram and ring "
+                            "reduction into one kernel on a mesh",
+                            default="auto",
                             typeConverter=TypeConverters.toString)
+    parallelism = Param("parallelism",
+                        "Tree learner parallelism: serial or data (voting, "
+                        "feature and data+feature are not ported yet)",
+                        default="data", typeConverter=TypeConverters.toString)
+    autoMeshMinRows = Param(
+        "autoMeshMinRows",
+        "Minimum training rows before fit() shards across all CUDA cards "
+        "of the host when no mesh is pinned and there is more than one; "
+        "smaller fits train serially.  setMesh() always shards; 0 shards "
+        "every fit on a multi-card host", default=65536,
+        typeConverter=TypeConverters.toInt)
+    collective = Param("collective",
+                       "Cross-shard histogram reduction on mesh fits: auto "
+                       "or psum (the shard-order sum) or ring (the "
+                       "ring_allreduce kernel)", default="auto",
+                       typeConverter=TypeConverters.toString)
+    topK = Param("topK", "Voting parallelism (not ported yet): features "
+                 "each worker votes per split", default=20,
+                 typeConverter=TypeConverters.toInt)
     # -- params of features the port has not reached yet (ROADMAP.md) ------
     boostingType = Param("boostingType", "gbdt (goss, dart and rf are not "
                          "ported yet)", default="gbdt",
@@ -150,6 +177,8 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
             bagging_seed=self.getBaggingSeed(),
             boosting=self.getBoostingType(),
             histogram_method=self.getHistogramMethod(),
+            parallelism=self.getParallelism(),
+            collective=self.getCollective(),
             verbosity=self.getVerbosity(),
         )
 
@@ -158,6 +187,34 @@ class LightGBMBase(Estimator, LightGBMParams):
     """Shared fit() orchestration for the classifier and the regressor."""
 
     _default_objective = "regression"
+    _mesh = None
+
+    def setMesh(self, mesh) -> "LightGBMBase":
+        """Pin a data-shard mesh (:func:`..core.mesh.build_mesh`) for
+        training: the fit runs on the mesh's devices."""
+        self._mesh = mesh
+        return self
+
+    def _fit_mesh(self, n_rows: int):
+        """The mesh this fit shards over: the pinned one, else all CUDA
+        cards when the host has more than one, the device is CUDA and
+        there are at least ``autoMeshMinRows`` rows; else None
+        (serial)."""
+        parallelism = self.getParallelism()
+        mesh = self._mesh
+        if mesh is not None:
+            if torch.device(self.getDevice()).type != mesh.device_type:
+                raise ValueError(
+                    f"device={self.getDevice()!r} does not match the mesh's "
+                    f"{mesh.device_type} devices; the mesh decides where "
+                    "the fit runs")
+            return mesh
+        device = resolve_device(self.getDevice())
+        if (parallelism != "serial" and device.type == "cuda"
+                and torch.cuda.device_count() > 1
+                and n_rows >= self.getAutoMeshMinRows()):
+            return resolve_mesh(parallelism)
+        return None
 
     def _objective_kwargs(self) -> Dict:
         return {}
@@ -179,12 +236,13 @@ class LightGBMBase(Estimator, LightGBMParams):
             **self._objective_kwargs())
         feature_names = list(
             getattr(table[self.getFeaturesCol()], "columns", [])) or None
+        mesh = self._fit_mesh(len(y))
         mapper = fit_bin_mapper(X, max_bin=self.getMaxBin(),
                                 seed=self.getSeed())
-        device = self.getDevice()
+        device = self.getDevice() if mesh is None else mesh.devices[0]
         booster = train(mapper.transform(X, device), y, w, mapper,
                         objective, self._train_params(),
-                        feature_names=feature_names)
+                        feature_names=feature_names, mesh=mesh)
         model = self._make_model(booster)
         model.setParams(**{k: v for k, v in self._iterSetParams()
                            if model.hasParam(k)})

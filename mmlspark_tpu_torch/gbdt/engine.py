@@ -1,35 +1,46 @@
-"""Boosting loop — serial ``boosting="gbdt"`` training on one device.
+"""Boosting loop — ``boosting="gbdt"`` training, serial or data-parallel.
 
-The port's counterpart of the serial branch of
-``mmlspark_tpu/gbdt/engine.py`` (``train`` → ``_train_impl`` →
-``_boost_scan``): per iteration, (grad, hess) from the objective, one tree
-from :func:`..grower.grow_tree`, and the score update.  Bagging and
+The port's counterpart of ``mmlspark_tpu/gbdt/engine.py`` (``train`` →
+``_train_impl`` → ``_boost_scan`` serially, ``_train_distributed`` on a
+mesh): per iteration, (grad, hess) from the objective, one tree from
+:func:`..grower.grow_tree_sharded`, and the score update.  A serial fit is
+the one-shard case of the mesh loop (:mod:`.distributed`).  Bagging and
 feature-fraction draws use numpy ``default_rng`` streams seeded as the
-reference seeds them, so both packages draw the same rows and features.
+reference seeds them, so both packages draw the same rows and features;
+on a mesh the bag draws exactly n randoms and scatters them into the
+padded layout, as the reference does.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..core.mesh import Mesh
 from ..device import DeviceLike, resolve_device
+from ..ops.collectives import resolve_collective
 from .binning import BinMapper
 from .booster import Booster, host_tree_from_arrays
-from .grower import GrowerConfig, apply_shrinkage, grow_tree
-from .objectives import Objective, fma32
+from .distributed import (boost_iteration, check_parallelism,
+                          prepare_arrays, sharded_cfg)
+from .grower import GrowerConfig, apply_shrinkage, collective_schedule
+from .objectives import Objective
 
 log = logging.getLogger("mmlspark_tpu_torch.gbdt")
+
+#: What the last fit in this process ran: the histogram method, the
+#: collective and why a ring request was downgraded, the devices' type,
+#: and the per-tree collective schedule.
+last_fit_info: Dict[str, str] = {}
 
 
 @dataclass
 class TrainParams:
-    """Engine-level hyper-parameters (the reference's subset for serial
-    gbdt)."""
+    """Engine-level hyper-parameters (the reference's subset for gbdt)."""
     num_iterations: int = 100
     learning_rate: float = 0.1
     num_leaves: int = 31
@@ -48,7 +59,38 @@ class TrainParams:
     bagging_seed: int = 3
     boosting: str = "gbdt"
     histogram_method: str = "auto"
+    parallelism: str = "data"
+    collective: str = "auto"
     verbosity: int = 1
+
+
+def _resolve_collective_cfg(params: TrainParams, mesh: Optional[Mesh]):
+    """``params.collective`` → ``(collective, downgrade reason)``.  ``auto``
+    and ``psum`` are the shard-order sum; ``ring`` needs more than one data
+    shard and otherwise keeps psum with reason ``single_data_shard``.
+    There is no compile-probe downgrade: on the card a ring kernel that
+    does not build or launch raises."""
+    shards = 1 if mesh is None else len(mesh)
+    collective = resolve_collective(params.collective, shards)
+    if collective == "psum" and params.collective == "ring":
+        log.info("collective='ring' needs a multi-shard mesh; this fit "
+                 "keeps psum (single_data_shard)")
+        return "psum", "single_data_shard"
+    return collective, "none"
+
+
+def _record_fit_resolution(cfg: GrowerConfig, collective: str,
+                           downgrade: str, sched: dict,
+                           backend: str) -> None:
+    last_fit_info.clear()
+    last_fit_info.update(
+        histogram_method=cfg.hist_method, collective=collective,
+        collective_downgrade=downgrade, backend=backend,
+        data_shards=str(cfg.data_axis_size),
+        collective_count_per_tree=str(sched["count"]),
+        collective_payload_bytes_per_tree=str(sched["payload_bytes"]),
+        collective_payload_vs_dense=(
+            f"{sched['payload_bytes'] / max(1, sched['dense_payload_bytes']):.6f}"))
 
 
 def _draw_feature_fraction(rng, fi_base: np.ndarray, f: int,
@@ -65,20 +107,30 @@ def _draw_feature_fraction(rng, fi_base: np.ndarray, f: int,
 def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
           mapper: BinMapper, objective: Objective, params: TrainParams,
           feature_names: Optional[List[str]] = None,
-          device: DeviceLike = "cuda") -> Booster:
-    """Train a forest.  ``bins``: ``(n, f)`` bin codes — a tensor (the fit
-    runs on its device) or a numpy array (moved to ``device``)."""
+          device: DeviceLike = "cuda", mesh: Optional[Mesh] = None
+          ) -> Booster:
+    """Train a forest.  ``bins``: ``(n, f)`` bin codes — a tensor or a
+    numpy array.  Without a mesh the fit runs on the tensor's device (an
+    array moves to ``device``).  With a mesh of D > 1 shards the rows are
+    sharded over ``mesh.devices`` (data-parallel); a one-device mesh fits
+    serially on its device."""
+    check_parallelism(params.parallelism)
     if params.boosting != "gbdt":
         raise NotImplementedError(
             f"boostingType={params.boosting!r} is not ported yet; the port "
             "trains 'gbdt' (ROADMAP.md, left out of the first slice)")
     if objective.num_model_per_iteration != 1:
         raise NotImplementedError("multiclass training is not ported yet")
-    if isinstance(bins, torch.Tensor):
+    if mesh is not None:
+        dev = mesh.devices[0]
+    elif isinstance(bins, torch.Tensor):
         dev = resolve_device(bins.device)
     else:
         dev = resolve_device(device)
+    if not isinstance(bins, torch.Tensor):
         bins = torch.as_tensor(np.asarray(bins), dtype=mapper.bin_dtype)
+    use_mesh = mesh is not None and len(mesh) > 1
+    devices = mesh.devices if use_mesh else (dev,)
     bins = bins.to(dev).contiguous()
     n, f = bins.shape
     labels = np.asarray(labels)
@@ -89,16 +141,19 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     objective.prepare(labels, w)
     init = objective.init_score(labels, w) if params.boost_from_average \
         else 0.0
+    collective, downgrade = _resolve_collective_cfg(params, mesh)
     cfg = GrowerConfig(
         num_leaves=params.num_leaves, max_depth=params.max_depth,
         num_bins=mapper.num_total_bins, lambda_l1=params.lambda_l1,
         lambda_l2=params.lambda_l2, min_data_in_leaf=params.min_data_in_leaf,
         min_sum_hessian_in_leaf=params.min_sum_hessian_in_leaf,
         min_gain_to_split=params.min_gain_to_split,
-        hist_method=params.histogram_method)
-    labels_d = torch.as_tensor(labels, dtype=torch.float32, device=dev)
-    weights_d = torch.as_tensor(w, dtype=torch.float32, device=dev)
-    scores = torch.full((n,), init, dtype=torch.float32, device=dev)
+        hist_method=params.histogram_method, collective=collective)
+    shard_mesh = mesh if use_mesh else None
+    cfg = sharded_cfg(shard_mesh, cfg)
+    _record_fit_resolution(cfg, collective, downgrade,
+                           collective_schedule(cfg, f), dev.type)
+    arrays = prepare_arrays(bins, labels, w, devices, init)
     fi_base = np.zeros((f, 3), np.float32)
     fi_base[:, 0] = 1.0
     use_bag = params.bagging_freq > 0 and params.bagging_fraction < 1.0
@@ -106,21 +161,20 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
 
     trees = []
     stop_iter = params.num_iterations
-    bag = torch.ones(n, dtype=torch.float32, device=dev)
+    bag = [torch.ones(arrays.rows_per_shard, dtype=torch.float32, device=d)
+           for d in devices]
     for it in range(params.num_iterations):
         if use_bag and it % params.bagging_freq == 0:
-            bag = torch.as_tensor(
-                (bag_rng.random(n) < params.bagging_fraction
-                 ).astype(np.float32), device=dev)
+            # exactly n randoms, scattered into the padded layout (pad
+            # rows stay 0), so the stream matches a serial fit's
+            row = np.zeros(arrays.n_padded, np.float32)
+            row[:n] = bag_rng.random(n) < params.bagging_fraction
+            bag = arrays.split(row, devices)
         fi = (_draw_feature_fraction(rng, fi_base, f,
                                      params.feature_fraction)
               if use_ff else fi_base)
-        g, h = objective.grad_hess(scores, labels_d, weights_d)
-        gh = torch.stack([g * bag, h * bag, bag], dim=1)
-        tree, row_leaf = grow_tree(bins, gh, fi, cfg)
-        # the reference's ``scores + lr * leaf`` compiles to an FMA
-        scores = fma32(tree.leaf_value.to(dev)[row_leaf],
-                       params.learning_rate, scores)
+        tree = boost_iteration(arrays, bag, fi, objective, cfg,
+                               params.learning_rate, shard_mesh)
         trees.append(host_tree_from_arrays(
             apply_shrinkage(tree, params.learning_rate), mapper))
         if int(tree.num_leaves) <= 1:

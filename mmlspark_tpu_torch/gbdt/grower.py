@@ -1,23 +1,35 @@
 """Leaf-wise histogram tree grower.
 
 The port's counterpart of ``mmlspark_tpu/gbdt/grower.py`` for numeric
-splits on one device.  The reference grows a tree inside one jitted
-``fori_loop`` with static shapes; here PyTorch runs eagerly, so a Python
-loop drives the split steps and the host keeps the small per-leaf state
-(segment offsets and counts, best splits, totals), while the binned
-matrix, the gradients, the row permutation and the leaf histograms stay
-on the device:
+splits, on one device or over the data shards of a mesh.  The reference
+grows a tree inside one jitted ``fori_loop`` with static shapes; here
+PyTorch runs eagerly, so a Python loop drives the split steps and the host
+keeps the small per-leaf state (segment offsets and counts, best splits,
+totals), while the binned matrices, the gradients, the row permutations
+and the leaf histograms stay on the devices:
 
 * **Partition.**  Each leaf owns the contiguous segment
-  ``row_order[start:start+cnt]`` (LightGBM's DataPartition).  A split
-  partitions that segment stably in place, and only the smaller child's
-  rows are histogrammed (:func:`..ops.histogram.segment_histogram`, the
-  ``hist_segment`` kernel on CUDA); the sibling comes from subtraction in
-  the reference's exact f32 form.  Exact segment counts replace the
-  reference's power-of-two bucket ladder.
-* **Host syncs.**  Two per split: the partition count (launch sizing
-  needs it) and the children's best splits (the next leaf choice needs
-  them).  ``grow_tree.host_syncs`` counts them.
+  ``row_order[start:start+cnt]`` of every shard (LightGBM's
+  DataPartition).  A split partitions those segments stably in place, and
+  only the globally smaller child's rows are histogrammed
+  (:func:`..ops.histogram.segment_histogram`, the ``hist_segment`` kernel
+  on CUDA); the sibling comes from subtraction in the reference's exact
+  f32 form.  Exact segment counts replace the reference's power-of-two
+  bucket ladder.
+* **Shards.**  With D > 1 shards (``gbdt/distributed.py``) every local
+  histogram is reduced across shards (:func:`_reduce_hist`: the
+  shard-order ``psum`` or the ``ring_allreduce`` kernel, per
+  ``cfg.collective``), or, under ``hist_method="pallas_ring"`` with the
+  ring, gathered, histogrammed and reduced by one
+  ``fused_segment_hist_ring`` kernel.  Partition counts are summed on the
+  host, and the smaller side is picked from the global counts, so every
+  shard histograms the same side.  Totals, best splits and the leaf
+  histograms are global and live on the first shard's device, where the
+  split search runs once (the reference replicates it on every shard).
+* **Host syncs.**  Two per split: the partition counts of all shards in
+  one fetch (launch sizing needs them) and the children's best splits
+  (the next leaf choice needs them).  ``grow_tree.host_syncs`` counts
+  them.
 * **Float order.**  :func:`prefix_sum_bins` and :func:`sum_bins` add in
   the order XLA's CPU backend uses for ``jnp.cumsum`` and ``jnp.sum``
   over the bins axis, so split gains and leaf totals on the CPU match the
@@ -31,12 +43,14 @@ and the right child becomes leaf ``i + 1``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.histogram import compute_histogram, segment_histogram
+from ..ops.collectives import (fused_segment_hist_ring, psum_plain,
+                               ring_allreduce)
+from ..ops.histogram import accum_mode, compute_histogram, segment_histogram
 
 EPS_GAIN = 1e-10
 #: block widths of XLA's CPU prefix scan and tree reduction over the bins
@@ -57,6 +71,13 @@ class GrowerConfig:
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     hist_method: str = "auto"
+    #: cross-shard histogram reduction on a mesh: "psum" (the shard-order
+    #: sum) or "ring" (the ``ring_allreduce`` kernel).  Resolved by the
+    #: engine (``ops.collectives.resolve_collective``).
+    collective: str = "psum"
+    #: number of data shards (1 = serial).  Set by
+    #: ``distributed.sharded_cfg``.
+    data_axis_size: int = 1
 
     @property
     def cat_words(self) -> int:
@@ -184,13 +205,14 @@ def find_best_split(hist: torch.Tensor, parent_g, parent_h, parent_c,
     return gain, idx // B, idx % B
 
 
-def partition(row_order: torch.Tensor, bins: torch.Tensor, feat: int,
-              thr: int, off: int, cnt: int) -> int:
+def _partition_left(row_order: torch.Tensor, bins: torch.Tensor, feat: int,
+                    thr: int, off: int, cnt: int) -> torch.Tensor:
     """Stable in-place partition of ``row_order[off:off+cnt]`` into the
     rows with ``bins[row, feat] <= thr`` followed by the rest (LightGBM's
-    ``DataPartition::Split``).  Returns the left count (one host sync)."""
+    ``DataPartition::Split``).  Returns the left count as a one-element
+    tensor on the device (no host sync)."""
     if cnt == 0:
-        return 0
+        return torch.zeros(1, dtype=torch.int64, device=row_order.device)
     seg = row_order[off:off + cnt]
     go_l = bins[seg.to(torch.int64), feat] <= thr
     csum_l = torch.cumsum(go_l, 0)
@@ -199,12 +221,72 @@ def partition(row_order: torch.Tensor, bins: torch.Tensor, feat: int,
     out = torch.empty_like(seg)
     out[tgt] = seg
     seg.copy_(out)
-    return int(_fetch(n_l)[0])
+    return n_l
+
+
+def partition(row_order: torch.Tensor, bins: torch.Tensor, feat: int,
+              thr: int, off: int, cnt: int) -> int:
+    """:func:`_partition_left`, returning the left count (one host
+    sync)."""
+    if cnt == 0:
+        return 0
+    return int(_fetch(_partition_left(row_order, bins, feat, thr, off,
+                                      cnt))[0])
 
 
 def _fetch(t: torch.Tensor) -> np.ndarray:
     grow_tree.host_syncs += 1
     return t.detach().cpu().numpy()
+
+
+def _reduce_hist(parts: Sequence[torch.Tensor], cfg: GrowerConfig,
+                 mesh) -> torch.Tensor:
+    """Cross-shard sum of local histograms, on the first shard's device:
+    the ``ring_allreduce`` kernel under ``collective="ring"``, else the
+    shard-order sum (the reference's f32 ``psum``)."""
+    if len(parts) == 1:
+        return parts[0]
+    if cfg.collective == "ring":
+        return ring_allreduce(parts, mesh)[0]
+    return psum_plain(parts)
+
+
+def _segment_hist_dist(bins, gh, row_order, offs, cnts, cfg: GrowerConfig,
+                       mesh) -> torch.Tensor:
+    """Reduced histogram of the segments ``row_order[d][offs[d]:offs[d] +
+    cnts[d]]`` of every shard.  Under ``hist_method="pallas_ring"`` with
+    the ring collective, one ``fused_segment_hist_ring`` kernel gathers,
+    histograms and reduces (the reduction happens in-kernel, so it is not
+    applied again); otherwise each shard's segment histogram is reduced by
+    :func:`_reduce_hist`."""
+    B = cfg.num_bins
+    if (len(bins) > 1 and cfg.collective == "ring"
+            and cfg.hist_method == "pallas_ring"):
+        return fused_segment_hist_ring(
+            [(b, g, o, int(off), int(cnt)) for b, g, o, off, cnt
+             in zip(bins, gh, row_order, offs, cnts)], B, mesh,
+            accum_mode(cfg.hist_method, gh[0]))[0]
+    return _reduce_hist(
+        [segment_histogram(b, g, o, int(off), int(cnt), B, cfg.hist_method)
+         for b, g, o, off, cnt in zip(bins, gh, row_order, offs, cnts)],
+        cfg, mesh)
+
+
+def collective_schedule(cfg: GrowerConfig, f: int) -> dict:
+    """Per-tree accounting of the grower's cross-shard reductions,
+    computed from shapes (the data-parallel branch of the reference's
+    schedule): ``count`` histogram reductions (root + L-1 children) of
+    ``payload_bytes`` in all, plus the (L-1) partition-count pairs.  The
+    port sums those pairs on the host, but they are priced as the
+    reference prices them.  Serial fits return zeros."""
+    B, L = cfg.num_bins, cfg.num_leaves
+    dense = L * f * B * 3 * 4
+    count = payload = 0
+    if cfg.data_axis_size > 1:
+        count = L
+        payload = L * f * B * 3 * 4 + (L - 1) * 2 * 4
+    return {"count": count, "payload_bytes": payload,
+            "dense_payload_bytes": dense}
 
 
 def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
@@ -214,15 +296,32 @@ def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
     3)`` [mask, is_cat, n_value_bins] (only the mask is read).  Returns
     the tree (host tensors) and the ``(n,)`` leaf of every row (on the
     device)."""
-    dev = bins.device
-    n, f = bins.shape
+    tree, row_leaf = grow_tree_sharded([bins], [gh], feat_info, cfg)
+    return tree, row_leaf[0]
+
+
+def grow_tree_sharded(bins: Sequence[torch.Tensor],
+                      gh: Sequence[torch.Tensor], feat_info,
+                      cfg: GrowerConfig, mesh=None
+                      ) -> Tuple[TreeArrays, List[torch.Tensor]]:
+    """Grow one tree over the data shards ``bins[d]`` / ``gh[d]`` (shard d
+    on ``mesh.devices[d]``; one shard and no mesh for a serial tree).
+    Returns the tree (host tensors) and the leaf of every row of each
+    shard (on its device)."""
+    D = len(bins)
+    if D > 1 and (mesh is None or len(mesh) != D):
+        raise ValueError(f"{D} shards need a mesh of {D} devices")
+    dev = bins[0].device
+    f = bins[0].shape[1]
+    n = np.asarray([b.shape[0] for b in bins], np.int64)
     L, B = cfg.num_leaves, cfg.num_bins
     fi = torch.as_tensor(feat_info, dtype=torch.float32, device=dev)
 
     def depth_ok(d):
         return cfg.max_depth <= 0 or d < cfg.max_depth
 
-    hist0 = compute_histogram(bins, gh, B, cfg.hist_method)
+    hist0 = _reduce_hist([compute_histogram(b, g, B, cfg.hist_method)
+                          for b, g in zip(bins, gh)], cfg, mesh)
     tot0 = sum_bins(hist0[0])
     gain0, feat0, bin0 = find_best_split(hist0, tot0[0], tot0[1], tot0[2],
                                          fi, depth_ok(0), cfg)
@@ -237,9 +336,10 @@ def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
     best_feat = np.zeros(L, np.int64)
     best_bin = np.zeros(L, np.int64)
     best_gain[0], best_feat[0], best_bin[0] = res[3], res[4], res[5]
-    leaf_start = np.zeros(L, np.int64)
-    leaf_cnt = np.zeros(L, np.int64)
-    leaf_cnt[0] = n
+    # per-shard segment of every leaf
+    leaf_start = np.zeros((D, L), np.int64)
+    leaf_cnt = np.zeros((D, L), np.int64)
+    leaf_cnt[:, 0] = n
     leaf_depth = np.zeros(L, np.int64)
     leaf_parent = np.full(L, -1, np.int64)
     leaf_is_right = np.zeros(L, bool)
@@ -250,7 +350,8 @@ def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
     node_right = np.zeros(m, np.int32)
     node_gain = np.zeros(m, np.float32)
     node_tot = np.zeros((m, 3), np.float32)
-    row_order = torch.arange(n, dtype=torch.int32, device=dev)
+    row_order = [torch.arange(int(k), dtype=torch.int32, device=b.device)
+                 for k, b in zip(n, bins)]
 
     num_leaves = 1
     for i in range(m):
@@ -259,13 +360,16 @@ def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
             break
         new = i + 1
         feat, thr = int(best_feat[l]), int(best_bin[l])
-        off, cnt = int(leaf_start[l]), int(leaf_cnt[l])
-        cnt_l = partition(row_order, bins, feat, thr, off, cnt)
+        off, cnt = leaf_start[:, l], leaf_cnt[:, l]
+        cnt_l = _fetch(torch.cat([
+            _partition_left(o, b, feat, thr, int(s0), int(c)).to(dev)
+            for o, b, s0, c in zip(row_order, bins, off, cnt)])
+        ).astype(np.int64)
         cnt_r = cnt - cnt_l
-        use_right = cnt_r <= cnt_l
-        small = segment_histogram(
+        use_right = cnt_r.sum() <= cnt_l.sum()
+        small = _segment_hist_dist(
             bins, gh, row_order, off + cnt_l if use_right else off,
-            cnt_r if use_right else cnt_l, B, cfg.hist_method)
+            cnt_r if use_right else cnt_l, cfg, mesh)
         parent = leaf_hist[l]
         hist_r = small if use_right else parent - small
         hist_l = parent - hist_r
@@ -295,8 +399,8 @@ def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
         best_gain[[l, new]] = res[6:8]
         best_feat[[l, new]] = res[8:10]
         best_bin[[l, new]] = res[10:12]
-        leaf_start[new] = off + cnt_l
-        leaf_cnt[l], leaf_cnt[new] = cnt_l, cnt_r
+        leaf_start[:, new] = off + cnt_l
+        leaf_cnt[:, l], leaf_cnt[:, new] = cnt_l, cnt_r
         leaf_depth[[l, new]] = d
         leaf_parent[[l, new]] = i
         leaf_is_right[l], leaf_is_right[new] = False, True
@@ -324,15 +428,24 @@ def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
         leaf_count=lt[:, 2].clone(),
         num_leaves=torch.tensor(num_leaves, dtype=torch.int32),
     )
-    # per-row leaf: each leaf's rows are its contiguous row_order segment
-    order = np.argsort(leaf_start[:num_leaves], kind="stable")
+    return tree, [_row_leaf(o, leaf_start[d, :num_leaves],
+                            leaf_cnt[d, :num_leaves])
+                  for d, o in enumerate(row_order)]
+
+
+def _row_leaf(row_order: torch.Tensor, start: np.ndarray,
+              cnt: np.ndarray) -> torch.Tensor:
+    """Leaf of every row of a shard: each leaf's rows are its contiguous
+    ``row_order`` segment."""
+    dev = row_order.device
+    n = row_order.shape[0]
+    order = np.argsort(start, kind="stable")
     leaf_of_pos = torch.repeat_interleave(
         torch.as_tensor(order, device=dev),
-        torch.as_tensor(leaf_cnt[:num_leaves][order], device=dev),
-        output_size=n)
+        torch.as_tensor(cnt[order], device=dev), output_size=n)
     row_leaf = torch.empty(n, dtype=torch.int64, device=dev)
     row_leaf[row_order.to(torch.int64)] = leaf_of_pos
-    return tree, row_leaf
+    return row_leaf
 
 
 grow_tree.host_syncs = 0

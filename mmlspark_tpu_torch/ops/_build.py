@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled for Hopper (``sm_90a``) into a shared
 library with a plain C interface, at first use, into ``_build/`` beside
 this package (listed in ``.gitignore``).  The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  A failed build raises.
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  A
+failed build raises.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 

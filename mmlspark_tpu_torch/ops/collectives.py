@@ -1,0 +1,121 @@
+"""Cross-shard histogram reductions — the port's counterpart of the ring
+part of ``mmlspark_tpu/ops/pallas_collectives.py``.
+
+A reduction takes one partial per data shard (``parts[d]`` on
+``mesh.devices[d]``) and returns the sum.  Two orders exist, as in the
+reference, and each has a plain twin that adds in exactly that order:
+
+``psum``
+    :func:`psum_plain`, the sequential sum in device order
+    ``((x_0 + x_1) + x_2) + …`` — what XLA's CPU ``lax.psum`` computes,
+    bit for bit.  The default collective (``collective="auto"``).
+``ring``
+    :func:`ring_allreduce_plain`, the order of the reference's ring
+    kernel: the flattened array is cut into D chunks of ``cb·128``
+    elements (``cb = ceil(ceil(total/128)/D)``, as ``_ring_flat`` pads),
+    and chunk ``c`` is summed starting at shard ``c``:
+    ``((x_c + x_{c+1}) + x_{c+2}) + …``, indices mod D.  On a CUDA tensor
+    :func:`ring_allreduce` launches the ``ring_allreduce`` kernel of
+    ``csrc/ring.cu`` (:mod:`.cuda_ring`), which adds in the same order and
+    so equals the twin bit for bit.
+
+:func:`fused_segment_hist_ring` (the reference's kernel of the same name)
+gathers each shard's segment, histograms it and ring-reduces the result;
+its twin is :func:`..cuda_histogram.histogram_fused_plain` per shard
+followed by :func:`ring_allreduce_plain`.
+
+On a CUDA tensor the ring entries launch their kernels or raise: there is
+no fallback to a twin or to a library collective.  The reference's TPU
+VMEM gates (``RING_MAX_BYTES``, ``FUSED_RING_MAX_BINST_BYTES``) are
+dropped: on the card both kernels work from device memory.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from . import cuda_ring
+from .cuda_histogram import histogram_fused_plain
+from .cuda_ring import ring_chunk
+
+
+def psum_plain(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Sequential sum in shard order, on the first shard's device."""
+    dev = parts[0].device
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc = acc + p.to(dev)
+    return acc
+
+
+def ring_allreduce_plain(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The ring kernel's sum, on the first shard's device: chunk ``c`` of
+    the flattened array is added up starting at shard ``c``."""
+    dev = parts[0].device
+    D = len(parts)
+    flat = [p.to(dev).reshape(-1) for p in parts]
+    total = flat[0].numel()
+    cs = ring_chunk(total, D)
+    out = torch.empty_like(flat[0])
+    for c in range(D):
+        lo, hi = min(c * cs, total), min((c + 1) * cs, total)
+        acc = flat[c][lo:hi].clone()
+        for k in range(1, D):
+            acc = acc + flat[(c + k) % D][lo:hi]
+        out[lo:hi] = acc
+    return out.view(parts[0].shape)
+
+
+def resolve_collective(collective: str, data_shards: int = 0) -> str:
+    """Resolve the training ``collective`` knob to ``"psum"`` or
+    ``"ring"``: ``auto`` stays on psum, ``ring`` needs more than one data
+    shard.  There is no compile probe: on the card a ring kernel that does
+    not build or launch raises."""
+    if collective in ("auto", "psum", ""):
+        return "psum"
+    if collective != "ring":
+        raise ValueError(f"Unknown collective {collective!r}; "
+                         "valid: auto, psum, ring")
+    return "ring" if data_shards > 1 else "psum"
+
+
+def ring_allreduce(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """All-reduce of the float32 ``parts`` (one per shard of ``mesh``):
+    every shard gets the ring-order sum, on its own device.  CUDA tensors
+    go through the ``ring_allreduce`` kernel; CPU tensors through
+    :func:`ring_allreduce_plain`."""
+    if len(parts) != len(mesh):
+        raise ValueError(f"{len(parts)} parts for a mesh of {len(mesh)} "
+                         "shards")
+    if parts[0].is_cuda:
+        return cuda_ring.ring_allreduce_cuda(parts, mesh)
+    out = ring_allreduce_plain(parts)
+    return [out.to(d) for d in mesh.devices]
+
+
+def fused_segment_hist_ring_plain(shards, num_bins: int,
+                                  accum: str = "float32") -> torch.Tensor:
+    """Twin of :func:`fused_segment_hist_ring`: each shard's segment
+    histogram, then the ring-order sum (on the first shard's device)."""
+    return ring_allreduce_plain([
+        histogram_fused_plain(b, g, o, off, cnt, num_bins, accum)
+        for b, g, o, off, cnt in shards])
+
+
+def fused_segment_hist_ring(shards, num_bins: int, mesh,
+                            accum: str = "float32") -> List[torch.Tensor]:
+    """Gather → segment histogram → ring all-reduce over the shards of
+    ``mesh``.  ``shards[d] = (bins, gh, row_order, off, cnt)``: shard d's
+    ``(n_d, f)`` bins, ``(n_d, 3)`` gh, its row permutation and the
+    segment ``row_order[off:off+cnt]`` to histogram; ``cnt`` may differ
+    between shards.  Returns the reduced ``(f, num_bins, 3)`` histogram on
+    every shard's device (int32 when ``accum="int32"``)."""
+    if len(shards) != len(mesh):
+        raise ValueError(f"{len(shards)} shards for a mesh of {len(mesh)}")
+    if shards[0][0].is_cuda:
+        return cuda_ring.fused_segment_hist_ring_cuda(shards, num_bins,
+                                                      mesh, accum)
+    out = fused_segment_hist_ring_plain(shards, num_bins, accum)
+    return [out.to(d) for d in mesh.devices]

@@ -2,12 +2,14 @@
 
 The port's counterpart of ``mmlspark_tpu/ops/histogram.py``.  Methods:
 
-``auto``, ``pallas``, ``pallas_bf16``, ``pallas_fused``
+``auto``, ``pallas``, ``pallas_bf16``, ``pallas_fused``, ``pallas_ring``
     The hand-written CUDA kernels of :mod:`.cuda_histogram` on a CUDA
     tensor (``pallas_bf16`` in the bf16 accumulation mode), their plain
     twins on a CPU tensor.  ``pallas_fused`` is the fused segment gather
-    of the grower; a full-matrix call runs the plain kernel, as in the
-    reference.
+    of the grower, and ``pallas_ring`` additionally fuses the cross-shard
+    ring reduction on a mesh (the grower calls
+    :func:`.collectives.fused_segment_hist_ring` for it); a full-matrix
+    call of either runs the plain kernel, as in the reference.
 ``segment``
     The plain ``index_add_`` histogram (the kernels' twin): the CPU path.
 ``onehot``
@@ -24,14 +26,15 @@ import torch
 
 from .cuda_histogram import histogram_cuda, histogram_cuda_fused
 
-KERNEL_METHODS = ("auto", "pallas", "pallas_bf16", "pallas_fused")
+KERNEL_METHODS = ("auto", "pallas", "pallas_bf16", "pallas_fused",
+                  "pallas_ring")
 CPU_METHODS = ("segment", "onehot")
 
 
 def check_method(method: str, device: torch.device) -> None:
     """Raise for a histogram method the port does not run on ``device``:
-    the plain formulations run only on CPU tensors, and the TPU-only and
-    multi-device names are not ported."""
+    the plain formulations run only on CPU tensors, and the TPU-only
+    names are not ported."""
     if method in KERNEL_METHODS:
         return
     if method in CPU_METHODS:
@@ -40,10 +43,6 @@ def check_method(method: str, device: torch.device) -> None:
                 f"histogram method {method!r} is a plain CPU formulation; "
                 f"on CUDA use one of {KERNEL_METHODS}")
         return
-    if method == "pallas_ring":
-        raise NotImplementedError(
-            "histogram method 'pallas_ring' belongs to mesh training, "
-            "which is not ported yet (ROADMAP.md Queue B items 3-5)")
     raise ValueError(f"Unknown histogram method {method!r}; the port runs "
                      f"{KERNEL_METHODS + CPU_METHODS}")
 

@@ -97,3 +97,144 @@ def test_fit_on_the_card_grows_the_cpu_tree(cuda_device):
     for k in ("split_feature", "threshold", "left_child", "right_child"):
         np.testing.assert_array_equal(getattr(trees[0], k),
                                       getattr(trees[1], k))
+
+
+# -- ring collectives (csrc/ring.cu) -----------------------------------------
+# ring_allreduce adds in the plain twin's order without atomics, so it is
+# compared exactly; fused_segment_hist_ring's histogram phase uses f32
+# atomics (tolerance as above), its int32 mode is exact.
+
+from mmlspark_tpu_torch.core.mesh import build_mesh  # noqa: E402
+from mmlspark_tpu_torch.ops import collectives as co  # noqa: E402
+from mmlspark_tpu_torch.ops import cuda_ring as cr  # noqa: E402
+
+RING_SHAPES = [(50, 256, 3), (13, 17, 3), (3,), (1, 129)]
+
+
+def _parts(shape, devices, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(d) for d in devices]
+
+
+def _check_ring(devices):
+    mesh = build_mesh(devices=devices)
+    for i, shape in enumerate(RING_SHAPES):
+        parts = _parts(shape, mesh.devices, seed=i)
+        before = cr.ring_allreduce_cuda.launches
+        for _ in range(3):   # repeated calls reuse the workspace
+            got = co.ring_allreduce(parts, mesh)
+        torch.cuda.synchronize()
+        want = co.ring_allreduce_plain(parts)
+        assert cr.ring_allreduce_cuda.launches == before + 3
+        for g in got:
+            assert torch.equal(g.to(want.device), want), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 4])
+def test_ring_allreduce_equals_twin_on_virtual_shards(cuda_device, D):
+    _check_ring([cuda_device] * D)
+
+
+def _fused_shards(devices, accum, counts, seed):
+    rng = np.random.default_rng(seed)
+    shards = []
+    for d, (dev, cnt) in enumerate(zip(devices, counts)):
+        n = 6000 + 100 * d
+        bins, gh = _inputs(n, 13, 256, accum, seed=seed + d)
+        order = rng.permutation(n).astype(np.int32)
+        shards.append((torch.from_numpy(bins).to(dev),
+                       torch.from_numpy(gh).to(dev),
+                       torch.from_numpy(order).to(dev), 17 * d, cnt))
+    return shards
+
+
+def _check_fused(devices, accum):
+    mesh = build_mesh(devices=devices)
+    D = len(devices)
+    for k, counts in enumerate(([5000] * D, [1, 0, 777, 4000][:D],
+                                [0] * D)):
+        shards = _fused_shards(mesh.devices, accum, counts, seed=10 * k)
+        before = cr.fused_segment_hist_ring_cuda.launches
+        for _ in range(2):   # the kernel leaves its work buffers zeroed
+            got = co.fused_segment_hist_ring(shards, 256, mesh, accum)
+            want = co.fused_segment_hist_ring_plain(shards, 256, accum)
+            for g in got:
+                _check(g.to(want.device), want, accum)
+        assert cr.fused_segment_hist_ring_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ["float32", "int32"])
+@pytest.mark.parametrize("D", [2, 4])
+def test_fused_segment_hist_ring_matches_twin(cuda_device, D, accum):
+    _check_fused([cuda_device] * D, accum)
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (one shard per card)")
+    return [torch.device("cuda", i)
+            for i in range(min(4, torch.cuda.device_count()))]
+
+
+@pytest.mark.cuda
+def test_ring_allreduce_across_cards(cuda_device):
+    _check_ring(_two_cards())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ["float32", "int32"])
+def test_fused_segment_hist_ring_across_cards(cuda_device, accum):
+    _check_fused(_two_cards(), accum)
+
+
+@pytest.mark.cuda
+def test_ring_wrappers_raise_without_their_library(cuda_device,
+                                                   monkeypatch):
+    """No fallback: a CUDA tensor never reaches a plain twin."""
+    def broken():
+        raise RuntimeError("nvcc failed for ring.cu")
+
+    monkeypatch.setattr(cr, "_lib", broken)
+    mesh = build_mesh(devices=[cuda_device] * 2)
+    parts = _parts((7, 5), mesh.devices, seed=0)
+    before = cr.ring_allreduce_cuda.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        co.ring_allreduce(parts, mesh)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        co.fused_segment_hist_ring(
+            _fused_shards(mesh.devices, "float32", [3, 4], 0), 256, mesh)
+    assert cr.ring_allreduce_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["auto", "pallas_ring"])
+def test_mesh_fit_on_the_card_grows_the_cpu_mesh_tree(cuda_device, method):
+    """D = 4 virtual shards with the ring: the card's first tree is the
+    CPU mesh fit's, and every reduction went through the ring kernels."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(5001, 8)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(np.float64)
+    table = {"features": X, "label": y}
+    before = (cr.ring_allreduce_cuda.launches,
+              cr.fused_segment_hist_ring_cuda.launches)
+    trees = []
+    for dev in (cuda_device, "cpu"):
+        est = LightGBMClassifier(numIterations=2, numLeaves=15,
+                                 collective="ring", histogramMethod=method,
+                                 device=str(torch.device(dev).type))
+        est.setMesh(build_mesh(devices=[dev] * 4))
+        trees.append(est.fit(table).getModel().trees)
+    for k in ("split_feature", "threshold", "left_child", "right_child"):
+        np.testing.assert_array_equal(getattr(trees[0][0], k),
+                                      getattr(trees[1][0], k))
+    splits = sum(t.num_leaves - 1 for t in trees[0])
+    ring = cr.ring_allreduce_cuda.launches - before[0]
+    fused = cr.fused_segment_hist_ring_cuda.launches - before[1]
+    if method == "auto":
+        assert (ring, fused) == (len(trees[0]) + splits, 0)
+    else:
+        assert (ring, fused) == (len(trees[0]), splits)
