@@ -53,6 +53,13 @@ Phases, each printing one JSON line:
 Then the ``{"kernels": [...]}`` line, the card line, and last the
 ``{"ok": true, ...}`` line.  Any failed phase makes the script exit 1
 without that last line.
+
+    python3 chip_smoke.py --phases kernels,main_path
+
+runs the environment and build phases and the named ones only, in the
+order above, and ends after the card line (exit 0, or 1 if a phase
+failed): an A/B of one phase between two checkouts runs only what it
+needs.
 """
 
 import json
@@ -65,6 +72,8 @@ import time
 #: FLOP/s outside the tensor cores, for the kernels' least times
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: NVLink 4 on the H100 SXM, bytes/s each way per card
+NVLINK_BYTES_PER_S = 450e9
 N_ROWS, N_FEATURES = 400_000, 50
 SEGMENT_COUNTS = (1, 777, 200_000)
 #: f32/bf16 kernel-vs-twin tolerance: |k - p| <= RTOL |p| + ATOL_ULPS u
@@ -155,10 +164,14 @@ def device_ms(fn, kernel, reps=20):
     return us / 1e3 / reps
 
 
-def bound_ms(n_bytes, n_ops):
-    t = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S)
-    return t * 1e3, ("bytes" if n_bytes / HBM_BYTES_PER_S
-                     >= n_ops / F32_OPS_PER_S else "operations")
+def bound_ms(n_bytes, n_ops, wire_bytes=0):
+    """Least time of a call: ``n_bytes`` through device memory and
+    ``wire_bytes`` over NVLink one way, or ``n_ops`` f32 operations,
+    whichever takes longest; returns ``(ms, "bytes" | "operations")``."""
+    t_bytes = max(n_bytes / HBM_BYTES_PER_S, wire_bytes / NVLINK_BYTES_PER_S)
+    t_ops = n_ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_environment():
@@ -302,7 +315,7 @@ def phase_main_path(state):
     from mmlspark_tpu_torch.ops import cuda_histogram as ch
     X, y = bench_data(N_ROWS, N_FEATURES)
     table = {"features": X, "label": y}
-    est = _classifier(numIterations=50, device=DEV)
+    est = _classifier(numIterations=50, device=DEV, parallelism="serial")
     est.fit(table)                                   # warm-up
     ch.histogram_cuda.launches = 0
     ch.histogram_cuda_fused.launches = 0
@@ -386,7 +399,7 @@ def phase_profile():
     fit_bin_mapper(X, max_bin=255).transform(X, DEV)
     torch.cuda.synchronize()
     binning_s = time.perf_counter() - t0
-    est = _classifier(numIterations=10, device=DEV)
+    est = _classifier(numIterations=10, device=DEV, parallelism="serial")
     est.fit(table)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -415,12 +428,24 @@ def phase_profile():
                             for k, v in top]}
 
 
-def ring_bytes(payload_bytes, shards):
-    """Bytes a ring all-reduce of D partials must move through device
-    memory with all D shards on one card: each rank reads its partial,
-    writes its output, and writes and reads 2(D-1)/D of the payload
-    through the comm slots."""
-    return 2 * shards * payload_bytes + 4 * (shards - 1) * payload_bytes
+def allreduce_bound_ms(payload_bytes, shards, one_card, seg_bytes=None,
+                       seg_ops=0):
+    """Bound of an all-reduce of D partials of ``payload_bytes`` (f32
+    adds): what the function must move, not what the ring moves through
+    its comm slots.  Each shard reads its partial and writes its output;
+    where the kernel makes the partial itself from a segment
+    (``seg_bytes`` to read, ``seg_ops`` operations), it reads the segment
+    instead.  All D shards on one card: D times that through device
+    memory.  One shard a card: that per card, and 2(D-1)/D of the payload
+    over NVLink each way."""
+    D = shards
+    per_shard = payload_bytes + (payload_bytes if seg_bytes is None
+                                 else seg_bytes)
+    adds = (D - 1) * payload_bytes // 4
+    if one_card:
+        return bound_ms(D * per_shard, D * seg_ops + adds)
+    return bound_ms(per_shard, seg_ops + adds / D,
+                    wire_bytes=2 * (D - 1) * payload_bytes / D)
 
 
 def _ring_rows(devices, tag):
@@ -450,8 +475,7 @@ def _ring_rows(devices, tag):
         else:
             def library():
                 return torch.cuda.comm.reduce_add(parts, mesh.devices[0])
-        total = want.numel()
-        bms, by = bound_ms(ring_bytes(total * 4, D), (D - 1) * total)
+        bms, by = allreduce_bound_ms(want.numel() * 4, D, one_card)
         rows.append({"kernel": "ring_allreduce", "mesh": tag, "shards": D,
                      "shape": list(shape), "accum": "float32",
                      "match": exact, "max_abs_err": err,
@@ -478,6 +502,7 @@ def _fused_rows(devices, tag, inputs):
     bins, B, gh, gh_int = inputs
     mesh = build_mesh(devices=devices)
     D = len(mesh)
+    one_card = len(set(mesh.devices)) == 1
     n, f = bins.shape
     S = n // D
     g = torch.Generator(device="cpu").manual_seed(D)
@@ -515,10 +540,9 @@ def _fused_rows(devices, tag, inputs):
             rep = ghv[seg].repeat_interleave(f, 0)
             lib_out = torch.zeros(f * B, 3, dtype=want.dtype,
                                   device=bins.device)
-            total = f * B * 3
-            bms, by = bound_ms(D * cnt * (f + 12 + 4)
-                               + ring_bytes(total * 4, D),
-                               D * cnt * f * 3 + (D - 1) * total)
+            # each segment row's bins, gh and row id
+            bms, by = allreduce_bound_ms(f * B * 3 * 4, D, one_card,
+                                         cnt * (f + 12 + 4), cnt * f * 3)
             rows.append({"kernel": "fused_segment_hist_ring", "mesh": tag,
                          "shards": D, "accum": accum, "rows": cnt,
                          "match": good, "max_abs_err": err,
@@ -559,10 +583,10 @@ def phase_collectives(state):
     return {"rows": rows, "tolerance": "ring_allreduce exact "
             "(torch.equal); fused_segment_hist_ring int32 exact, f32 "
             f"|k-p| <= {RTOL}|p| + {ATOL_ULPS}*2^-24*sum|gh| per cell",
-            "bound": "bytes: per rank its partial read, its output written "
-            "and 2(D-1)/D of the payload written and read through the comm "
-            "slots, plus each segment row's bins, gh and row id; at "
-            "3.35 TB/s"}
+            "bound": "bytes at 3.35 TB/s: ring_allreduce reads the D "
+            "partials and writes the D outputs; fused_segment_hist_ring "
+            "reads each segment row's bins, gh and row id and writes the D "
+            "outputs (the ring's comm-slot traffic is not counted)"}
 
 
 def phase_collectives_cross_card():
@@ -696,8 +720,15 @@ def kernels_line(state):
     return {"kernels": out}
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--phases":
+            print("usage: chip_smoke.py [--phases NAME[,NAME...]]",
+                  file=sys.stderr)
+            return 2
+        only = set(argv[1].split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
@@ -719,6 +750,14 @@ def main() -> int:
               ("collectives", lambda: phase_collectives(state)),
               ("mesh_path", lambda: phase_mesh_path(state)),
               ("collectives_cross_card", phase_collectives_cross_card)]
+    if only is not None:
+        unknown = only - {name for name, _ in phases}
+        if unknown:
+            print(f"chip_smoke: unknown phases {sorted(unknown)}",
+                  file=sys.stderr)
+            return 2
+        phases = [(name, fn) for name, fn in phases
+                  if name in only | {"environment", "build"}]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -735,12 +774,15 @@ def main() -> int:
             env = res
         emit({"phase": name, "ok": ok,
               "seconds": time.perf_counter() - t0, **res})
-    emit(kernels_line(state))
+    if only is None:
+        emit(kernels_line(state))
     if env is not None:
         print(env["nvidia_smi"], flush=True)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
+    if only is not None:
+        return 0
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -748,4 +790,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

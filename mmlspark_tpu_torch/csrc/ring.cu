@@ -41,7 +41,11 @@
 //
 // Blocks.  The ring decomposes by element: block b of every rank handles
 // the same slice of each chunk, and talks only to block b of its two
-// neighbours (one flag per (slot, block)).  One cooperative launch per card
+// neighbours (one flag per (slot, block)), so every card of a mesh must
+// launch the same number of blocks per rank: the wrapper asks each card
+// what it wants and holds (ring_allreduce_blocks, fused_hist_ring_blocks),
+// takes the minimum over the mesh, and passes that one count to every
+// card's launch.  One cooperative launch per card
 // covers every rank on that card (grid y = local rank), so every block that
 // another block waits on is resident; a grid that does not fit fails to
 // launch instead of hanging.  Every wait is bounded by kWaitSeconds of
@@ -59,17 +63,20 @@
 // rings; the TPU kernel's overlap of one chunk's transfer with the next
 // chunk's histogram is later work.
 //
-// Bound (H100 SXM, 3.35 TB/s).  ring_allreduce on the flagship payload
-// (50, 256, 3) f32 = 153,600 B, D shards on one card: each rank reads its
-// partial, writes its output, and writes and reads 2(D-1)/D of the payload
-// through the slots -- 3.07 MB at D = 4, 0.92 us; its adds are negligible.
-// Across cards the 2(D-1)/D payload per rank also crosses NVLink at 450
-// GB/s each way.  What holds it back is latency, not bytes: 2(D-1) flag
-// handshakes in sequence, each a fenced store and a poll through L2 (or
-// NVLink).  fused_hist_ring at 100,000 rows per shard, f = 50, D = 4 must
-// read 4 x (5 MB bins + 1.2 MB gh + 0.4 MB row ids) = 26.4 MB plus the
-// ring's 3.07 MB, 8.8 us; like hist_segment it is held back by
-// shared-memory atomics in phase 1 and by the handshakes in phase 2.
+// Bound (H100 SXM, 3.35 TB/s HBM, 450 GB/s NVLink each way).  The bound
+// counts what the function must move, not what the ring chooses to move
+// through its slots.  ring_allreduce on the flagship payload (50, 256, 3)
+// f32 = 153,600 B, D shards on one card: read the D partials and write the
+// D outputs, 2 x D x 153,600 B = 1.23 MB at D = 4, 0.37 us; its adds are
+// negligible.  Across cards, one shard a card: each card reads its partial
+// and writes its output, and 2(D-1)/D of the payload must cross NVLink each
+// way, 0.51 us at D = 4.  What holds it back is latency, not bytes: 2(D-1)
+// flag handshakes in sequence, each a fenced store and a poll through L2
+// (or NVLink).  fused_hist_ring at 100,000 rows per shard, f = 50, D = 4
+// must read 4 x (5 MB bins + 1.2 MB gh + 0.4 MB row ids) = 26.4 MB and
+// write the 4 reduced outputs, 0.61 MB: 8.06 us; like hist_segment it is
+// held back by shared-memory atomics in phase 1 and by the handshakes in
+// phase 2.
 //
 // Each entry returns cudaGetLastError() (or the launch's own error); the
 // kernels allocate nothing and launch on the caller's stream.
@@ -269,30 +276,39 @@ __global__ void __launch_bounds__(kThreads) fused_hist_ring_kernel(const __grid_
   if (static_cast<int>(blockIdx.x) < nb_ring) ring_phase<T, true>(a, rank, blockIdx.x, nb_ring, work);
 }
 
-// Blocks per rank for a grid of n_local ranks, limited by how many blocks
-// of `kernel` the card holds at once (a cooperative launch needs them all
-// resident).  Returns 0 when not even one block per rank fits.
-int blocks_per_rank(const void* kernel, size_t smem, int n_local, int want) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
-      cudaSuccess)
-    return 0;
-  int nb = per_sm * sms / n_local;
-  nb = nb < kMaxBlocks ? nb : kMaxBlocks;
-  return want < nb ? (want > 1 ? want : 1) : nb;
-}
-
 int sm_count() {
   int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
   return sms;
 }
 
+// Blocks per rank for a grid of n_local ranks on the current device: `want`
+// (at least 1), limited by how many blocks of `kernel` the card holds at
+// once (a cooperative launch needs them all resident).  Returns 0 when not
+// even one block per rank fits.
+int blocks_per_rank(const void* kernel, size_t smem, int n_local, int64_t want) {
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
+      cudaSuccess)
+    return 0;
+  int nb = per_sm * sm_count() / n_local;
+  nb = nb < kMaxBlocks ? nb : kMaxBlocks;
+  return want < nb ? (want > 1 ? static_cast<int>(want) : 1) : nb;
+}
+
+const void* fused_kernel(int mode) {
+  switch (mode) {
+    case 0: return reinterpret_cast<const void*>(fused_hist_ring_kernel<0>);
+    case 2: return reinterpret_cast<const void*>(fused_hist_ring_kernel<2>);
+    default: return nullptr;
+  }
+}
+
+size_t fused_smem(int num_bins) { return static_cast<size_t>(hist::kGroup) * num_bins * 3 * 4; }
+
 int launch(const void* kernel, Args& a, int n_local, int nb, size_t smem, void* stream) {
-  if (nb < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  if (nb < 1 || nb > kMaxBlocks) return static_cast<int>(cudaErrorInvalidValue);
   void* params[] = {&a};
   const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(nb, n_local), dim3(kThreads),
                                                     params, smem,
@@ -350,28 +366,44 @@ int ring_enable_peer(int dev, int peer) {
   return static_cast<int>(e);
 }
 
-// One launch on the current device for the n_local ranks `local` that
-// live on it.  Pointer arrays have one entry per rank (all `ranks`).
+// Ring blocks per rank that this card asks for and can hold, for n_local
+// ranks on the current device (0: not even one fits).  The ring needs the
+// same count on every card of a mesh, because block b of every rank
+// covers the same slice and waits on flag (slot, b): the caller takes the
+// minimum over the mesh's cards and passes it to every launch as `nb`.
+int ring_allreduce_blocks(int n_local, int64_t chunk) {
+  if (n_local < 1) return 0;
+  const int64_t want = (chunk + kThreads * kElemsPerThread - 1) / (kThreads * kElemsPerThread);
+  return blocks_per_rank(reinterpret_cast<const void*>(ring_allreduce_kernel), 0, n_local, want);
+}
+
+int fused_hist_ring_blocks(int mode, int num_bins, int n_local) {
+  const void* kernel = fused_kernel(mode);
+  if (!kernel || n_local < 1 || num_bins < 1 || num_bins > 256) return 0;
+  return blocks_per_rank(kernel, fused_smem(num_bins), n_local,
+                         kHistBlocksPerSM * sm_count() / n_local);
+}
+
+// One launch of nb blocks per rank on the current device for the n_local
+// ranks `local` that live on it.  Pointer arrays have one entry per rank
+// (all `ranks`).
 int ring_allreduce_launch(int ranks, int n_local, const int* local, void* const* x,
                           void* const* out, void* const* slots, void* const* flags,
-                          int64_t total, int64_t chunk, unsigned seq, void* stream) {
+                          int64_t total, int64_t chunk, unsigned seq, int nb, void* stream) {
   Args a;
   int rc = fill_common(a, ranks, n_local, local, out, slots, flags, total, chunk, seq);
   if (rc) return rc;
   for (int r = 0; r < ranks; ++r) a.r[r].x = x[r];
-  const int64_t want = (chunk + kThreads * kElemsPerThread - 1) / (kThreads * kElemsPerThread);
-  const int nb = blocks_per_rank(reinterpret_cast<const void*>(ring_allreduce_kernel), 0, n_local,
-                                 static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks));
   return launch(reinterpret_cast<const void*>(ring_allreduce_kernel), a, n_local, nb, 0, stream);
 }
 
 // mode: 0 = float32, 2 = int32 (hist_block.cuh).  `work` and `bar` are
-// zero at the first launch; the kernel leaves them so.
+// zero at the first launch; the kernel leaves them so.  nb: as above.
 int fused_hist_ring_launch(int ranks, int n_local, const int* local, void* const* bins,
                            void* const* gh, void* const* row_order, const int64_t* off,
                            const int64_t* cnt, void* const* work, void* const* bar,
                            void* const* out, void* const* slots, void* const* flags, int f,
-                           int num_bins, int mode, int64_t chunk, unsigned seq,
+                           int num_bins, int mode, int64_t chunk, unsigned seq, int nb,
                            void* stream) {
   Args a;
   const int64_t total = static_cast<int64_t>(f) * num_bins * 3;
@@ -390,16 +422,9 @@ int fused_hist_ring_launch(int ranks, int n_local, const int* local, void* const
     a.r[r].work = work[r];
     a.r[r].bar = static_cast<unsigned*>(bar[r]);
   }
-  const size_t smem = static_cast<size_t>(hist::kGroup) * num_bins * 3 * 4;
-  const void* kernel;
-  switch (mode) {
-    case 0: kernel = reinterpret_cast<const void*>(fused_hist_ring_kernel<0>); break;
-    case 2: kernel = reinterpret_cast<const void*>(fused_hist_ring_kernel<2>); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int want = kHistBlocksPerSM * sm_count() / n_local;
-  const int nb = blocks_per_rank(kernel, smem, n_local, want);
-  return launch(kernel, a, n_local, nb, smem, stream);
+  const void* kernel = fused_kernel(mode);
+  if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(kernel, a, n_local, nb, fused_smem(num_bins), stream);
 }
 
 }  // extern "C"

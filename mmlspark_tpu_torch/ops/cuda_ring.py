@@ -19,7 +19,9 @@ are allocated once per (mesh, payload, dtype) and kept in
 ``mesh.scratch``; flags carry a launch sequence number, so nothing is
 reset between calls.  Peer access between neighbouring cards is enabled
 when the workspace is made, and raises where the cards cannot reach each
-other.
+other.  The number of blocks per rank is one for the whole mesh
+(:func:`mesh_blocks`), chosen once per workspace and passed to every
+card's launch.
 """
 
 from __future__ import annotations
@@ -55,12 +57,16 @@ def _lib() -> ctypes.CDLL:
     ip = ctypes.POINTER(ctypes.c_int)
     lp = ctypes.POINTER(ctypes.c_int64)
     lib.ring_allreduce_launch.argtypes = [i32, i32, ip, pp, pp, pp, pp, i64,
-                                          i64, u32, p]
+                                          i64, u32, i32, p]
     lib.ring_allreduce_launch.restype = i32
     lib.fused_hist_ring_launch.argtypes = [i32, i32, ip, pp, pp, pp, lp, lp,
                                            pp, pp, pp, pp, pp, i32, i32, i32,
-                                           i64, u32, p]
+                                           i64, u32, i32, p]
     lib.fused_hist_ring_launch.restype = i32
+    lib.ring_allreduce_blocks.argtypes = [i32, i64]
+    lib.ring_allreduce_blocks.restype = i32
+    lib.fused_hist_ring_blocks.argtypes = [i32, i32, i32]
+    lib.fused_hist_ring_blocks.restype = i32
     lib.ring_enable_peer.argtypes = [i32, i32]
     lib.ring_enable_peer.restype = i32
     for name in ("ring_max_blocks", "ring_max_ranks"):
@@ -102,10 +108,40 @@ class _Workspace:
         self.cards = {}
         for r, d in enumerate(mesh.devices):
             self.cards.setdefault(d, []).append(r)
+        self._blocks = {}
 
     def next_seq(self) -> int:
         self.seq = self.seq % _SEQ_MAX + 1
         return self.seq
+
+    def blocks(self, key, per_card) -> int:
+        """The mesh's block count per rank for launches of kind ``key``
+        (cached): ``per_card(n_local)`` asks the current card what it
+        wants and holds, under each card of the mesh in turn."""
+        nb = self._blocks.get(key)
+        if nb is None:
+            counts = []
+            for dev, ranks in self.cards.items():
+                with torch.cuda.device(dev):
+                    counts.append(per_card(len(ranks)))
+            nb = self._blocks[key] = mesh_blocks(counts)
+        return nb
+
+
+def mesh_blocks(per_card: Sequence[int]) -> int:
+    """One block count per rank for every card of a mesh: the fewest that
+    any card asks for or can hold (``per_card``, one entry per card).
+    Block b of every rank covers the same slice of each ring chunk and
+    waits on flag (slot, b), so all cards must launch the same count; a
+    card with more ranks or fewer SMs than another would choose fewer
+    blocks on its own, and the slices would not line up.  Raises when a
+    card cannot hold one block per rank."""
+    nb = min(per_card)
+    if nb < 1:
+        raise RuntimeError(f"a card of the mesh cannot hold one ring block "
+                           f"per rank at once (blocks per card: "
+                           f"{list(per_card)})")
+    return nb
 
 
 def _workspace(mesh, kind: str, total: int, chunk: int,
@@ -148,6 +184,8 @@ def ring_allreduce_cuda(parts: Sequence[torch.Tensor], mesh
         return out
     chunk = ring_chunk(total, D)
     ws = _workspace(mesh, "dense", total, chunk, torch.float32)
+    nb = ws.blocks("dense", lambda n_local: lib.ring_allreduce_blocks(
+        n_local, chunk))
     seq = ws.next_seq()
     args = (_ptrs(x), _ptrs(out), _ptrs(ws.slots), _ptrs(ws.flags))
     for dev, ranks in ws.cards.items():
@@ -155,7 +193,7 @@ def ring_allreduce_cuda(parts: Sequence[torch.Tensor], mesh
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             rc = lib.ring_allreduce_launch(D, len(ranks), local, *args,
-                                           total, chunk, seq, stream)
+                                           total, chunk, seq, nb, stream)
         _raise_if_failed(rc, "ring_allreduce")
     ring_allreduce_cuda.launches += 1
     return out
@@ -205,6 +243,9 @@ def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,
     total = f * num_bins * 3
     chunk = ring_chunk(total, D)
     ws = _workspace(mesh, "fused", total, chunk, out_dtype)
+    mode = _MODES[accum]
+    nb = ws.blocks(("fused", num_bins), lambda n_local:
+                   lib.fused_hist_ring_blocks(mode, num_bins, n_local))
     out = [torch.empty(f, num_bins, 3, dtype=out_dtype, device=d)
            for d in mesh.devices]
     seq = ws.next_seq()
@@ -217,8 +258,8 @@ def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,
         stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
             rc = lib.fused_hist_ring_launch(D, len(ranks), local, *args, f,
-                                            num_bins, _MODES[accum], chunk,
-                                            seq, stream)
+                                            num_bins, mode, chunk, seq, nb,
+                                            stream)
         _raise_if_failed(rc, "fused_segment_hist_ring")
     fused_segment_hist_ring_cuda.launches += 1
     return out

@@ -108,6 +108,26 @@ def test_resolve_collective():
         co.resolve_collective("tree", 4)
 
 
+def test_ring_block_count_is_one_for_the_whole_mesh():
+    """Block b of every rank covers the same slice of each chunk, so a mesh
+    whose cards would choose different counts on their own (three shards
+    on one card and one on another, or cards with different SM counts)
+    launches the fewest blocks that any card asks for or holds."""
+    from mmlspark_tpu_torch.ops.cuda_ring import mesh_blocks
+
+    def fused_per_card(sms, n_local, resident_per_sm=4):
+        # csrc/ring.cu fused_hist_ring_blocks: 4 blocks per SM shared by
+        # the card's ranks, capped by what stays resident
+        return min(4 * sms // n_local, resident_per_sm * sms // n_local)
+
+    counts = [fused_per_card(132, 3), fused_per_card(114, 1)]
+    assert counts == [176, 456]
+    assert mesh_blocks(counts) == 176
+    assert mesh_blocks([75, 75, 75]) == 75
+    with pytest.raises(RuntimeError, match="cannot hold one ring block"):
+        mesh_blocks([12, 0])
+
+
 def _fused_case(d, accum, counts, seed, f=11, n_local=700, B=64):
     """Per shard: bins, gh per row, a row permutation, and a segment of
     counts[i] rows.  The reference takes the segment pre-gathered and

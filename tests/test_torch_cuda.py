@@ -117,9 +117,9 @@ def _parts(shape, devices, seed):
             .to(d) for d in devices]
 
 
-def _check_ring(devices):
+def _check_ring(devices, shapes=RING_SHAPES):
     mesh = build_mesh(devices=devices)
-    for i, shape in enumerate(RING_SHAPES):
+    for i, shape in enumerate(shapes):
         parts = _parts(shape, mesh.devices, seed=i)
         before = cr.ring_allreduce_cuda.launches
         for _ in range(3):   # repeated calls reuse the workspace
@@ -137,12 +137,12 @@ def test_ring_allreduce_equals_twin_on_virtual_shards(cuda_device, D):
     _check_ring([cuda_device] * D)
 
 
-def _fused_shards(devices, accum, counts, seed):
+def _fused_shards(devices, accum, counts, seed, f=13):
     rng = np.random.default_rng(seed)
     shards = []
     for d, (dev, cnt) in enumerate(zip(devices, counts)):
         n = 6000 + 100 * d
-        bins, gh = _inputs(n, 13, 256, accum, seed=seed + d)
+        bins, gh = _inputs(n, f, 256, accum, seed=seed + d)
         order = rng.permutation(n).astype(np.int32)
         shards.append((torch.from_numpy(bins).to(dev),
                        torch.from_numpy(gh).to(dev),
@@ -150,12 +150,13 @@ def _fused_shards(devices, accum, counts, seed):
     return shards
 
 
-def _check_fused(devices, accum):
+def _check_fused(devices, accum, f=13):
     mesh = build_mesh(devices=devices)
     D = len(devices)
     for k, counts in enumerate(([5000] * D, [1, 0, 777, 4000][:D],
                                 [0] * D)):
-        shards = _fused_shards(mesh.devices, accum, counts, seed=10 * k)
+        shards = _fused_shards(mesh.devices, accum, counts, seed=10 * k,
+                               f=f)
         before = cr.fused_segment_hist_ring_cuda.launches
         for _ in range(2):   # the kernel leaves its work buffers zeroed
             got = co.fused_segment_hist_ring(shards, 256, mesh, accum)
@@ -188,6 +189,20 @@ def test_ring_allreduce_across_cards(cuda_device):
 @pytest.mark.parametrize("accum", ["float32", "int32"])
 def test_fused_segment_hist_ring_across_cards(cuda_device, accum):
     _check_fused(_two_cards(), accum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ["float32", "int32"])
+def test_ring_kernels_on_an_uneven_mesh(cuda_device, accum):
+    """Two shards on the first card and one on the second.  On its own the
+    first card would launch fewer blocks a rank than the second wherever
+    the payload needs more than it holds (a (2200, 256, 3) ring; the fused
+    kernel at 300 features and B = 256); the wrappers launch the mesh's
+    one count on both, so the ring's slices line up."""
+    first, second = _two_cards()[:2]
+    devices = [first, first, second]
+    _check_ring(devices, RING_SHAPES + [(2200, 256, 3)])
+    _check_fused(devices, accum, f=300)
 
 
 @pytest.mark.cuda
