@@ -30,7 +30,11 @@ Phases, each printing one JSON line:
 7. collectives — the ring kernels of ``csrc/ring.cu`` on D ∈ {2, 4}
    virtual shards of the card: ``ring_allreduce`` against its plain twin
    on the flagship payload (50, 256, 3) and a ragged (13, 17, 3), exactly
-   (``torch.equal``); ``fused_segment_hist_ring`` against its twin on the
+   (``torch.equal``); ``ring_allreduce_select`` against its twin, exactly,
+   on the wide voting configuration's local pair (2, 2000, 256, 3) with
+   k2 = 64 candidates per child, a single (2000, 256, 3) slab and a
+   ragged (9, 7, 3) with 5 (yardstick ``torch.stack([p.index_select(...)
+   for p in parts]).sum(0)``); ``fused_segment_hist_ring`` against its twin on the
    flagship matrix split over D shards, segments of 1, 777 and 100,000
    rows per shard, float32 within the kernels' tolerance and int32
    exactly.  Median times of the kernel's wrapper call, the twin and a
@@ -46,7 +50,21 @@ Phases, each printing one JSON line:
    once per split (pallas_ring).  Then a 20,000 × 50, 5-iteration D = 4
    fit on the card and on ``devices=["cpu"] * 4``: identical first tree,
    AUCs within 0.002.
-9. collectives_cross_card — phase 7's checks with one shard per card,
+9. voting_path — the repo's wide configuration (``bench.py``'s wide-data
+   A/B: 8,192 × 2,000, 4 iterations, 31 leaves, ``maxDepth`` 30, 255
+   bins) on four virtual devices of the card, each learner a warm-up fit
+   and a timed fit: ``parallelism="data"`` with the ring, ``"voting"``
+   with the ring and ``topK=32``, ``"feature"`` on a 1 × 4 grid and
+   ``"data+feature"`` on 2 × 2.  Each reports fit seconds, train AUC, the
+   launches of every kernel, host syncs and the per-tree collective
+   schedule.  Voting must launch ``ring_allreduce_select`` once per tree
+   and split and no dense ring, ``hist_full`` 4 × trees, carry 0.063012
+   of the dense payload, and reach the data fit's AUC within 0.01.  Then
+   the voting fit once more under ``torch.profiler`` (device time by
+   kernel, the device's idle share), and a 20,000 × 50, 5-iteration D = 4
+   voting fit (``topK=5``) on the card and on ``devices=["cpu"] * 4``:
+   identical first tree, AUCs within 0.002.
+10. collectives_cross_card — phase 7's checks with one shard per card,
    D = min(cards, 4), where the host has at least two cards; elsewhere it
    prints ``"ran": false`` (not a failure).
 
@@ -87,16 +105,26 @@ RING_SHARDS = (2, 4)
 RING_SHAPES = ((50, 256, 3), (13, 17, 3))
 SHARD_SEGMENT_COUNTS = (1, 777, 100_000)
 MESH_SHARDS = 4
+#: the voted-column ring: (local histogram, candidates) — the wide voting
+#: configuration's grow-step pair and root slab (f = 2000, B = 256, topK
+#: 32 so k2 = 64), and a ragged slab
+SELECT_SHAPES = (((2, 2000, 256, 3), (2, 64)), ((2000, 256, 3), (64,)),
+                 ((9, 7, 3), (5,)))
+#: the wide configuration (bench.py's wide-data A/B,
+#: artifacts/bench_wide_r16.json): rows, features, iterations, topK
+WIDE_ROWS, WIDE_FEATURES, WIDE_ITERATIONS, WIDE_TOP_K = 8192, 2000, 4, 32
 REPLACES = {
     "hist_full": "mmlspark_tpu/ops/pallas_histogram.py:384",
     "hist_segment": "mmlspark_tpu/ops/pallas_histogram.py:148",
     "ring_allreduce": "mmlspark_tpu/ops/pallas_collectives.py:196",
+    "ring_allreduce_select": "mmlspark_tpu/ops/pallas_collectives.py:242",
     "fused_segment_hist_ring": "mmlspark_tpu/ops/pallas_collectives.py:406",
 }
 SOURCES = {
     "hist_full": "mmlspark_tpu_torch/csrc/histogram.cu",
     "hist_segment": "mmlspark_tpu_torch/csrc/histogram.cu",
     "ring_allreduce": "mmlspark_tpu_torch/csrc/ring.cu",
+    "ring_allreduce_select": "mmlspark_tpu_torch/csrc/ring.cu",
     "fused_segment_hist_ring": "mmlspark_tpu_torch/csrc/ring.cu",
 }
 #: the card the kernels and the main path run on
@@ -391,7 +419,6 @@ def phase_profile():
     """Where a flagship fit's time goes: ``torch.profiler`` over a
     10-iteration fit at full width, device time summed by kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mmlspark_tpu_torch.gbdt import fit_bin_mapper
     X, y = bench_data(N_ROWS, N_FEATURES)
     table = {"features": X, "label": y}
@@ -400,6 +427,16 @@ def phase_profile():
     torch.cuda.synchronize()
     binning_s = time.perf_counter() - t0
     est = _classifier(numIterations=10, device=DEV, parallelism="serial")
+    return {"iterations": 10, "binning_s": binning_s,
+            **profiled_fit(est, table, ("hist_full", "hist_segment"))}
+
+
+def profiled_fit(est, table, kernels):
+    """One warmed fit of ``est`` under ``torch.profiler``: its wall time,
+    the device's busy time and idle share, the device time of the named
+    ``kernels`` (``<name>_kernel``) and the busiest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     est.fit(table)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -417,13 +454,12 @@ def phase_profile():
                           dev.get(e.key, (0.0, 0))[1] + e.count)
     busy = sum(v[0] for v in dev.values())
     ours = {k: sum(v[0] for n, v in dev.items() if f"{k}_kernel" in n)
-            for k in ("hist_full", "hist_segment")}
+            for k in kernels}
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"iterations": 10, "fit_s_profiled": wall_s,
-            "binning_s": binning_s,
+    return {"fit_s_profiled": wall_s,
             "device_busy_ms": busy if dev else None,
             "device_idle_share": 1 - busy / (wall_s * 1e3) if dev else None,
-            "histogram_kernels_ms": ours,
+            "kernels_ms": ours,
             "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]}
                             for k, v in top]}
 
@@ -486,6 +522,63 @@ def _ring_rows(devices, tag):
                          "ring_allreduce_kernel"),
                      "plain_ms": median_ms(
                          lambda: co.ring_allreduce_plain(parts)),
+                     "library_ms": median_ms(library),
+                     "bound_ms": bms, "bound_by": by})
+    return rows
+
+
+def _select_rows(devices, tag):
+    """ring_allreduce_select against its twin, exactly, on the mesh
+    ``devices``."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core.mesh import build_mesh
+    from mmlspark_tpu_torch.ops import collectives as co
+    from mmlspark_tpu_torch.ops import cuda_ring as cr
+    mesh = build_mesh(devices=devices)
+    D = len(mesh)
+    one_card = len(set(mesh.devices)) == 1
+    rows = []
+    for k, (shape, cand_shape) in enumerate(SELECT_SHAPES):
+        rng = np.random.default_rng(200 * D + k)
+        lead = len(cand_shape) - 1
+        f = shape[lead]
+        cand_np = np.stack([
+            rng.choice(f, size=cand_shape[-1], replace=False)
+            for _ in range(int(np.prod(cand_shape[:-1])))]).astype(np.int32)
+        cand = torch.from_numpy(cand_np.reshape(cand_shape)).to(devices[0])
+        parts = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 .to(d) for d in mesh.devices]
+        got = co.ring_allreduce_select(parts, cand, mesh)
+        want = co.ring_allreduce_select_plain(parts, cand)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(g.to(want.device), want) for g in got)
+        err = max(float((g.to(want.device) - want).abs().max())
+                  for g in got)
+        # yardstick: one index_select per shard over the flattened
+        # (m·f, B, 3) view, then a stacked sum
+        flat = [p.reshape((-1,) + tuple(shape[lead + 1:])) for p in parts]
+        rows_idx = (torch.arange(cand_np.shape[0], device=devices[0])[:, None]
+                    * f + cand.reshape(cand_np.shape).long()).reshape(-1)
+        idx = [rows_idx.to(p.device) for p in parts]
+
+        def library():
+            return torch.stack([p.index_select(0, i).to(devices[0])
+                                for p, i in zip(flat, idx)]).sum(0)
+
+        bms, by = allreduce_bound_ms(want.numel() * 4, D, one_card)
+        rows.append({"kernel": "ring_allreduce_select", "mesh": tag,
+                     "shards": D, "shape": list(shape),
+                     "cand": list(cand_shape), "accum": "float32",
+                     "match": exact, "max_abs_err": err,
+                     "ms": median_ms(lambda: cr.ring_allreduce_select_cuda(
+                         parts, cand, mesh)),
+                     "device_ms": device_ms(
+                         lambda: cr.ring_allreduce_select_cuda(parts, cand,
+                                                               mesh),
+                         "ring_select_kernel"),
+                     "plain_ms": median_ms(
+                         lambda: co.ring_allreduce_select_plain(parts, cand)),
                      "library_ms": median_ms(library),
                      "bound_ms": bms, "bound_by": by})
     return rows
@@ -577,16 +670,20 @@ def phase_collectives(state):
     rows = []
     for D in RING_SHARDS:
         rows += _ring_rows([dev] * D, "virtual")
+        rows += _select_rows([dev] * D, "virtual")
         rows += _fused_rows([dev] * D, "virtual", inputs)
     state["ring_rows"] = rows
     _check_rows(rows)
-    return {"rows": rows, "tolerance": "ring_allreduce exact "
-            "(torch.equal); fused_segment_hist_ring int32 exact, f32 "
+    return {"rows": rows, "tolerance": "ring_allreduce and "
+            "ring_allreduce_select exact (torch.equal); "
+            "fused_segment_hist_ring int32 exact, f32 "
             f"|k-p| <= {RTOL}|p| + {ATOL_ULPS}*2^-24*sum|gh| per cell",
             "bound": "bytes at 3.35 TB/s: ring_allreduce reads the D "
-            "partials and writes the D outputs; fused_segment_hist_ring "
-            "reads each segment row's bins, gh and row id and writes the D "
-            "outputs (the ring's comm-slot traffic is not counted)"}
+            "partials and writes the D outputs; ring_allreduce_select reads "
+            "the D gathered slabs and writes the D outputs; "
+            "fused_segment_hist_ring reads each segment row's bins, gh and "
+            "row id and writes the D outputs (the ring's comm-slot traffic "
+            "is not counted)"}
 
 
 def phase_collectives_cross_card():
@@ -595,8 +692,8 @@ def phase_collectives_cross_card():
     if cards < 2:
         return {"ran": False, "cards": cards}
     devices = [torch.device(DEV, i) for i in range(min(cards, 4))]
-    rows = _ring_rows(devices, "cards") + _fused_rows(
-        devices, "cards", kernel_inputs())
+    rows = (_ring_rows(devices, "cards") + _select_rows(devices, "cards")
+            + _fused_rows(devices, "cards", kernel_inputs()))
     _check_rows(rows)
     return {"ran": True, "cards": cards, "rows": rows}
 
@@ -606,12 +703,7 @@ def phase_mesh_path(state):
     import torch
     from mmlspark_tpu_torch import build_mesh
     from mmlspark_tpu_torch.gbdt.grower import grow_tree
-    from mmlspark_tpu_torch.ops import cuda_histogram as ch
-    from mmlspark_tpu_torch.ops import cuda_ring as cr
-    counters = {"hist_full": ch.histogram_cuda,
-                "hist_segment": ch.histogram_cuda_fused,
-                "ring_allreduce": cr.ring_allreduce_cuda,
-                "fused_segment_hist_ring": cr.fused_segment_hist_ring_cuda}
+    counters = _counters()
     X, y = bench_data(N_ROWS, N_FEATURES)
     table = {"features": X, "label": y}
     mesh = build_mesh(data=MESH_SHARDS,
@@ -693,17 +785,137 @@ def _mesh_card_vs_cpu():
     return res
 
 
+def _counters():
+    from mmlspark_tpu_torch.ops import cuda_histogram as ch
+    from mmlspark_tpu_torch.ops import cuda_ring as cr
+    return {"hist_full": ch.histogram_cuda,
+            "hist_segment": ch.histogram_cuda_fused,
+            "ring_allreduce": cr.ring_allreduce_cuda,
+            "ring_allreduce_select": cr.ring_allreduce_select_cuda,
+            "fused_segment_hist_ring": cr.fused_segment_hist_ring_cuda}
+
+
+def phase_voting_path(state):
+    """The wide configuration under each learner on four virtual devices
+    of the card, then a small voting fit on the card against the CPU."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import build_mesh
+    from mmlspark_tpu_torch.gbdt import engine
+    from mmlspark_tpu_torch.gbdt.grower import grow_tree
+    counters = _counters()
+    X, y = bench_data(WIDE_ROWS, WIDE_FEATURES)
+    table = {"features": X, "label": y}
+    card = [f"{DEV}:0"] * MESH_SHARDS
+    learners = {
+        "data": (build_mesh(data=MESH_SHARDS, devices=card),
+                 dict(parallelism="data", collective="ring")),
+        "voting": (build_mesh(data=MESH_SHARDS, devices=card),
+                   dict(parallelism="voting", collective="ring",
+                        topK=WIDE_TOP_K)),
+        "feature": (build_mesh(1, MESH_SHARDS, devices=card),
+                    dict(parallelism="feature")),
+        "data+feature": (build_mesh(2, MESH_SHARDS // 2, devices=card),
+                         dict(parallelism="data+feature")),
+    }
+    fits = {}
+    for name, (mesh, kw) in learners.items():
+        est = _classifier(numIterations=WIDE_ITERATIONS, maxDepth=30,
+                          device=DEV, **kw).setMesh(mesh)
+        est.fit(table)                               # warm-up
+        for fn in counters.values():
+            fn.launches = 0
+        grow_tree.host_syncs = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        syncs = grow_tree.host_syncs
+        info = dict(engine.last_fit_info)
+        prob = model.transform(table)["probability"][:, 1]
+        trees = model.getModel().trees
+        if prob.shape != (WIDE_ROWS,) or not np.isfinite(prob).all():
+            raise AssertionError(f"{name}: probabilities not finite of "
+                                 f"shape ({WIDE_ROWS},)")
+        fits[name] = {
+            "mesh": mesh.shape, "fit_s": fit_s, "train_auc": auc(y, prob),
+            "trees": len(trees),
+            "splits": sum(t.num_leaves - 1 for t in trees),
+            "launches": launches, "host_syncs": syncs,
+            "collective": info["collective"],
+            "collective_downgrade": info["collective_downgrade"],
+            "collectives_per_tree": int(info["collective_count_per_tree"]),
+            "payload_bytes_per_tree":
+                int(info["collective_payload_bytes_per_tree"]),
+            "payload_vs_dense": float(info["collective_payload_vs_dense"])}
+    vote = fits["voting"]
+    state["voting_launches"] = vote["launches"]["ring_allreduce_select"]
+    mesh, kw = learners["voting"]
+    profile = profiled_fit(
+        _classifier(numIterations=WIDE_ITERATIONS, maxDepth=30, device=DEV,
+                    **kw).setMesh(mesh), table,
+        ("hist_full", "hist_segment", "ring_select"))
+    res = {"rows": WIDE_ROWS, "features": WIDE_FEATURES,
+           "iterations": WIDE_ITERATIONS, "top_k": WIDE_TOP_K,
+           "fits": fits, "voting_profile": profile,
+           "card_vs_cpu": _voting_card_vs_cpu()}
+    want = {"ring_allreduce_select": vote["trees"] + vote["splits"],
+            "ring_allreduce": 0, "fused_segment_hist_ring": 0,
+            "hist_full": MESH_SHARDS * vote["trees"]}
+    got = {k: vote["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"voting: launch counts {got} != {want}: "
+                             f"{res}")
+    if vote["payload_vs_dense"] != 0.063012:
+        raise AssertionError(f"voting: payload/dense "
+                             f"{vote['payload_vs_dense']} != 0.063012")
+    if abs(vote["train_auc"] - fits["data"]["train_auc"]) > 0.01:
+        raise AssertionError(f"voting AUC {vote['train_auc']} is not within "
+                             f"0.01 of the data fit's: {res}")
+    return res
+
+
+def _voting_card_vs_cpu():
+    """A 20,000 × 50, 5-iteration D = 4 voting ring fit (topK 5) on the
+    card and on ``devices=["cpu"] * 4``."""
+    import numpy as np
+    from mmlspark_tpu_torch import build_mesh
+    X, y = bench_data(20_000, N_FEATURES)
+    table = {"features": X, "label": y}
+    models = {}
+    for dev in (f"{DEV}:0", "cpu"):
+        est = _classifier(numIterations=5, device=dev.split(":")[0],
+                          collective="ring", parallelism="voting", topK=5)
+        models[dev] = est.setMesh(build_mesh(
+            devices=[dev] * MESH_SHARDS)).fit(table)
+    card, cpu = (models[d].getModel().trees[0] for d in (f"{DEV}:0", "cpu"))
+    same = all(np.array_equal(getattr(card, k), getattr(cpu, k)) for k in
+               ("split_feature", "threshold", "left_child", "right_child"))
+    aucs = {d: auc(y, m.transform(table)["probability"][:, 1])
+            for d, m in models.items()}
+    res = {"first_tree_equal": same, "auc": aucs}
+    if not same or abs(aucs[f"{DEV}:0"] - aucs["cpu"]) > 0.002:
+        raise AssertionError(f"the D = {MESH_SHARDS} voting card fit "
+                             f"differs from the cpu fit: {res}")
+    return res
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r["accum"] == "float32"
             and r["rows"] in (N_ROWS, max(SEGMENT_COUNTS))}
+    main_shape = {"ring_allreduce": list(RING_SHAPES[0]),
+                  "ring_allreduce_select": list(SELECT_SHAPES[0][0])}
     for r in state.get("ring_rows", []):
         if r["shards"] == MESH_SHARDS and r["accum"] == "float32" and (
-                r.get("shape") == list(RING_SHAPES[0])
+                r.get("shape") == main_shape.get(r["kernel"])
                 or r.get("rows") == max(SHARD_SEGMENT_COUNTS)):
             rows[r["kernel"]] = r
     launches = {**state.get("launches", {}),
-                **state.get("mesh_launches", {})}
+                **state.get("mesh_launches", {}),
+                "ring_allreduce_select": state.get("voting_launches", 0)}
     out = []
     for name in REPLACES:
         r = rows.get(name, {})
@@ -749,6 +961,7 @@ def main(argv) -> int:
               ("profile", phase_profile),
               ("collectives", lambda: phase_collectives(state)),
               ("mesh_path", lambda: phase_mesh_path(state)),
+              ("voting_path", lambda: phase_voting_path(state)),
               ("collectives_cross_card", phase_collectives_cross_card)]
     if only is not None:
         unknown = only - {name for name, _ in phases}

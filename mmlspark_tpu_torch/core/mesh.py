@@ -1,18 +1,20 @@
-"""Data-shard mesh — the port's counterpart of ``mmlspark_tpu/core/mesh.py``.
+"""Device mesh — the port's counterpart of ``mmlspark_tpu/core/mesh.py``.
 
 The reference is single-controller SPMD: one process drives every device
 of a host through ``shard_map`` over a ``jax.sharding.Mesh``.  The port
 keeps the single controller and drops the compiler: a :class:`Mesh` is an
-ordered tuple of ``torch.device``\\ s, one per data shard, and one host loop
-drives all shards in lockstep (``gbdt/distributed.py``).  A device may
-appear more than once: D shards on one card are the port's counterpart of
-the reference's forced host device count, and ``devices=["cpu"] * D`` is
-how the CPU tests run a mesh.
+ordered tuple of ``torch.device``\\ s laid out as ``(data, feature)`` in
+row-major order (device ``k`` is data shard ``k // F`` and feature slice
+``k % F``, as the reference reshapes its device list), and one host loop
+drives all of them in lockstep (``gbdt/distributed.py``).  A device may
+appear more than once: several shards on one card are the port's
+counterpart of the reference's forced host device count, and
+``devices=["cpu"] * D`` is how the CPU tests run a mesh.
 
-There is one axis, ``DATA_AXIS`` (row parallelism); the reference's
-``feature`` axis belongs to the feature-parallel learner, which is not
-ported.  No ``jax.distributed`` counterpart: multi-host training is not
-ported either (ROADMAP.md Queue A).
+Axes: ``DATA_AXIS`` (row parallelism: data, voting) and ``FEATURE_AXIS``
+(the feature-parallel learner; both for data+feature).  No
+``jax.distributed`` counterpart: multi-host training is not ported
+(ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -26,17 +28,21 @@ import torch
 from ..device import DeviceLike, resolve_device
 
 DATA_AXIS = "data"
+FEATURE_AXIS = "feature"
 
 _active_mesh: Optional["Mesh"] = None
 
 
 class Mesh:
-    """Ordered data shards: shard ``d`` lives on ``devices[d]``.
+    """A ``(data, feature)`` grid of devices: data shard ``d``'s feature
+    slice ``j`` lives on ``devices[d * feature + j]``.  ``feature=1`` (the
+    default) is a mesh of data shards alone, shard ``d`` on
+    ``devices[d]``.
 
     ``scratch`` holds per-mesh device workspaces that kernels allocate
     once and reuse (the ring collectives' comm slots and flags)."""
 
-    def __init__(self, devices: Sequence[DeviceLike]):
+    def __init__(self, devices: Sequence[DeviceLike], feature: int = 1):
         devs = tuple(resolve_device(d) for d in devices)
         if not devs:
             raise ValueError("a mesh needs at least one device")
@@ -44,12 +50,21 @@ class Mesh:
         if len(kinds) != 1:
             raise ValueError(f"a mesh's devices must share one type, got "
                              f"{sorted(kinds)}")
+        if feature < 1 or len(devs) % feature:
+            raise ValueError(f"{len(devs)} devices do not form a mesh with "
+                             f"a feature axis of {feature}")
         self.devices: Tuple[torch.device, ...] = devs
+        self.feature = feature
         self.scratch: dict = {}
 
     @property
+    def data(self) -> int:
+        """Size of the data axis."""
+        return len(self.devices) // self.feature
+
+    @property
     def shape(self) -> dict:
-        return {DATA_AXIS: len(self.devices)}
+        return {DATA_AXIS: self.data, FEATURE_AXIS: self.feature}
 
     @property
     def device_type(self) -> str:
@@ -59,25 +74,31 @@ class Mesh:
         return len(self.devices)
 
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]})"
+        return (f"Mesh({[str(d) for d in self.devices]}, "
+                f"shape={self.shape})")
 
 
-def build_mesh(data: Optional[int] = None,
+def build_mesh(data: Optional[int] = None, feature: int = 1,
                devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
-    """A mesh of ``data`` shards over ``devices`` (default: every CUDA
-    card of the host, one shard each; raises without a GPU).  ``data``
-    defaults to the number of devices and must equal it otherwise."""
+    """A ``data × feature`` mesh over ``devices`` (default: every CUDA card
+    of the host, once each; raises without a GPU), in row-major order.
+    ``data`` defaults to the number of devices over ``feature``; the two
+    must cover the devices exactly (the reference's checks)."""
     if devices is None:
         resolve_device("cuda")   # raises without a GPU
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     devs = list(devices)
+    n = len(devs)
     if data is None:
-        data = len(devs)
-    if data != len(devs):
-        raise ValueError(f"a mesh of {data} data shards needs {data} "
-                         f"devices, got {len(devs)}")
-    return Mesh(devs)
+        if feature < 1 or n % feature:
+            raise ValueError(f"{n} devices not divisible by "
+                             f"feature={feature}")
+        data = n // feature
+    if data * feature != n:
+        raise ValueError(f"a mesh of {data} x {feature} (data x feature) "
+                         f"needs {data * feature} devices, got {n}")
+    return Mesh(devs, feature)
 
 
 def get_mesh() -> Mesh:
@@ -99,7 +120,8 @@ def use_mesh(mesh: Mesh) -> Iterator[Mesh]:
 
 
 def num_workers(mesh: Optional[Mesh] = None) -> int:
-    return len(mesh or get_mesh())
+    """Size of the data axis."""
+    return (mesh or get_mesh()).data
 
 
 def pad_to_multiple(n: int, k: int) -> int:
@@ -108,7 +130,7 @@ def pad_to_multiple(n: int, k: int) -> int:
 
 def shard_rows(x: np.ndarray, mesh: Mesh, pad_value=0
                ) -> Tuple[np.ndarray, int]:
-    """Pad the leading axis to a multiple of the shard count (the pad rows
+    """Pad the leading axis to a multiple of the data-axis size (the pad rows
     go at the end).  Returns ``(padded array, original length)``; shard
     ``d`` then holds rows ``[d·S, (d+1)·S)`` of the padded array."""
     k = num_workers(mesh)

@@ -10,6 +10,12 @@
 // _fused_hist_ring_kernel): each shard gathers its DataPartition segment
 // row_order[off : off + cnt], histograms it, and the (f, B, 3) partials are
 // ring-reduced in the same kernel (float32 or exact int32).
+// ring_select replaces ring_allreduce_select (the same TPU body under its
+// own collective id, with _gather_cand before it): the PV-Tree voted-column
+// reduction.  Each shard holds a local (f, B, 3) histogram, or the (m, f, B,
+// 3) stack of one grow step's children, and the candidate columns cand (k2,)
+// or (m, k2), identical on every shard (they come from the gathered votes);
+// the ring sums only the gathered (k2, B, 3) or (m, k2, B, 3) slab.
 //
 // Schedule.  Both follow the TPU kernel's ring exactly: the flattened
 // payload of `total` elements is cut into D chunks of `chunk` = cb * 128
@@ -52,6 +58,18 @@
 // %globaltimer and __trap()s when it runs out, so a broken handshake
 // surfaces as an error at the next synchronize, not as a hung card.
 //
+// ring_select.  ring_phase takes its payload through a loader; the select
+// ring's (SelectLoad) reads element (mm, kk, b, c) of the slab straight from
+// the rank's local histogram, hist[mm][cand[mm][kk]][b][c], so the gather
+// and the ring are one kernel with no staging copy, as the TPU kernel
+// gathers in its body.  The slab is flattened as one
+// array ((m, k2, B, 3) for a pair) before it is cut into chunks, so it is
+// summed in the twin's order (ring_allreduce_select_plain) bit for bit.  A
+// candidate index outside [0, f) traps the kernel (an error at the next
+// synchronize) instead of reading outside the histogram.  The select ring
+// has its own workspace (comm slots and flags), the counterpart of the TPU
+// kernel's own collective id: dense and voted rings never share a flag.
+//
 // fused_hist_ring.  Phase 1: the rank's blocks walk (feature group, row
 // tile) items of its segment with the shared-memory privatised histogram of
 // hist_segment (hist_block.cuh), flushing into the rank's `work` buffer.  A
@@ -78,6 +96,12 @@
 // held back by shared-memory atomics in phase 1 and by the handshakes in
 // phase 2.
 //
+// ring_select on the wide voting configuration (topK 32, so k2 = 64 of
+// f = 2000 columns, B = 256): the pair slab is (2, 64, 256, 3) f32 =
+// 393,216 B; at D = 4 shards on one card the function reads the 4 gathered
+// slabs and writes 4 outputs, 3.15 MB, 0.94 us.  Like ring_allreduce it is
+// held back by its 2(D-1) handshakes, not by bytes.
+//
 // Each entry returns cudaGetLastError() (or the launch's own error); the
 // kernels allocate nothing and launch on the caller's stream.
 
@@ -96,7 +120,9 @@ constexpr int kHistBlocksPerSM = 4;   // fused_hist_ring grid sizing
 constexpr unsigned long long kWaitNs = 20ull * 1000 * 1000 * 1000;  // kWaitSeconds = 20
 
 struct Rank {
-  const void* x;       // ring_allreduce: the input partial
+  const void* x;       // ring_allreduce: the input partial; ring_select:
+                       //   the local (m, f, B, 3) histogram
+  const int32_t* cand; // ring_select: (m * k2,) candidate columns
   void* out;           // the reduced payload
   void* slots;         // 2(D-1) chunks, written by rank - 1
   unsigned* flags;     // 2(D-1) * kMaxBlocks words, one per (slot, block)
@@ -114,6 +140,7 @@ struct Args {
   int local[kMaxRanks];  // global rank of block row blockIdx.y
   int ranks;             // D
   int f, num_bins, groups;
+  int64_t k2, inner;     // ring_select: candidates per child, B * 3
   int64_t total;         // payload elements
   int64_t chunk;         // cb * 128
   unsigned seq;          // launch sequence number, never 0
@@ -174,10 +201,32 @@ __device__ __forceinline__ void rank_barrier(unsigned* bar, unsigned nblocks, un
   __syncthreads();
 }
 
-// Block b (of nb) of `rank` runs its slice of the ring over the payload x.
-// kZeroX: zero x's slice once the reduce-scatter has read it.
-template <typename T, bool kZeroX>
-__device__ void ring_phase(const Args& a, int rank, int b, int nb, T* x) {
+// Payload element e of a plain array.
+template <typename T>
+struct DenseLoad {
+  const T* x;
+  __device__ __forceinline__ T operator()(int64_t e) const { return __ldcg(x + e); }
+};
+
+// Payload element e of the voted slab (m, k2, B, 3), read from the local
+// (m, f, B, 3) histogram through the candidate columns.
+struct SelectLoad {
+  const float* hist;
+  const int32_t* cand;  // (m * k2,)
+  int64_t f, k2, inner;
+  __device__ __forceinline__ float operator()(int64_t e) const {
+    const int64_t row = e / inner;  // slab row, m * k2 of them
+    const int64_t col = cand[row];
+    if (col < 0 || col >= f) __trap();
+    return __ldcg(hist + ((row / k2) * f + col) * inner + (e - row * inner));
+  }
+};
+
+// Block b (of nb) of `rank` runs its slice of the ring over the payload
+// that `load` reads.  kZeroX: zero x's slice once the reduce-scatter has
+// read it (x is the payload that `load` reads).
+template <typename T, bool kZeroX, typename Load>
+__device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& load, T* x) {
   const int D = a.ranks;
   const Rank& me = a.r[rank];
   const Rank& right = a.r[(rank + 1) % D];
@@ -191,7 +240,7 @@ __device__ void ring_phase(const Args& a, int rank, int b, int nb, T* x) {
   // reduce-scatter, step 0: chunk `rank` goes to the right neighbour
   for (int64_t i = i0; i < cs; i += stride) {
     const int64_t e = static_cast<int64_t>(rank) * cs + i;
-    __stcg(theirs + i, e < total ? __ldcg(x + e) : T(0));
+    __stcg(theirs + i, e < total ? load(e) : T(0));
   }
   block_signal(right.flags + b, a.seq);
   // steps 1 .. D-1: add the local part of chunk rank - k to the partial
@@ -204,7 +253,7 @@ __device__ void ring_phase(const Args& a, int rank, int b, int nb, T* x) {
     T* fwd = theirs + static_cast<int64_t>(k) * cs;
     for (int64_t i = i0; i < cs; i += stride) {
       const int64_t e = static_cast<int64_t>(c) * cs + i;
-      const T v = (e < total ? __ldcg(x + e) : T(0)) + __ldcg(in + i);
+      const T v = (e < total ? load(e) : T(0)) + __ldcg(in + i);
       if (k == D - 1 && e < total) out[e] = v;
       __stcg(fwd + i, v);
     }
@@ -237,8 +286,15 @@ __device__ void ring_phase(const Args& a, int rank, int b, int nb, T* x) {
 
 __global__ void __launch_bounds__(kThreads) ring_allreduce_kernel(const __grid_constant__ Args a) {
   const int rank = a.local[blockIdx.y];
-  float* x = const_cast<float*>(static_cast<const float*>(a.r[rank].x));
-  ring_phase<float, false>(a, rank, blockIdx.x, gridDim.x, x);
+  const DenseLoad<float> load{static_cast<const float*>(a.r[rank].x)};
+  ring_phase<float, false>(a, rank, blockIdx.x, gridDim.x, load, static_cast<float*>(nullptr));
+}
+
+__global__ void __launch_bounds__(kThreads) ring_select_kernel(const __grid_constant__ Args a) {
+  const int rank = a.local[blockIdx.y];
+  const Rank& me = a.r[rank];
+  const SelectLoad load{static_cast<const float*>(me.x), me.cand, a.f, a.k2, a.inner};
+  ring_phase<float, false>(a, rank, blockIdx.x, gridDim.x, load, static_cast<float*>(nullptr));
 }
 
 template <int kMode>
@@ -273,7 +329,8 @@ __global__ void __launch_bounds__(kThreads) fused_hist_ring_kernel(const __grid_
   // phase 2: ring-reduce `work` into every rank's `out`
   const int64_t need = (a.chunk + kThreads - 1) / kThreads;
   const int nb_ring = static_cast<int>(need < nb ? need : nb);
-  if (static_cast<int>(blockIdx.x) < nb_ring) ring_phase<T, true>(a, rank, blockIdx.x, nb_ring, work);
+  if (static_cast<int>(blockIdx.x) < nb_ring)
+    ring_phase<T, true>(a, rank, blockIdx.x, nb_ring, DenseLoad<T>{work}, work);
 }
 
 int sm_count() {
@@ -377,6 +434,12 @@ int ring_allreduce_blocks(int n_local, int64_t chunk) {
   return blocks_per_rank(reinterpret_cast<const void*>(ring_allreduce_kernel), 0, n_local, want);
 }
 
+int ring_allreduce_select_blocks(int n_local, int64_t chunk) {
+  if (n_local < 1) return 0;
+  const int64_t want = (chunk + kThreads * kElemsPerThread - 1) / (kThreads * kElemsPerThread);
+  return blocks_per_rank(reinterpret_cast<const void*>(ring_select_kernel), 0, n_local, want);
+}
+
 int fused_hist_ring_blocks(int mode, int num_bins, int n_local) {
   const void* kernel = fused_kernel(mode);
   if (!kernel || n_local < 1 || num_bins < 1 || num_bins > 256) return 0;
@@ -395,6 +458,30 @@ int ring_allreduce_launch(int ranks, int n_local, const int* local, void* const*
   if (rc) return rc;
   for (int r = 0; r < ranks; ++r) a.r[r].x = x[r];
   return launch(reinterpret_cast<const void*>(ring_allreduce_kernel), a, n_local, nb, 0, stream);
+}
+
+// The voted-column ring: hist[r] is rank r's local (m, f, B, 3) float32
+// histogram (m = 1 for one slab), cand[r] its copy of the (m * k2,) int32
+// candidate columns, out[r] its (m, k2, B, 3) result; inner = B * 3 and
+// total = m * k2 * inner.  nb: as above.
+int ring_allreduce_select_launch(int ranks, int n_local, const int* local, void* const* hist,
+                                 void* const* cand, void* const* out, void* const* slots,
+                                 void* const* flags, int f, int64_t k2, int64_t inner,
+                                 int64_t total, int64_t chunk, unsigned seq, int nb,
+                                 void* stream) {
+  Args a;
+  int rc = fill_common(a, ranks, n_local, local, out, slots, flags, total, chunk, seq);
+  if (rc) return rc;
+  if (f < 1 || k2 < 1 || inner < 1 || total % (k2 * inner) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.f = f;
+  a.k2 = k2;
+  a.inner = inner;
+  for (int r = 0; r < ranks; ++r) {
+    a.r[r].x = hist[r];
+    a.r[r].cand = static_cast<const int32_t*>(cand[r]);
+  }
+  return launch(reinterpret_cast<const void*>(ring_select_kernel), a, n_local, nb, 0, stream);
 }
 
 // mode: 0 = float32, 2 = int32 (hist_block.cuh).  `work` and `bar` are

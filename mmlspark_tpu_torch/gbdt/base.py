@@ -3,9 +3,9 @@
 The port's counterpart of ``mmlspark_tpu/gbdt/base.py``: bin the features
 on the host (:func:`.binning.fit_bin_mapper`), build the objective, and
 run the boosting loop (:func:`.engine.train`) on ``device`` — serially, or
-data-parallel over the shards of a mesh pinned with :meth:`setMesh` or, on
-a host with more than one card, built over all of them for a fit of at
-least ``autoMeshMinRows`` rows.  Param names mirror the reference's (and
+over a mesh pinned with :meth:`setMesh` or, on a host with more than one
+card, built over all of them (as ``parallelism`` lays them out) for a fit
+of at least ``autoMeshMinRows`` rows.  Param names mirror the reference's (and
 so the reference's public API); the port adds ``device``.  Params whose feature is not ported yet are
 declared so that asking for one raises ``NotImplementedError`` instead of
 training something else.
@@ -94,8 +94,11 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
                             default="auto",
                             typeConverter=TypeConverters.toString)
     parallelism = Param("parallelism",
-                        "Tree learner parallelism: serial or data (voting, "
-                        "feature and data+feature are not ported yet)",
+                        "Tree learner parallelism: serial, data, voting "
+                        "(PV-Tree: each data shard votes topK features "
+                        "and only the voted columns are reduced), "
+                        "feature or data+feature; a pinned mesh's shape "
+                        "decides which axes a fit has",
                         default="data", typeConverter=TypeConverters.toString)
     autoMeshMinRows = Param(
         "autoMeshMinRows",
@@ -109,8 +112,8 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
                        "or psum (the shard-order sum) or ring (the "
                        "ring_allreduce kernel)", default="auto",
                        typeConverter=TypeConverters.toString)
-    topK = Param("topK", "Voting parallelism (not ported yet): features "
-                 "each worker votes per split", default=20,
+    topK = Param("topK", "Voting parallelism: features each data shard "
+                 "votes per split", default=20,
                  typeConverter=TypeConverters.toInt)
     # -- params of features the port has not reached yet (ROADMAP.md) ------
     boostingType = Param("boostingType", "gbdt (goss, dart and rf are not "
@@ -179,6 +182,7 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
             histogram_method=self.getHistogramMethod(),
             parallelism=self.getParallelism(),
             collective=self.getCollective(),
+            top_k=self.getTopK(),
             verbosity=self.getVerbosity(),
         )
 
@@ -190,8 +194,9 @@ class LightGBMBase(Estimator, LightGBMParams):
     _mesh = None
 
     def setMesh(self, mesh) -> "LightGBMBase":
-        """Pin a data-shard mesh (:func:`..core.mesh.build_mesh`) for
-        training: the fit runs on the mesh's devices."""
+        """Pin a mesh (:func:`..core.mesh.build_mesh`) for training: the
+        fit runs on the mesh's devices, its rows sharded over the data
+        axis and its features over the feature axis."""
         self._mesh = mesh
         return self
 

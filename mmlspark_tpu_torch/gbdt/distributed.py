@@ -1,24 +1,29 @@
-"""Data-parallel GBDT training over a mesh of data shards.
+"""Distributed GBDT training over a mesh: the data, voting, feature and
+data+feature learners.
 
-The port's counterpart of the data-parallel parts of
-``mmlspark_tpu/gbdt/distributed.py``.  The reference runs the whole boost
-step under ``shard_map``; the port keeps its single controller and drives
-the shards of a :class:`..core.mesh.Mesh` in lockstep from one host loop:
+The port's counterpart of ``mmlspark_tpu/gbdt/distributed.py``.  The
+reference runs the whole boost step under ``shard_map``; the port keeps
+its single controller and drives the devices of a
+:class:`..core.mesh.Mesh` (a ``data × feature`` grid) in lockstep from one
+host loop:
 
-* :func:`prepare_arrays` lays the rows out as the reference does — padded
-  at the end to a multiple of D, shard ``d`` holding rows ``[d·S,
-  (d+1)·S)``, pad rows with zero bins, label and weight and ``real = 0``
-  — so both packages grow the same forests;
+* :func:`prepare_arrays` lays the rows and features out as the reference
+  does — rows padded at the end to a multiple of the data axis, data shard
+  ``d`` holding rows ``[d·S, (d+1)·S)``, pad rows with zero bins, label
+  and weight and ``real = 0``; features padded at the end to a multiple of
+  the feature axis with constant-zero columns (masked out of every split),
+  feature slice ``j`` holding ``f_local`` consecutive columns — so both
+  packages grow the same forests;
 * :func:`boost_iteration` is the iteration body of the reference's
-  ``make_boost_scan`` (gbdt): per shard the objective's (grad, hess)
-  masked by bag and ``real``, one tree grown over all shards
-  (:func:`.grower.grow_tree_sharded`), and each shard's score update.
+  ``make_boost_scan`` (gbdt): per device the objective's (grad, hess)
+  masked by bag and ``real``, one tree grown over the mesh
+  (:func:`.grower.grow_tree_sharded`), and each device's score update.
 
-A serial fit is the one-shard case of the same code.  Only the data
-learner is ported; the voting, feature and data+feature learners raise
-``NotImplementedError`` (ROADMAP.md Queue A).  The reference's
-``data_only_mesh`` has no counterpart: a port ``Mesh`` has the data axis
-alone.
+``parallelism`` maps onto the learner as in the reference: ``data`` and
+``voting`` shard rows (voting keeps histograms local and reduces only the
+voted columns, ``GrowerConfig.voting_k``), ``feature`` shards features,
+``data+feature`` both; the mesh's shape decides which axes a fit has.  A
+serial fit is the one-device case of the same code.
 """
 
 from __future__ import annotations
@@ -34,40 +39,49 @@ from .grower import GrowerConfig, TreeArrays, grow_tree_sharded
 from .objectives import Objective, fma32
 
 VALID_PARALLELISM = ("serial", "data", "feature", "data+feature", "voting")
-PORTED_PARALLELISM = ("serial", "data")
 
 
 def check_parallelism(parallelism: str) -> None:
-    """Raise for a ``parallelism`` value the port does not train."""
+    """Raise for an unknown ``parallelism`` value."""
     if parallelism not in VALID_PARALLELISM:
         raise ValueError(f"Unknown parallelism {parallelism!r}; "
                          f"valid: {VALID_PARALLELISM}")
-    if parallelism not in PORTED_PARALLELISM:
-        raise NotImplementedError(
-            f"parallelism={parallelism!r} is not ported yet: the port "
-            "trains 'data' (and 'serial'); the voting and feature learners "
-            "are the next slice (ROADMAP.md Queue A)")
 
 
 def resolve_mesh(parallelism: str, mesh: Optional[Mesh] = None) -> Mesh:
-    """The mesh a ``parallelism`` value implies: ``mesh`` when given, else
-    every CUDA card of the host (``"data"``) or the first one
-    (``"serial"``)."""
+    """The mesh a ``parallelism`` value implies (the reference's layouts):
+    ``mesh`` when given, else the host's n CUDA cards as 1 × n
+    (``"feature"``), n/2 × 2 (``"data+feature"``, n even), the first card
+    alone (``"serial"``), or n × 1 (``"data"``, ``"voting"``, and the
+    feature layouts on one card or an odd count)."""
     check_parallelism(parallelism)
     if mesh is not None:
         return mesh
     full = build_mesh()
-    return Mesh(full.devices[:1]) if parallelism == "serial" else full
+    n = len(full)
+    if parallelism == "serial":
+        return Mesh(full.devices[:1])
+    if parallelism == "feature" and n > 1:
+        return build_mesh(1, n, full.devices)
+    if parallelism == "data+feature" and n > 1 and n % 2 == 0:
+        return build_mesh(n // 2, 2, full.devices)
+    return full
 
 
 def sharded_cfg(mesh: Optional[Mesh], cfg: GrowerConfig) -> GrowerConfig:
-    """``cfg`` with the mesh's shard count."""
-    return replace(cfg, data_axis_size=1 if mesh is None else len(mesh))
+    """``cfg`` with the mesh's data and feature axis sizes."""
+    if mesh is None:
+        return replace(cfg, data_axis_size=1, feature_axis_size=1)
+    return replace(cfg, data_axis_size=mesh.data,
+                   feature_axis_size=mesh.feature)
 
 
 @dataclass
 class ShardArrays:
-    """Per-shard device arrays of one fit (index d = shard d)."""
+    """Per-device arrays of one fit: index ``k`` is device ``k`` of the
+    mesh, data shard ``k // feature``, feature slice ``k % feature``.
+    Every device of a data shard holds that shard's rows, labels and
+    weights, and its own scores."""
     bins: List[torch.Tensor]
     labels: List[torch.Tensor]
     weights: List[torch.Tensor]
@@ -75,39 +89,51 @@ class ShardArrays:
     scores: List[torch.Tensor]
     rows_per_shard: int
     n: int                      # real rows; pad rows follow them
+    feature: int = 1            # size of the feature axis
 
     @property
     def n_padded(self) -> int:
-        return self.rows_per_shard * len(self.bins)
+        return self.rows_per_shard * (len(self.bins) // self.feature)
 
     def split(self, row: np.ndarray, devices) -> List[torch.Tensor]:
-        """A host ``(n_padded,)`` row vector cut into per-shard tensors."""
+        """A host ``(n_padded,)`` row vector cut into per-device tensors
+        (device k gets its data shard's rows)."""
         S = self.rows_per_shard
-        return [torch.as_tensor(row[d * S:(d + 1) * S], device=dev)
-                for d, dev in enumerate(devices)]
+        return [torch.as_tensor(row[k // self.feature * S:
+                                    (k // self.feature + 1) * S], device=dev)
+                for k, dev in enumerate(devices)]
 
 
 def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
                    weights: np.ndarray, devices: Sequence[torch.device],
-                   init: float) -> ShardArrays:
-    """Pad rows to a multiple of D and cut them into D shards, each moved
-    to its device.  Pad rows carry zero bins, labels and weights and
-    ``real = 0`` (excluded from every histogram through the bag mask)."""
-    D = len(devices)
+                   init: float, feature: int = 1) -> ShardArrays:
+    """Lay the rows and features out over ``devices``, a ``(D, feature)``
+    grid in row-major order: rows padded to a multiple of D and cut into
+    D shards, features padded to a multiple of ``feature`` and cut into
+    slices, each piece moved to its device.  Pad rows carry zero bins,
+    labels and weights and ``real = 0`` (excluded from every histogram
+    through the bag mask); pad features are constant bin 0."""
+    D = len(devices) // feature
     n, f = bins.shape
     rp = pad_to_multiple(n, D) - n
+    fp = pad_to_multiple(f, feature) - f
     S = (n + rp) // D
+    f_loc = (f + fp) // feature
     if rp:
         bins = torch.cat([bins, bins.new_zeros((rp, f))])
+    if fp:
+        bins = torch.cat([bins, bins.new_zeros((n + rp, fp))], dim=1)
     pad = np.zeros(rp)
     lab = np.concatenate([np.asarray(labels, np.float64), pad])
     w = np.concatenate([np.asarray(weights, np.float64), pad])
     real = np.concatenate([np.ones(n), pad])
     arrays = ShardArrays(bins=[], labels=[], weights=[], real=[], scores=[],
-                         rows_per_shard=S, n=n)
-    for d, dev in enumerate(devices):
+                         rows_per_shard=S, n=n, feature=feature)
+    for k, dev in enumerate(devices):
+        d, j = divmod(k, feature)
         rows = slice(d * S, (d + 1) * S)
-        arrays.bins.append(bins[rows].to(dev).contiguous())
+        arrays.bins.append(
+            bins[rows, j * f_loc:(j + 1) * f_loc].to(dev).contiguous())
         for name, host in (("labels", lab), ("weights", w), ("real", real)):
             getattr(arrays, name).append(torch.as_tensor(
                 host[rows], dtype=torch.float32, device=dev))
@@ -120,17 +146,19 @@ def boost_iteration(arrays: ShardArrays, bag: Sequence[torch.Tensor],
                     feat_info: np.ndarray, objective: Objective,
                     cfg: GrowerConfig, learning_rate: float,
                     mesh: Optional[Mesh]) -> TreeArrays:
-    """One gbdt iteration over every shard: masked (grad, hess, count),
+    """One gbdt iteration over every device: masked (grad, hess, count),
     one tree, and the score update (``scores + lr·leaf``, an FMA as in the
-    reference).  Returns the unshrunk tree; updates ``arrays.scores``."""
+    reference) with the leaf values of the device's own learner.  Returns
+    the unshrunk tree; updates ``arrays.scores``."""
     gh = []
-    for d in range(len(arrays.bins)):
-        b = bag[d] * arrays.real[d]
-        g, h = objective.grad_hess(arrays.scores[d], arrays.labels[d],
-                                   arrays.weights[d])
+    for k in range(len(arrays.bins)):
+        b = bag[k] * arrays.real[k]
+        g, h = objective.grad_hess(arrays.scores[k], arrays.labels[k],
+                                   arrays.weights[k])
         gh.append(torch.stack([g * b, h * b, b], dim=1))
-    tree, row_leaf = grow_tree_sharded(arrays.bins, gh, feat_info, cfg, mesh)
-    for d, leaf in enumerate(row_leaf):
-        arrays.scores[d] = fma32(tree.leaf_value.to(leaf.device)[leaf],
-                                 learning_rate, arrays.scores[d])
+    tree, row_leaf, values = grow_tree_sharded(arrays.bins, gh, feat_info,
+                                               cfg, mesh)
+    for k, (leaf, value) in enumerate(zip(row_leaf, values)):
+        arrays.scores[k] = fma32(value.to(leaf.device)[leaf], learning_rate,
+                                 arrays.scores[k])
     return tree

@@ -1,14 +1,17 @@
-"""Boosting loop — ``boosting="gbdt"`` training, serial or data-parallel.
+"""Boosting loop — ``boosting="gbdt"`` training, serial or on a mesh.
 
 The port's counterpart of ``mmlspark_tpu/gbdt/engine.py`` (``train`` →
 ``_train_impl`` → ``_boost_scan`` serially, ``_train_distributed`` on a
 mesh): per iteration, (grad, hess) from the objective, one tree from
 :func:`..grower.grow_tree_sharded`, and the score update.  A serial fit is
-the one-shard case of the mesh loop (:mod:`.distributed`).  Bagging and
-feature-fraction draws use numpy ``default_rng`` streams seeded as the
-reference seeds them, so both packages draw the same rows and features;
-on a mesh the bag draws exactly n randoms and scatters them into the
-padded layout, as the reference does.
+the one-device case of the mesh loop (:mod:`.distributed`); the mesh's
+shape decides between the data (or voting), feature and data+feature
+learners.  Bagging and feature-fraction draws use numpy ``default_rng``
+streams seeded as the reference seeds them, so both packages draw the
+same rows and features: on a mesh the bag draws exactly n randoms and
+scatters them into the padded layout, and feature fraction draws over the
+original f features, the pad features staying masked, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.mesh import Mesh
+from ..core.mesh import Mesh, pad_to_multiple
 from ..device import DeviceLike, resolve_device
 from ..ops.collectives import resolve_collective
 from .binning import BinMapper
@@ -61,21 +64,30 @@ class TrainParams:
     histogram_method: str = "auto"
     parallelism: str = "data"
     collective: str = "auto"
+    #: PV-Tree voting: features each shard votes per split (LightGBM
+    #: top_k); read only when ``parallelism == "voting"``
+    top_k: int = 20
     verbosity: int = 1
 
 
 def _resolve_collective_cfg(params: TrainParams, mesh: Optional[Mesh]):
     """``params.collective`` → ``(collective, downgrade reason)``.  ``auto``
     and ``psum`` are the shard-order sum; ``ring`` needs more than one data
-    shard and otherwise keeps psum with reason ``single_data_shard``.
-    There is no compile-probe downgrade: on the card a ring kernel that
-    does not build or launch raises."""
-    shards = 1 if mesh is None else len(mesh)
+    shard (else reason ``single_data_shard``) and a mesh without a feature
+    axis (else ``feature_axis``), and otherwise keeps psum, as the
+    reference does.  Voting rides the ring on a data-only mesh.  There is
+    no compile-probe downgrade: on the card a ring kernel that does not
+    build or launch raises."""
+    shards = 1 if mesh is None else mesh.data
     collective = resolve_collective(params.collective, shards)
-    if collective == "psum" and params.collective == "ring":
-        log.info("collective='ring' needs a multi-shard mesh; this fit "
-                 "keeps psum (single_data_shard)")
-        return "psum", "single_data_shard"
+    if params.collective != "ring":
+        return collective, "none"
+    reason = ("single_data_shard" if collective == "psum"
+              else "feature_axis" if mesh.feature > 1 else "none")
+    if reason != "none":
+        log.info("collective='ring' needs a multi-shard data-parallel or "
+                 "voting fit; this fit keeps psum (%s)", reason)
+        return "psum", reason
     return collective, "none"
 
 
@@ -87,6 +99,8 @@ def _record_fit_resolution(cfg: GrowerConfig, collective: str,
         histogram_method=cfg.hist_method, collective=collective,
         collective_downgrade=downgrade, backend=backend,
         data_shards=str(cfg.data_axis_size),
+        feature_shards=str(cfg.feature_axis_size),
+        voting_k=str(cfg.voting_k),
         collective_count_per_tree=str(sched["count"]),
         collective_payload_bytes_per_tree=str(sched["payload_bytes"]),
         collective_payload_vs_dense=(
@@ -111,9 +125,10 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
           ) -> Booster:
     """Train a forest.  ``bins``: ``(n, f)`` bin codes — a tensor or a
     numpy array.  Without a mesh the fit runs on the tensor's device (an
-    array moves to ``device``).  With a mesh of D > 1 shards the rows are
-    sharded over ``mesh.devices`` (data-parallel); a one-device mesh fits
-    serially on its device."""
+    array moves to ``device``).  With a mesh of more than one device the
+    rows are sharded over its data axis and the features over its feature
+    axis (``params.parallelism="voting"`` selects PV-Tree voting on the
+    data axis); a one-device mesh fits serially on its device."""
     check_parallelism(params.parallelism)
     if params.boosting != "gbdt":
         raise NotImplementedError(
@@ -141,21 +156,30 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     objective.prepare(labels, w)
     init = objective.init_score(labels, w) if params.boost_from_average \
         else 0.0
-    collective, downgrade = _resolve_collective_cfg(params, mesh)
+    shard_mesh = mesh if use_mesh else None
+    collective, downgrade = _resolve_collective_cfg(params, shard_mesh)
     cfg = GrowerConfig(
         num_leaves=params.num_leaves, max_depth=params.max_depth,
         num_bins=mapper.num_total_bins, lambda_l1=params.lambda_l1,
         lambda_l2=params.lambda_l2, min_data_in_leaf=params.min_data_in_leaf,
         min_sum_hessian_in_leaf=params.min_sum_hessian_in_leaf,
         min_gain_to_split=params.min_gain_to_split,
-        hist_method=params.histogram_method, collective=collective)
-    shard_mesh = mesh if use_mesh else None
+        hist_method=params.histogram_method, collective=collective,
+        voting_k=params.top_k if params.parallelism == "voting" else 0)
     cfg = sharded_cfg(shard_mesh, cfg)
-    _record_fit_resolution(cfg, collective, downgrade,
-                           collective_schedule(cfg, f), dev.type)
-    arrays = prepare_arrays(bins, labels, w, devices, init)
-    fi_base = np.zeros((f, 3), np.float32)
-    fi_base[:, 0] = 1.0
+    if cfg.voting_k > 0 and cfg.data_axis_size > 1 \
+            and cfg.feature_axis_size > 1:
+        raise ValueError("parallelism='voting' runs on a mesh without a "
+                         f"feature axis; got {mesh.shape}")
+    F = cfg.feature_axis_size
+    _record_fit_resolution(
+        cfg, collective, downgrade,
+        collective_schedule(cfg, f, n_rows_local=-(-n // cfg.data_axis_size)),
+        dev.type)
+    arrays = prepare_arrays(bins, labels, w, devices, init, F)
+    # pad features (to a multiple of the feature axis) stay masked out
+    fi_base = np.zeros((pad_to_multiple(f, F), 3), np.float32)
+    fi_base[:f, 0] = 1.0
     use_bag = params.bagging_freq > 0 and params.bagging_fraction < 1.0
     use_ff = params.feature_fraction < 1.0
 

@@ -1,7 +1,7 @@
 """Leaf-wise histogram tree grower.
 
 The port's counterpart of ``mmlspark_tpu/gbdt/grower.py`` for numeric
-splits, on one device or over the data shards of a mesh.  The reference
+splits, on one device or over a ``data × feature`` mesh.  The reference
 grows a tree inside one jitted ``fori_loop`` with static shapes; here
 PyTorch runs eagerly, so a Python loop drives the split steps and the host
 keeps the small per-leaf state (segment offsets and counts, best splits,
@@ -26,6 +26,22 @@ and the leaf histograms stay on the devices:
   shard histograms the same side.  Totals, best splits and the leaf
   histograms are global and live on the first shard's device, where the
   split search runs once (the reference replicates it on every shard).
+* **Voting** (``cfg.voting_k``, PV-Tree).  Leaf histograms stay local,
+  one store per shard, and the sibling is subtracted per shard.  Each
+  shard votes its top features on its local histogram and local totals;
+  the votes are stacked (the reference's all-gather), the most-voted
+  columns are elected, and only those are reduced — the root's ``(k2, B,
+  3)`` slab, then one stacked pair per grow step — by
+  ``ring_allreduce_select`` under the ring collective.  Leaf totals are
+  the shard-order sum of the shards' local totals.
+* **Feature axis** (``cfg.feature_axis_size`` F > 1).  Device (d, j)
+  holds data shard d's rows of feature slice j.  Each slice's histograms
+  are reduced over the data axis alone, each slice finds its best split,
+  and the first slice with the largest gain wins; its split column
+  partitions every device of the data shard.  Each slice keeps its own
+  leaf totals (from its own first feature) and so its own leaf values and
+  scores, as every device of the reference does; the tree carries slice
+  0's.
 * **Host syncs.**  Two per split: the partition counts of all shards in
   one fetch (launch sizing needs them) and the children's best splits
   (the next leaf choice needs them).  ``grow_tree.host_syncs`` counts
@@ -48,8 +64,9 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.collectives import (fused_segment_hist_ring, psum_plain,
-                               ring_allreduce)
+from ..ops.collectives import (fused_segment_hist_ring, gather_cand,
+                               psum_plain, ring_allreduce,
+                               ring_allreduce_select)
 from ..ops.histogram import accum_mode, compute_histogram, segment_histogram
 
 EPS_GAIN = 1e-10
@@ -78,6 +95,14 @@ class GrowerConfig:
     #: number of data shards (1 = serial).  Set by
     #: ``distributed.sharded_cfg``.
     data_axis_size: int = 1
+    #: number of feature slices (1 = every device holds every feature).
+    #: Set by ``distributed.sharded_cfg``.
+    feature_axis_size: int = 1
+    #: PV-Tree voting (``parallelism="voting"``, LightGBM's top_k): with
+    #: more than one data shard, leaf histograms stay shard-local, each
+    #: shard votes its ``voting_k`` best features, and only the voted
+    #: columns are reduced.  0 = off.
+    voting_k: int = 0
 
     @property
     def cat_words(self) -> int:
@@ -168,53 +193,157 @@ def sum_bins(x: torch.Tensor) -> torch.Tensor:
     return sum_bins(_seq_sum(blocks))
 
 
-def find_best_split(hist: torch.Tensor, parent_g, parent_h, parent_c,
-                    feat_info: torch.Tensor, depth_ok: bool,
-                    cfg: GrowerConfig
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Best numeric split over a ``(..., f, B, 3)`` histogram against the
-    parent totals (each of shape ``(...)``).  Returns ``(gain, feature,
-    bin)``, gain ``-inf`` where no split clears the floor.
+def split_gains(hist: torch.Tensor, parent_g, parent_h, parent_c,
+                feat_info: torch.Tensor, depth_ok: bool,
+                cfg: GrowerConfig) -> torch.Tensor:
+    """Gain of every numeric split of a ``(..., f, B, 3)`` histogram
+    against the parent totals (each of shape ``(...)``), ``-inf`` where
+    the split is not allowed; ``feat_info`` is ``(f, 3)`` or ``(..., f,
+    3)`` (only its mask column is read).
 
     Mirrors the reference (LightGBM's FindBestThreshold): left = bins <=
     b, validity by min_data_in_leaf / min_sum_hessian, the last bin never
-    splits, gain = ΔL over the parent leaf, and the first-occurrence
-    argmax over the flattened ``(f, B)`` gains breaks ties.
+    splits, gain = ΔL over the parent leaf.
     """
     B = hist.shape[-2]
     cum = prefix_sum_bins(hist)
     gl, hl, cl = cum.unbind(-1)
-    pg = torch.as_tensor(parent_g)[..., None, None]
-    ph = torch.as_tensor(parent_h)[..., None, None]
-    pc = torch.as_tensor(parent_c)[..., None, None]
+    pg, ph, pc = (torch.as_tensor(t, device=hist.device)[..., None, None]
+                  for t in (parent_g, parent_h, parent_c))
     gr, hr, cr = pg - gl, ph - hl, pc - cl
     valid = ((cl >= cfg.min_data_in_leaf) & (cr >= cfg.min_data_in_leaf)
              & (hl >= cfg.min_sum_hessian_in_leaf)
              & (hr >= cfg.min_sum_hessian_in_leaf))
     valid &= torch.arange(B, device=hist.device) < B - 1
-    valid &= (feat_info[:, 0] > 0)[:, None]
+    valid &= (feat_info[..., 0] > 0)[..., None]
     valid &= bool(depth_ok)
     parent_gain = _leaf_gain(pg, ph, cfg)
     gains = _leaf_gain(gl, hl, cfg) + _leaf_gain(gr, hr, cfg) - parent_gain
-    gains = torch.where(valid, gains, -torch.inf)
+    return torch.where(valid, gains, -torch.inf)
+
+
+def _first_max(gains: torch.Tensor):
+    """``(best, feature, bin)`` of ``(..., f, B)`` gains: the first
+    occurrence of the maximum over the flattened ``(f, B)``."""
+    B = gains.shape[-1]
     flat = gains.flatten(-2)
     idx = flat.argmax(-1)
-    best = flat.gather(-1, idx[..., None])[..., 0]
-    gain = torch.where(best > max(cfg.min_gain_to_split, EPS_GAIN), best,
+    return flat.gather(-1, idx[..., None])[..., 0], idx // B, idx % B
+
+
+def _gain_floor(best: torch.Tensor, cfg: GrowerConfig) -> torch.Tensor:
+    return torch.where(best > max(cfg.min_gain_to_split, EPS_GAIN), best,
                        -torch.inf)
-    return gain, idx // B, idx % B
 
 
-def _partition_left(row_order: torch.Tensor, bins: torch.Tensor, feat: int,
-                    thr: int, off: int, cnt: int) -> torch.Tensor:
+def find_best_split(hist: torch.Tensor, parent_g, parent_h, parent_c,
+                    feat_info: torch.Tensor, depth_ok: bool,
+                    cfg: GrowerConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Best numeric split over a ``(..., f, B, 3)`` histogram (see
+    :func:`split_gains`).  Returns ``(gain, feature, bin)``, gain ``-inf``
+    where no split clears the floor; the first-occurrence argmax over the
+    flattened ``(f, B)`` gains breaks ties, as in the reference."""
+    best, feat, b = _first_max(split_gains(hist, parent_g, parent_h,
+                                           parent_c, feat_info, depth_ok,
+                                           cfg))
+    return _gain_floor(best, cfg), feat, b
+
+
+# -- PV-Tree voting (reference grower.py _voting_* and
+# find_best_split_voting / _pair) --------------------------------------------
+
+
+def _is_voting(cfg: GrowerConfig) -> bool:
+    return cfg.voting_k > 0 and cfg.data_axis_size > 1
+
+
+def top_k_indices(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries of ``score`` along its last
+    axis, largest first and, among equal scores, the lower index first —
+    the order of ``jax.lax.top_k`` (a stable descending sort; ``torch.topk``
+    promises no order for ties)."""
+    return torch.sort(score, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+
+
+def voting_votes(hist_local: torch.Tensor, feat_info: torch.Tensor,
+                 depth_ok: bool, cfg: GrowerConfig) -> torch.Tensor:
+    """A shard's vote: the ``min(voting_k, f)`` features with the best local
+    split gain of its ``(..., f, B, 3)`` local histogram, scored against
+    the shard's local leaf totals."""
+    f = hist_local.shape[-3]
+    tot = sum_bins(hist_local[..., 0, :, :])
+    gains = split_gains(hist_local, tot[..., 0], tot[..., 1], tot[..., 2],
+                        feat_info, depth_ok, cfg)
+    return top_k_indices(gains.amax(-1), min(cfg.voting_k, f))
+
+
+def voting_candidates(votes: torch.Tensor, f: int,
+                      cfg: GrowerConfig) -> torch.Tensor:
+    """The global candidates from every shard's votes (any shape): the
+    ``min(2·voting_k, f)`` most-voted features, the lower id first among
+    equal counts (the key ``counts·f + (f−1−i)`` has no ties).  int32."""
+    counts = torch.bincount(votes.reshape(-1), minlength=f)
+    k2 = min(2 * min(cfg.voting_k, f), f)
+    key = counts * f + (f - 1 - torch.arange(f, device=votes.device))
+    return top_k_indices(key, k2).to(torch.int32)
+
+
+def voting_decide(slab: torch.Tensor, cand: torch.Tensor, parent_g,
+                  parent_h, parent_c, feat_info: torch.Tensor,
+                  depth_ok: bool, cfg: GrowerConfig):
+    """The exact split over the reduced ``(..., k2, B, 3)`` candidate slab
+    (``cand`` of shape ``(..., k2)``); features map back through
+    ``cand``.  Returns ``(gain, feature, bin)`` as :func:`find_best_split`.
+    """
+    idx = cand.to(slab.device, torch.int64)
+    best, j, b = _first_max(split_gains(slab, parent_g, parent_h, parent_c,
+                                        feat_info[idx], depth_ok, cfg))
+    return _gain_floor(best, cfg), idx.gather(-1, j[..., None])[..., 0], b
+
+
+def find_best_split_voting(hists: Sequence[torch.Tensor], tot: torch.Tensor,
+                           feat_info: Sequence[torch.Tensor], depth_ok: bool,
+                           cfg: GrowerConfig, mesh):
+    """PV-Tree split finding over the shards' local histograms ``hists[d]``
+    (``(f, B, 3)``, or ``(m, f, B, 3)`` for the m children of one grow
+    step; ``feat_info[d]`` on shard d's device) against the global totals
+    ``tot`` (``(3,)`` or ``(m, 3)``): each shard votes locally, the votes
+    are gathered (a stack: one controller drives every shard), the
+    candidates are elected per child, and only the voted columns are
+    reduced — by one ``ring_allreduce_select`` under the ring collective,
+    else gathered and summed in shard order (the reference's psum) — for
+    the exact decision on the first shard's device.  The m children ride
+    one reduction of their stacked ``(m, k2, B, 3)`` slab."""
+    dev = hists[0].device
+    f = hists[0].shape[-3]
+    votes = torch.stack([voting_votes(h, fi, depth_ok, cfg).to(dev)
+                         for h, fi in zip(hists, feat_info)])
+    if votes.dim() == 2:
+        cand = voting_candidates(votes, f, cfg)
+    else:
+        cand = torch.stack([voting_candidates(votes[:, c], f, cfg)
+                            for c in range(votes.shape[1])])
+    if cfg.collective == "ring":
+        slab = ring_allreduce_select(hists, cand, mesh)[0]
+    else:
+        slab = psum_plain([gather_cand(h, cand) for h in hists])
+    return voting_decide(slab, cand, tot[..., 0], tot[..., 1], tot[..., 2],
+                         feat_info[0], depth_ok, cfg)
+
+
+def _partition_left(row_order: torch.Tensor, col: torch.Tensor, thr: int,
+                    off: int, cnt: int) -> torch.Tensor:
     """Stable in-place partition of ``row_order[off:off+cnt]`` into the
-    rows with ``bins[row, feat] <= thr`` followed by the rest (LightGBM's
-    ``DataPartition::Split``).  Returns the left count as a one-element
-    tensor on the device (no host sync)."""
+    rows with ``col[row] <= thr`` followed by the rest (LightGBM's
+    ``DataPartition::Split``; ``col`` is the split feature's bin column).
+    Returns the left count as a one-element tensor on the device (no host
+    sync)."""
     if cnt == 0:
         return torch.zeros(1, dtype=torch.int64, device=row_order.device)
     seg = row_order[off:off + cnt]
-    go_l = bins[seg.to(torch.int64), feat] <= thr
+    go_l = col[seg.to(torch.int64)] <= thr
     csum_l = torch.cumsum(go_l, 0)
     n_l = csum_l[-1:]
     tgt = torch.where(go_l, csum_l - 1, n_l + torch.cumsum(~go_l, 0) - 1)
@@ -226,11 +355,11 @@ def _partition_left(row_order: torch.Tensor, bins: torch.Tensor, feat: int,
 
 def partition(row_order: torch.Tensor, bins: torch.Tensor, feat: int,
               thr: int, off: int, cnt: int) -> int:
-    """:func:`_partition_left`, returning the left count (one host
-    sync)."""
+    """:func:`_partition_left` on ``bins[:, feat]``, returning the left
+    count (one host sync)."""
     if cnt == 0:
         return 0
-    return int(_fetch(_partition_left(row_order, bins, feat, thr, off,
+    return int(_fetch(_partition_left(row_order, bins[:, feat], thr, off,
                                       cnt))[0])
 
 
@@ -251,40 +380,44 @@ def _reduce_hist(parts: Sequence[torch.Tensor], cfg: GrowerConfig,
     return psum_plain(parts)
 
 
-def _segment_hist_dist(bins, gh, row_order, offs, cnts, cfg: GrowerConfig,
-                       mesh) -> torch.Tensor:
-    """Reduced histogram of the segments ``row_order[d][offs[d]:offs[d] +
-    cnts[d]]`` of every shard.  Under ``hist_method="pallas_ring"`` with
-    the ring collective, one ``fused_segment_hist_ring`` kernel gathers,
-    histograms and reduces (the reduction happens in-kernel, so it is not
-    applied again); otherwise each shard's segment histogram is reduced by
-    :func:`_reduce_hist`."""
-    B = cfg.num_bins
-    if (len(bins) > 1 and cfg.collective == "ring"
-            and cfg.hist_method == "pallas_ring"):
-        return fused_segment_hist_ring(
-            [(b, g, o, int(off), int(cnt)) for b, g, o, off, cnt
-             in zip(bins, gh, row_order, offs, cnts)], B, mesh,
-            accum_mode(cfg.hist_method, gh[0]))[0]
-    return _reduce_hist(
-        [segment_histogram(b, g, o, int(off), int(cnt), B, cfg.hist_method)
-         for b, g, o, off, cnt in zip(bins, gh, row_order, offs, cnts)],
-        cfg, mesh)
+def collective_schedule(cfg: GrowerConfig, f: int, *,
+                        n_rows_local: int = 0) -> dict:
+    """Per-tree accounting of the grower's cross-device collectives,
+    computed from shapes as the reference's ``collective_schedule`` does:
+    ``count`` payload-bearing collectives and ``payload_bytes`` handed to
+    every collective of one tree (small ones included), against
+    ``dense_payload_bytes``, the L dense ``(f, B, 3)`` f32 reductions of
+    a data-parallel tree.
 
+    * data axis: L histogram reductions (root + L-1 children) and the
+      (L-1) partition-count pairs, which the port sums on the host but
+      prices as the reference does;
+    * voting: L reductions of the voted ``(k2, B, 3)`` slab (the root's,
+      then one stacked pair per grow step), plus the vote gathers and the
+      leaf-total sums;
+    * feature axis (``n_rows_local`` rows per data shard): L-1 split-
+      column broadcasts and the 2L-1 gathers of each slice's best split.
 
-def collective_schedule(cfg: GrowerConfig, f: int) -> dict:
-    """Per-tree accounting of the grower's cross-shard reductions,
-    computed from shapes (the data-parallel branch of the reference's
-    schedule): ``count`` histogram reductions (root + L-1 children) of
-    ``payload_bytes`` in all, plus the (L-1) partition-count pairs.  The
-    port sums those pairs on the host, but they are priced as the
-    reference prices them.  Serial fits return zeros."""
-    B, L = cfg.num_bins, cfg.num_leaves
+    Serial fits return zeros."""
+    B, L, W = cfg.num_bins, cfg.num_leaves, cfg.cat_words
     dense = L * f * B * 3 * 4
     count = payload = 0
     if cfg.data_axis_size > 1:
-        count = L
-        payload = L * f * B * 3 * 4 + (L - 1) * 2 * 4
+        if _is_voting(cfg):
+            k = min(cfg.voting_k, f)
+            slab = min(2 * k, f) * B * 3 * 4
+            count += L
+            payload += slab + (L - 1) * 2 * slab   # root + stacked pairs
+            payload += 4 * (k + (L - 1) * 2 * k)   # vote gathers (i32)
+            payload += L * 3 * 4                   # leaf-total sums
+        else:
+            count += L
+            payload += L * f * B * 3 * 4
+        payload += (L - 1) * 2 * 4                 # partition counts
+    if cfg.feature_axis_size > 1:
+        count += L - 1                             # split-column broadcasts
+        payload += (L - 1) * n_rows_local * 4
+        payload += (2 * L - 1) * (16 + W * 4)      # best-split gathers
     return {"count": count, "payload_bytes": payload,
             "dense_payload_bytes": dense}
 
@@ -296,49 +429,109 @@ def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
     3)`` [mask, is_cat, n_value_bins] (only the mask is read).  Returns
     the tree (host tensors) and the ``(n,)`` leaf of every row (on the
     device)."""
-    tree, row_leaf = grow_tree_sharded([bins], [gh], feat_info, cfg)
+    tree, row_leaf, _ = grow_tree_sharded([bins], [gh], feat_info, cfg)
     return tree, row_leaf[0]
 
 
 def grow_tree_sharded(bins: Sequence[torch.Tensor],
                       gh: Sequence[torch.Tensor], feat_info,
                       cfg: GrowerConfig, mesh=None
-                      ) -> Tuple[TreeArrays, List[torch.Tensor]]:
-    """Grow one tree over the data shards ``bins[d]`` / ``gh[d]`` (shard d
-    on ``mesh.devices[d]``; one shard and no mesh for a serial tree).
-    Returns the tree (host tensors) and the leaf of every row of each
-    shard (on its device)."""
-    D = len(bins)
-    if D > 1 and (mesh is None or len(mesh) != D):
-        raise ValueError(f"{D} shards need a mesh of {D} devices")
-    dev = bins[0].device
-    f = bins[0].shape[1]
-    n = np.asarray([b.shape[0] for b in bins], np.int64)
+                      ) -> Tuple[TreeArrays, List[torch.Tensor],
+                                 List[torch.Tensor]]:
+    """Grow one tree over the devices of ``mesh`` (one device and no mesh
+    for a serial tree).  Device ``k`` (data shard ``d = k // F``, feature
+    slice ``j = k % F``, with ``F = cfg.feature_axis_size``) holds
+    ``bins[k]``, its shard's rows of its slice's ``f_local`` features, and
+    ``gh[k]``; ``feat_info`` covers all ``F · f_local`` features.
+
+    Returns the tree (host tensors; features are global indices), the leaf
+    of every row on each device, and the ``(L,)`` leaf values each device
+    updates its scores with.  Those are the tree's, except on a feature
+    axis: there each slice keeps its own leaf totals, taken from its own
+    first feature, as every device of the reference does, and the tree
+    carries slice 0's."""
+    K = len(bins)
+    Dd, F = cfg.data_axis_size, cfg.feature_axis_size
+    if K != Dd * F:
+        raise ValueError(f"{K} devices for a {Dd} x {F} (data x feature) "
+                         "grid")
+    if K > 1 and (mesh is None or len(mesh) != K):
+        raise ValueError(f"{K} devices need a mesh of {K}")
+    voting = _is_voting(cfg)
+    if voting and F > 1:
+        raise ValueError("voting parallelism runs on a mesh without a "
+                         "feature axis")
+    devs = [b.device for b in bins]
+    dev = devs[0]
+    f_loc = bins[0].shape[1]
+    n = np.asarray([bins[d * F].shape[0] for d in range(Dd)], np.int64)
     L, B = cfg.num_leaves, cfg.num_bins
-    fi = torch.as_tensor(feat_info, dtype=torch.float32, device=dev)
+    fi_all = torch.as_tensor(feat_info, dtype=torch.float32)
+    fi = [fi_all[(k % F) * f_loc:(k % F + 1) * f_loc].to(devs[k])
+          for k in range(K)]
+    # histogram holders: under voting each shard keeps its local
+    # histograms; otherwise each feature slice keeps its histograms
+    # reduced over the data axis (on device (0, j)).  Value learners
+    # (leaf totals): one global under voting, else one per slice.
+    H = Dd if voting else F
+    V = 1 if voting else F
 
     def depth_ok(d):
         return cfg.max_depth <= 0 or d < cfg.max_depth
 
-    hist0 = _reduce_hist([compute_histogram(b, g, B, cfg.hist_method)
-                          for b, g in zip(bins, gh)], cfg, mesh)
-    tot0 = sum_bins(hist0[0])
-    gain0, feat0, bin0 = find_best_split(hist0, tot0[0], tot0[1], tot0[2],
-                                         fi, depth_ok(0), cfg)
-    res = _fetch(torch.cat([tot0, torch.stack([gain0, feat0.float(),
-                                               bin0.float()])]))
+    def holders(local):
+        if voting:
+            return list(local)
+        return [_reduce_hist(local[j::F], cfg, mesh) for j in range(F)]
 
-    leaf_hist = hist0.new_zeros((L, f, B, 3))
-    leaf_hist[0] = hist0
-    leaf_tot = np.zeros((L, 3), np.float32)
-    leaf_tot[0] = res[:3]
+    def totals(hists):
+        if voting:
+            return [psum_plain([sum_bins(h[0]) for h in hists])]
+        return [sum_bins(h[..., 0, :, :]) for h in hists]
+
+    def best_splits(hists, tots, depth):
+        """(gain, feature, bin) on ``dev`` for the (m, ...) children."""
+        ok = depth_ok(depth)
+        if voting:
+            return find_best_split_voting(hists, tots[0], fi, ok, cfg, mesh)
+        per = [_first_max(split_gains(h, t[..., 0], t[..., 1], t[..., 2],
+                                      fi[j], ok, cfg))
+               for j, (h, t) in enumerate(zip(hists, tots))]
+        if F == 1:
+            best, feat, b = per[0]
+        else:
+            # the first slice with the largest gain wins; its local
+            # feature index becomes global
+            best = torch.stack([p[0].to(dev) for p in per])
+            s = best.argmax(0, keepdim=True)
+            best = best.gather(0, s)[0]
+            feat = torch.stack([p[1].to(dev) + j * f_loc
+                                for j, p in enumerate(per)]).gather(0, s)[0]
+            b = torch.stack([p[2].to(dev) for p in per]).gather(0, s)[0]
+        return _gain_floor(best, cfg), feat, b
+
+    def fetch(tots, gain, feat, b):
+        return _fetch(torch.cat([t.to(dev).reshape(-1) for t in tots]
+                                + [gain.reshape(-1), feat.reshape(-1).float(),
+                                   b.reshape(-1).float()]))
+
+    hist0 = holders([compute_histogram(b, g, B, cfg.hist_method)
+                     for b, g in zip(bins, gh)])
+    tot0 = totals(hist0)
+    res = fetch(tot0, *best_splits(hist0, tot0, 0))
+
+    leaf_hist = [h.new_zeros((L,) + tuple(h.shape)) for h in hist0]
+    for store, h in zip(leaf_hist, hist0):
+        store[0] = h
+    leaf_tot = np.zeros((V, L, 3), np.float32)
+    leaf_tot[:, 0] = res[:3 * V].reshape(V, 3)
     best_gain = np.full(L, -np.inf, np.float32)
     best_feat = np.zeros(L, np.int64)
     best_bin = np.zeros(L, np.int64)
-    best_gain[0], best_feat[0], best_bin[0] = res[3], res[4], res[5]
-    # per-shard segment of every leaf
-    leaf_start = np.zeros((D, L), np.int64)
-    leaf_cnt = np.zeros((D, L), np.int64)
+    best_gain[0], best_feat[0], best_bin[0] = res[3 * V:]
+    # per-data-shard segment of every leaf
+    leaf_start = np.zeros((Dd, L), np.int64)
+    leaf_cnt = np.zeros((Dd, L), np.int64)
     leaf_cnt[:, 0] = n
     leaf_depth = np.zeros(L, np.int64)
     leaf_parent = np.full(L, -1, np.int64)
@@ -350,8 +543,10 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     node_right = np.zeros(m, np.int32)
     node_gain = np.zeros(m, np.float32)
     node_tot = np.zeros((m, 3), np.float32)
-    row_order = [torch.arange(int(k), dtype=torch.int32, device=b.device)
-                 for k, b in zip(n, bins)]
+    # one row permutation per device; the devices of a data shard
+    # partition theirs alike
+    row_order = [torch.arange(int(n[k // F]), dtype=torch.int32, device=d)
+                 for k, d in enumerate(devs)]
 
     num_leaves = 1
     for i in range(m):
@@ -361,29 +556,36 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         new = i + 1
         feat, thr = int(best_feat[l]), int(best_bin[l])
         off, cnt = leaf_start[:, l], leaf_cnt[:, l]
-        cnt_l = _fetch(torch.cat([
-            _partition_left(o, b, feat, thr, int(s0), int(c)).to(dev)
-            for o, b, s0, c in zip(row_order, bins, off, cnt)])
-        ).astype(np.int64)
+        # the owner slice's split column partitions every device of its
+        # data shard
+        owner, lidx = divmod(feat, f_loc)
+        n_l = []
+        for k in range(K):
+            d = k // F
+            col = bins[d * F + owner][:, lidx].to(devs[k])
+            n_l.append(_partition_left(row_order[k], col, thr, int(off[d]),
+                                       int(cnt[d])))
+        cnt_l = _fetch(torch.cat([c.to(dev) for c in n_l[::F]])
+                       ).astype(np.int64)
         cnt_r = cnt - cnt_l
         use_right = cnt_r.sum() <= cnt_l.sum()
-        small = _segment_hist_dist(
+        small = _segment_hists(
             bins, gh, row_order, off + cnt_l if use_right else off,
-            cnt_r if use_right else cnt_l, cfg, mesh)
-        parent = leaf_hist[l]
-        hist_r = small if use_right else parent - small
-        hist_l = parent - hist_r
-        tot_r = sum_bins(hist_r[0])
-        tot_l = torch.as_tensor(leaf_tot[l], device=dev) - tot_r
-        tots = torch.stack([tot_l, tot_r])
-        d = int(leaf_depth[l]) + 1
-        g2, f2, b2 = find_best_split(torch.stack([hist_l, hist_r]),
-                                     tots[:, 0], tots[:, 1], tots[:, 2],
-                                     fi, depth_ok(d), cfg)
-        leaf_hist[l] = hist_l
-        leaf_hist[new] = hist_r
-        res = _fetch(torch.cat([tots.reshape(-1), g2, f2.float(),
-                                b2.float()]))
+            cnt_r if use_right else cnt_l, cfg, mesh, holders)
+        hist_r = [s if use_right else store[l] - s
+                  for s, store in zip(small, leaf_hist)]
+        hist_l = [store[l] - r for r, store in zip(hist_r, leaf_hist)]
+        tot_r = totals(hist_r)
+        tot_l = [torch.as_tensor(leaf_tot[v, l], device=t.device) - t
+                 for v, t in enumerate(tot_r)]
+        tots = [torch.stack([a, b]) for a, b in zip(tot_l, tot_r)]
+        d_child = int(leaf_depth[l]) + 1
+        res = fetch(tots, *best_splits(
+            [torch.stack([a, b]) for a, b in zip(hist_l, hist_r)], tots,
+            d_child))
+        for store, a, b in zip(leaf_hist, hist_l, hist_r):
+            store[l] = a
+            store[new] = b
 
         p = leaf_parent[l]
         if p >= 0:
@@ -394,22 +596,25 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         node_feat[i], node_bin[i] = feat, thr
         node_left[i], node_right[i] = ~l, ~new
         node_gain[i] = best_gain[l]
-        node_tot[i] = leaf_tot[l]
-        leaf_tot[l], leaf_tot[new] = res[0:3], res[3:6]
-        best_gain[[l, new]] = res[6:8]
-        best_feat[[l, new]] = res[8:10]
-        best_bin[[l, new]] = res[10:12]
+        node_tot[i] = leaf_tot[0, l]
+        pair = res[:6 * V].reshape(V, 2, 3)
+        leaf_tot[:, l], leaf_tot[:, new] = pair[:, 0], pair[:, 1]
+        best_gain[[l, new]] = res[6 * V:6 * V + 2]
+        best_feat[[l, new]] = res[6 * V + 2:6 * V + 4]
+        best_bin[[l, new]] = res[6 * V + 4:6 * V + 6]
         leaf_start[:, new] = off + cnt_l
         leaf_cnt[:, l], leaf_cnt[:, new] = cnt_l, cnt_r
-        leaf_depth[[l, new]] = d
+        leaf_depth[[l, new]] = d_child
         leaf_parent[[l, new]] = i
         leaf_is_right[l], leaf_is_right[new] = False, True
         num_leaves += 1
 
-    lt = torch.from_numpy(leaf_tot)
-    nt = torch.from_numpy(node_tot)
     live = torch.arange(L) < num_leaves
     zero = torch.zeros(())
+    values = [torch.where(live, _leaf_output(lt[:, 0], lt[:, 1], cfg), zero)
+              for lt in torch.from_numpy(leaf_tot)]
+    lt = torch.from_numpy(leaf_tot[0])
+    nt = torch.from_numpy(node_tot)
     tree = TreeArrays(
         node_feat=torch.from_numpy(node_feat),
         node_bin=torch.from_numpy(node_bin),
@@ -422,15 +627,39 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         node_count=nt[:, 2].clone(),
         node_is_cat=torch.zeros(m, dtype=torch.int32),
         node_cat_bits=torch.zeros(m, cfg.cat_words, dtype=torch.int64),
-        leaf_value=torch.where(live, _leaf_output(lt[:, 0], lt[:, 1], cfg),
-                               zero),
+        leaf_value=values[0],
         leaf_weight=lt[:, 1].clone(),
         leaf_count=lt[:, 2].clone(),
         num_leaves=torch.tensor(num_leaves, dtype=torch.int32),
     )
-    return tree, [_row_leaf(o, leaf_start[d, :num_leaves],
-                            leaf_cnt[d, :num_leaves])
-                  for d, o in enumerate(row_order)]
+    row_leaf = [_row_leaf(o, leaf_start[k // F, :num_leaves],
+                          leaf_cnt[k // F, :num_leaves])
+                for k, o in enumerate(row_order)]
+    return tree, row_leaf, [values[0 if voting else k % F]
+                            for k in range(K)]
+
+
+def _segment_hists(bins, gh, row_order, offs, cnts, cfg: GrowerConfig,
+                   mesh, holders) -> List[torch.Tensor]:
+    """Each histogram holder's histogram of the segments
+    ``row_order[k][offs[d]:offs[d] + cnts[d]]`` (``d = k //
+    cfg.feature_axis_size``).  On a data-only mesh under
+    ``hist_method="pallas_ring"`` with the ring collective (and no voting),
+    one ``fused_segment_hist_ring`` kernel gathers, histograms and reduces
+    (the reduction happens in-kernel); otherwise each device's segment
+    histogram goes to ``holders`` (reduced over the data axis, or kept
+    local under voting)."""
+    B, F = cfg.num_bins, cfg.feature_axis_size
+    if (len(bins) > 1 and F == 1 and cfg.collective == "ring"
+            and cfg.hist_method == "pallas_ring" and not _is_voting(cfg)):
+        return [fused_segment_hist_ring(
+            [(b, g, o, int(off), int(cnt)) for b, g, o, off, cnt
+             in zip(bins, gh, row_order, offs, cnts)], B, mesh,
+            accum_mode(cfg.hist_method, gh[0]))[0]]
+    return holders([
+        segment_histogram(b, g, o, int(offs[k // F]), int(cnts[k // F]), B,
+                          cfg.hist_method)
+        for k, (b, g, o) in enumerate(zip(bins, gh, row_order))])
 
 
 def _row_leaf(row_order: torch.Tensor, start: np.ndarray,

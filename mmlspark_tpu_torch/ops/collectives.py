@@ -19,6 +19,13 @@ reference, and each has a plain twin that adds in exactly that order:
     ``csrc/ring.cu`` (:mod:`.cuda_ring`), which adds in the same order and
     so equals the twin bit for bit.
 
+:func:`ring_allreduce_select` (the reference's voted-column ring of the
+PV-Tree learner) gathers the candidate columns of each shard's local
+histogram (:func:`gather_cand`) and ring-reduces only that slab; its twin
+is :func:`ring_allreduce_select_plain`, the gather followed by
+:func:`ring_allreduce_plain` over the flattened slab, and on a CUDA tensor
+it launches the ``ring_select`` kernel, which gathers in-kernel.
+
 :func:`fused_segment_hist_ring` (the reference's kernel of the same name)
 gathers each shard's segment, histograms it and ring-reduces the result;
 its twin is :func:`..cuda_histogram.histogram_fused_plain` per shard
@@ -92,6 +99,41 @@ def ring_allreduce(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
     if parts[0].is_cuda:
         return cuda_ring.ring_allreduce_cuda(parts, mesh)
     out = ring_allreduce_plain(parts)
+    return [out.to(d) for d in mesh.devices]
+
+
+def gather_cand(hist: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """The voted candidate columns: ``(f, B, 3)[cand (k2,)]`` →
+    ``(k2, B, 3)``, or the stacked children ``(m, f, B, 3)`` with ``cand
+    (m, k2)`` → ``(m, k2, B, 3)`` (the reference's ``_gather_cand``)."""
+    idx = cand.to(hist.device, torch.int64)
+    if cand.dim() == 1:
+        return hist.index_select(0, idx)
+    return torch.stack([h.index_select(0, c) for h, c in zip(hist, idx)])
+
+
+def ring_allreduce_select_plain(parts: Sequence[torch.Tensor],
+                                cand: torch.Tensor) -> torch.Tensor:
+    """Twin of :func:`ring_allreduce_select`: each shard's gathered slab,
+    then the ring-order sum of the flattened slab (on the first shard's
+    device).  One shard: the gathered slab."""
+    return ring_allreduce_plain([gather_cand(p, cand) for p in parts])
+
+
+def ring_allreduce_select(parts: Sequence[torch.Tensor], cand: torch.Tensor,
+                          mesh) -> List[torch.Tensor]:
+    """Voted-column all-reduce over the shards of ``mesh``: the sum of
+    ``gather_cand(parts[d], cand)``, on every shard's device.  CUDA tensors
+    go through the ``ring_select`` kernel (which gathers in-kernel); CPU
+    tensors through :func:`ring_allreduce_select_plain`."""
+    if len(parts) != len(mesh):
+        raise ValueError(f"{len(parts)} parts for a mesh of {len(mesh)} "
+                         "shards")
+    if len(parts) == 1:
+        return [gather_cand(parts[0], cand)]
+    if parts[0].is_cuda:
+        return cuda_ring.ring_allreduce_select_cuda(parts, cand, mesh)
+    out = ring_allreduce_select_plain(parts, cand)
     return [out.to(d) for d in mesh.devices]
 
 

@@ -3,11 +3,13 @@
 * :func:`ring_allreduce_cuda` replaces ``ring_allreduce`` of
   ``mmlspark_tpu/ops/pallas_collectives.py`` (TPU body
   ``_ring_allreduce_kernel``).
+* :func:`ring_allreduce_select_cuda` replaces ``ring_allreduce_select``
+  (the same TPU body under its own collective id, after ``_gather_cand``).
 * :func:`fused_segment_hist_ring_cuda` replaces ``fused_segment_hist_ring``
   (TPU body ``_fused_hist_ring_kernel``).
 
 The note at the top of ``csrc/ring.cu`` gives the schedule, the transport
-and the bound.  Both wrappers take CUDA tensors only: the entries in
+and the bound.  The wrappers take CUDA tensors only: the entries in
 :mod:`.collectives` route CPU tensors to the plain twins.  One call is one
 reduction, however many cards it spans: ``launches`` on each wrapper
 counts reductions (calls that launched the kernel on every card of the
@@ -15,8 +17,10 @@ mesh), not per-card launches.
 
 Workspace.  The comm slots (``2(D-1)`` chunks per rank), the flag words,
 and for the fused kernel the per-rank histogram buffers and barrier words
-are allocated once per (mesh, payload, dtype) and kept in
-``mesh.scratch``; flags carry a launch sequence number, so nothing is
+are allocated once per (mesh, kind, payload, dtype) and kept in
+``mesh.scratch``; the dense, select and fused rings each have their own
+(the counterpart of the TPU kernels' separate collective ids), so they
+never share a flag; flags carry a launch sequence number, so nothing is
 reset between calls.  Peer access between neighbouring cards is enabled
 when the workspace is made, and raises where the cards cannot reach each
 other.  The number of blocks per rank is one for the whole mesh
@@ -63,8 +67,13 @@ def _lib() -> ctypes.CDLL:
                                            pp, pp, pp, pp, pp, i32, i32, i32,
                                            i64, u32, i32, p]
     lib.fused_hist_ring_launch.restype = i32
-    lib.ring_allreduce_blocks.argtypes = [i32, i64]
-    lib.ring_allreduce_blocks.restype = i32
+    lib.ring_allreduce_select_launch.argtypes = [i32, i32, ip, pp, pp, pp,
+                                                 pp, pp, i32, i64, i64, i64,
+                                                 i64, u32, i32, p]
+    lib.ring_allreduce_select_launch.restype = i32
+    for name in ("ring_allreduce_blocks", "ring_allreduce_select_blocks"):
+        getattr(lib, name).argtypes = [i32, i64]
+        getattr(lib, name).restype = i32
     lib.fused_hist_ring_blocks.argtypes = [i32, i32, i32]
     lib.fused_hist_ring_blocks.restype = i32
     lib.ring_enable_peer.argtypes = [i32, i32]
@@ -200,6 +209,73 @@ def ring_allreduce_cuda(parts: Sequence[torch.Tensor], mesh
 
 
 ring_allreduce_cuda.launches = 0
+
+
+def ring_allreduce_select_cuda(parts: Sequence[torch.Tensor],
+                               cand: torch.Tensor, mesh
+                               ) -> List[torch.Tensor]:
+    """Voted-column all-reduce: the sum over the shards of ``parts[d][cand]``
+    (``parts[d]`` on ``mesh.devices[d]``), delivered to every shard, in one
+    ``ring_select`` launch per card.  ``parts``: float32 local histograms of
+    one shape, ``(f, B, 3)`` with ``cand`` of shape ``(k2,)``, or the
+    stacked ``(m, f, B, 3)`` with ``cand`` of shape ``(m, k2)``; ``cand``
+    int32 in ``[0, f)``, the same for every shard (each card gets its own
+    copy).  Returns the ``(k2, B, 3)`` or ``(m, k2, B, 3)`` sum on every
+    shard's device.  Raises on tensors off the mesh's CUDA devices and on
+    a failed launch; a ``cand`` on the host is range-checked here, one on a
+    card by the kernel, which traps on an index outside ``[0, f)``."""
+    _check_mesh(parts, mesh, "parts")
+    shape = parts[0].shape
+    if any(p.shape != shape for p in parts):
+        raise ValueError("ring_allreduce_select parts must share one shape")
+    if any(p.dtype != torch.float32 for p in parts):
+        raise ValueError("ring_allreduce_select reduces float32 parts")
+    if cand.dtype != torch.int32 or cand.dim() not in (1, 2):
+        raise ValueError(f"cand must be int32 of shape (k2,) or (m, k2); got "
+                         f"{cand.dtype} {tuple(cand.shape)}")
+    lead = cand.dim() - 1          # 0: one slab, 1: m stacked children
+    if len(shape) < lead + 2 or tuple(shape[:lead]) != tuple(cand.shape[:lead]):
+        raise ValueError(f"cand {tuple(cand.shape)} does not match parts of "
+                         f"shape {tuple(shape)}")
+    f = shape[lead]
+    if not cand.is_cuda and cand.numel() and (
+            int(cand.min()) < 0 or int(cand.max()) >= f):
+        raise ValueError(f"candidate columns must lie in [0, {f})")
+    lib = _lib()
+    D = len(mesh)
+    x = [p.contiguous() for p in parts]
+    k2 = cand.shape[-1]
+    inner = 1
+    for s in shape[lead + 1:]:
+        inner *= s
+    out_shape = tuple(cand.shape) + tuple(shape[lead + 1:])
+    out = [torch.empty(out_shape, dtype=torch.float32, device=d)
+           for d in mesh.devices]
+    total = cand.numel() * inner
+    if total == 0:
+        return out
+    chunk = ring_chunk(total, D)
+    ws = _workspace(mesh, "select", total, chunk, torch.float32)
+    nb = ws.blocks("select", lambda n_local:
+                   lib.ring_allreduce_select_blocks(n_local, chunk))
+    flat = cand.reshape(-1)
+    copies = {dev: flat.to(dev).contiguous() for dev in ws.cards}
+    seq = ws.next_seq()
+    args = (_ptrs(x), _ptrs([copies[d] for d in mesh.devices]), _ptrs(out),
+            _ptrs(ws.slots), _ptrs(ws.flags))
+    for dev, ranks in ws.cards.items():
+        local = (ctypes.c_int * len(ranks))(*ranks)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            rc = lib.ring_allreduce_select_launch(
+                D, len(ranks), local, *args, f, k2, inner, total, chunk, seq,
+                nb, stream)
+        _raise_if_failed(rc, "ring_allreduce_select")
+    ring_allreduce_select_cuda.launches += 1
+    return out
+
+
+ring_allreduce_select_cuda.launches = 0
 
 
 def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,

@@ -9,6 +9,10 @@ from numpy seeds and pass between the two as numpy arrays.
   it equals the reference ring bit for bit at every D.
 * ``psum_plain`` adds in shard order, as XLA's CPU ``lax.psum`` does, bit
   for bit.
+* ``ring_allreduce_select_plain`` (gather the voted columns, then the
+  ring over the flattened slab) equals the reference's
+  ``ring_allreduce_select`` bit for bit, one slab and the stacked pair of
+  a grow step, at D = 2, 3, 4.
 * The fused twin (segment histogram per shard, then the ring) equals the
   reference ``fused_segment_hist_ring`` exactly in int32.  In float32 the
   reference sums each cell through an MXU-shaped ``dot_general`` over
@@ -28,7 +32,9 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from mmlspark_tpu.core.mesh import DATA_AXIS, shard_map_compat
 from mmlspark_tpu.ops.pallas_collectives import (fused_segment_hist_ring
                                                  as ref_fused,
-                                                 ring_allreduce as ref_ring)
+                                                 ring_allreduce as ref_ring,
+                                                 ring_allreduce_select
+                                                 as ref_select)
 from mmlspark_tpu_torch.core.mesh import build_mesh
 from mmlspark_tpu_torch.ops import collectives as co
 
@@ -106,6 +112,64 @@ def test_resolve_collective():
     assert co.resolve_collective("ring", 1) == "psum"
     with pytest.raises(ValueError, match="Unknown collective"):
         co.resolve_collective("tree", 4)
+
+
+#: (local histogram shape, candidate shape): one slab, the stacked pair
+#: of a grow step, and a ragged slab whose size is no multiple of 128
+SELECT_CASES = [((23, 32, 3), (8,)), ((2, 23, 32, 3), (2, 8)),
+                ((9, 7, 3), (5,))]
+
+
+def _select_case(d, hist_shape, cand_shape, seed):
+    rng = np.random.default_rng(seed)
+    hist = rng.normal(size=(d,) + hist_shape).astype(np.float32)
+    f = hist_shape[len(cand_shape) - 1]
+    cand = np.stack([rng.choice(f, size=cand_shape[-1], replace=False)
+                     for _ in range(int(np.prod(cand_shape[:-1])))])
+    return hist, cand.reshape(cand_shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("hist_shape,cand_shape", SELECT_CASES, ids=str)
+def test_select_plain_equals_reference_select_bitwise(d, hist_shape,
+                                                      cand_shape):
+    hist, cand = _select_case(d, hist_shape, cand_shape,
+                              seed=d * 10 + len(cand_shape))
+    in_spec = P(*((DATA_AXIS,) + (None,) * (len(hist_shape) - 1)))
+    out_shape = cand_shape + hist_shape[len(cand_shape):]
+    out_spec = P(*((DATA_AXIS,) + (None,) * (len(out_shape) - 1)))
+    out = _run_ref(
+        lambda h: ref_select(h, jnp.asarray(cand), DATA_AXIS, d,
+                             interpret=True),
+        d, [hist.reshape((-1,) + hist_shape[1:])], [in_spec], out_spec)
+    per = out.reshape((d,) + out_shape)
+    got = co.ring_allreduce_select_plain(
+        [torch.from_numpy(h) for h in hist], torch.from_numpy(cand))
+    assert got.shape == out_shape
+    for i in range(d):      # every rank holds the same sum
+        np.testing.assert_array_equal(got.numpy(), per[i])
+
+
+def test_select_entry_gathers_then_reduces_to_every_shard():
+    """The entry routes CPU parts to the twin and delivers to every shard;
+    on one shard it is the gather alone, as in the reference."""
+    hist, cand = _select_case(3, (2, 23, 32, 3), (2, 8), seed=5)
+    parts = [torch.from_numpy(h) for h in hist]
+    c = torch.from_numpy(cand)
+    outs = co.ring_allreduce_select(parts, c, build_mesh(
+        devices=["cpu"] * 3))
+    want = co.ring_allreduce_plain([co.gather_cand(p, c) for p in parts])
+    assert len(outs) == 3 and all(torch.equal(o, want) for o in outs)
+    np.testing.assert_array_equal(
+        co.gather_cand(parts[0], c).numpy(),
+        np.stack([hist[0, m][cand[m]] for m in range(2)]))
+    np.testing.assert_array_equal(
+        co.ring_allreduce_select([parts[0][0]], c[0],
+                                 build_mesh(devices=["cpu"]))[0].numpy(),
+        hist[0, 0][cand[0]])
+    with pytest.raises(ValueError):
+        co.ring_allreduce_select(parts[:2], c, build_mesh(
+            devices=["cpu"] * 3))
 
 
 def test_ring_block_count_is_one_for_the_whole_mesh():

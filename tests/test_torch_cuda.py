@@ -205,6 +205,133 @@ def test_ring_kernels_on_an_uneven_mesh(cuda_device, accum):
     _check_fused(devices, accum, f=300)
 
 
+# -- the voted-column ring (ring_select) -------------------------------------
+# (local histogram shape, candidate shape): the wide voting configuration's
+# pair and single slab (f = 2000, B = 256, k2 = 64), and a ragged slab
+
+SELECT_CASES = [((2, 2000, 256, 3), (2, 64)), ((2000, 256, 3), (64,)),
+                ((9, 7, 3), (5,))]
+
+
+def _select_inputs(shape, cand_shape, devices, seed):
+    rng = np.random.default_rng(seed)
+    f = shape[len(cand_shape) - 1]
+    cand = np.stack([rng.choice(f, size=cand_shape[-1], replace=False)
+                     for _ in range(int(np.prod(cand_shape[:-1])))])
+    parts = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+             .to(d) for d in devices]
+    return parts, torch.from_numpy(
+        cand.reshape(cand_shape).astype(np.int32)).to(devices[0])
+
+
+def _check_select(devices, cases=SELECT_CASES):
+    mesh = build_mesh(devices=devices)
+    for i, (shape, cand_shape) in enumerate(cases):
+        parts, cand = _select_inputs(shape, cand_shape, mesh.devices, i)
+        before = cr.ring_allreduce_select_cuda.launches
+        for _ in range(3):   # repeated calls reuse the workspace
+            got = co.ring_allreduce_select(parts, cand, mesh)
+        torch.cuda.synchronize()
+        want = co.ring_allreduce_select_plain(parts, cand)
+        assert cr.ring_allreduce_select_cuda.launches == before + 3
+        assert want.shape == cand_shape + shape[len(cand_shape):]
+        for g in got:
+            assert torch.equal(g.to(want.device), want), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 4])
+def test_ring_select_equals_twin_on_virtual_shards(cuda_device, D):
+    _check_select([cuda_device] * D)
+
+
+@pytest.mark.cuda
+def test_ring_select_on_an_uneven_mesh(cuda_device):
+    first, second = _two_cards()[:2]
+    _check_select([first, first, second])
+
+
+@pytest.mark.cuda
+def test_select_and_dense_rings_never_share_flags(cuda_device):
+    """Interleaved dense and select calls of one payload size on one mesh
+    stay exact: each ring has its own workspace and sequence numbers."""
+    mesh = build_mesh(devices=[cuda_device] * 4)
+    dense = _parts((64, 256, 3), mesh.devices, seed=1)
+    parts, cand = _select_inputs((2, 200, 256, 3), (2, 32), mesh.devices, 2)
+    for _ in range(4):
+        a = co.ring_allreduce(dense, mesh)
+        b = co.ring_allreduce_select(parts, cand, mesh)
+    torch.cuda.synchronize()
+    assert a[0].numel() == b[0].numel()
+    want_a = co.ring_allreduce_plain(dense)
+    want_b = co.ring_allreduce_select_plain(parts, cand)
+    assert all(torch.equal(x, want_a) for x in a)
+    assert all(torch.equal(x, want_b) for x in b)
+
+
+@pytest.mark.cuda
+def test_ring_select_checks_its_inputs(cuda_device):
+    mesh = build_mesh(devices=[cuda_device] * 2)
+    parts, cand = _select_inputs((11, 16, 3), (4,), mesh.devices, 0)
+    for bad in (cand.long(), cand[None, None], cand.cpu() + 11):
+        with pytest.raises(ValueError):
+            cr.ring_allreduce_select_cuda(parts, bad, mesh)
+    with pytest.raises(ValueError):
+        cr.ring_allreduce_select_cuda([p.cpu() for p in parts], cand, mesh)
+
+
+@pytest.mark.cuda
+def test_voting_fit_on_the_card_grows_the_cpu_voting_tree(cuda_device):
+    """D = 4 virtual shards, voting with the ring: the card's first tree is
+    the CPU voting fit's, and the root and every grow step reduced one
+    voted slab through ring_select and nothing else."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(5001, 12)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(np.float64)
+    table = {"features": X, "label": y}
+    before = (cr.ring_allreduce_select_cuda.launches,
+              cr.ring_allreduce_cuda.launches,
+              cr.fused_segment_hist_ring_cuda.launches)
+    trees = []
+    for dev in (cuda_device, "cpu"):
+        est = LightGBMClassifier(numIterations=2, numLeaves=15,
+                                 collective="ring", parallelism="voting",
+                                 topK=3, device=str(torch.device(dev).type))
+        est.setMesh(build_mesh(devices=[dev] * 4))
+        trees.append(est.fit(table).getModel().trees)
+    for k in ("split_feature", "threshold", "left_child", "right_child"):
+        np.testing.assert_array_equal(getattr(trees[0][0], k),
+                                      getattr(trees[1][0], k))
+    splits = sum(t.num_leaves - 1 for t in trees[0])
+    after = (cr.ring_allreduce_select_cuda.launches,
+             cr.ring_allreduce_cuda.launches,
+             cr.fused_segment_hist_ring_cuda.launches)
+    assert [a - b for a, b in zip(after, before)] == \
+        [len(trees[0]) + splits, 0, 0]
+
+
+@pytest.mark.cuda
+def test_feature_fit_on_the_card_grows_the_cpu_tree(cuda_device):
+    """data+feature on a 2 × 2 grid of virtual devices: the first tree is
+    the CPU fit's."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(4001, 9)).astype(np.float32)
+    y = (X[:, 0] - X[:, 5] > 0).astype(np.float64)
+    trees = []
+    for dev in (cuda_device, "cpu"):
+        est = LightGBMClassifier(numIterations=2, numLeaves=15,
+                                 parallelism="data+feature",
+                                 device=str(torch.device(dev).type))
+        est.setMesh(build_mesh(2, 2, devices=[dev] * 4))
+        trees.append(est.fit({"features": X, "label": y})
+                     .getModel().trees)
+    for k in ("split_feature", "threshold", "left_child", "right_child"):
+        np.testing.assert_array_equal(getattr(trees[0][0], k),
+                                      getattr(trees[1][0], k))
+
+
 @pytest.mark.cuda
 def test_ring_wrappers_raise_without_their_library(cuda_device,
                                                    monkeypatch):
@@ -221,6 +348,9 @@ def test_ring_wrappers_raise_without_their_library(cuda_device,
     with pytest.raises(RuntimeError, match="nvcc failed"):
         co.fused_segment_hist_ring(
             _fused_shards(mesh.devices, "float32", [3, 4], 0), 256, mesh)
+    sel, cand = _select_inputs((7, 5, 3), (3,), mesh.devices, 0)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        co.ring_allreduce_select(sel, cand, mesh)
     assert cr.ring_allreduce_cuda.launches == before
 
 
