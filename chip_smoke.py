@@ -12,10 +12,16 @@ Phases, each printing one JSON line:
    each kernel's registers.
 3. kernels — each CUDA kernel, in each accumulation mode, at the main-path
    shapes (400,000 × 50 rows × features, B = 256; the segment kernel at
-   cnt ∈ {1, 777, 200,000}) against its plain PyTorch twin on the same
-   inputs, with the median time of 20 launches after warm-up (CUDA
-   events) of the kernel, the twin and a one-call ``index_add_``
-   yardstick.
+   cnt ∈ {1, 777, the flagship fit's median segment, 200,000}, and on the
+   wide configuration's local 2,048 × 2,000 at a 1,024-row segment)
+   against its plain PyTorch twin on the same inputs, with the median
+   time of 20 launches after warm-up (CUDA events) of the kernel, the twin
+   and a one-call ``index_add_`` yardstick, and for the segment kernel its
+   device time alone (``torch.profiler``) and the wrapper's host enqueue
+   time (a host clock around 1,000 calls without a synchronize).  A
+   segment row at 200,000 rows with ``split=2`` (at least two feature
+   groups of 25, against one of 50) measures the group width, where the
+   wrapper has it.
 4. main_path — LightGBMClassifier fit → transform at the flagship width
    (400,000 × 50, 50 iterations, 31 leaves, 255 bins), warm-up fit first;
    the launch counts of the timed fit must equal the trees grown (root
@@ -26,7 +32,10 @@ Phases, each printing one JSON line:
    within 0.002, margins close over the trees whose structure matches.
 6. profile — where a 10-iteration flagship fit spends its time:
    ``torch.profiler`` device time by kernel, the device's idle share, and
-   the host binning pass timed alone.
+   the host binning pass timed alone; the quantiles of its segment sizes
+   (the smaller child of each split); then the same 10-iteration fit on
+   four virtual shards under ``histogramMethod="pallas_ring"``, for the
+   device time of ``fused_hist_ring`` per fit.
 7. collectives — the ring kernels of ``csrc/ring.cu`` on D ∈ {2, 4}
    virtual shards of the card: ``ring_allreduce`` against its plain twin
    on the flagship payload (50, 256, 3) and a ragged (13, 17, 3), exactly
@@ -40,7 +49,8 @@ Phases, each printing one JSON line:
    exactly.  Median times of the kernel's wrapper call, the twin and a
    one-call yardstick (``torch.stack(parts).sum(0)``; ``index_add_`` over
    every shard's segment), the kernel's device time alone
-   (``torch.profiler``), and the bound.
+   (``torch.profiler``), the bound, and at 1 and 777 rows a shard the
+   wrapper's host enqueue time.
 8. mesh_path — the flagship classifier data-parallel over
    ``build_mesh(data=4, devices=["cuda:0"] * 4)`` with
    ``collective="ring"``, under ``histogramMethod="auto"`` and
@@ -93,7 +103,15 @@ F32_OPS_PER_S = 67e12
 #: NVLink 4 on the H100 SXM, bytes/s each way per card
 NVLINK_BYTES_PER_S = 450e9
 N_ROWS, N_FEATURES = 400_000, 50
-SEGMENT_COUNTS = (1, 777, 200_000)
+#: the median of the flagship fit's segment sizes (the smaller child of
+#: each of its 1,500 splits), as phase main_path prints it
+MEDIAN_SEGMENT = 6_522
+SEGMENT_COUNTS = (1, 777, MEDIAN_SEGMENT, 200_000)
+#: the wide configuration's local shard (8,192 rows over 4 shards) and
+#: the segment the kernels phase histograms on it
+WIDE_LOCAL_ROWS, WIDE_SEGMENT = 2048, 1024
+#: calls per host enqueue measurement
+ENQUEUE_CALLS = 1000
 #: f32/bf16 kernel-vs-twin tolerance: |k - p| <= RTOL |p| + ATOL_ULPS u
 #: sum|gh| per cell.  Both sides add the same values in different orders
 #: (atomics on each); a sum of m terms in any order is off by at most
@@ -192,6 +210,39 @@ def device_ms(fn, kernel, reps=20):
     return us / 1e3 / reps
 
 
+def enqueue_us(fn, calls=None):
+    """Host time per call of ``fn`` over ``calls`` (``ENQUEUE_CALLS``)
+    calls with no synchronize between them (the wrapper's enqueue, not
+    the kernel)."""
+    import torch
+    calls = calls or ENQUEUE_CALLS
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def segment_sizes(model):
+    """The grower's segment of every split: its smaller child's rows."""
+    import numpy as np
+    sizes = []
+    for t in model.getModel().trees:
+        def rows(child):
+            return t.internal_count[child] if child >= 0 \
+                else t.leaf_count[~child]
+        sizes += [min(rows(a), rows(b))
+                  for a, b in zip(t.left_child, t.right_child)]
+    q = np.quantile(np.asarray(sizes, np.float64),
+                    [0.0, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0])
+    return {"splits": len(sizes),
+            "quantiles": dict(zip(("min", "p10", "p25", "median", "p75",
+                                   "p90", "max"), q.tolist()))}
+
+
 def bound_ms(n_bytes, n_ops, wire_bytes=0):
     """Least time of a call: ``n_bytes`` through device memory and
     ``wire_bytes`` over NVLink one way, or ``n_ops`` f32 operations,
@@ -228,14 +279,17 @@ def phase_build():
                         for k, v in res.items()}}
 
 
-def kernel_inputs():
-    """Binned 400k × 50 matrix and gradient triples of the main path's
-    first tree (binary objective at the init score), on the card."""
+def kernel_inputs(n=None, f=None, rows=None):
+    """Binned n × f matrix and gradient triples of the main path's first
+    tree (binary objective at the init score), on the card; ``rows``: only
+    the first ``rows`` of them (a shard), binned on all n."""
     import numpy as np
     import torch
     from mmlspark_tpu_torch.gbdt import fit_bin_mapper, get_objective
-    X, y = bench_data(N_ROWS, N_FEATURES)
+    X, y = bench_data(n or N_ROWS, f or N_FEATURES)
     mapper = fit_bin_mapper(X, max_bin=255)
+    if rows is not None:
+        X, y = X[:rows], y[:rows]
     bins = mapper.transform(X, DEV)
     obj = get_objective("binary")
     w = np.ones(len(y))
@@ -259,15 +313,55 @@ def compare(kern, plain, gh_abs_hist, accum):
     return bool((err <= tol).all()), float(err.max())
 
 
-def phase_kernels(state):
+def _segment_row(inputs, row_order, cnt, accum, **kw):
+    """hist_segment at ``cnt`` rows against its twin: match, times, the
+    device time alone and the bound; ``kw`` goes to the wrapper."""
     import torch
     from mmlspark_tpu_torch.ops import cuda_histogram as ch
-    bins, B, gh, gh_int = kernel_inputs()
+    bins, B, gh, gh_int = inputs
+    n, f = bins.shape
+    ghm = gh_int if accum == "int32" else gh
+    ghv = ch._gh_values(ghm, accum)
+    off = (n - cnt) // 3
+
+    def kernel():
+        return ch.histogram_cuda_fused(bins, ghm, row_order, off, cnt, B,
+                                       accum, **kw)
+
+    kern = kernel()
+    plain = ch.histogram_fused_plain(bins, ghm, row_order, off, cnt, B,
+                                     accum)
+    torch.cuda.synchronize()
+    good, err = compare(kern, plain, ch.histogram_fused_plain(
+        bins, ghv.abs().float(), row_order, off, cnt, B), accum)
+    seg = row_order[off:off + cnt].long()
+    flat = (bins[seg].long() + torch.arange(f, device=DEV) * B).reshape(-1)
+    rep = ghv[seg].repeat_interleave(f, 0)
+    lib_out = torch.zeros(f * B, 3, dtype=kern.dtype, device=DEV)
+    bms, by = bound_ms(cnt * (f + 12 + 4) + f * B * 12, cnt * f * 3)
+    return {"kernel": "hist_segment", "accum": accum, "rows": cnt,
+            "features": f, **kw, "match": good, "max_abs_err": err,
+            "ms": median_ms(kernel),
+            "device_ms": device_ms(kernel, "hist_segment_kernel"),
+            "plain_ms": median_ms(lambda: ch.histogram_fused_plain(
+                bins, ghm, row_order, off, cnt, B, accum)),
+            "library_ms": median_ms(lambda: lib_out.index_add_(0, flat, rep)),
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_kernels(state):
+    import inspect
+    import torch
+    from mmlspark_tpu_torch.ops import cuda_histogram as ch
+    inputs = kernel_inputs()
+    bins, B, gh, gh_int = inputs
     n, f = bins.shape
     g = torch.Generator(device="cpu").manual_seed(0)
     row_order = torch.randperm(n, generator=g).to(torch.int32).to(DEV)
+    wide = kernel_inputs(WIDE_ROWS, WIDE_FEATURES, WIDE_LOCAL_ROWS)
+    wide_order = torch.randperm(WIDE_LOCAL_ROWS, generator=g).to(
+        torch.int32).to(DEV)
     rows = []
-    ok = True
     for accum in ("float32", "bfloat16", "int32"):
         ghm = gh_int if accum == "int32" else gh
         ghv = ch._gh_values(ghm, accum)
@@ -291,42 +385,28 @@ def phase_kernels(state):
                      "library_ms": median_ms(
                          lambda: lib_out.index_add_(0, flat, rep)),
                      "bound_ms": bms, "bound_by": by})
-        ok &= good
         del flat, rep, lib_out
         # segment histogram
         for cnt in SEGMENT_COUNTS:
-            off = (n - cnt) // 3
-            kern = ch.histogram_cuda_fused(bins, ghm, row_order, off, cnt, B,
-                                           accum)
-            plain = ch.histogram_fused_plain(bins, ghm, row_order, off, cnt,
-                                             B, accum)
-            torch.cuda.synchronize()
-            good, err = compare(kern, plain, ch.histogram_fused_plain(
-                bins, gh_abs, row_order, off, cnt, B), accum)
-            seg = row_order[off:off + cnt].long()
-            flat = (bins[seg].long()
-                    + torch.arange(f, device=DEV) * B).reshape(-1)
-            rep = ghv[seg].repeat_interleave(f, 0)
-            lib_out = torch.zeros(f * B, 3, dtype=kern.dtype, device=DEV)
-            bms, by = bound_ms(cnt * (f + 12 + 4) + f * B * 12,
-                               cnt * f * 3)
-            rows.append({"kernel": "hist_segment", "accum": accum,
-                         "rows": cnt, "match": good, "max_abs_err": err,
-                         "ms": median_ms(lambda: ch.histogram_cuda_fused(
-                             bins, ghm, row_order, off, cnt, B, accum)),
-                         "plain_ms": median_ms(
-                             lambda: ch.histogram_fused_plain(
-                                 bins, ghm, row_order, off, cnt, B, accum)),
-                         "library_ms": median_ms(
-                             lambda: lib_out.index_add_(0, flat, rep)),
-                         "bound_ms": bms, "bound_by": by})
-            ok &= good
+            rows.append(_segment_row(inputs, row_order, cnt, accum))
+        rows.append(_segment_row(wide, wide_order, WIDE_SEGMENT, accum))
+    if "split" in inspect.signature(ch.histogram_cuda_fused).parameters:
+        rows.append(_segment_row(inputs, row_order, max(SEGMENT_COUNTS),
+                                 "float32", split=2))
+    enqueue = {}
+    for cnt in (1, 777):
+        off = (n - cnt) // 3
+        enqueue[f"hist_segment_{cnt}_rows_us"] = enqueue_us(
+            lambda: ch.histogram_cuda_fused(bins, gh, row_order, off, cnt,
+                                            B))
     state["kernel_rows"] = rows
+    ok = all(r["match"] for r in rows)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain twin: "
                              + json.dumps([r for r in rows
                                            if not r["match"]]))
-    return {"rows": rows, "tolerance": f"int32 exact; f32/bf16 |k-p| <= "
+    return {"rows": rows, "enqueue": enqueue,
+            "tolerance": f"int32 exact; f32/bf16 |k-p| <= "
             f"{RTOL}|p| + {ATOL_ULPS}*2^-24*sum|gh| per cell"}
 
 
@@ -367,7 +447,8 @@ def phase_main_path(state):
     res = {"rows": N_ROWS, "features": N_FEATURES, "iterations": 50,
            "fit_s": fit_s, "transform_s": transform_s,
            "train_auc": train_auc, "trees": len(trees), "splits": splits,
-           "launches": launches, "host_syncs": syncs}
+           "launches": launches, "host_syncs": syncs,
+           "segments": segment_sizes(model)}
     if prob.shape != (N_ROWS,) or not np.isfinite(prob).all():
         raise AssertionError(f"probabilities not finite of shape "
                              f"({N_ROWS},): {res}")
@@ -426,15 +507,23 @@ def phase_profile():
     fit_bin_mapper(X, max_bin=255).transform(X, DEV)
     torch.cuda.synchronize()
     binning_s = time.perf_counter() - t0
+    from mmlspark_tpu_torch import build_mesh
     est = _classifier(numIterations=10, device=DEV, parallelism="serial")
-    return {"iterations": 10, "binning_s": binning_s,
-            **profiled_fit(est, table, ("hist_full", "hist_segment"))}
+    serial = profiled_fit(est, table, ("hist_full", "hist_segment"))
+    mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
+    ring = _classifier(numIterations=10, device=DEV, collective="ring",
+                       histogramMethod="pallas_ring").setMesh(mesh)
+    return {"iterations": 10, "binning_s": binning_s, **serial,
+            "pallas_ring_d4": profiled_fit(
+                ring, table, ("hist_full", "fused_hist_ring",
+                              "ring_allreduce"))}
 
 
 def profiled_fit(est, table, kernels):
     """One warmed fit of ``est`` under ``torch.profiler``: its wall time,
     the device's busy time and idle share, the device time of the named
-    ``kernels`` (``<name>_kernel``) and the busiest kernels."""
+    ``kernels`` (``<name>_kernel``), the busiest kernels, and the fit's
+    segment sizes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     est.fit(table)
@@ -442,7 +531,7 @@ def profiled_fit(est, table, kernels):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        est.fit(table)
+        model = est.fit(table)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     dev = {}
@@ -461,7 +550,8 @@ def profiled_fit(est, table, kernels):
             "device_idle_share": 1 - busy / (wall_s * 1e3) if dev else None,
             "kernels_ms": ours,
             "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]}
-                            for k, v in top]}
+                            for k, v in top],
+            "segments": segment_sizes(model)}
 
 
 def allreduce_bound_ms(payload_bytes, shards, one_card, seg_bytes=None,
@@ -652,6 +742,10 @@ def _fused_rows(devices, tag, inputs):
                          "library_ms": median_ms(
                              lambda: lib_out.index_add_(0, flat, rep)),
                          "bound_ms": bms, "bound_by": by})
+            if cnt in (1, 777):
+                rows[-1]["enqueue_us"] = enqueue_us(
+                    lambda: cr.fused_segment_hist_ring_cuda(
+                        shards, B, mesh, accum))
             del flat, rep, lib_out
     return rows
 
@@ -904,7 +998,8 @@ def _voting_card_vs_cpu():
 
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
-            if r["accum"] == "float32"
+            if r["accum"] == "float32" and "split" not in r
+            and r.get("features", N_FEATURES) == N_FEATURES
             and r["rows"] in (N_ROWS, max(SEGMENT_COUNTS))}
     main_shape = {"ring_allreduce": list(RING_SHAPES[0]),
                   "ring_allreduce_select": list(SELECT_SHAPES[0][0])}

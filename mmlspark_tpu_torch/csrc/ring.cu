@@ -51,7 +51,10 @@
 // launch the same number of blocks per rank: the wrapper asks each card
 // what it wants and holds (ring_allreduce_blocks, fused_hist_ring_blocks),
 // takes the minimum over the mesh, and passes that one count to every
-// card's launch.  One cooperative launch per card
+// card's launch.  (fused_hist_ring: that count bounds the launch, whose
+// first nb_ring blocks carry the ring's slices on every card, and whose
+// grid takes the ring blocks or the phase-1 items, whichever are more.)
+// One cooperative launch per card
 // covers every rank on that card (grid y = local rank), so every block that
 // another block waits on is resident; a grid that does not fit fails to
 // launch instead of hanging.  Every wait is bounded by kWaitSeconds of
@@ -70,16 +73,32 @@
 // has its own workspace (comm slots and flags), the counterpart of the TPU
 // kernel's own collective id: dense and voted rings never share a flag.
 //
-// fused_hist_ring.  Phase 1: the rank's blocks walk (feature group, row
-// tile) items of its segment with the shared-memory privatised histogram of
-// hist_segment (hist_block.cuh), flushing into the rank's `work` buffer.  A
-// barrier over the rank's blocks (arrive counter + generation word) ends the
-// phase.  Phase 2: the ring above over `work`; each block then zeroes its
-// slice of `work`, so the buffer is zero for the next launch without a
-// memset.  Each rank takes its own exact `cnt` (no padding to a global
-// bucket).  This first version finishes the whole local histogram before it
-// rings; the TPU kernel's overlap of one chunk's transfer with the next
-// chunk's histogram is later work.
+// fused_hist_ring.  Phase 1 cuts the rank's segment histogram along the
+// ring's chunks: chunk c covers the flattened elements [c * chunk, (c + 1)
+// * chunk), which lie in features [fa_c, fb_c) (a feature that straddles
+// a chunk boundary belongs to both chunks, and each chunk's items add
+// only their own cells).  An item is (chunk, sub-group of at most `group`
+// features, row tile); its block adds the tile's rows into shared memory
+// with the block step of seg_hist.cuh (each row staged once, features
+// owned by warps, no float atomics), then adds the chunk's non-zero cells
+// into the rank's `work` buffer with global atomics and counts itself on
+// the chunk's readiness counter; the last item of a chunk resets the
+// counter and raises the chunk's flag to the launch's sequence number.
+// Items are taken in the order the ring consumes the chunks (chunk rank
+// first, then rank - 1, ...), from the last block down, so the ring's
+// blocks (the first nb_ring) take the last items.  Phase 2 is the ring
+// above over `work`; before it loads chunk c a ring block waits for chunk
+// c's flag alone, so the first send overlaps the histogram of the later
+// chunks, and no barrier spans the rank's blocks.  Blocks with neither an item nor a
+// ring slice leave at once.  Each ring block then zeroes its slice of
+// `work`, so the buffer is zero for the next launch without a memset.
+// Each rank takes its own exact `cnt` (no padding to a global bucket).
+//
+// Scope.  When every rank of a launch lies on one card, the fused kernel's
+// fences, flags and readiness words use .gpu scope (fence.acq_rel.gpu,
+// st.release.gpu, ld.acquire.gpu); when the mesh spans cards its ring
+// handshakes use .sys, as the dense and select rings always do.  The
+// readiness words never leave the rank's card, so they are .gpu always.
 //
 // Bound (H100 SXM, 3.35 TB/s HBM, 450 GB/s NVLink each way).  The bound
 // counts what the function must move, not what the ring chooses to move
@@ -93,8 +112,9 @@
 // (or NVLink).  fused_hist_ring at 100,000 rows per shard, f = 50, D = 4
 // must read 4 x (5 MB bins + 1.2 MB gh + 0.4 MB row ids) = 26.4 MB and
 // write the 4 reduced outputs, 0.61 MB: 8.06 us; like hist_segment it is
-// held back by shared-memory atomics in phase 1 and by the handshakes in
-// phase 2.
+// held back in phase 1 by the add step's instructions and the latency of
+// the row gathers (seg_hist.cuh), and at a small segment by the launch and
+// the 2(D-1) handshakes of phase 2.
 //
 // ring_select on the wide voting configuration (topK 32, so k2 = 64 of
 // f = 2000 columns, B = 256): the pair slab is (2, 64, 256, 3) f32 =
@@ -108,15 +128,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hist_block.cuh"
+#include "seg_hist.cuh"
 
 namespace {
 
 constexpr int kMaxRanks = 16;
 constexpr int kMaxBlocks = 1024;      // ring blocks per rank; flag stride
-constexpr int kThreads = hist::kThreads;
+constexpr int kThreads = 256;         // dense and select rings
+constexpr int kFusedThreads = 512;    // fused_hist_ring
 constexpr int kElemsPerThread = 4;    // ring_allreduce grid sizing
-constexpr int kHistBlocksPerSM = 4;   // fused_hist_ring grid sizing
 constexpr unsigned long long kWaitNs = 20ull * 1000 * 1000 * 1000;  // kWaitSeconds = 20
 
 struct Rank {
@@ -131,15 +151,19 @@ struct Rank {
   const int32_t* row_order;
   int64_t off;         //   segment row_order[off : off + cnt]
   int64_t cnt;
+  int64_t tiles;       //   row tiles of the segment (0 when cnt == 0)
   void* work;          //   local (f, B, 3) histogram, zero between launches
-  unsigned* bar;       //   [arrived blocks, generation]
+  unsigned* ready;     //   per chunk: [kMaxRanks items counted, kMaxRanks flags]
 };
 
 struct Args {
   Rank r[kMaxRanks];
   int local[kMaxRanks];  // global rank of block row blockIdx.y
   int ranks;             // D
-  int f, num_bins, groups;
+  int f, num_bins;
+  int group;             // fused_hist_ring: features per phase-1 item
+  int replicas;          // fused_hist_ring: histogram copies per block
+  int nb_ring;           // fused_hist_ring: ring blocks per rank
   int64_t k2, inner;     // ring_select: candidates per child, B * 3
   int64_t total;         // payload elements
   int64_t chunk;         // cb * 128
@@ -152,53 +176,56 @@ __device__ __forceinline__ unsigned long long now_ns() {
   return t;
 }
 
+// Handshake primitives at system scope (kSys: ranks on several cards) or
+// at the scope of one card.
+template <bool kSys>
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  if (kSys)
+    asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  else
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
+template <bool kSys>
 __device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+  if (kSys)
+    asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+  else
+    asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
+template <bool kSys>
+__device__ __forceinline__ void fence() {
+  if (kSys)
+    __threadfence_system();
+  else
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+template <bool kSys>
 __device__ __forceinline__ void spin_until(const unsigned* p, unsigned v) {
   const unsigned long long t0 = now_ns();
-  while (ld_acquire(p) != v) {
+  while (ld_acquire<kSys>(p) != v) {
     if (now_ns() - t0 > kWaitNs) __trap();
   }
 }
 
 // Block-wide receive: thread 0 waits for the flag, then the block goes on.
+template <bool kSys>
 __device__ __forceinline__ void block_wait(const unsigned* flag, unsigned seq) {
-  if (threadIdx.x == 0) spin_until(flag, seq);
+  if (threadIdx.x == 0) spin_until<kSys>(flag, seq);
   __syncthreads();
 }
 
-// Block-wide send: every thread's stores so far become visible system-wide
-// before thread 0 raises the flag.
+// Block-wide send: every thread's stores so far become visible at the
+// scope before thread 0 raises the flag.
+template <bool kSys>
 __device__ __forceinline__ void block_signal(unsigned* flag, unsigned seq) {
-  __threadfence_system();
+  fence<kSys>();
   __syncthreads();
-  if (threadIdx.x == 0) st_release(flag, seq);
-}
-
-// Barrier over the `nblocks` blocks of one rank: the last block to arrive
-// resets the counter and publishes the generation `seq`.
-__device__ __forceinline__ void rank_barrier(unsigned* bar, unsigned nblocks, unsigned seq) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned arrived = atomicAdd(bar, 1u) + 1u;
-    if (arrived == nblocks) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      st_release(bar + 1, seq);
-    } else {
-      spin_until(bar + 1, seq);
-    }
-  }
-  __syncthreads();
+  if (threadIdx.x == 0) st_release<kSys>(flag, seq);
 }
 
 // Payload element e of a plain array.
@@ -222,11 +249,18 @@ struct SelectLoad {
   }
 };
 
+// The dense and select rings' payload is there before the launch.
+struct Ready {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
 // Block b (of nb) of `rank` runs its slice of the ring over the payload
-// that `load` reads.  kZeroX: zero x's slice once the reduce-scatter has
-// read it (x is the payload that `load` reads).
-template <typename T, bool kZeroX, typename Load>
-__device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& load, T* x) {
+// that `load` reads; `ready(c)` returns once chunk c of it may be read.
+// kZeroX: zero x's slice once the reduce-scatter has read it (x is the
+// payload that `load` reads).  kSys: handshakes at system scope.
+template <typename T, bool kZeroX, bool kSys, typename Load, typename Wait>
+__device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& load, T* x,
+                           const Wait& ready) {
   const int D = a.ranks;
   const Rank& me = a.r[rank];
   const Rank& right = a.r[(rank + 1) % D];
@@ -238,17 +272,19 @@ __device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& l
   const int64_t stride = static_cast<int64_t>(nb) * blockDim.x;
 
   // reduce-scatter, step 0: chunk `rank` goes to the right neighbour
+  ready(rank);
   for (int64_t i = i0; i < cs; i += stride) {
     const int64_t e = static_cast<int64_t>(rank) * cs + i;
     __stcg(theirs + i, e < total ? load(e) : T(0));
   }
-  block_signal(right.flags + b, a.seq);
+  block_signal<kSys>(right.flags + b, a.seq);
   // steps 1 .. D-1: add the local part of chunk rank - k to the partial
   // from the left and pass it on; step D-1 completes chunk rank + 1, and
   // its send is the first all-gather step
   for (int k = 1; k < D; ++k) {
-    block_wait(me.flags + static_cast<int64_t>(k - 1) * kMaxBlocks + b, a.seq);
     const int c = (rank - k + D) % D;
+    ready(c);
+    block_wait<kSys>(me.flags + static_cast<int64_t>(k - 1) * kMaxBlocks + b, a.seq);
     const T* in = mine + static_cast<int64_t>(k - 1) * cs;
     T* fwd = theirs + static_cast<int64_t>(k) * cs;
     for (int64_t i = i0; i < cs; i += stride) {
@@ -257,7 +293,7 @@ __device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& l
       if (k == D - 1 && e < total) out[e] = v;
       __stcg(fwd + i, v);
     }
-    block_signal(right.flags + static_cast<int64_t>(k) * kMaxBlocks + b, a.seq);
+    block_signal<kSys>(right.flags + static_cast<int64_t>(k) * kMaxBlocks + b, a.seq);
   }
   if (kZeroX) {
     for (int64_t i = i0; i < cs; i += stride) {
@@ -270,7 +306,7 @@ __device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& l
   // all-gather: slot D-2+j brings the total of chunk rank + 1 - j
   for (int j = 1; j < D; ++j) {
     const int s = D - 2 + j;
-    block_wait(me.flags + static_cast<int64_t>(s) * kMaxBlocks + b, a.seq);
+    block_wait<kSys>(me.flags + static_cast<int64_t>(s) * kMaxBlocks + b, a.seq);
     const int c = (rank + 1 - j + D) % D;
     const T* in = mine + static_cast<int64_t>(s) * cs;
     T* fwd = theirs + static_cast<int64_t>(s + 1) * cs;
@@ -280,57 +316,126 @@ __device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& l
       if (e < total) out[e] = v;
       if (j < D - 1) __stcg(fwd + i, v);
     }
-    if (j < D - 1) block_signal(right.flags + static_cast<int64_t>(s + 1) * kMaxBlocks + b, a.seq);
+    if (j < D - 1) block_signal<kSys>(right.flags + static_cast<int64_t>(s + 1) * kMaxBlocks + b, a.seq);
   }
 }
 
 __global__ void __launch_bounds__(kThreads) ring_allreduce_kernel(const __grid_constant__ Args a) {
   const int rank = a.local[blockIdx.y];
   const DenseLoad<float> load{static_cast<const float*>(a.r[rank].x)};
-  ring_phase<float, false>(a, rank, blockIdx.x, gridDim.x, load, static_cast<float*>(nullptr));
+  ring_phase<float, false, true>(a, rank, blockIdx.x, gridDim.x, load,
+                                 static_cast<float*>(nullptr), Ready{});
 }
 
 __global__ void __launch_bounds__(kThreads) ring_select_kernel(const __grid_constant__ Args a) {
   const int rank = a.local[blockIdx.y];
   const Rank& me = a.r[rank];
   const SelectLoad load{static_cast<const float*>(me.x), me.cand, a.f, a.k2, a.inner};
-  ring_phase<float, false>(a, rank, blockIdx.x, gridDim.x, load, static_cast<float*>(nullptr));
+  ring_phase<float, false, true>(a, rank, blockIdx.x, gridDim.x, load,
+                                 static_cast<float*>(nullptr), Ready{});
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads) fused_hist_ring_kernel(const __grid_constant__ Args a) {
-  using T = typename hist::Accum<kMode>::T;
+// The features [fa, fb) that hold chunk c's elements, in nsub phase-1
+// sub-groups of at most a.group features (nsub = 0: a chunk past the
+// payload).
+struct ChunkFeatures {
+  int fa, fb, nsub;
+};
+
+__device__ __forceinline__ ChunkFeatures chunk_features(const Args& a, int c) {
+  const int64_t inner = static_cast<int64_t>(a.num_bins) * 3;
+  const int64_t lo = static_cast<int64_t>(c) * a.chunk;
+  const int64_t hi = lo + a.chunk < a.total ? lo + a.chunk : a.total;
+  if (lo >= hi) return {0, 0, 0};
+  const int fa = static_cast<int>(lo / inner);
+  const int fb = static_cast<int>((hi + inner - 1) / inner);
+  return {fa, fb, (fb - fa + a.group - 1) / a.group};
+}
+
+// Chunk c of the rank's `work` is complete once all its items have counted
+// themselves: the last raises the chunk's flag (gpu scope: the readers are
+// the rank's own blocks, on its card).
+struct ChunkReady {
+  const Args& a;
+  const Rank& me;
+  __device__ __forceinline__ void operator()(int c) const {
+    if (chunk_features(a, c).nsub * me.tiles == 0) return;  // nothing added
+    block_wait<false>(me.ready + kMaxRanks + c, a.seq);
+  }
+};
+
+__device__ __forceinline__ void chunk_arrive(const Args& a, const Rank& me, int c,
+                                             unsigned items) {
+  fence<false>();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (atomicAdd(me.ready + c, 1u) + 1u == items) {
+      atomicExch(me.ready + c, 0u);
+      fence<false>();
+      st_release<false>(me.ready + kMaxRanks + c, a.seq);
+    }
+  }
+  __syncthreads();  // the next item reuses the shared histogram
+}
+
+template <int kMode, bool kSys>
+__global__ void __launch_bounds__(kFusedThreads, 2)
+fused_hist_ring_kernel(const __grid_constant__ Args a) {
+  using T = typename seg::Accum<kMode>::T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const seg::Smem<T> sm = seg::carve<T>(smem_raw, a.group, a.num_bins);
   const int rank = a.local[blockIdx.y];
   const Rank& me = a.r[rank];
   T* work = static_cast<T*>(me.work);
+  const int D = a.ranks;
   const int nb = gridDim.x;
 
-  // phase 1: this rank's segment histogram into `work`
-  const int64_t cnt = me.cnt;
-  if (cnt > 0) {
-    const int64_t want = (nb + a.groups - 1) / a.groups;
-    int64_t tiles = cnt / kThreads;
-    tiles = tiles < want ? tiles : want;
-    tiles = tiles > 1 ? tiles : 1;
-    const int64_t rows = (cnt + tiles - 1) / tiles;
-    const int64_t items = ((cnt + rows - 1) / rows) * a.groups;
-    for (int64_t it = blockIdx.x; it < items; it += nb) {
-      const int g = static_cast<int>(it % a.groups);
-      const int64_t i0 = (it / a.groups) * rows;
-      const int64_t i1 = i0 + rows < cnt ? i0 + rows : cnt;
-      hist::accumulate_tile<kMode, true>(me.bins, static_cast<const T*>(me.gh), me.row_order,
-                                         me.off, i0, i1, a.f, g * hist::kGroup, a.num_bins,
-                                         reinterpret_cast<T*>(smem_raw), work);
+  // phase 1: items (chunk rank - k, sub-group s, tile t) in the order of
+  // k, s, t; block nb - 1 - p takes items p, p + nb, ...
+  if (me.tiles > 0) {
+    const int inner = a.num_bins * 3;
+    const int stride = seg::feature_words(a.num_bins);
+    const int64_t rows = (me.cnt + me.tiles - 1) / me.tiles;
+    for (int64_t q = nb - 1 - static_cast<int>(blockIdx.x);; q += nb) {
+      int k = 0, c = rank;
+      ChunkFeatures cf = chunk_features(a, c);
+      int64_t rem = q;
+      while (rem >= cf.nsub * me.tiles) {
+        rem -= cf.nsub * me.tiles;
+        if (++k == D) break;
+        c = (rank - k + D) % D;
+        cf = chunk_features(a, c);
+      }
+      if (k == D) break;
+      const int s = static_cast<int>(rem / me.tiles);
+      const int64_t t = rem - s * me.tiles;
+      const int f0 = cf.fa + s * a.group;
+      const int fg = min(a.group, cf.fb - f0);
+      const int64_t i0 = t * rows;
+      const int64_t i1 = i0 + rows < me.cnt ? i0 + rows : me.cnt;
+      seg::zero_hist(sm.hist, a.replicas * fg * stride);
+      seg::accumulate_rows<kMode>(me.bins, static_cast<const T*>(me.gh), me.row_order, me.off,
+                                  i0, i1, a.f, f0, fg, a.num_bins, a.replicas, sm);
+      // this chunk's cells of the sub-group
+      const int64_t c_lo = static_cast<int64_t>(c) * a.chunk;
+      const int64_t c_hi = c_lo + a.chunk < a.total ? c_lo + a.chunk : a.total;
+      const int64_t g_lo = static_cast<int64_t>(f0) * inner;
+      const int lo = static_cast<int>((c_lo > g_lo ? c_lo : g_lo) - g_lo);
+      const int hi = static_cast<int>((c_hi < g_lo + fg * inner ? c_hi : g_lo + fg * inner) - g_lo);
+      T* dst = work + g_lo;
+      seg::for_cells(sm.hist, lo, hi, fg, inner, stride, a.replicas,
+                     [](int) -> const T* { return nullptr; }, 0, [&](int i, T v) {
+                       if (v != T(0)) atomicAdd(dst + i, v);
+                     });
+      chunk_arrive(a, me, c, static_cast<unsigned>(cf.nsub * me.tiles));
     }
   }
-  rank_barrier(me.bar, nb, a.seq);
 
-  // phase 2: ring-reduce `work` into every rank's `out`
-  const int64_t need = (a.chunk + kThreads - 1) / kThreads;
-  const int nb_ring = static_cast<int>(need < nb ? need : nb);
-  if (static_cast<int>(blockIdx.x) < nb_ring)
-    ring_phase<T, true>(a, rank, blockIdx.x, nb_ring, DenseLoad<T>{work}, work);
+  // phase 2: ring-reduce `work` into every rank's `out`, each chunk once
+  // its items are in
+  if (static_cast<int>(blockIdx.x) < a.nb_ring)
+    ring_phase<T, true, kSys>(a, rank, blockIdx.x, a.nb_ring, DenseLoad<T>{work}, work,
+                              ChunkReady{a, me});
 }
 
 int sm_count() {
@@ -344,9 +449,9 @@ int sm_count() {
 // (at least 1), limited by how many blocks of `kernel` the card holds at
 // once (a cooperative launch needs them all resident).  Returns 0 when not
 // even one block per rank fits.
-int blocks_per_rank(const void* kernel, size_t smem, int n_local, int64_t want) {
+int blocks_per_rank(const void* kernel, int threads, size_t smem, int n_local, int64_t want) {
   int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
       cudaSuccess)
     return 0;
   int nb = per_sm * sm_count() / n_local;
@@ -354,20 +459,21 @@ int blocks_per_rank(const void* kernel, size_t smem, int n_local, int64_t want) 
   return want < nb ? (want > 1 ? static_cast<int>(want) : 1) : nb;
 }
 
-const void* fused_kernel(int mode) {
-  switch (mode) {
-    case 0: return reinterpret_cast<const void*>(fused_hist_ring_kernel<0>);
-    case 2: return reinterpret_cast<const void*>(fused_hist_ring_kernel<2>);
+const void* fused_kernel(int mode, int sys) {
+  switch (mode * 2 + (sys ? 1 : 0)) {
+    case 0: return reinterpret_cast<const void*>(fused_hist_ring_kernel<0, false>);
+    case 1: return reinterpret_cast<const void*>(fused_hist_ring_kernel<0, true>);
+    case 4: return reinterpret_cast<const void*>(fused_hist_ring_kernel<2, false>);
+    case 5: return reinterpret_cast<const void*>(fused_hist_ring_kernel<2, true>);
     default: return nullptr;
   }
 }
 
-size_t fused_smem(int num_bins) { return static_cast<size_t>(hist::kGroup) * num_bins * 3 * 4; }
-
-int launch(const void* kernel, Args& a, int n_local, int nb, size_t smem, void* stream) {
+int launch(const void* kernel, Args& a, int n_local, int nb, int threads, size_t smem,
+           void* stream) {
   if (nb < 1 || nb > kMaxBlocks) return static_cast<int>(cudaErrorInvalidValue);
   void* params[] = {&a};
-  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(nb, n_local), dim3(kThreads),
+  const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(nb, n_local), dim3(threads),
                                                     params, smem,
                                                     static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -403,6 +509,7 @@ extern "C" {
 // Flag words per rank per comm slot (the workspace's flag stride).
 int ring_max_blocks() { return kMaxBlocks; }
 int ring_max_ranks() { return kMaxRanks; }
+int fused_hist_ring_threads() { return kFusedThreads; }
 
 // Let device `dev` write into `peer`'s memory; raises no error when access
 // is already enabled.  Restores the caller's current device.
@@ -431,20 +538,51 @@ int ring_enable_peer(int dev, int peer) {
 int ring_allreduce_blocks(int n_local, int64_t chunk) {
   if (n_local < 1) return 0;
   const int64_t want = (chunk + kThreads * kElemsPerThread - 1) / (kThreads * kElemsPerThread);
-  return blocks_per_rank(reinterpret_cast<const void*>(ring_allreduce_kernel), 0, n_local, want);
+  return blocks_per_rank(reinterpret_cast<const void*>(ring_allreduce_kernel), kThreads, 0,
+                         n_local, want);
 }
 
 int ring_allreduce_select_blocks(int n_local, int64_t chunk) {
   if (n_local < 1) return 0;
   const int64_t want = (chunk + kThreads * kElemsPerThread - 1) / (kThreads * kElemsPerThread);
-  return blocks_per_rank(reinterpret_cast<const void*>(ring_select_kernel), 0, n_local, want);
+  return blocks_per_rank(reinterpret_cast<const void*>(ring_select_kernel), kThreads, 0,
+                         n_local, want);
 }
 
-int fused_hist_ring_blocks(int mode, int num_bins, int n_local) {
-  const void* kernel = fused_kernel(mode);
-  if (!kernel || n_local < 1 || num_bins < 1 || num_bins > 256) return 0;
-  return blocks_per_rank(kernel, fused_smem(num_bins), n_local,
-                         kHistBlocksPerSM * sm_count() / n_local);
+// The opt-in shared memory a fused_hist_ring block may use on the current
+// device, after letting the kernels use it; minus a cudaError on failure.
+int fused_hist_ring_setup() {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  int budget = optin;
+  for (int k = 0; k < 6; ++k) {
+    const void* kernel = fused_kernel(k / 2, k % 2);
+    if (!kernel) continue;
+    cudaFuncAttributes attr;
+    e = cudaFuncGetAttributes(&attr, kernel);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+    const int dyn = optin - static_cast<int>(attr.sharedSizeBytes);
+    budget = dyn < budget ? dyn : budget;
+  }
+  for (int k = 0; k < 6; ++k) {
+    const void* kernel = fused_kernel(k / 2, k % 2);
+    if (!kernel) continue;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, budget);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+  }
+  return budget;
+}
+
+// Blocks per rank of the fused kernel, with `smem` bytes of shared memory a
+// block, that the current device holds at once for n_local ranks (0: not
+// one fits).  Call fused_hist_ring_setup on the device first.
+int fused_hist_ring_blocks(int mode, int sys, int smem, int n_local) {
+  const void* kernel = fused_kernel(mode, sys);
+  if (!kernel || n_local < 1 || smem < 0) return 0;
+  return blocks_per_rank(kernel, kFusedThreads, smem, n_local, kMaxBlocks);
 }
 
 // One launch of nb blocks per rank on the current device for the n_local
@@ -457,7 +595,8 @@ int ring_allreduce_launch(int ranks, int n_local, const int* local, void* const*
   int rc = fill_common(a, ranks, n_local, local, out, slots, flags, total, chunk, seq);
   if (rc) return rc;
   for (int r = 0; r < ranks; ++r) a.r[r].x = x[r];
-  return launch(reinterpret_cast<const void*>(ring_allreduce_kernel), a, n_local, nb, 0, stream);
+  return launch(reinterpret_cast<const void*>(ring_allreduce_kernel), a, n_local, nb, kThreads,
+                0, stream);
 }
 
 // The voted-column ring: hist[r] is rank r's local (m, f, B, 3) float32
@@ -481,37 +620,56 @@ int ring_allreduce_select_launch(int ranks, int n_local, const int* local, void*
     a.r[r].x = hist[r];
     a.r[r].cand = static_cast<const int32_t*>(cand[r]);
   }
-  return launch(reinterpret_cast<const void*>(ring_select_kernel), a, n_local, nb, 0, stream);
+  return launch(reinterpret_cast<const void*>(ring_select_kernel), a, n_local, nb, kThreads, 0,
+                stream);
 }
 
-// mode: 0 = float32, 2 = int32 (hist_block.cuh).  `work` and `bar` are
-// zero at the first launch; the kernel leaves them so.  nb: as above.
+// mode: 0 = float32, 2 = int32 (seg_hist.cuh); sys: the mesh spans cards.
+// seg: 3 x ranks words, rank r's segment row_order[r][off : off + cnt] at
+// off = seg[r], cnt = seg[ranks + r], and its row tiles seg[2 * ranks + r]
+// (0 iff cnt == 0).  `work` and
+// `ready` are zero at the first launch; the kernel leaves them so (the
+// flags of `ready` carry sequence numbers).  group: features per phase-1
+// item, replicas: histogram copies per block; nb: blocks per rank of this
+// launch, at most what
+// fused_hist_ring_blocks reports; nb_ring: ring blocks per rank, at most
+// nb and the same on every card of the mesh.
 int fused_hist_ring_launch(int ranks, int n_local, const int* local, void* const* bins,
-                           void* const* gh, void* const* row_order, const int64_t* off,
-                           const int64_t* cnt, void* const* work, void* const* bar,
-                           void* const* out, void* const* slots, void* const* flags, int f,
-                           int num_bins, int mode, int64_t chunk, unsigned seq, int nb,
-                           void* stream) {
+                           void* const* gh, void* const* row_order, const int64_t* seg,
+                           void* const* work,
+                           void* const* ready, void* const* out, void* const* slots,
+                           void* const* flags, int f, int num_bins, int mode, int sys,
+                           int group, int replicas, int64_t chunk, unsigned seq, int nb,
+                           int nb_ring, void* stream) {
   Args a;
   const int64_t total = static_cast<int64_t>(f) * num_bins * 3;
   int rc = fill_common(a, ranks, n_local, local, out, slots, flags, total, chunk, seq);
   if (rc) return rc;
-  if (f < 1 || num_bins < 1 || num_bins > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (f < 1 || num_bins < 1 || num_bins > 256 || group < 1 || group > seg::kMaxGroup ||
+      replicas < 1 || nb_ring < 1 || nb_ring > nb)
+    return static_cast<int>(cudaErrorInvalidValue);
   a.f = f;
   a.num_bins = num_bins;
-  a.groups = (f + hist::kGroup - 1) / hist::kGroup;
+  a.group = group;
+  a.replicas = replicas;
+  a.nb_ring = nb_ring;
   for (int r = 0; r < ranks; ++r) {
+    const int64_t off = seg[r], cnt = seg[ranks + r], tiles = seg[2 * ranks + r];
+    if (off < 0 || cnt < 0 || tiles < 0 || (tiles == 0) != (cnt == 0))
+      return static_cast<int>(cudaErrorInvalidValue);
     a.r[r].bins = static_cast<const uint8_t*>(bins[r]);
     a.r[r].gh = gh[r];
     a.r[r].row_order = static_cast<const int32_t*>(row_order[r]);
-    a.r[r].off = off[r];
-    a.r[r].cnt = cnt[r];
+    a.r[r].off = off;
+    a.r[r].cnt = cnt;
+    a.r[r].tiles = tiles;
     a.r[r].work = work[r];
-    a.r[r].bar = static_cast<unsigned*>(bar[r]);
+    a.r[r].ready = static_cast<unsigned*>(ready[r]);
   }
-  const void* kernel = fused_kernel(mode);
+  const void* kernel = fused_kernel(mode, sys);
   if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(kernel, a, n_local, nb, fused_smem(num_bins), stream);
+  return launch(kernel, a, n_local, nb, kFusedThreads,
+                seg::smem_bytes(group, replicas, num_bins, kFusedThreads / 32), stream);
 }
 
 }  // extern "C"

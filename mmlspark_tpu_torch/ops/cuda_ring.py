@@ -16,9 +16,9 @@ counts reductions (calls that launched the kernel on every card of the
 mesh), not per-card launches.
 
 Workspace.  The comm slots (``2(D-1)`` chunks per rank), the flag words,
-and for the fused kernel the per-rank histogram buffers and barrier words
-are allocated once per (mesh, kind, payload, dtype) and kept in
-``mesh.scratch``; the dense, select and fused rings each have their own
+and for the fused kernel the per-rank histogram buffers and per-chunk
+readiness words are allocated once per (mesh, kind, payload, dtype) and
+kept in ``mesh.scratch``; the dense, select and fused rings each have their own
 (the counterpart of the TPU kernels' separate collective ids), so they
 never share a flag; flags carry a launch sequence number, so nothing is
 reset between calls.  Peer access between neighbouring cards is enabled
@@ -26,22 +26,37 @@ when the workspace is made, and raises where the cards cannot reach each
 other.  The number of blocks per rank is one for the whole mesh
 (:func:`mesh_blocks`), chosen once per workspace and passed to every
 card's launch.
+
+The fused wrapper keeps, per workspace, the ctypes pointer arrays of each
+set of shard tensors it has launched on, keyed by every tensor's data
+pointer, shape, strides, dtype and device: a repeat call on the same
+tensors (the grower's splits within a tree) validates and builds only the
+segment bounds, the outputs and the sequence number.  Its phase 1 is cut
+along the ring's chunks (:func:`fused_chunk_features`), with at most
+:func:`fused_group` features an item.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
-from .cuda_histogram import _out_dtype, _raise_if_failed
+from .cuda_histogram import (SEG_SMEM_BUDGET, _out_dtype, _raise_if_failed,
+                             seg_replicas, seg_smem, seg_widest)
 
 _MODES = {"float32": 0, "int32": 2}
 _SEQ_MAX = 0xFFFFFFFF
 #: lanes per row of the reference's ring layout (``_ring_flat``)
 LANES = 128
+#: fused_hist_ring threads per block, and the rows that justify one more
+#: phase-1 tile
+FUSED_THREADS = 512
+FUSED_ROWS_PER_TILE = 256
+#: shard-tensor sets whose pointer arrays a fused workspace keeps
+_LAUNCH_CACHE = 16
 
 
 def ring_chunk(total: int, num_shards: int) -> int:
@@ -49,6 +64,46 @@ def ring_chunk(total: int, num_shards: int) -> int:
     128) / D)`` (the reference's ``_ring_flat`` padding)."""
     rows = -(-total // LANES)
     return -(-rows // num_shards) * LANES
+
+
+def fused_chunk_features(f: int, num_bins: int, chunk: int, num_shards: int
+                         ) -> List[Tuple[int, int]]:
+    """``[(fa, fb)]`` per ring chunk: the features whose cells hold the
+    chunk's flattened elements ``[c·chunk, (c+1)·chunk)`` of the ``(f, B,
+    3)`` payload (``(0, 0)`` for a chunk wholly past it).  A feature that
+    straddles a chunk boundary is in both chunks' ranges."""
+    inner = num_bins * 3
+    total = f * inner
+    out = []
+    for c in range(num_shards):
+        lo, hi = c * chunk, min((c + 1) * chunk, total)
+        out.append((lo // inner, -(-hi // inner)) if lo < hi else (0, 0))
+    return out
+
+
+def fused_group(f: int, num_bins: int, chunk: int, num_shards: int,
+                smem_budget: int = SEG_SMEM_BUDGET) -> int:
+    """Features per phase-1 item of the fused kernel: a chunk's whole
+    feature range where the shared memory holds it beside the staging
+    tile, else the most it holds.  Raises when not one feature fits."""
+    span = max(fb - fa for fa, fb in fused_chunk_features(
+        f, num_bins, chunk, num_shards))
+    return seg_widest(max(1, span), num_bins, smem_budget,
+                      FUSED_THREADS // 32)
+
+
+def fused_grid(counts: Sequence[int], sub_items: int, nb_cap: int,
+               nb_ring: int) -> Tuple[List[int], int]:
+    """``(tiles per rank, blocks per rank)`` of one fused launch: a rank's
+    segment of ``cnt`` rows gets ``ceil(cnt / FUSED_ROWS_PER_TILE)`` row
+    tiles (0 for an empty one), no more than the ``nb_cap`` resident
+    blocks hold of its ``sub_items × tiles`` phase-1 items; the launch
+    takes the larger of the ``nb_ring`` ring blocks and the largest
+    rank's items (the items go to the last blocks, so the ring blocks get
+    them last)."""
+    cap = max(1, nb_cap // sub_items)
+    tiles = [min(-(-c // FUSED_ROWS_PER_TILE), cap) for c in counts]
+    return tiles, min(nb_cap, max(nb_ring, max(tiles) * sub_items))
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,9 +118,9 @@ def _lib() -> ctypes.CDLL:
     lib.ring_allreduce_launch.argtypes = [i32, i32, ip, pp, pp, pp, pp, i64,
                                           i64, u32, i32, p]
     lib.ring_allreduce_launch.restype = i32
-    lib.fused_hist_ring_launch.argtypes = [i32, i32, ip, pp, pp, pp, lp, lp,
-                                           pp, pp, pp, pp, pp, i32, i32, i32,
-                                           i64, u32, i32, p]
+    lib.fused_hist_ring_launch.argtypes = [i32, i32, ip, pp, pp, pp, lp, pp,
+                                           pp, pp, pp, pp, i32, i32, i32, i32,
+                                           i32, i32, i64, u32, i32, i32, p]
     lib.fused_hist_ring_launch.restype = i32
     lib.ring_allreduce_select_launch.argtypes = [i32, i32, ip, pp, pp, pp,
                                                  pp, pp, i32, i64, i64, i64,
@@ -74,13 +129,17 @@ def _lib() -> ctypes.CDLL:
     for name in ("ring_allreduce_blocks", "ring_allreduce_select_blocks"):
         getattr(lib, name).argtypes = [i32, i64]
         getattr(lib, name).restype = i32
-    lib.fused_hist_ring_blocks.argtypes = [i32, i32, i32]
+    lib.fused_hist_ring_blocks.argtypes = [i32, i32, i32, i32]
     lib.fused_hist_ring_blocks.restype = i32
     lib.ring_enable_peer.argtypes = [i32, i32]
     lib.ring_enable_peer.restype = i32
-    for name in ("ring_max_blocks", "ring_max_ranks"):
+    for name in ("ring_max_blocks", "ring_max_ranks", "fused_hist_ring_setup",
+                 "fused_hist_ring_threads"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
+    if lib.fused_hist_ring_threads() != FUSED_THREADS:
+        raise RuntimeError("csrc/ring.cu and ops/cuda_ring.py disagree on "
+                           "the fused kernel's block size")
     return lib
 
 
@@ -110,14 +169,23 @@ class _Workspace:
                       for d in mesh.devices]
         self.work = [torch.zeros(total, dtype=dtype, device=d)
                      for d in mesh.devices] if fused else []
-        self.bar = [torch.zeros(2, dtype=torch.int32, device=d)
-                    for d in mesh.devices] if fused else []
+        # per chunk: the items counted so far, then the chunk's flag
+        self.ready = [torch.zeros(2 * lib.ring_max_ranks(), dtype=torch.int32,
+                                  device=d)
+                      for d in mesh.devices] if fused else []
         self.seq = 0
         # the ranks of each card, in rank order: one launch per card
         self.cards = {}
         for r, d in enumerate(mesh.devices):
             self.cards.setdefault(d, []).append(r)
+        self.local = {d: (ctypes.c_int * len(r))(*r)
+                      for d, r in self.cards.items()}
+        self.slots_p, self.flags_p = _ptrs(self.slots), _ptrs(self.flags)
+        self.work_p, self.ready_p = _ptrs(self.work), _ptrs(self.ready)
         self._blocks = {}
+        self.launches = {}   # fused: shard tensors -> pointer arrays
+        self.fused_geometry = {}
+        self.smem_budget = None
 
     def next_seq(self) -> int:
         self.seq = self.seq % _SEQ_MAX + 1
@@ -135,6 +203,19 @@ class _Workspace:
                     counts.append(per_card(len(ranks)))
             nb = self._blocks[key] = mesh_blocks(counts)
         return nb
+
+    def fused_smem_budget(self, lib) -> int:
+        """The shared memory a fused block may use on every card of the
+        mesh (the least of them), after letting the kernel use it."""
+        if self.smem_budget is None:
+            budgets = []
+            for dev in self.cards:
+                with torch.cuda.device(dev):
+                    budgets.append(lib.fused_hist_ring_setup())
+            if min(budgets) <= 0:
+                _raise_if_failed(-min(budgets), "fused_hist_ring_setup")
+            self.smem_budget = min(budgets)
+        return self.smem_budget
 
 
 def mesh_blocks(per_card: Sequence[int]) -> int:
@@ -278,6 +359,52 @@ def ring_allreduce_select_cuda(parts: Sequence[torch.Tensor],
 ring_allreduce_select_cuda.launches = 0
 
 
+def _shards_key(shards) -> tuple:
+    return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
+                 for s in shards for t in s[:3])
+
+
+def _fused_pointers(shards, mesh, out_dtype):
+    """Checks and converts the shards' tensors; returns ``((bins ptrs, gh
+    ptrs, row_order ptrs, row_order lengths), the tensors pointed to,
+    whether any of them is a converted copy)``."""
+    _check_mesh([s[0] for s in shards], mesh, "bins")
+    f = shards[0][0].shape[1]
+    bins, gh, order = [], [], []
+    for b, g, o, _, _ in shards:
+        if b.dim() != 2 or b.shape[1] != f or g.shape != (b.shape[0], 3):
+            raise ValueError(f"each shard needs (n, {f}) bins and (n, 3) gh; "
+                             f"got {tuple(b.shape)} and {tuple(g.shape)}")
+        if g.device != b.device or o.device != b.device \
+                or o.dtype != torch.int32:
+            raise ValueError("gh and an int32 row_order must lie on the "
+                             "device of their shard's bins")
+        bins.append(b.to(torch.uint8).contiguous())
+        gh.append(g.to(out_dtype).contiguous())
+        order.append(o.contiguous())
+    kept = all(x is y for s, b, g, o in zip(shards, bins, gh, order)
+               for x, y in zip(s[:3], (b, g, o)))
+    return ((_ptrs(bins), _ptrs(gh), _ptrs(order),
+             [o.shape[0] for o in order]), (bins, gh, order), not kept)
+
+
+def _fused_geometry(ws, lib, f, num_bins, chunk, mode) -> tuple:
+    """``(group, copies, sys, blocks per rank the mesh holds, ring blocks,
+    phase-1 items per row tile)`` of the fused kernel on ``ws``'s mesh."""
+    D = len(ws.slots)
+    budget = ws.fused_smem_budget(lib)
+    group = fused_group(f, num_bins, chunk, D, budget)
+    reps = seg_replicas(group, num_bins, FUSED_THREADS // 32, budget)
+    smem = seg_smem(group, reps, num_bins, FUSED_THREADS // 32)
+    sys = int(len(ws.cards) > 1)
+    nb_cap = ws.blocks(("fused", mode, sys, smem), lambda n_local:
+                       lib.fused_hist_ring_blocks(mode, sys, smem, n_local))
+    sub_items = sum(-(-(fb - fa) // group) for fa, fb in
+                    fused_chunk_features(f, num_bins, chunk, D))
+    return (group, reps, sys, nb_cap, min(-(-chunk // FUSED_THREADS), nb_cap),
+            sub_items)
+
+
 def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,
                                  accum: str = "float32"
                                  ) -> List[torch.Tensor]:
@@ -294,48 +421,56 @@ def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,
     if not 1 <= num_bins <= 256:
         raise ValueError(f"the ring histogram kernel takes 1..256 bins, got "
                          f"{num_bins}")
+    if len(shards) != len(mesh):
+        raise ValueError(f"{len(shards)} bins for a mesh of {len(mesh)}")
     out_dtype = _out_dtype(accum)
-    _check_mesh([s[0] for s in shards], mesh, "bins")
-    f = shards[0][0].shape[1]
-    bins, gh, order, offs, cnts = [], [], [], [], []
-    for b, g, o, off, cnt in shards:
-        if b.dim() != 2 or b.shape[1] != f or g.shape != (b.shape[0], 3):
-            raise ValueError(f"each shard needs (n, {f}) bins and (n, 3) gh; "
-                             f"got {tuple(b.shape)} and {tuple(g.shape)}")
-        if g.device != b.device or o.device != b.device \
-                or o.dtype != torch.int32:
-            raise ValueError("gh and an int32 row_order must lie on the "
-                             "device of their shard's bins")
-        if off < 0 or cnt < 0 or off + cnt > o.shape[0]:
-            raise ValueError(f"segment [{off}, {off + cnt}) lies outside "
-                             f"row_order of length {o.shape[0]}")
-        bins.append(b.to(torch.uint8).contiguous())
-        gh.append(g.to(out_dtype).contiguous())
-        order.append(o.contiguous())
-        offs.append(int(off))
-        cnts.append(int(cnt))
     lib = _lib()
     D = len(mesh)
+    key = _shards_key(shards)
+    f = shards[0][0].shape[1]
     total = f * num_bins * 3
     chunk = ring_chunk(total, D)
     ws = _workspace(mesh, "fused", total, chunk, out_dtype)
+    hit = ws.launches.get(key)
+    if hit is None:
+        # `pointed` keeps converted copies alive through the launch
+        hit, pointed, converted = _fused_pointers(shards, mesh, out_dtype)
+        if not converted:   # the pointers are the caller's tensors'
+            if len(ws.launches) >= _LAUNCH_CACHE:
+                ws.launches.clear()
+            ws.launches[key] = hit
+    bins_p, gh_p, order_p, lengths = hit
+    offs, cnts = [], []
+    for (_, _, _, off, cnt), length in zip(shards, lengths):
+        if off < 0 or cnt < 0 or off + cnt > length:
+            raise ValueError(f"segment [{off}, {off + cnt}) lies outside "
+                             f"row_order of length {length}")
+        offs.append(int(off))
+        cnts.append(int(cnt))
     mode = _MODES[accum]
-    nb = ws.blocks(("fused", num_bins), lambda n_local:
-                   lib.fused_hist_ring_blocks(mode, num_bins, n_local))
+    geo = ws.fused_geometry.get(mode)
+    if geo is None:
+        geo = ws.fused_geometry[mode] = _fused_geometry(ws, lib, f, num_bins,
+                                                        chunk, mode)
+    group, reps, sys, nb_cap, nb_ring, sub_items = geo
+    tiles, nb = fused_grid(cnts, sub_items, nb_cap, nb_ring)
     out = [torch.empty(f, num_bins, 3, dtype=out_dtype, device=d)
            for d in mesh.devices]
     seq = ws.next_seq()
-    args = (_ptrs(bins), _ptrs(gh), _ptrs(order),
-            (ctypes.c_int64 * D)(*offs), (ctypes.c_int64 * D)(*cnts),
-            _ptrs(ws.work), _ptrs(ws.bar), _ptrs(out), _ptrs(ws.slots),
-            _ptrs(ws.flags))
+    args = (bins_p, gh_p, order_p, (ctypes.c_int64 * (3 * D))(
+        *offs, *cnts, *tiles), ws.work_p, ws.ready_p, _ptrs(out), ws.slots_p,
+        ws.flags_p, f, num_bins, mode, sys, group, reps, chunk, seq, nb,
+        nb_ring)
+    current = torch.cuda.current_device()
     for dev, ranks in ws.cards.items():
-        local = (ctypes.c_int * len(ranks))(*ranks)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            rc = lib.fused_hist_ring_launch(D, len(ranks), local, *args, f,
-                                            num_bins, mode, chunk, seq, nb,
-                                            stream)
+        if dev.index == current:
+            rc = lib.fused_hist_ring_launch(D, len(ranks), ws.local[dev],
+                                            *args, stream)
+        else:
+            with torch.cuda.device(dev):
+                rc = lib.fused_hist_ring_launch(D, len(ranks),
+                                                ws.local[dev], *args, stream)
         _raise_if_failed(rc, "fused_segment_hist_ring")
     fused_segment_hist_ring_cuda.launches += 1
     return out

@@ -180,8 +180,8 @@ def test_ring_block_count_is_one_for_the_whole_mesh():
     from mmlspark_tpu_torch.ops.cuda_ring import mesh_blocks
 
     def fused_per_card(sms, n_local, resident_per_sm=4):
-        # csrc/ring.cu fused_hist_ring_blocks: 4 blocks per SM shared by
-        # the card's ranks, capped by what stays resident
+        # csrc/ring.cu fused_hist_ring_blocks: the blocks that stay
+        # resident, shared by the card's ranks
         return min(4 * sms // n_local, resident_per_sm * sms // n_local)
 
     counts = [fused_per_card(132, 3), fused_per_card(114, 1)]
@@ -244,3 +244,58 @@ def test_fused_twin_matches_reference_kernel(d, accum):
     mesh = build_mesh(devices=["cpu"] * d)
     for o in co.fused_segment_hist_ring(shards, B, mesh, accum):
         np.testing.assert_array_equal(o.numpy(), got)
+
+
+# -- the fused kernel's phase-1 geometry (csrc/ring.cu) ----------------------
+
+@pytest.mark.parametrize("B", [2, 17, 256])
+@pytest.mark.parametrize("f", [1, 13, 50, 300, 2000])
+@pytest.mark.parametrize("d", [2, 3, 4, 8])
+def test_fused_chunk_map_covers_every_element_once(d, f, B):
+    """Each ring chunk's elements lie in its feature range, the chunks
+    cover the payload once, and the phase-1 sub-groups of ``group``
+    features cover each chunk's range once within the shared memory."""
+    from mmlspark_tpu_torch.ops import cuda_histogram as ch
+    from mmlspark_tpu_torch.ops import cuda_ring as cr
+    inner = 3 * B
+    total = f * inner
+    chunk = cr.ring_chunk(total, d)
+    ranges = cr.fused_chunk_features(f, B, chunk, d)
+    group = cr.fused_group(f, B, chunk, d)
+    assert ch.seg_smem(group, 1, B, cr.FUSED_THREADS // 32) \
+        <= ch.SEG_SMEM_BUDGET
+    assert 1 <= group <= ch.SEG_MAX_GROUP
+    seen = np.zeros(total, np.int32)
+    for c, (fa, fb) in enumerate(ranges):
+        lo, hi = c * chunk, min((c + 1) * chunk, total)
+        if lo >= hi:
+            assert (fa, fb) == (0, 0)
+            continue
+        assert fa * inner <= lo and hi <= fb * inner
+        assert (fa + 1) * inner > lo and (fb - 1) * inner < hi
+        # the chunk's cells of each sub-group, as the kernel flushes them
+        subs = np.arange(fa, fb, group)
+        for f0 in subs:
+            g_lo, g_hi = f0 * inner, min(f0 + group, fb) * inner
+            seen[max(lo, g_lo):min(hi, g_hi)] += 1
+        assert len(subs) == -(-(fb - fa) // group)
+    np.testing.assert_array_equal(seen, np.ones(total, np.int32))
+
+
+@pytest.mark.parametrize("counts", [[1, 1, 1, 1], [777, 0, 5, 3],
+                                    [100_000] * 4, [0, 0], [2048, 1]])
+def test_fused_grid_tiles_each_segment(counts):
+    from mmlspark_tpu_torch.ops import cuda_ring as cr
+    for nb_cap, nb_ring, sub_items in ((132, 19, 4), (132, 38, 2),
+                                       (44, 38, 3), (8, 8, 9)):
+        tiles, nb = cr.fused_grid(counts, sub_items, nb_cap, nb_ring)
+        assert [t == 0 for t in tiles] == [c == 0 for c in counts]
+        assert all(t <= max(1, -(-c // cr.FUSED_ROWS_PER_TILE))
+                   for t, c in zip(tiles, counts))
+        items = max(tiles) * sub_items
+        assert items <= max(nb_cap, sub_items)   # one tile at the least
+        assert nb == min(nb_cap, max(nb_ring, items))
+    # a one-row segment per shard launches the ring blocks alone: its four
+    # items go to the last four of them
+    assert cr.fused_grid([1] * 4, 4, 132, 19) == ([1] * 4, 19)
+    assert cr.fused_grid([100_000] * 4, 4, 66, 19) == ([16] * 4, 64)

@@ -9,7 +9,12 @@ up JAX):
 
 Tolerance for f32 / bf16: rtol 1e-5, atol 1e-4 at 20,000 rows (both sides
 add each cell's rows in another order, with atomics); int32 is exact.
+The segment kernel's sweep (up to 200,000 rows) states its tolerance per
+cell as chip_smoke.py does: |k - p| <= 1e-5 |p| + 256 * 2^-24 * sum|gh|
+(a sum of m terms in another order is off by about sqrt(m) u sum|gh|).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -71,6 +76,81 @@ def test_hist_segment_matches_twin(cuda_device, cnt, accum):
     _check(ch.histogram_cuda_fused(b, g, o, 333, cnt, B, accum),
            ch.histogram_fused_plain(b, g, o, 333, cnt, B, accum), accum)
     assert ch.histogram_cuda_fused.launches == before + (cnt > 0)
+
+
+SWEEP_COUNTS = (0, 1, 31, 777, 15_000, 200_000)
+
+
+@functools.lru_cache(maxsize=4)
+def _sweep_inputs(f, B):
+    """200,100 rows of f features (bins straight as uint8: no int64 copy
+    of a 400 MB matrix), a float and an integer gh, and a row order."""
+    n = max(SWEEP_COUNTS) + 100
+    rng = np.random.default_rng(f * 1000 + B)
+    bins = torch.from_numpy(rng.integers(0, B, size=(n, f), dtype=np.uint8))
+    gh = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    gh_int = torch.from_numpy(rng.integers(-300, 300, size=(n, 3))
+                              .astype(np.int32))
+    order = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    return tuple(t.to("cuda") for t in (bins, gh, gh_int, order))
+
+
+def _check_tol(got, want, gh_abs_hist, accum):
+    torch.cuda.synchronize()
+    if accum == "int32":
+        assert torch.equal(got, want)
+        return
+    tol = 1e-5 * want.abs() + 256 * 2.0 ** -24 * gh_abs_hist
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("B", [2, 17, 256])
+@pytest.mark.parametrize("f", [1, 13, 50, 75, 76, 2000])
+def test_hist_segment_sweep_matches_twin(cuda_device, f, B, accum):
+    """Every segment size from empty to 200,000 rows (one block; one
+    cluster; several clusters merged through the workspace), one group or
+    many."""
+    bins, gh, gh_int, order = _sweep_inputs(f, B)
+    ghm = gh_int if accum == "int32" else gh
+    gh_abs = ch._gh_values(ghm, accum).abs().float()
+    for cnt in SWEEP_COUNTS:
+        off = 57
+        before = ch.histogram_cuda_fused.launches
+        got = ch.histogram_cuda_fused(bins, ghm, order, off, cnt, B, accum)
+        assert ch.histogram_cuda_fused.launches == before + (cnt > 0)
+        want = ch.histogram_fused_plain(bins, ghm, order, off, cnt, B, accum)
+        assert got.shape == (f, B, 3) and got.dtype == want.dtype
+        _check_tol(got, want, ch.histogram_fused_plain(
+            bins, gh_abs, order, off, cnt, B), accum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("accum", ACCUMS)
+def test_hist_segment_merges_several_clusters(cuda_device, accum, split):
+    """200,000 rows of the flagship width launch several clusters a
+    group; their partials meet through the workspace and the tickets,
+    which each launch leaves at zero: repeated calls, and calls of other
+    sizes between them, stay right."""
+    f, B = 50, 256
+    card = ch._seg_card(torch.device("cuda", torch.cuda.current_device()))
+    widest, resident, clusters = card.geom(f, B, ch.ACCUM_MODES[accum])
+    _, _, cs, per_group = ch.seg_grid(200_000, f, widest, resident,
+                                      clusters, split)
+    assert per_group > 1 and cs == ch.SEG_CLUSTER
+    bins, gh, gh_int, order = _sweep_inputs(f, B)
+    ghm = gh_int if accum == "int32" else gh
+    gh_abs = ch._gh_values(ghm, accum).abs().float()
+    for cnt, off in ((200_000, 0), (777, 5), (200_000, 100), (150_000, 9)):
+        want = ch.histogram_fused_plain(bins, ghm, order, off, cnt, B, accum)
+        abs_hist = ch.histogram_fused_plain(bins, gh_abs, order, off, cnt, B)
+        for _ in range(2):
+            got = ch.histogram_cuda_fused(bins, ghm, order, off, cnt, B,
+                                          accum, split=split)
+            _check_tol(got, want, abs_hist, accum)
 
 
 @pytest.mark.cuda
@@ -168,9 +248,82 @@ def _check_fused(devices, accum, f=13):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("accum", ["float32", "int32"])
-@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("D", [2, 3, 4])
 def test_fused_segment_hist_ring_matches_twin(cuda_device, D, accum):
     _check_fused([cuda_device] * D, accum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ["float32", "int32"])
+@pytest.mark.parametrize("D,f", [(2, 300), (4, 50), (3, 2000)])
+def test_fused_segment_hist_ring_at_wide_and_flagship_widths(cuda_device, D,
+                                                             f, accum):
+    """Chunks of several feature sub-groups (f = 300 at D = 2: 150
+    features a chunk; f = 2000 at D = 3), and the flagship's 13 a chunk
+    with segments of many row tiles, uneven across the ranks."""
+    _check_fused([cuda_device] * D, accum, f=f)
+    mesh = build_mesh(devices=[cuda_device] * D)
+    counts = [5900, 3001, 0, 4096][:D]
+    shards = _fused_shards(mesh.devices, accum, counts, seed=3, f=f)
+    got = co.fused_segment_hist_ring(shards, 256, mesh, accum)
+    want = co.fused_segment_hist_ring_plain(shards, 256, accum)
+    for g in got:
+        _check(g, want, accum)
+
+
+@pytest.mark.cuda
+def test_fused_wrapper_never_reuses_stale_pointers(cuda_device):
+    """The wrapper keeps the pointer arrays of the shard tensors it has
+    launched on: new tensors of the same shapes get their own pointers,
+    the first tensors theirs again, and an in-place change of a cached
+    tensor is read at the next call."""
+    mesh = build_mesh(devices=[cuda_device] * 4)
+    counts = [700, 1, 0, 3000]
+    a = _fused_shards(mesh.devices, "int32", counts, seed=1)
+    b = _fused_shards(mesh.devices, "int32", counts, seed=2)
+    for shards in (a, b, a, b):
+        got = co.fused_segment_hist_ring(shards, 256, mesh, "int32")
+        want = co.fused_segment_hist_ring_plain(shards, 256, "int32")
+        for g in got:
+            _check(g, want, "int32")
+    a[0][1].mul_(-2)
+    a[3][0].copy_(a[3][0].flip(0))
+    got = co.fused_segment_hist_ring(a, 256, mesh, "int32")
+    want = co.fused_segment_hist_ring_plain(a, 256, "int32")
+    for g in got:
+        _check(g, want, "int32")
+    # gh that must be converted (float64 for float32) is never cached
+    c = [(bn, g.double(), o, off, cnt) for bn, g, o, off, cnt in
+         _fused_shards(mesh.devices, "float32", counts, seed=4)]
+    for _ in range(2):
+        got = co.fused_segment_hist_ring(c, 256, mesh, "float32")
+        want = co.fused_segment_hist_ring_plain(
+            [(bn, g.float(), o, off, cnt) for bn, g, o, off, cnt in c], 256)
+        for g in got:
+            _check(g, want, "float32")
+
+
+@pytest.mark.cuda
+def test_dense_select_and_fused_rings_interleave_exactly(cuda_device):
+    """Interleaved dense, select and fused (int32) calls on one mesh stay
+    exact: each ring has its own workspace, flags and sequence numbers,
+    and the fused kernel's readiness words are its own."""
+    mesh = build_mesh(devices=[cuda_device] * 4)
+    dense = _parts((50, 256, 3), mesh.devices, seed=5)
+    parts, cand = _select_inputs((2, 200, 256, 3), (2, 32), mesh.devices, 6)
+    shards = _fused_shards(mesh.devices, "int32", [900, 0, 17, 2500], 7,
+                           f=50)
+    want_a = co.ring_allreduce_plain(dense)
+    want_b = co.ring_allreduce_select_plain(parts, cand)
+    want_c = co.fused_segment_hist_ring_plain(shards, 256, "int32")
+    for _ in range(4):
+        a = co.ring_allreduce(dense, mesh)
+        c = co.fused_segment_hist_ring(shards, 256, mesh, "int32")
+        b = co.ring_allreduce_select(parts, cand, mesh)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, want_a) for x in a)
+    assert all(torch.equal(x, want_b) for x in b)
+    assert all(torch.equal(x, want_c) for x in c)
 
 
 def _two_cards():
