@@ -18,15 +18,13 @@ Phases, each printing one JSON line:
    time of 20 launches after warm-up (CUDA events) of the kernel, the twin
    and a one-call ``index_add_`` yardstick, and for the segment kernel its
    device time alone (``torch.profiler``) and the wrapper's host enqueue
-   time (a host clock around 1,000 calls without a synchronize).  A
-   segment row at 200,000 rows with ``split=2`` (at least two feature
-   groups of 25, against one of 50) measures the group width, where the
-   wrapper has it.
+   time (a host clock around 1,000 calls without a synchronize).
 4. main_path — LightGBMClassifier fit → transform at the flagship width
    (400,000 × 50, 50 iterations, 31 leaves, 255 bins), warm-up fit first;
    the launch counts of the timed fit must equal the trees grown (root
    histograms) and the splits made (segment histograms); train AUC must
-   reach 0.955.
+   reach 0.955.  ``host_s`` splits the timed fit's host clock
+   (:class:`host_split`).
 5. cuda_vs_cpu — the same classifier at 20,000 × 50 and 5 iterations on
    the kernels and on the plain CPU path: identical first tree, AUCs
    within 0.002, margins close over the trees whose structure matches.
@@ -35,7 +33,7 @@ Phases, each printing one JSON line:
    the host binning pass timed alone; the quantiles of its segment sizes
    (the smaller child of each split); then the same 10-iteration fit on
    four virtual shards under ``histogramMethod="pallas_ring"``, for the
-   device time of ``fused_hist_ring`` per fit.
+   device time of ``fused_hist_ring`` per fit, and under ``"auto"``.
 7. collectives — the ring kernels of ``csrc/ring.cu`` on D ∈ {2, 4}
    virtual shards of the card: ``ring_allreduce`` against its plain twin
    on the flagship payload (50, 256, 3) and a ragged (13, 17, 3), exactly
@@ -57,9 +55,9 @@ Phases, each printing one JSON line:
    ``"pallas_ring"``, each a warm-up fit and a timed fit: train AUC must
    reach 0.955, and the timed fit must launch ``ring_allreduce`` once per
    tree and split (auto) or once per tree with ``fused_segment_hist_ring``
-   once per split (pallas_ring).  Then a 20,000 × 50, 5-iteration D = 4
-   fit on the card and on ``devices=["cpu"] * 4``: identical first tree,
-   AUCs within 0.002.
+   once per split (pallas_ring); ``host_s`` as in phase 4.  Then a
+   20,000 × 50, 5-iteration D = 4 fit on the card and on
+   ``devices=["cpu"] * 4``: identical first tree, AUCs within 0.002.
 9. voting_path — the repo's wide configuration (``bench.py``'s wide-data
    A/B: 8,192 × 2,000, 4 iterations, 31 leaves, ``maxDepth`` 30, 255
    bins) on four virtual devices of the card, each learner a warm-up fit
@@ -226,6 +224,42 @@ def enqueue_us(fn, calls=None):
     return us
 
 
+class host_split:
+    """Host clocks inside one timed fit: ``fetch_s``, the grower's device →
+    host fetches (its host syncs: the wait for the queued kernels plus the
+    copy), ``hist_segment_s`` / ``fused_hist_ring_s``, the histogram
+    wrappers' calls (their host enqueue), and ``ring_allreduce_s``, the
+    dense ring's; what is left of the fit is the rest of the host loop."""
+
+    def __enter__(self):
+        from mmlspark_tpu_torch.gbdt import grower
+        from mmlspark_tpu_torch.ops import histogram
+        self.spans = {"fetch_s": 0.0, "hist_segment_s": 0.0,
+                      "fused_hist_ring_s": 0.0, "ring_allreduce_s": 0.0}
+        self.patched = [(grower, "_fetch", "fetch_s"),
+                        (histogram, "histogram_cuda_fused", "hist_segment_s"),
+                        (grower, "fused_segment_hist_ring",
+                         "fused_hist_ring_s"),
+                        (grower, "ring_allreduce", "ring_allreduce_s")]
+        self.saved = [getattr(m, a) for m, a, _ in self.patched]
+        for (mod, attr, span), fn in zip(self.patched, self.saved):
+            setattr(mod, attr, self._timed(fn, span))
+        return self
+
+    def _timed(self, fn, span):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.spans[span] += time.perf_counter() - t0
+        return timed
+
+    def __exit__(self, *exc):
+        for (mod, attr, _), fn in zip(self.patched, self.saved):
+            setattr(mod, attr, fn)
+
+
 def segment_sizes(model):
     """The grower's segment of every split: its smaller child's rows."""
     import numpy as np
@@ -313,9 +347,9 @@ def compare(kern, plain, gh_abs_hist, accum):
     return bool((err <= tol).all()), float(err.max())
 
 
-def _segment_row(inputs, row_order, cnt, accum, **kw):
+def _segment_row(inputs, row_order, cnt, accum):
     """hist_segment at ``cnt`` rows against its twin: match, times, the
-    device time alone and the bound; ``kw`` goes to the wrapper."""
+    device time alone and the bound."""
     import torch
     from mmlspark_tpu_torch.ops import cuda_histogram as ch
     bins, B, gh, gh_int = inputs
@@ -326,7 +360,7 @@ def _segment_row(inputs, row_order, cnt, accum, **kw):
 
     def kernel():
         return ch.histogram_cuda_fused(bins, ghm, row_order, off, cnt, B,
-                                       accum, **kw)
+                                       accum)
 
     kern = kernel()
     plain = ch.histogram_fused_plain(bins, ghm, row_order, off, cnt, B,
@@ -340,7 +374,7 @@ def _segment_row(inputs, row_order, cnt, accum, **kw):
     lib_out = torch.zeros(f * B, 3, dtype=kern.dtype, device=DEV)
     bms, by = bound_ms(cnt * (f + 12 + 4) + f * B * 12, cnt * f * 3)
     return {"kernel": "hist_segment", "accum": accum, "rows": cnt,
-            "features": f, **kw, "match": good, "max_abs_err": err,
+            "features": f, "match": good, "max_abs_err": err,
             "ms": median_ms(kernel),
             "device_ms": device_ms(kernel, "hist_segment_kernel"),
             "plain_ms": median_ms(lambda: ch.histogram_fused_plain(
@@ -350,7 +384,6 @@ def _segment_row(inputs, row_order, cnt, accum, **kw):
 
 
 def phase_kernels(state):
-    import inspect
     import torch
     from mmlspark_tpu_torch.ops import cuda_histogram as ch
     inputs = kernel_inputs()
@@ -390,9 +423,6 @@ def phase_kernels(state):
         for cnt in SEGMENT_COUNTS:
             rows.append(_segment_row(inputs, row_order, cnt, accum))
         rows.append(_segment_row(wide, wide_order, WIDE_SEGMENT, accum))
-    if "split" in inspect.signature(ch.histogram_cuda_fused).parameters:
-        rows.append(_segment_row(inputs, row_order, max(SEGMENT_COUNTS),
-                                 "float32", split=2))
     enqueue = {}
     for cnt in (1, 777):
         off = (n - cnt) // 3
@@ -429,10 +459,11 @@ def phase_main_path(state):
     ch.histogram_cuda_fused.launches = 0
     grow_tree.host_syncs = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model = est.fit(table)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    with host_split() as host:
+        t0 = time.perf_counter()
+        model = est.fit(table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
     launches = {"hist_full": ch.histogram_cuda.launches,
                 "hist_segment": ch.histogram_cuda_fused.launches}
     syncs = grow_tree.host_syncs
@@ -448,7 +479,7 @@ def phase_main_path(state):
            "fit_s": fit_s, "transform_s": transform_s,
            "train_auc": train_auc, "trees": len(trees), "splits": splits,
            "launches": launches, "host_syncs": syncs,
-           "segments": segment_sizes(model)}
+           "host_s": host.spans, "segments": segment_sizes(model)}
     if prob.shape != (N_ROWS,) or not np.isfinite(prob).all():
         raise AssertionError(f"probabilities not finite of shape "
                              f"({N_ROWS},): {res}")
@@ -513,16 +544,22 @@ def phase_profile():
     mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
     ring = _classifier(numIterations=10, device=DEV, collective="ring",
                        histogramMethod="pallas_ring").setMesh(mesh)
+    auto = _classifier(numIterations=10, device=DEV, collective="ring",
+                       histogramMethod="auto").setMesh(mesh)
     return {"iterations": 10, "binning_s": binning_s, **serial,
             "pallas_ring_d4": profiled_fit(
                 ring, table, ("hist_full", "fused_hist_ring",
+                              "ring_allreduce")),
+            "auto_d4": profiled_fit(
+                auto, table, ("hist_full", "hist_segment",
                               "ring_allreduce"))}
 
 
 def profiled_fit(est, table, kernels):
     """One warmed fit of ``est`` under ``torch.profiler``: its wall time,
     the device's busy time and idle share, the device time of the named
-    ``kernels`` (``<name>_kernel``), the busiest kernels, and the fit's
+    ``kernels`` (``<name>_kernel``), the busiest kernels, the host
+    operations with the most host time of their own, and the fit's
     segment sizes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -534,8 +571,11 @@ def profiled_fit(est, table, kernels):
         model = est.fit(table)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    dev = {}
+    dev, host = {}, {}
     for e in prof.key_averages():
+        own = getattr(e, "self_cpu_time_total", 0) or 0
+        if own > 0:
+            host[e.key] = (own / 1e3, e.count)
         t = getattr(e, "self_device_time_total", 0) or 0
         if t > 0 and getattr(e, "device_type", None) == \
                 torch.autograd.DeviceType.CUDA:
@@ -551,6 +591,9 @@ def profiled_fit(est, table, kernels):
             "kernels_ms": ours,
             "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]}
                             for k, v in top],
+            "top_host": [{"name": k[:60], "ms": v[0], "count": v[1]}
+                         for k, v in sorted(host.items(),
+                                            key=lambda kv: -kv[1][0])[:10]],
             "segments": segment_sizes(model)}
 
 
@@ -811,10 +854,11 @@ def phase_mesh_path(state):
             fn.launches = 0
         grow_tree.host_syncs = 0
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model = est.fit(table)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
+        with host_split() as host:
+            t0 = time.perf_counter()
+            model = est.fit(table)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
         prob = model.transform(table)["probability"][:, 1]
         trees = model.getModel().trees
@@ -822,7 +866,7 @@ def phase_mesh_path(state):
         res = {"shards": MESH_SHARDS, "fit_s": fit_s,
                "train_auc": auc(y, prob), "trees": len(trees),
                "splits": splits, "launches": launches,
-               "host_syncs": grow_tree.host_syncs}
+               "host_syncs": grow_tree.host_syncs, "host_s": host.spans}
         fits[method] = res
         if prob.shape != (N_ROWS,) or not np.isfinite(prob).all():
             raise AssertionError(f"{method}: probabilities not finite of "
@@ -998,7 +1042,7 @@ def _voting_card_vs_cpu():
 
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
-            if r["accum"] == "float32" and "split" not in r
+            if r["accum"] == "float32"
             and r.get("features", N_FEATURES) == N_FEATURES
             and r["rows"] in (N_ROWS, max(SEGMENT_COUNTS))}
     main_shape = {"ring_allreduce": list(RING_SHAPES[0]),

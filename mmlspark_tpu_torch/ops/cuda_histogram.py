@@ -156,8 +156,8 @@ def seg_replicas(group: int, num_bins: int, warps: int,
     return reps
 
 
-def seg_grid(cnt: int, f: int, widest: int, resident: int, clusters: int,
-             split: int = 1) -> Tuple[int, int, int, int]:
+def seg_grid(cnt: int, f: int, widest: int, resident: int, clusters: int
+             ) -> Tuple[int, int, int, int]:
     """``(features per group, groups, cluster size, clusters per group)``
     of a segment launch over ``cnt`` rows of ``f`` features, on a card
     that holds ``resident`` blocks and ``clusters`` full clusters at once,
@@ -165,14 +165,14 @@ def seg_grid(cnt: int, f: int, widest: int, resident: int, clusters: int,
 
     Rows first: ``ceil(cnt / SEG_ROWS_PER_BLOCK)`` blocks a group, no more
     than the card holds.  The card's other blocks then take narrower
-    feature groups (at least ``SEG_MIN_GROUP`` features, at least
-    ``split`` groups): a small segment runs on many SMs, one block a
-    group, while a large one keeps the widest group, so each of its rows
-    is gathered once.  A group's blocks form clusters of at most
-    ``SEG_CLUSTER``."""
+    feature groups (at least ``SEG_MIN_GROUP`` features): a small segment
+    runs on many SMs, one block a group, while a large one keeps the
+    widest group, so each of its rows is gathered once (on the H100 one
+    group of 50 features beats two of 25 at 200,000 rows; PERF.md).  A
+    group's blocks form clusters of at most ``SEG_CLUSTER``."""
     blocks = max(1, min(-(-cnt // SEG_ROWS_PER_BLOCK), resident))
     narrowest = -(-f // min(f, SEG_MIN_GROUP))
-    fewest = min(f, max(split, -(-f // widest)))
+    fewest = -(-f // widest)
     groups = max(fewest, min(resident // blocks, narrowest))
     group = -(-f // groups)
     groups = -(-f // group)
@@ -267,11 +267,16 @@ class _SegCard:
 
     def merge_space(self, stream, f, num_bins, dtype, clusters, groups):
         """Partials (``clusters`` planes of ``(f, B, 3)``) and zeroed
-        tickets of a multi-cluster launch on ``stream``, grown as needed."""
+        tickets of a multi-cluster launch on ``stream``; each grows to the
+        most any launch has asked for, so launches of other shapes in turn
+        reuse it."""
         key = (stream, f, num_bins, dtype)
         ws = self.workspace.get(key)
         if ws is None or ws[0].shape[0] < clusters \
                 or ws[1].shape[0] < groups * SEG_CLUSTER:
+            if ws is not None:
+                clusters = max(clusters, ws[0].shape[0])
+                groups = max(groups, ws[1].shape[0] // SEG_CLUSTER)
             ws = self.workspace[key] = (
                 torch.empty(clusters, f * num_bins * 3, dtype=dtype,
                             device=self.dev),
@@ -348,14 +353,12 @@ histogram_cuda.launches = 0
 
 def histogram_cuda_fused(bins: torch.Tensor, gh: torch.Tensor,
                          row_order: torch.Tensor, off: int, cnt: int,
-                         num_bins: int, accum: str = "float32",
-                         split: int = 1) -> torch.Tensor:
+                         num_bins: int, accum: str = "float32"
+                         ) -> torch.Tensor:
     """Histogram of the rows ``row_order[off:off+cnt]`` of ``bins`` /
     ``gh`` (both gathered in-kernel by row id).  On a CUDA tensor this
     launches the ``hist_segment`` kernel (no launch when ``cnt == 0``);
-    on a CPU tensor it runs :func:`histogram_fused_plain`.  ``split``
-    (the fewest feature groups, :func:`seg_grid`) is for measuring the
-    group width."""
+    on a CPU tensor it runs :func:`histogram_fused_plain`."""
     if not bins.is_cuda:
         return histogram_fused_plain(bins, gh, row_order, off, cnt,
                                      num_bins, accum)
@@ -374,8 +377,7 @@ def histogram_cuda_fused(bins: torch.Tensor, gh: torch.Tensor,
     card = _seg_card(dev)
     mode = ACCUM_MODES[accum]
     widest, resident, most = card.geom(f, num_bins, mode)
-    group, groups, cs, clusters = seg_grid(cnt, f, widest, resident, most,
-                                           split)
+    group, groups, cs, clusters = seg_grid(cnt, f, widest, resident, most)
     reps = card.replicas(group, num_bins)
     out = torch.empty(f, num_bins, 3, dtype=out_dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -448,10 +448,13 @@ def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,
         offs.append(int(off))
         cnts.append(int(cnt))
     mode = _MODES[accum]
-    geo = ws.fused_geometry.get(mode)
+    # one workspace serves every (f, B) of the same payload size, and the
+    # group, copies and block counts follow f and B
+    shape = (f, num_bins, mode)
+    geo = ws.fused_geometry.get(shape)
     if geo is None:
-        geo = ws.fused_geometry[mode] = _fused_geometry(ws, lib, f, num_bins,
-                                                        chunk, mode)
+        geo = ws.fused_geometry[shape] = _fused_geometry(ws, lib, f, num_bins,
+                                                         chunk, mode)
     group, reps, sys, nb_cap, nb_ring, sub_items = geo
     tiles, nb = fused_grid(cnts, sub_items, nb_cap, nb_ring)
     out = [torch.empty(f, num_bins, 3, dtype=out_dtype, device=d)

@@ -128,18 +128,19 @@ def test_hist_segment_sweep_matches_twin(cuda_device, f, B, accum):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("f", [50, 75])
 @pytest.mark.parametrize("accum", ACCUMS)
-def test_hist_segment_merges_several_clusters(cuda_device, accum, split):
-    """200,000 rows of the flagship width launch several clusters a
-    group; their partials meet through the workspace and the tickets,
-    which each launch leaves at zero: repeated calls, and calls of other
-    sizes between them, stay right."""
-    f, B = 50, 256
+def test_hist_segment_merges_several_clusters(cuda_device, accum, f):
+    """200,000 rows of the flagship width (one group), and of 75 features
+    (two groups), launch several clusters a group; their partials meet
+    through the workspace and the tickets, which each launch leaves at
+    zero: repeated calls, and calls of other sizes between them, stay
+    right."""
+    B = 256
     card = ch._seg_card(torch.device("cuda", torch.cuda.current_device()))
     widest, resident, clusters = card.geom(f, B, ch.ACCUM_MODES[accum])
     _, _, cs, per_group = ch.seg_grid(200_000, f, widest, resident,
-                                      clusters, split)
+                                      clusters)
     assert per_group > 1 and cs == ch.SEG_CLUSTER
     bins, gh, gh_int, order = _sweep_inputs(f, B)
     ghm = gh_int if accum == "int32" else gh
@@ -149,7 +150,7 @@ def test_hist_segment_merges_several_clusters(cuda_device, accum, split):
         abs_hist = ch.histogram_fused_plain(bins, gh_abs, order, off, cnt, B)
         for _ in range(2):
             got = ch.histogram_cuda_fused(bins, ghm, order, off, cnt, B,
-                                          accum, split=split)
+                                          accum)
             _check_tol(got, want, abs_hist, accum)
 
 
@@ -217,12 +218,12 @@ def test_ring_allreduce_equals_twin_on_virtual_shards(cuda_device, D):
     _check_ring([cuda_device] * D)
 
 
-def _fused_shards(devices, accum, counts, seed, f=13):
+def _fused_shards(devices, accum, counts, seed, f=13, B=256):
     rng = np.random.default_rng(seed)
     shards = []
     for d, (dev, cnt) in enumerate(zip(devices, counts)):
         n = 6000 + 100 * d
-        bins, gh = _inputs(n, f, 256, accum, seed=seed + d)
+        bins, gh = _inputs(n, f, B, accum, seed=seed + d)
         order = rng.permutation(n).astype(np.int32)
         shards.append((torch.from_numpy(bins).to(dev),
                        torch.from_numpy(gh).to(dev),
@@ -269,6 +270,28 @@ def test_fused_segment_hist_ring_at_wide_and_flagship_widths(cuda_device, D,
     want = co.fused_segment_hist_ring_plain(shards, 256, accum)
     for g in got:
         _check(g, want, accum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [((600, 64), (150, 256)),
+                                    ((150, 256), (600, 64)),
+                                    ((50, 256), (100, 128))])
+@pytest.mark.parametrize("D", [2, 4])
+def test_fused_payloads_of_one_size_keep_their_own_geometry(cuda_device, D,
+                                                            shapes):
+    """Shapes of one f·B share a ring workspace; each keeps its own
+    feature group, copies and block counts, called in turn on one mesh."""
+    mesh = build_mesh(devices=[cuda_device] * D)
+    counts = [3000, 1, 0, 777][:D]
+    for f, B in shapes + shapes:
+        for accum in ("float32", "int32"):
+            shards = _fused_shards(mesh.devices, accum, counts, seed=f + B,
+                                   f=f, B=B)
+            got = co.fused_segment_hist_ring(shards, B, mesh, accum)
+            want = co.fused_segment_hist_ring_plain(shards, B, accum)
+            for g in got:
+                assert g.shape == (f, B, 3)
+                _check(g, want, accum)
 
 
 @pytest.mark.cuda

@@ -144,21 +144,23 @@ def test_launch_shape_covers_every_row_once(cnt, f, num_sms):
 
 # -- the segment kernel's geometry (csrc/seg_hist.cuh, histogram.cu) ---------
 
-@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("resident,most", [(132, 15), (114, 13)])
 @pytest.mark.parametrize("cnt", [1, 777, 6522, 200_000])
 @pytest.mark.parametrize("B", [2, 17, 256])
 @pytest.mark.parametrize("f", [1, 13, 50, 75, 76, 2000])
-def test_seg_grid_puts_every_feature_in_one_group(f, B, cnt, split):
+def test_seg_grid_puts_every_feature_in_one_group(f, B, cnt, resident, most):
     """Groups of ``group`` features cover the f features once each, a
     block's staging tile, tag rows and histogram copies fit the
     shared-memory budget, and the launch holds no more blocks than the
-    card (132 resident, 15 clusters of 8) or the rows justify."""
+    card (132 SMs holding 15 clusters of 8, or 114 holding 13) or the rows
+    justify."""
     widest = ch.seg_widest(f, B)
-    group, groups, cs, clusters = ch.seg_grid(cnt, f, widest, 132, 15, split)
+    group, groups, cs, clusters = ch.seg_grid(cnt, f, widest, resident,
+                                              most)
     sizes = [min(group, f - g * group) for g in range(groups)]
     assert min(sizes) >= 1 and sum(sizes) == f
     assert 1 <= group <= widest <= ch.SEG_MAX_GROUP
-    assert groups >= min(split, f)
+    assert groups >= -(-f // widest)
     reps = ch.seg_replicas(group, B, ch.SEG_THREADS // 32)
     assert 1 <= reps <= max(1, ch.SEG_THREADS // 32 // group)
     assert group * (B * 3 + ch.SEG_PAD) * 4 < ch.seg_smem(group, reps, B) \
@@ -166,8 +168,8 @@ def test_seg_grid_puts_every_feature_in_one_group(f, B, cnt, split):
     assert 1 <= cs <= ch.SEG_CLUSTER and cs & (cs - 1) == 0
     per_group = cs * clusters
     assert per_group <= max(1, -(-cnt // ch.SEG_ROWS_PER_BLOCK))
-    assert per_group * groups <= max(132, groups)
-    assert clusters == 1 or clusters * groups <= 15
+    assert per_group * groups <= max(resident, groups)
+    assert clusters == 1 or clusters * groups <= most
 
 
 def test_seg_widest_is_as_wide_as_shared_memory_allows():
@@ -194,5 +196,4 @@ def test_seg_grid_at_the_flagship_shapes():
     assert ch.seg_grid(777, 50, 50, 132, 15) == (4, 13, 4, 1)
     assert ch.seg_grid(6522, 50, 50, 132, 15) == (10, 5, 8, 3)
     assert ch.seg_grid(200_000, 50, 50, 132, 15) == (50, 1, 8, 15)
-    assert ch.seg_grid(200_000, 50, 50, 132, 15, split=2) == (25, 2, 8, 7)
     assert ch.seg_grid(1024, 2000, 63, 132, 15) == (61, 33, 4, 1)
