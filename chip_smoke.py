@@ -34,8 +34,9 @@ Phases, each printing one JSON line:
    (the smaller child of each split); then the same 10-iteration fit on
    four virtual shards under ``histogramMethod="pallas_ring"``, for the
    device time of ``fused_hist_ring`` per fit, and under ``"auto"``.
-7. collectives — the ring kernels of ``csrc/ring.cu`` on D ∈ {2, 4}
-   virtual shards of the card: ``ring_allreduce`` against its plain twin
+7. collectives — the kernels of ``csrc/ring.cu`` on D ∈ {2, 4}
+   virtual shards of the card (the dense and select reductions on their
+   direct route, as ``route`` says): ``ring_allreduce`` against its plain twin
    on the flagship payload (50, 256, 3) and a ragged (13, 17, 3), exactly
    (``torch.equal``); ``ring_allreduce_select`` against its twin, exactly,
    on the wide voting configuration's local pair (2, 2000, 256, 3) with
@@ -47,8 +48,8 @@ Phases, each printing one JSON line:
    exactly.  Median times of the kernel's wrapper call, the twin and a
    one-call yardstick (``torch.stack(parts).sum(0)``; ``index_add_`` over
    every shard's segment), the kernel's device time alone
-   (``torch.profiler``), the bound, and at 1 and 777 rows a shard the
-   wrapper's host enqueue time.
+   (``torch.profiler``), the bound, and the wrapper's host enqueue time
+   (the fused kernel's at 1 and 777 rows a shard).
 8. mesh_path — the flagship classifier data-parallel over
    ``build_mesh(data=4, devices=["cuda:0"] * 4)`` with
    ``collective="ring"``, under ``histogramMethod="auto"`` and
@@ -617,6 +618,13 @@ def allreduce_bound_ms(payload_bytes, shards, one_card, seg_bytes=None,
                     wire_bytes=2 * (D - 1) * payload_bytes / D)
 
 
+def _route(cr, mesh):
+    """The route the dense and select wrappers take on ``mesh`` (a
+    checkout from before ``ring_route`` has only the ring)."""
+    route = getattr(cr, "ring_route", None)
+    return route(mesh.devices) if route else "ring"
+
+
 def _ring_rows(devices, tag):
     """ring_allreduce against its twin, exactly, on the mesh ``devices``."""
     import numpy as np
@@ -647,12 +655,15 @@ def _ring_rows(devices, tag):
         bms, by = allreduce_bound_ms(want.numel() * 4, D, one_card)
         rows.append({"kernel": "ring_allreduce", "mesh": tag, "shards": D,
                      "shape": list(shape), "accum": "float32",
+                     "route": _route(cr, mesh),
                      "match": exact, "max_abs_err": err,
                      "ms": median_ms(lambda: cr.ring_allreduce_cuda(parts,
                                                                     mesh)),
                      "device_ms": device_ms(
                          lambda: cr.ring_allreduce_cuda(parts, mesh),
                          "ring_allreduce_kernel"),
+                     "enqueue_us": enqueue_us(
+                         lambda: cr.ring_allreduce_cuda(parts, mesh)),
                      "plain_ms": median_ms(
                          lambda: co.ring_allreduce_plain(parts)),
                      "library_ms": median_ms(library),
@@ -703,6 +714,7 @@ def _select_rows(devices, tag):
         rows.append({"kernel": "ring_allreduce_select", "mesh": tag,
                      "shards": D, "shape": list(shape),
                      "cand": list(cand_shape), "accum": "float32",
+                     "route": _route(cr, mesh),
                      "match": exact, "max_abs_err": err,
                      "ms": median_ms(lambda: cr.ring_allreduce_select_cuda(
                          parts, cand, mesh)),
@@ -710,6 +722,9 @@ def _select_rows(devices, tag):
                          lambda: cr.ring_allreduce_select_cuda(parts, cand,
                                                                mesh),
                          "ring_select_kernel"),
+                     "enqueue_us": enqueue_us(
+                         lambda: cr.ring_allreduce_select_cuda(parts, cand,
+                                                               mesh)),
                      "plain_ms": median_ms(
                          lambda: co.ring_allreduce_select_plain(parts, cand)),
                      "library_ms": median_ms(library),

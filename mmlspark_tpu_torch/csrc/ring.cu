@@ -1,49 +1,81 @@
-// Ring all-reduce across data shards, and the fused gather -> segment
-// histogram -> ring kernel, written by hand for Hopper (sm_90a).  Built by
-// mmlspark_tpu_torch/ops/_build.py with nvcc into a shared library with a
-// plain C interface and called through ctypes (ops/cuda_ring.py).
+// Cross-shard reductions of the data-parallel learners, written by hand
+// for Hopper (sm_90a).  Built by mmlspark_tpu_torch/ops/_build.py with nvcc
+// into a shared library with a plain C interface and called through ctypes
+// (ops/cuda_ring.py).
 //
-// ring_allreduce replaces mmlspark_tpu/ops/pallas_collectives.py
-// ring_allreduce (body _ring_allreduce_kernel, launcher _ring_flat): the sum
-// over D shards of one float32 partial each, delivered to every shard.
-// fused_hist_ring replaces fused_segment_hist_ring (body
-// _fused_hist_ring_kernel): each shard gathers its DataPartition segment
-// row_order[off : off + cnt], histograms it, and the (f, B, 3) partials are
-// ring-reduced in the same kernel (float32 or exact int32).
-// ring_select replaces ring_allreduce_select (the same TPU body under its
-// own collective id, with _gather_cand before it): the PV-Tree voted-column
-// reduction.  Each shard holds a local (f, B, 3) histogram, or the (m, f, B,
-// 3) stack of one grow step's children, and the candidate columns cand (k2,)
-// or (m, k2), identical on every shard (they come from the gathered votes);
-// the ring sums only the gathered (k2, B, 3) or (m, k2, B, 3) slab.
+// What each replaces, in mmlspark_tpu/ops/pallas_collectives.py:
+// - ring_allreduce (:196; launcher _ring_flat :161, body
+//   _ring_allreduce_kernel :102): the sum over D shards of one float32
+//   partial each, delivered to every shard.  Here direct_ring_allreduce_kernel
+//   when every rank lies on one card, ring_allreduce_kernel when the mesh
+//   spans cards.
+// - ring_allreduce_select (:242, with _gather_cand :233; the same TPU body
+//   under its own collective id): the PV-Tree voted-column reduction.  Each
+//   shard holds a local (f, B, 3) histogram, or the (m, f, B, 3) stack of
+//   one grow step's children, and the candidate columns cand (k2,) or (m,
+//   k2), identical on every shard (they come from the gathered votes); only
+//   the gathered (k2, B, 3) or (m, k2, B, 3) slab is summed, flattened as
+//   one array.  Here direct_ring_select_kernel on one card,
+//   ring_select_kernel across cards.  Both gather in the kernel, as the TPU
+//   kernel gathers in its body; a candidate index outside [0, f) traps the
+//   kernel (an error at the next synchronize) instead of reading outside
+//   the histogram.
+// - fused_segment_hist_ring (:406, body _fused_hist_ring_kernel :289): each
+//   shard gathers its DataPartition segment row_order[off : off + cnt],
+//   histograms it, and the (f, B, 3) partials are ring-reduced in the same
+//   kernel (float32 or exact int32): fused_hist_ring_kernel, on one card or
+//   many.
 //
-// Schedule.  Both follow the TPU kernel's ring exactly: the flattened
-// payload of `total` elements is cut into D chunks of `chunk` = cb * 128
-// elements (cb = ceil(ceil(total / 128) / D), _ring_flat's padding; the pad
-// is never materialised, elements past `total` read as zero and are not
-// written).  Reduce-scatter: at step k = 0 rank r sends its own chunk r to
-// rank r + 1; at steps k = 1 .. D-1 it adds its local part of chunk r - k to
-// the partial that arrived from rank r - 1 and sends the sum on.  After step
-// D-1 rank r holds the total of chunk r + 1.  All-gather: D-1 forwarding
-// steps.  Chunk c is therefore summed ((x_c + x_{c+1}) + x_{c+2}) + ...,
-// the TPU kernel's order, so float32 results equal the plain twin
-// (ops/collectives.py ring_allreduce_plain) bit for bit; no atomics touch
-// the ring.
+// Order.  The TPU ring cuts the flattened payload of `total` elements into D
+// chunks of `chunk` = cb * 128 elements (cb = ceil(ceil(total / 128) / D),
+// _ring_flat's padding; here the pad is never materialised: elements past
+// `total` read as zero and are not written), and chunk c is summed
+// ((x_c + x_{c+1}) + x_{c+2}) + ..., indices mod D.  Every kernel here adds
+// each element in exactly that order, with no atomics, so the float32
+// results equal the plain twins (ops/collectives.py ring_allreduce_plain,
+// ring_allreduce_select_plain) bit for bit, and those equal the reference.
 //
-// Transport.  A pointer table (struct Args, a __grid_constant__ kernel
-// parameter) gives each rank's input, output, comm slots and flag words.
-// Rank r pushes: it stores its finished chunk into rank r + 1's comm slot,
-// fences (__threadfence_system), then raises r + 1's flag for that slot with
-// st.release.sys; the receiver spins on ld.acquire.sys and reads the slot
-// through L2 (__ldcg).  The pointers may lie on one card (D virtual shards)
-// or on peer cards (the wrapper enables peer access), so the same code runs
-// on one card or many.  Where the TPU kernel double-buffers two comm slots
+// Direct kernels (every rank on one card).  All D partials already lie in
+// that card's memory, and the wrapper launches on the card's current
+// stream, behind the work that wrote them, so stream order makes every
+// input complete before the launch starts; the D outputs are one fresh
+// allocation that nothing else touches until the kernel ends.  So no
+// handshake is needed, and a ring (a pipeline that exists to move chunks
+// between devices) has nothing to do.  One ordinary launch computes the
+// ring's sum directly: the thread for element e (or for the float4 of four
+// elements at e, where every pointer is 16-byte aligned and the row length
+// a multiple of 4; a chunk is a multiple of 128, so a float4 never
+// straddles two chunks) takes chunk c = e / chunk, loads x_c, x_{c+1}, ...,
+// x_{c+D-1} (all D loads issued before the first add), adds them in that
+// order, and stores the sum to every rank's output.  No flag, comm slot,
+// fence, atomic or sequence number, and no cooperative launch.  The select
+// kernel's grid y walks the m * k2 slab rows and x the row's inner = B * 3
+// cells: per row it reads cand[row] once, checks it, and computes the row's
+// base in every rank's (m, f, B, 3) histogram, its chunk c0 and the first
+// cell jb of chunk c0 + 1; where chunk >= inner (the wide pair: 24,576
+// against 768) a row meets at most one boundary, so a cell's chunk is c0 or
+// c0 + 1 with no division, and a small slab whose chunk < inner (chunk 128
+// against inner 768 for a one-row slab) divides only past jb.
+//
+// Ring kernels (the mesh spans cards).  Reduce-scatter: at step k = 0 rank
+// r sends its own chunk r to rank r + 1; at steps k = 1 .. D-1 it adds its
+// local part of chunk r - k to the partial that arrived from rank r - 1
+// and sends the sum on.  After step D-1 rank r holds the total of chunk
+// r + 1.  All-gather: D-1 forwarding steps.  Transport: a pointer table
+// (struct Args, a __grid_constant__ kernel parameter) gives each rank's
+// input, output, comm slots and flag words.  Rank r pushes: it stores its
+// finished chunk into rank r + 1's comm slot, fences, then raises r + 1's
+// flag for that slot with a release store; the receiver spins on an
+// acquire load and reads the slot through L2 (__ldcg).  The pointers lie on
+// peer cards (the wrapper enables peer access), or for the fused kernel
+// also on one card.  Where the TPU kernel double-buffers two comm slots
 // under DMA semaphores, each step here owns its own slot (2(D-1) per rank):
 // no slot is reused within a launch, so no back-pressure handshake is
 // needed, and a rank can only reach a slot in launch s + 1 after its right
 // neighbour has consumed it in launch s (the reduce-scatter of s + 1 cannot
-// finish before that neighbour has finished s).  Flags carry a per-workspace
-// launch sequence number, so nothing is reset between launches.
+// finish before that neighbour has finished s).  Flags carry a
+// per-workspace launch sequence number, so nothing is reset between
+// launches.
 //
 // Blocks.  The ring decomposes by element: block b of every rank handles
 // the same slice of each chunk, and talks only to block b of its two
@@ -54,24 +86,14 @@
 // card's launch.  (fused_hist_ring: that count bounds the launch, whose
 // first nb_ring blocks carry the ring's slices on every card, and whose
 // grid takes the ring blocks or the phase-1 items, whichever are more.)
-// One cooperative launch per card
-// covers every rank on that card (grid y = local rank), so every block that
-// another block waits on is resident; a grid that does not fit fails to
-// launch instead of hanging.  Every wait is bounded by kWaitSeconds of
-// %globaltimer and __trap()s when it runs out, so a broken handshake
-// surfaces as an error at the next synchronize, not as a hung card.
-//
-// ring_select.  ring_phase takes its payload through a loader; the select
-// ring's (SelectLoad) reads element (mm, kk, b, c) of the slab straight from
-// the rank's local histogram, hist[mm][cand[mm][kk]][b][c], so the gather
-// and the ring are one kernel with no staging copy, as the TPU kernel
-// gathers in its body.  The slab is flattened as one
-// array ((m, k2, B, 3) for a pair) before it is cut into chunks, so it is
-// summed in the twin's order (ring_allreduce_select_plain) bit for bit.  A
-// candidate index outside [0, f) traps the kernel (an error at the next
-// synchronize) instead of reading outside the histogram.  The select ring
-// has its own workspace (comm slots and flags), the counterpart of the TPU
-// kernel's own collective id: dense and voted rings never share a flag.
+// One cooperative launch per card covers every rank on that card (grid y =
+// local rank), so every block that another block waits on is resident; a
+// grid that does not fit fails to launch instead of hanging.  Every wait is
+// bounded by kWaitSeconds of %globaltimer and __trap()s when it runs out,
+// so a broken handshake surfaces as an error at the next synchronize, not
+// as a hung card.  ring_phase takes its payload through a loader; the
+// select ring's (SelectLoad) reads element (mm, kk, b, c) of the slab
+// straight from the rank's local histogram, hist[mm][cand[mm][kk]][b][c].
 //
 // fused_hist_ring.  Phase 1 cuts the rank's segment histogram along the
 // ring's chunks: chunk c covers the flattened elements [c * chunk, (c + 1)
@@ -89,44 +111,50 @@
 // blocks (the first nb_ring) take the last items.  Phase 2 is the ring
 // above over `work`; before it loads chunk c a ring block waits for chunk
 // c's flag alone, so the first send overlaps the histogram of the later
-// chunks, and no barrier spans the rank's blocks.  Blocks with neither an item nor a
-// ring slice leave at once.  Each ring block then zeroes its slice of
-// `work`, so the buffer is zero for the next launch without a memset.
-// Each rank takes its own exact `cnt` (no padding to a global bucket).
+// chunks, and no barrier spans the rank's blocks.  Blocks with neither an
+// item nor a ring slice leave at once.  Each ring block then zeroes its
+// slice of `work`, so the buffer is zero for the next launch without a
+// memset.  Each rank takes its own exact `cnt` (no padding to a global
+// bucket).
 //
-// Scope.  When every rank of a launch lies on one card, the fused kernel's
-// fences, flags and readiness words use .gpu scope (fence.acq_rel.gpu,
-// st.release.gpu, ld.acquire.gpu); when the mesh spans cards its ring
-// handshakes use .sys, as the dense and select rings always do.  The
-// readiness words never leave the rank's card, so they are .gpu always.
+// Scope.  The dense and select rings run only across cards, so their
+// handshakes use .sys scope (__threadfence_system, st.release.sys,
+// ld.acquire.sys).  The fused kernel's use .gpu scope (fence.acq_rel.gpu,
+// st.release.gpu, ld.acquire.gpu) when every rank lies on one card and
+// .sys when the mesh spans cards; its readiness words never leave the
+// rank's card, so they are .gpu always.
 //
 // Bound (H100 SXM, 3.35 TB/s HBM, 450 GB/s NVLink each way).  The bound
-// counts what the function must move, not what the ring chooses to move
+// counts what the function must move, not what a ring chooses to move
 // through its slots.  ring_allreduce on the flagship payload (50, 256, 3)
 // f32 = 153,600 B, D shards on one card: read the D partials and write the
 // D outputs, 2 x D x 153,600 B = 1.23 MB at D = 4, 0.37 us; its adds are
-// negligible.  Across cards, one shard a card: each card reads its partial
-// and writes its output, and 2(D-1)/D of the payload must cross NVLink each
-// way, 0.51 us at D = 4.  What holds it back is latency, not bytes: 2(D-1)
-// flag handshakes in sequence, each a fenced store and a poll through L2
-// (or NVLink).  fused_hist_ring at 100,000 rows per shard, f = 50, D = 4
-// must read 4 x (5 MB bins + 1.2 MB gh + 0.4 MB row ids) = 26.4 MB and
-// write the 4 reduced outputs, 0.61 MB: 8.06 us; like hist_segment it is
-// held back in phase 1 by the add step's instructions and the latency of
-// the row gathers (seg_hist.cuh), and at a small segment by the launch and
-// the 2(D-1) handshakes of phase 2.
-//
-// ring_select on the wide voting configuration (topK 32, so k2 = 64 of
-// f = 2000 columns, B = 256): the pair slab is (2, 64, 256, 3) f32 =
-// 393,216 B; at D = 4 shards on one card the function reads the 4 gathered
-// slabs and writes 4 outputs, 3.15 MB, 0.94 us.  Like ring_allreduce it is
-// held back by its 2(D-1) handshakes, not by bytes.
+// negligible.  The direct kernel moves exactly those bytes.  ring_select on
+// the wide voting configuration (topK 32, so k2 = 64 of f = 2000 columns,
+// B = 256): the pair slab is (2, 64, 256, 3) f32 = 393,216 B; at D = 4 on
+// one card the function reads the 4 gathered slabs and writes 4 outputs,
+// 3.15 MB, 0.94 us.  What bounds the direct kernels instead is a launch's
+// latency and one round trip of loads: the flagship payload is 9,600
+// float4 (75 blocks of 128 threads) and the pair 128 rows of 192 float4
+// threads, less than one wave of the card's 132 SMs at any D.  Across
+// cards, one shard a card: each card reads its partial and writes its
+// output, and 2(D-1)/D of the payload must cross NVLink each way, 0.51 us
+// at D = 4; the ring is held back by its 2(D-1) flag handshakes in
+// sequence, each a fenced store and a poll over NVLink, not by bytes.
+// fused_hist_ring at 100,000 rows per shard, f = 50, D = 4 must read 4 x
+// (5 MB bins + 1.2 MB gh + 0.4 MB row ids) = 26.4 MB and write the 4
+// reduced outputs, 0.61 MB: 8.06 us; like hist_segment it is held back in
+// phase 1 by the add step's instructions and the latency of the row
+// gathers (seg_hist.cuh), and at a small segment by the launch and the
+// 2(D-1) handshakes of phase 2.
 //
 // Each entry returns cudaGetLastError() (or the launch's own error); the
 // kernels allocate nothing and launch on the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "seg_hist.cuh"
 
@@ -137,6 +165,9 @@ constexpr int kMaxBlocks = 1024;      // ring blocks per rank; flag stride
 constexpr int kThreads = 256;         // dense and select rings
 constexpr int kFusedThreads = 512;    // fused_hist_ring
 constexpr int kElemsPerThread = 4;    // ring_allreduce grid sizing
+constexpr int kDenseThreads = 128;    // direct_ring_allreduce_kernel
+constexpr int kSelectThreads = 256;   // direct_ring_select_kernel, at most
+constexpr int kDirectMaxGrid = 4096;  // direct kernels' grid x; they stride
 constexpr unsigned long long kWaitNs = 20ull * 1000 * 1000 * 1000;  // kWaitSeconds = 20
 
 struct Rank {
@@ -334,6 +365,149 @@ __global__ void __launch_bounds__(kThreads) ring_select_kernel(const __grid_cons
   ring_phase<float, false, true>(a, rank, blockIdx.x, gridDim.x, load,
                                  static_cast<float*>(nullptr), Ready{});
 }
+
+// The direct kernels' arguments: rank r's input (dense: its partial;
+// select: its local (m, f, B, 3) histogram), and one output of `ranks` x
+// `total` elements, rank r's at out + r * total.
+struct Direct {
+  const float* x[kMaxRanks];
+  float* out;
+  const int32_t* cand;  // select: (m * k2,) candidate columns, on the card
+  int ranks;
+  int f;                // select: columns of a local histogram
+  int64_t k2, inner;    // select: candidates per child, cells per slab row
+  int64_t total;        // payload elements
+  int64_t chunk;        // cb * 128
+};
+
+// One payload element (float) or four neighbouring ones (float4).
+template <typename V>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int kWidth = 1;
+  __device__ static __forceinline__ float load(const float* p) { return __ldg(p); }
+  __device__ static __forceinline__ void add(float& s, float v) { s += v; }
+  __device__ static __forceinline__ void store(float* p, float v) { *p = v; }
+};
+
+template <>
+struct Vec<float4> {
+  static constexpr int kWidth = 4;
+  __device__ static __forceinline__ float4 load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static __forceinline__ void add(float4& s, const float4& v) {
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  __device__ static __forceinline__ void store(float* p, const float4& v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+};
+
+// The ring's sum of the element(s) at offset i of every rank's input,
+// started at rank c: ((x_c + x_{c+1}) + x_{c+2}) + ..., indices mod D.  The
+// D loads are issued before the first add.
+template <typename V>
+__device__ __forceinline__ V ring_sum(const Direct& a, int c, int64_t i) {
+  V v[kMaxRanks];
+#pragma unroll
+  for (int k = 0; k < kMaxRanks; ++k) {
+    if (k < a.ranks) {
+      const int r = c + k < a.ranks ? c + k : c + k - a.ranks;
+      v[k] = Vec<V>::load(a.x[r] + i);
+    }
+  }
+  V s = v[0];
+#pragma unroll
+  for (int k = 1; k < kMaxRanks; ++k)
+    if (k < a.ranks) Vec<V>::add(s, v[k]);
+  return s;
+}
+
+template <typename V>
+__device__ __forceinline__ void store_all(const Direct& a, int64_t i, const V& s) {
+  for (int r = 0; r < a.ranks; ++r) Vec<V>::store(a.out + r * a.total + i, s);
+}
+
+// ring_allreduce on one card: the thread for element e (kVec: the float4 at
+// e) adds it from chunk e / chunk's rank on and writes every output.
+template <bool kVec>
+__global__ void __launch_bounds__(kDenseThreads)
+direct_ring_allreduce_kernel(const __grid_constant__ Direct a) {
+  using V = typename std::conditional<kVec, float4, float>::type;
+  const int64_t n = a.total / Vec<V>::kWidth;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < n;
+       t += stride) {
+    const int64_t e = t * Vec<V>::kWidth;
+    store_all(a, e, ring_sum<V>(a, static_cast<int>(e / a.chunk), e));
+  }
+}
+
+// ring_select on one card: block row y takes slab rows y, y + gridDim.y,
+// ...; its threads take the row's cells (kVec: float4s).  Slab element e =
+// row * inner + j lies at ((row / k2) * f + cand[row]) * inner + j of every
+// rank's histogram.
+template <bool kVec>
+__global__ void __launch_bounds__(kSelectThreads)
+direct_ring_select_kernel(const __grid_constant__ Direct a) {
+  using V = typename std::conditional<kVec, float4, float>::type;
+  const int64_t inner = a.inner;
+  const int64_t rows = a.total / inner;
+  const int64_t n = inner / Vec<V>::kWidth;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // chunk >= inner: a row meets at most one chunk boundary
+  const int narrow = a.chunk < inner ? static_cast<int>(a.chunk) : 0;
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    const int64_t col = __ldg(a.cand + row);
+    if (col < 0 || col >= a.f) __trap();
+    const int64_t src = ((row / a.k2) * a.f + col) * inner;
+    const int64_t dst = row * inner;
+    const int c0 = static_cast<int>(dst / a.chunk);
+    const int64_t jb = (c0 + 1) * a.chunk - dst;  // first cell of chunk c0 + 1
+    for (int64_t t = t0; t < n; t += stride) {
+      const int64_t j = t * Vec<V>::kWidth;
+      int c = c0;
+      if (j >= jb) c += 1 + (narrow ? static_cast<int>(j - jb) / narrow : 0);
+      store_all(a, dst + j, ring_sum<V>(a, c, src + j));
+    }
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Fills the direct kernels' common arguments; false when they are invalid.
+bool fill_direct(Direct& a, int ranks, void* const* x, void* out, int64_t total,
+                 int64_t chunk) {
+  if (ranks < 2 || ranks > kMaxRanks || total < 1 || chunk < 128 || chunk % 128 != 0 ||
+      chunk * ranks < total)
+    return false;
+  a = Direct{};
+  a.ranks = ranks;
+  a.total = total;
+  a.chunk = chunk;
+  a.out = static_cast<float*>(out);
+  for (int r = 0; r < ranks; ++r) a.x[r] = static_cast<const float*>(x[r]);
+  return true;
+}
+
+// Every input and the output 16-byte aligned, and each rank's output
+// (`total` elements) a multiple of 4: rows of `width` elements may go as
+// float4s.
+bool vec_ok(const Direct& a, int64_t width) {
+  if (width % 4 != 0 || a.total % 4 != 0 || !aligned16(a.out)) return false;
+  for (int r = 0; r < a.ranks; ++r)
+    if (!aligned16(a.x[r])) return false;
+  return true;
+}
+
+int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // The features [fa, fb) that hold chunk c's elements, in nsub phase-1
 // sub-groups of at most a.group features (nsub = 0: a chunk past the
@@ -622,6 +796,59 @@ int ring_allreduce_select_launch(int ranks, int n_local, const int* local, void*
   }
   return launch(reinterpret_cast<const void*>(ring_select_kernel), a, n_local, nb, kThreads, 0,
                 stream);
+}
+
+// ring_allreduce with every rank on the current device: x[r] is rank r's
+// float32 partial of `total` elements, out the (ranks, total) result; one
+// ordinary launch.
+int direct_ring_allreduce_launch(int ranks, void* const* x, void* out, int64_t total,
+                                 int64_t chunk, void* stream) {
+  Direct a;
+  if (!fill_direct(a, ranks, x, out, total, chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (vec_ok(a, total)) {
+    const int64_t blocks = cdiv(total / 4, kDenseThreads);
+    direct_ring_allreduce_kernel<true>
+        <<<static_cast<unsigned>(blocks < kDirectMaxGrid ? blocks : kDirectMaxGrid),
+           kDenseThreads, 0, s>>>(a);
+  } else {
+    const int64_t blocks = cdiv(total, kDenseThreads);
+    direct_ring_allreduce_kernel<false>
+        <<<static_cast<unsigned>(blocks < kDirectMaxGrid ? blocks : kDirectMaxGrid),
+           kDenseThreads, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ring_select with every rank on the current device: hist[r] is rank r's
+// local (m, f, B, 3) float32 histogram (m = 1 for one slab), cand the
+// (m * k2,) int32 candidate columns on this device, out the (ranks, m, k2,
+// B, 3) result; inner = B * 3 and total = m * k2 * inner.  One ordinary
+// launch.
+int direct_ring_select_launch(int ranks, void* const* hist, const void* cand, void* out,
+                              int f, int64_t k2, int64_t inner, int64_t total,
+                              int64_t chunk, void* stream) {
+  Direct a;
+  if (!fill_direct(a, ranks, hist, out, total, chunk) || f < 1 || k2 < 1 || inner < 1 ||
+      inner > 0x7fffffff || total % (k2 * inner) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.cand = static_cast<const int32_t*>(cand);
+  a.f = f;
+  a.k2 = k2;
+  a.inner = inner;
+  const bool vec = vec_ok(a, inner);
+  const int64_t n = vec ? inner / 4 : inner;
+  const int threads = static_cast<int>(n < kSelectThreads ? cdiv(n, 32) * 32 : kSelectThreads);
+  const int64_t gx = cdiv(n, threads), rows = total / inner;
+  const dim3 grid(static_cast<unsigned>(gx < kDirectMaxGrid ? gx : kDirectMaxGrid),
+                  static_cast<unsigned>(rows < 65535 ? rows : 65535));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    direct_ring_select_kernel<true><<<grid, threads, 0, s>>>(a);
+  else
+    direct_ring_select_kernel<false><<<grid, threads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // mode: 0 = float32, 2 = int32 (seg_hist.cuh); sys: the mesh spans cards.

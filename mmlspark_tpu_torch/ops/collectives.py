@@ -14,17 +14,21 @@ reference, and each has a plain twin that adds in exactly that order:
     kernel: the flattened array is cut into D chunks of ``cb·128``
     elements (``cb = ceil(ceil(total/128)/D)``, as ``_ring_flat`` pads),
     and chunk ``c`` is summed starting at shard ``c``:
-    ``((x_c + x_{c+1}) + x_{c+2}) + …``, indices mod D.  On a CUDA tensor
-    :func:`ring_allreduce` launches the ``ring_allreduce`` kernel of
-    ``csrc/ring.cu`` (:mod:`.cuda_ring`), which adds in the same order and
-    so equals the twin bit for bit.
+    ``((x_c + x_{c+1}) + x_{c+2}) + …``, indices mod D.  On CUDA tensors
+    :func:`ring_allreduce` launches a kernel of ``csrc/ring.cu``
+    (:mod:`.cuda_ring`) that adds in the same order and so equals the twin
+    bit for bit: where every shard lies on one card the direct kernel (one
+    ordinary launch, each element summed from its chunk's shard on), where
+    the mesh spans cards the ring (:func:`.cuda_ring.ring_route`, by the
+    mesh's layout alone).
 
 :func:`ring_allreduce_select` (the reference's voted-column ring of the
 PV-Tree learner) gathers the candidate columns of each shard's local
 histogram (:func:`gather_cand`) and ring-reduces only that slab; its twin
 is :func:`ring_allreduce_select_plain`, the gather followed by
-:func:`ring_allreduce_plain` over the flattened slab, and on a CUDA tensor
-it launches the ``ring_select`` kernel, which gathers in-kernel.
+:func:`ring_allreduce_plain` over the flattened slab.  On CUDA tensors it
+launches the direct select kernel on one card or the ``ring_select``
+kernel across cards, routed as above; both gather in-kernel.
 
 :func:`fused_segment_hist_ring` (the reference's kernel of the same name)
 gathers each shard's segment, histograms it and ring-reduces the result;
@@ -91,7 +95,8 @@ def resolve_collective(collective: str, data_shards: int = 0) -> str:
 def ring_allreduce(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
     """All-reduce of the float32 ``parts`` (one per shard of ``mesh``):
     every shard gets the ring-order sum, on its own device.  CUDA tensors
-    go through the ``ring_allreduce`` kernel; CPU tensors through
+    go through :func:`.cuda_ring.ring_allreduce_cuda` (the direct kernel
+    on one card, the ring across cards); CPU tensors through
     :func:`ring_allreduce_plain`."""
     if len(parts) != len(mesh):
         raise ValueError(f"{len(parts)} parts for a mesh of {len(mesh)} "
@@ -124,8 +129,9 @@ def ring_allreduce_select(parts: Sequence[torch.Tensor], cand: torch.Tensor,
                           mesh) -> List[torch.Tensor]:
     """Voted-column all-reduce over the shards of ``mesh``: the sum of
     ``gather_cand(parts[d], cand)``, on every shard's device.  CUDA tensors
-    go through the ``ring_select`` kernel (which gathers in-kernel); CPU
-    tensors through :func:`ring_allreduce_select_plain`."""
+    go through :func:`.cuda_ring.ring_allreduce_select_cuda` (the direct
+    select kernel on one card, ``ring_select`` across cards; both gather
+    in-kernel); CPU tensors through :func:`ring_allreduce_select_plain`."""
     if len(parts) != len(mesh):
         raise ValueError(f"{len(parts)} parts for a mesh of {len(mesh)} "
                          "shards")

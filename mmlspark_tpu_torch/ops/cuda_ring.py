@@ -8,32 +8,45 @@
 * :func:`fused_segment_hist_ring_cuda` replaces ``fused_segment_hist_ring``
   (TPU body ``_fused_hist_ring_kernel``).
 
-The note at the top of ``csrc/ring.cu`` gives the schedule, the transport
-and the bound.  The wrappers take CUDA tensors only: the entries in
+The note at the top of ``csrc/ring.cu`` gives the order, the kernels and
+the bound.  The wrappers take CUDA tensors only: the entries in
 :mod:`.collectives` route CPU tensors to the plain twins.  One call is one
 reduction, however many cards it spans: ``launches`` on each wrapper
-counts reductions (calls that launched the kernel on every card of the
+counts reductions (calls that launched their kernel on every card of the
 mesh), not per-card launches.
 
-Workspace.  The comm slots (``2(D-1)`` chunks per rank), the flag words,
-and for the fused kernel the per-rank histogram buffers and per-chunk
-readiness words are allocated once per (mesh, kind, payload, dtype) and
-kept in ``mesh.scratch``; the dense, select and fused rings each have their own
-(the counterpart of the TPU kernels' separate collective ids), so they
-never share a flag; flags carry a launch sequence number, so nothing is
-reset between calls.  Peer access between neighbouring cards is enabled
-when the workspace is made, and raises where the cards cannot reach each
-other.  The number of blocks per rank is one for the whole mesh
-(:func:`mesh_blocks`), chosen once per workspace and passed to every
-card's launch.
+Routes.  The dense and select reductions take one of two kernels, chosen
+by the mesh's layout alone (:func:`ring_route`): ``"direct"`` when every
+rank lies on one card (one ordinary launch that adds each element in the
+ring's order, with no handshake), ``"ring"`` when the mesh spans cards
+(the ring with system-scope handshakes).  A launch that fails raises on
+either route; neither falls back on the other.  The fused kernel always
+runs its ring.
 
-The fused wrapper keeps, per workspace, the ctypes pointer arrays of each
-set of shard tensors it has launched on, keyed by every tensor's data
-pointer, shape, strides, dtype and device: a repeat call on the same
-tensors (the grower's splits within a tree) validates and builds only the
-segment bounds, the outputs and the sequence number.  Its phase 1 is cut
-along the ring's chunks (:func:`fused_chunk_features`), with at most
-:func:`fused_group` features an item.
+Workspace.  Per (mesh, kind, payload, dtype), kept in ``mesh.scratch``:
+on the ring route the comm slots (``2(D-1)`` chunks per rank) and the
+flag words, and for the fused kernel the per-rank histogram buffers and
+per-chunk readiness words; a direct workspace holds no device buffer.
+The dense, select and fused rings each have their own (the counterpart
+of the TPU kernels' separate collective ids), so they never share a flag;
+flags carry a launch sequence number, so nothing is reset between calls.
+Peer access between neighbouring cards is enabled when a ring workspace
+is made, and raises where the cards cannot reach each other.  The number
+of ring blocks per rank is one for the whole mesh (:func:`mesh_blocks`),
+chosen once per workspace and passed to every card's launch.
+
+Host path.  Each workspace keeps the ctypes pointer arrays of the input
+tensors it has launched on, so a call on tensors seen before builds no
+array: the dense and select wrappers key them by the tensors' data
+pointers (the arrays' whole content; they check shape, dtype and device
+on every call), the fused wrapper by every tensor's data pointer, shape,
+strides, dtype and device (a hit there also skips its checks and
+conversions).  The stream is read as its raw handle, and a device
+context is entered only for a card other than the current one.  On the
+direct route the D outputs are one ``(D, *shape)`` allocation, returned
+as its D views.  The fused kernel's phase 1 is cut along the ring's
+chunks (:func:`fused_chunk_features`), with at most :func:`fused_group`
+features an item.
 """
 
 from __future__ import annotations
@@ -55,8 +68,8 @@ LANES = 128
 #: phase-1 tile
 FUSED_THREADS = 512
 FUSED_ROWS_PER_TILE = 256
-#: shard-tensor sets whose pointer arrays a fused workspace keeps
-_LAUNCH_CACHE = 16
+#: tensor sets whose pointer arrays a workspace keeps
+_POINTER_CACHE = 16
 
 
 def ring_chunk(total: int, num_shards: int) -> int:
@@ -126,6 +139,11 @@ def _lib() -> ctypes.CDLL:
                                                  pp, pp, i32, i64, i64, i64,
                                                  i64, u32, i32, p]
     lib.ring_allreduce_select_launch.restype = i32
+    lib.direct_ring_allreduce_launch.argtypes = [i32, pp, p, i64, i64, p]
+    lib.direct_ring_allreduce_launch.restype = i32
+    lib.direct_ring_select_launch.argtypes = [i32, pp, p, p, i32, i64, i64,
+                                              i64, i64, p]
+    lib.direct_ring_select_launch.restype = i32
     for name in ("ring_allreduce_blocks", "ring_allreduce_select_blocks"):
         getattr(lib, name).argtypes = [i32, i64]
         getattr(lib, name).restype = i32
@@ -147,8 +165,31 @@ def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def ring_route(devices: Sequence[torch.device]) -> str:
+    """The dense and select reductions' kernel for a mesh of ``devices``
+    (one per rank), by its layout alone: ``"direct"`` when every rank lies
+    on one device, ``"ring"`` when the ranks span devices."""
+    return "direct" if len(set(devices)) == 1 else "ring"
+
+
+def _stream(dev: torch.device) -> int:
+    """The raw handle of ``torch.cuda.current_stream(dev)``, without making
+    its Python object (a few µs a call on the host)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _on_card(dev: torch.device, launch, *args) -> int:
+    """``launch(*args)`` with ``dev`` the current device, switching to it
+    only when it is not."""
+    if dev.index == torch.cuda.current_device():
+        return launch(*args)
+    with torch.cuda.device(dev):
+        return launch(*args)
+
+
 class _Workspace:
-    """Device buffers of one (mesh, payload, dtype) ring."""
+    """Device buffers and host caches of one (mesh, payload, dtype)
+    reduction."""
 
     def __init__(self, mesh, total: int, chunk: int, dtype: torch.dtype,
                  fused: bool):
@@ -157,16 +198,20 @@ class _Workspace:
         if not 2 <= D <= lib.ring_max_ranks():
             raise ValueError(f"the ring kernels take 2..{lib.ring_max_ranks()}"
                              f" shards, got {D}")
-        for d, nxt in zip(mesh.devices, mesh.devices[1:] + mesh.devices[:1]):
-            if d != nxt:
-                _raise_if_failed(lib.ring_enable_peer(d.index, nxt.index),
-                                 f"peer access {d} -> {nxt}")
+        self.route = "ring" if fused else ring_route(mesh.devices)
+        ring = self.route == "ring"
+        if ring:
+            for d, nxt in zip(mesh.devices,
+                              mesh.devices[1:] + mesh.devices[:1]):
+                if d != nxt:
+                    _raise_if_failed(lib.ring_enable_peer(d.index, nxt.index),
+                                     f"peer access {d} -> {nxt}")
         steps = 2 * (D - 1)
         self.slots = [torch.empty(steps * chunk, dtype=dtype, device=d)
-                      for d in mesh.devices]
+                      for d in mesh.devices] if ring else []
         self.flags = [torch.zeros(steps * lib.ring_max_blocks(),
                                   dtype=torch.int32, device=d)
-                      for d in mesh.devices]
+                      for d in mesh.devices] if ring else []
         self.work = [torch.zeros(total, dtype=dtype, device=d)
                      for d in mesh.devices] if fused else []
         # per chunk: the items counted so far, then the chunk's flag
@@ -183,13 +228,32 @@ class _Workspace:
         self.slots_p, self.flags_p = _ptrs(self.slots), _ptrs(self.flags)
         self.work_p, self.ready_p = _ptrs(self.work), _ptrs(self.ready)
         self._blocks = {}
-        self.launches = {}   # fused: shard tensors -> pointer arrays
+        self.pointers = {}   # input tensors' key -> pointer arrays
         self.fused_geometry = {}
         self.smem_budget = None
 
     def next_seq(self) -> int:
         self.seq = self.seq % _SEQ_MAX + 1
         return self.seq
+
+    def keep_pointers(self, key, arrays) -> None:
+        """Keep the pointer arrays of the tensors ``key`` describes."""
+        if len(self.pointers) >= _POINTER_CACHE:
+            self.pointers.clear()
+        self.pointers[key] = arrays
+
+    def input_pointers(self, parts) -> Tuple[ctypes.Array, list]:
+        """``(pointer array, contiguous tensors)`` of ``parts``.  The array
+        is kept under the tensors' data pointers, which are its whole
+        content: the wrappers check shape, dtype and device on every call,
+        so a cheaper key than the fused kernel's serves."""
+        x = [p.contiguous() for p in parts]
+        key = tuple([t.data_ptr() for t in x])
+        arr = self.pointers.get(key)
+        if arr is None:
+            arr = (ctypes.c_void_p * len(key))(*key)
+            self.keep_pointers(key, arr)
+        return arr, x
 
     def blocks(self, key, per_card) -> int:
         """The mesh's block count per rank for launches of kind ``key``
@@ -253,37 +317,55 @@ def _check_mesh(tensors: Sequence[torch.Tensor], mesh, what: str) -> None:
                              f"in order; got {t.device} for {d}")
 
 
+def _check_parts(parts: Sequence[torch.Tensor], mesh, what: str) -> None:
+    """``parts[d]``: float32 on ``mesh.devices[d]``, all of one shape."""
+    if len(parts) != len(mesh):
+        raise ValueError(f"{len(parts)} parts for a mesh of {len(mesh)}")
+    shape = parts[0].shape
+    for p, d in zip(parts, mesh.devices):
+        if not p.is_cuda or p.device != d:
+            raise ValueError(f"parts must lie on the mesh's CUDA devices "
+                             f"in order; got {p.device} for {d}")
+        if p.shape != shape:
+            raise ValueError(f"{what} parts must share one shape")
+        if p.dtype != torch.float32:
+            raise ValueError(f"{what} reduces float32 parts")
+
+
 def ring_allreduce_cuda(parts: Sequence[torch.Tensor], mesh
                         ) -> List[torch.Tensor]:
     """Sum of the float32 ``parts`` (``parts[d]`` on ``mesh.devices[d]``,
-    all of one shape), delivered to every shard: one ``ring_allreduce``
-    launch per card of the mesh.  Raises on tensors that are not on the
-    mesh's CUDA devices, and when a launch fails."""
-    _check_mesh(parts, mesh, "parts")
+    all of one shape), delivered to every shard: one direct launch where
+    the mesh lies on one card, else one ``ring_allreduce`` launch per card
+    (:func:`ring_route`).  Raises on tensors that are not on the mesh's
+    CUDA devices, and when a launch fails."""
+    _check_parts(parts, mesh, "ring_allreduce")
     shape = parts[0].shape
-    if any(p.shape != shape for p in parts):
-        raise ValueError("ring_allreduce parts must share one shape")
-    if any(p.dtype != torch.float32 for p in parts):
-        raise ValueError("ring_allreduce reduces float32 parts")
     lib = _lib()
     D = len(mesh)
-    x = [p.contiguous() for p in parts]
-    total = x[0].numel()
-    out = [torch.empty_like(p) for p in x]
+    total = parts[0].numel()
     if total == 0:
-        return out
+        return [torch.empty_like(p) for p in parts]
     chunk = ring_chunk(total, D)
     ws = _workspace(mesh, "dense", total, chunk, torch.float32)
+    x_p, x = ws.input_pointers(parts)   # x: alive through the launch
+    if ws.route == "direct":
+        dev = mesh.devices[0]
+        out = torch.empty((D,) + tuple(shape), dtype=torch.float32, device=dev)
+        rc = _on_card(dev, lib.direct_ring_allreduce_launch, D, x_p,
+                      out.data_ptr(), total, chunk, _stream(dev))
+        _raise_if_failed(rc, "ring_allreduce")
+        ring_allreduce_cuda.launches += 1
+        return list(out.unbind(0))
     nb = ws.blocks("dense", lambda n_local: lib.ring_allreduce_blocks(
         n_local, chunk))
-    seq = ws.next_seq()
-    args = (_ptrs(x), _ptrs(out), _ptrs(ws.slots), _ptrs(ws.flags))
+    out = [torch.empty(shape, dtype=torch.float32, device=d)
+           for d in mesh.devices]
+    args = (x_p, _ptrs(out), ws.slots_p, ws.flags_p, total, chunk,
+            ws.next_seq(), nb)
     for dev, ranks in ws.cards.items():
-        local = (ctypes.c_int * len(ranks))(*ranks)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            rc = lib.ring_allreduce_launch(D, len(ranks), local, *args,
-                                           total, chunk, seq, nb, stream)
+        rc = _on_card(dev, lib.ring_allreduce_launch, D, len(ranks),
+                      ws.local[dev], *args, _stream(dev))
         _raise_if_failed(rc, "ring_allreduce")
     ring_allreduce_cuda.launches += 1
     return out
@@ -297,20 +379,18 @@ def ring_allreduce_select_cuda(parts: Sequence[torch.Tensor],
                                ) -> List[torch.Tensor]:
     """Voted-column all-reduce: the sum over the shards of ``parts[d][cand]``
     (``parts[d]`` on ``mesh.devices[d]``), delivered to every shard, in one
-    ``ring_select`` launch per card.  ``parts``: float32 local histograms of
-    one shape, ``(f, B, 3)`` with ``cand`` of shape ``(k2,)``, or the
-    stacked ``(m, f, B, 3)`` with ``cand`` of shape ``(m, k2)``; ``cand``
-    int32 in ``[0, f)``, the same for every shard (each card gets its own
-    copy).  Returns the ``(k2, B, 3)`` or ``(m, k2, B, 3)`` sum on every
-    shard's device.  Raises on tensors off the mesh's CUDA devices and on
-    a failed launch; a ``cand`` on the host is range-checked here, one on a
-    card by the kernel, which traps on an index outside ``[0, f)``."""
-    _check_mesh(parts, mesh, "parts")
+    direct launch where the mesh lies on one card, else one ``ring_select``
+    launch per card (:func:`ring_route`).  ``parts``: float32 local
+    histograms of one shape, ``(f, B, 3)`` with ``cand`` of shape
+    ``(k2,)``, or the stacked ``(m, f, B, 3)`` with ``cand`` of shape
+    ``(m, k2)``; ``cand`` int32 in ``[0, f)``, the same for every shard
+    (copied only to cards where it does not lie).  Returns the ``(k2, B,
+    3)`` or ``(m, k2, B, 3)`` sum on every shard's device.  Raises on
+    tensors off the mesh's CUDA devices and on a failed launch; a ``cand``
+    on the host is range-checked here, one on a card by the kernel, which
+    traps on an index outside ``[0, f)``."""
+    _check_parts(parts, mesh, "ring_allreduce_select")
     shape = parts[0].shape
-    if any(p.shape != shape for p in parts):
-        raise ValueError("ring_allreduce_select parts must share one shape")
-    if any(p.dtype != torch.float32 for p in parts):
-        raise ValueError("ring_allreduce_select reduces float32 parts")
     if cand.dtype != torch.int32 or cand.dim() not in (1, 2):
         raise ValueError(f"cand must be int32 of shape (k2,) or (m, k2); got "
                          f"{cand.dtype} {tuple(cand.shape)}")
@@ -324,33 +404,42 @@ def ring_allreduce_select_cuda(parts: Sequence[torch.Tensor],
         raise ValueError(f"candidate columns must lie in [0, {f})")
     lib = _lib()
     D = len(mesh)
-    x = [p.contiguous() for p in parts]
     k2 = cand.shape[-1]
     inner = 1
     for s in shape[lead + 1:]:
         inner *= s
     out_shape = tuple(cand.shape) + tuple(shape[lead + 1:])
-    out = [torch.empty(out_shape, dtype=torch.float32, device=d)
-           for d in mesh.devices]
     total = cand.numel() * inner
     if total == 0:
-        return out
+        return [torch.empty(out_shape, dtype=torch.float32, device=d)
+                for d in mesh.devices]
     chunk = ring_chunk(total, D)
     ws = _workspace(mesh, "select", total, chunk, torch.float32)
+    x_p, x = ws.input_pointers(parts)   # x: alive through the launch
+    flat = cand.reshape(-1).contiguous()
+    if ws.route == "direct":
+        dev = mesh.devices[0]
+        if flat.device != dev:
+            flat = flat.to(dev)
+        out = torch.empty((D,) + out_shape, dtype=torch.float32, device=dev)
+        rc = _on_card(dev, lib.direct_ring_select_launch, D, x_p,
+                      flat.data_ptr(), out.data_ptr(), f, k2, inner, total,
+                      chunk, _stream(dev))
+        _raise_if_failed(rc, "ring_allreduce_select")
+        ring_allreduce_select_cuda.launches += 1
+        return list(out.unbind(0))
+    copies = {dev: flat if flat.device == dev else flat.to(dev)
+              for dev in ws.cards}
     nb = ws.blocks("select", lambda n_local:
                    lib.ring_allreduce_select_blocks(n_local, chunk))
-    flat = cand.reshape(-1)
-    copies = {dev: flat.to(dev).contiguous() for dev in ws.cards}
-    seq = ws.next_seq()
-    args = (_ptrs(x), _ptrs([copies[d] for d in mesh.devices]), _ptrs(out),
-            _ptrs(ws.slots), _ptrs(ws.flags))
+    out = [torch.empty(out_shape, dtype=torch.float32, device=d)
+           for d in mesh.devices]
+    args = (x_p, _ptrs([copies[d] for d in mesh.devices]), _ptrs(out),
+            ws.slots_p, ws.flags_p, f, k2, inner, total, chunk,
+            ws.next_seq(), nb)
     for dev, ranks in ws.cards.items():
-        local = (ctypes.c_int * len(ranks))(*ranks)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            rc = lib.ring_allreduce_select_launch(
-                D, len(ranks), local, *args, f, k2, inner, total, chunk, seq,
-                nb, stream)
+        rc = _on_card(dev, lib.ring_allreduce_select_launch, D, len(ranks),
+                      ws.local[dev], *args, _stream(dev))
         _raise_if_failed(rc, "ring_allreduce_select")
     ring_allreduce_select_cuda.launches += 1
     return out
@@ -431,14 +520,12 @@ def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,
     total = f * num_bins * 3
     chunk = ring_chunk(total, D)
     ws = _workspace(mesh, "fused", total, chunk, out_dtype)
-    hit = ws.launches.get(key)
+    hit = ws.pointers.get(key)
     if hit is None:
         # `pointed` keeps converted copies alive through the launch
         hit, pointed, converted = _fused_pointers(shards, mesh, out_dtype)
         if not converted:   # the pointers are the caller's tensors'
-            if len(ws.launches) >= _LAUNCH_CACHE:
-                ws.launches.clear()
-            ws.launches[key] = hit
+            ws.keep_pointers(key, hit)
     bins_p, gh_p, order_p, lengths = hit
     offs, cnts = [], []
     for (_, _, _, off, cnt), length in zip(shards, lengths):
@@ -464,16 +551,9 @@ def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,
         *offs, *cnts, *tiles), ws.work_p, ws.ready_p, _ptrs(out), ws.slots_p,
         ws.flags_p, f, num_bins, mode, sys, group, reps, chunk, seq, nb,
         nb_ring)
-    current = torch.cuda.current_device()
     for dev, ranks in ws.cards.items():
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if dev.index == current:
-            rc = lib.fused_hist_ring_launch(D, len(ranks), ws.local[dev],
-                                            *args, stream)
-        else:
-            with torch.cuda.device(dev):
-                rc = lib.fused_hist_ring_launch(D, len(ranks),
-                                                ws.local[dev], *args, stream)
+        rc = _on_card(dev, lib.fused_hist_ring_launch, D, len(ranks),
+                      ws.local[dev], *args, _stream(dev))
         _raise_if_failed(rc, "fused_segment_hist_ring")
     fused_segment_hist_ring_cuda.launches += 1
     return out

@@ -13,6 +13,10 @@ from numpy seeds and pass between the two as numpy arrays.
   ring over the flattened slab) equals the reference's
   ``ring_allreduce_select`` bit for bit, one slab and the stacked pair of
   a grow step, at D = 2, 3, 4.
+* The direct kernels' order (each element summed from the shard of its
+  chunk on, the select slab row by row with its chunk boundary), modelled
+  element by element, equals the twins and the reference rings bit for
+  bit; ``ring_route`` picks the direct kernels for one device only.
 * The fused twin (segment histogram per shard, then the ring) equals the
   reference ``fused_segment_hist_ring`` exactly in int32.  In float32 the
   reference sums each cell through an MXU-shaped ``dot_general`` over
@@ -37,6 +41,7 @@ from mmlspark_tpu.ops.pallas_collectives import (fused_segment_hist_ring
                                                  as ref_select)
 from mmlspark_tpu_torch.core.mesh import build_mesh
 from mmlspark_tpu_torch.ops import collectives as co
+from mmlspark_tpu_torch.ops import cuda_ring as cr
 
 SHAPES = [(11, 64, 3), (3,), (7, 5), (1, 129), (13, 17, 3)]
 
@@ -299,3 +304,138 @@ def test_fused_grid_tiles_each_segment(counts):
     # items go to the last four of them
     assert cr.fused_grid([1] * 4, 4, 132, 19) == ([1] * 4, 19)
     assert cr.fused_grid([100_000] * 4, 4, 66, 19) == ([16] * 4, 64)
+
+
+# -- the direct kernels' order (csrc/ring.cu, every shard on one card) -------
+# The direct kernels add element e from the shard of its chunk, e // chunk,
+# on: x_c + x_{c+1} + ..., indices mod D.  These models restate that index
+# arithmetic element by element (the select model with the kernel's
+# per-row chunk and boundary) and hold it against the plain twins, and
+# through them against the reference ring, bit for bit.
+
+#: the flagship payload, a ragged one, a 2-D one, one element, and one
+#: whose chunks past the second are empty at D >= 4 (total < (D-1)·chunk)
+DIRECT_SHAPES = [(50, 256, 3), (13, 17, 3), (7, 5), (1,), (3, 100)]
+
+
+def _direct_model(x, chunk):
+    """Element e of the direct dense kernel's output for the partials
+    ``x[d]``: summed from shard ``e // chunk`` on, in float32."""
+    d = x.shape[0]
+    flat = x.reshape(d, -1)
+    e = np.arange(flat.shape[1])
+    c = e // chunk
+    acc = flat[c, e].copy()
+    for k in range(1, d):
+        acc = acc + flat[(c + k) % d, e]
+    return acc.reshape(x.shape[1:])
+
+
+def _direct_select_model(hist, cand, chunk):
+    """The direct select kernel's output, row by row as its grid walks the
+    slab: row ``row`` reads column ``cand[row]`` of child ``row // k2``;
+    its cells before ``jb`` lie in chunk ``c0``, the rest in ``c0 + 1``,
+    or further where a chunk is shorter than a row."""
+    d = hist.shape[0]
+    lead = cand.ndim - 1
+    f = hist.shape[1 + lead]
+    inner = int(np.prod(hist.shape[2 + lead:]))
+    k2 = cand.shape[-1]
+    h = hist.reshape(d, -1, inner)          # (d, m·f, inner)
+    flat_cand = cand.reshape(-1)
+    narrow = chunk if chunk < inner else 0
+    out = np.empty((flat_cand.size, inner), np.float32)
+    j = np.arange(inner)
+    for row, col in enumerate(flat_cand):
+        src = (row // k2) * f + int(col)
+        dst = row * inner
+        c0 = dst // chunk
+        jb = (c0 + 1) * chunk - dst
+        beyond = (j - jb) // narrow if narrow else 0
+        c = np.where(j < jb, c0, c0 + 1 + beyond)
+        acc = h[c, src, j].copy()
+        for k in range(1, d):
+            acc = acc + h[(c + k) % d, src, j]
+        out[row] = acc
+    return out.reshape(cand.shape + hist.shape[2 + lead:])
+
+
+@pytest.mark.parametrize("d", [2, 3, 4, 8])
+@pytest.mark.parametrize("shape", DIRECT_SHAPES, ids=str)
+def test_direct_order_equals_ring_twin_bitwise(d, shape):
+    x = _partials(d, shape, seed=d * 1000 + sum(shape))
+    chunk = cr.ring_chunk(int(np.prod(shape)), d)
+    got = _direct_model(x, chunk)
+    want = co.ring_allreduce_plain([torch.from_numpy(p) for p in x])
+    np.testing.assert_array_equal(got, want.numpy())
+    if d in (2, 4):
+        ref = _ref_reduce(lambda a: ref_ring(a, DATA_AXIS, d,
+                                             interpret=True), d, x)
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_direct_shapes_cover_empty_chunks():
+    """At D = 4 and 8 the one-element and (3, 100) payloads leave chunks
+    wholly past the payload; the flagship does not."""
+    for shape in ((1,), (3, 100)):
+        total = int(np.prod(shape))
+        for d in (4, 8):
+            assert total < (d - 1) * cr.ring_chunk(total, d)
+    assert 38_400 > 7 * cr.ring_chunk(38_400, 8)
+
+
+#: select cases: the wide configuration's grow-step pair and root slab at
+#: a cut f (the chunk still exceeds a row, as at f = 2000), a one-column
+#: slab whose chunk (128 at D = 4, 8) is shorter than its row of 768 cells,
+#: and the ragged slabs of SELECT_CASES
+DIRECT_SELECT_CASES = [((2, 200, 256, 3), (2, 64)), ((200, 256, 3), (64,)),
+                       ((5, 256, 3), (1,))] + SELECT_CASES
+
+
+@pytest.mark.parametrize("d", [2, 3, 4, 8])
+@pytest.mark.parametrize("hist_shape,cand_shape", DIRECT_SELECT_CASES,
+                         ids=str)
+def test_direct_select_order_equals_select_twin_bitwise(d, hist_shape,
+                                                        cand_shape):
+    hist, cand = _select_case(d, hist_shape, cand_shape,
+                              seed=d * 7 + hist_shape[-2])
+    out_shape = cand_shape + hist_shape[len(cand_shape):]
+    chunk = cr.ring_chunk(int(np.prod(out_shape)), d)
+    got = _direct_select_model(hist, cand, chunk)
+    want = co.ring_allreduce_select_plain(
+        [torch.from_numpy(h) for h in hist], torch.from_numpy(cand))
+    assert got.shape == out_shape
+    np.testing.assert_array_equal(got, want.numpy())
+    if d in (2, 4) and hist.size <= 200_000:
+        in_spec = P(*((DATA_AXIS,) + (None,) * (len(hist_shape) - 1)))
+        out_spec = P(*((DATA_AXIS,) + (None,) * (len(out_shape) - 1)))
+        out = _run_ref(
+            lambda h: ref_select(h, jnp.asarray(cand), DATA_AXIS, d,
+                                 interpret=True),
+            d, [hist.reshape((-1,) + hist_shape[1:])], [in_spec], out_spec)
+        np.testing.assert_array_equal(got, out.reshape((d,) + out_shape)[0])
+
+
+def test_direct_select_cases_cover_both_chunk_widths():
+    """The wide pair's chunk exceeds a slab row (at most one boundary a
+    row); the one-column slab's chunk is shorter than its row."""
+    widths = {}
+    for hist_shape, cand_shape in DIRECT_SELECT_CASES[:3]:
+        inner = int(np.prod(hist_shape[len(cand_shape):]))
+        total = int(np.prod(cand_shape)) * inner
+        widths[hist_shape] = [cr.ring_chunk(total, d) >= inner
+                              for d in (2, 4, 8)]
+    assert widths[(2, 200, 256, 3)] == [True, True, True]
+    assert widths[(5, 256, 3)] == [False, False, False]
+
+
+def test_ring_route_follows_the_mesh_layout():
+    """One device for every rank: the direct kernels; ranks on two or more
+    devices, evenly or not: the ring."""
+    card0, card1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    for d in (2, 3, 4, 8):
+        assert cr.ring_route([card0] * d) == "direct"
+    for devices in ([card0, card1], [card0, card0, card1],
+                    [card1, card0, card0, card0],
+                    [torch.device("cuda", i) for i in range(4)]):
+        assert cr.ring_route(devices) == "ring"

@@ -198,6 +198,12 @@ def _parts(shape, devices, seed):
             .to(d) for d in devices]
 
 
+def _routes(mesh, kind):
+    """The routes of the ``kind`` ("dense", "select") workspaces that calls
+    on ``mesh`` have made."""
+    return {ws.route for key, ws in mesh.scratch.items() if key[1] == kind}
+
+
 def _check_ring(devices, shapes=RING_SHAPES):
     mesh = build_mesh(devices=devices)
     for i, shape in enumerate(shapes):
@@ -210,6 +216,7 @@ def _check_ring(devices, shapes=RING_SHAPES):
         assert cr.ring_allreduce_cuda.launches == before + 3
         for g in got:
             assert torch.equal(g.to(want.device), want), shape
+    assert _routes(mesh, "dense") == {cr.ring_route(mesh.devices)}
 
 
 @pytest.mark.cuda
@@ -413,6 +420,7 @@ def _check_select(devices, cases=SELECT_CASES):
         assert want.shape == cand_shape + shape[len(cand_shape):]
         for g in got:
             assert torch.equal(g.to(want.device), want), shape
+    assert _routes(mesh, "select") == {cr.ring_route(mesh.devices)}
 
 
 @pytest.mark.cuda
@@ -425,6 +433,96 @@ def test_ring_select_equals_twin_on_virtual_shards(cuda_device, D):
 def test_ring_select_on_an_uneven_mesh(cuda_device):
     first, second = _two_cards()[:2]
     _check_select([first, first, second])
+
+
+# -- the direct kernels (every shard on one card) ----------------------------
+# the ring's sum, element by element, in one ordinary launch: exact against
+# the twins at every D, on 16-byte aligned inputs (float4) and on
+# misaligned views (scalar), over repeated calls
+
+DIRECT_SHAPES = RING_SHAPES + [(7, 5), (1,), (3, 100)]
+DIRECT_SELECT_CASES = SELECT_CASES + [((5, 256, 3), (1,)),
+                                      ((2, 23, 32, 3), (2, 8))]
+
+
+def _misaligned(parts):
+    """Each part again, as a view one element into a larger buffer: no
+    longer 16-byte aligned."""
+    out = []
+    for p in parts:
+        buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=p.device)
+        view = buf[1:].view(p.shape)
+        view.copy_(p)
+        out.append(view)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 3, 4, 8])
+def test_direct_kernels_equal_twins(cuda_device, D):
+    mesh = build_mesh(devices=[cuda_device] * D)
+    assert cr.ring_route(mesh.devices) == "direct"
+    for i, shape in enumerate(DIRECT_SHAPES):
+        parts = _parts(shape, mesh.devices, seed=100 + i)
+        want = co.ring_allreduce_plain(parts)
+        for x in (parts, _misaligned(parts)):
+            for _ in range(2):
+                got = cr.ring_allreduce_cuda(x, mesh)
+                torch.cuda.synchronize()
+                assert len(got) == D
+                assert all(torch.equal(g, want) for g in got), shape
+    for i, (shape, cand_shape) in enumerate(DIRECT_SELECT_CASES):
+        parts, cand = _select_inputs(shape, cand_shape, mesh.devices, 50 + i)
+        want = co.ring_allreduce_select_plain(parts, cand)
+        for x in (parts, _misaligned(parts)):
+            for c in (cand, cand.cpu()):
+                got = cr.ring_allreduce_select_cuda(x, c, mesh)
+                torch.cuda.synchronize()
+                assert all(torch.equal(g, want) for g in got), shape
+    assert _routes(mesh, "dense") == _routes(mesh, "select") == {"direct"}
+
+
+@pytest.mark.cuda
+def test_one_card_calls_allocate_no_ring_buffers(cuda_device):
+    """A direct workspace holds no comm slot or flag, and a call makes one
+    output allocation whose D views it returns."""
+    mesh = build_mesh(devices=[cuda_device] * 4)
+    dense = _parts((50, 256, 3), mesh.devices, seed=3)
+    parts, cand = _select_inputs((2, 200, 256, 3), (2, 32), mesh.devices, 4)
+    a = co.ring_allreduce(dense, mesh)
+    b = co.ring_allreduce_select(parts, cand, mesh)
+    torch.cuda.synchronize()
+    for kind, out in (("dense", a), ("select", b)):
+        [ws] = [w for k, w in mesh.scratch.items() if k[1] == kind]
+        assert ws.route == "direct"
+        assert ws.slots == [] and ws.flags == [] and ws.work == []
+        base = out[0].untyped_storage().data_ptr()
+        assert all(o.untyped_storage().data_ptr() == base for o in out)
+        assert [o.data_ptr() - base for o in out] == \
+            [r * out[0].numel() * 4 for r in range(4)]
+
+
+@pytest.mark.cuda
+def test_direct_select_traps_on_a_bad_candidate_on_the_card(cuda_device):
+    """A candidate column outside [0, f) on the card traps the kernel (an
+    error at the next synchronize) instead of reading outside the
+    histogram.  In a process of its own: a trap leaves the process's CUDA
+    context unusable."""
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "from mmlspark_tpu_torch.core.mesh import build_mesh\n"
+        "from mmlspark_tpu_torch.ops import cuda_ring as cr\n"
+        "mesh = build_mesh(devices=['cuda:0'] * 2)\n"
+        "parts = [torch.zeros(11, 16, 3, device='cuda:0') for _ in range(2)]\n"
+        "cand = torch.tensor([0, 11], dtype=torch.int32, device='cuda:0')\n"
+        "cr.ring_allreduce_select_cuda(parts, cand, mesh)\n"
+        "torch.cuda.synchronize()\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode != 0
+    assert "Error" in res.stderr, res.stderr[-2000:]
 
 
 @pytest.mark.cuda
