@@ -49,7 +49,10 @@ Phases, each printing one JSON line:
    one-call yardstick (``torch.stack(parts).sum(0)``; ``index_add_`` over
    every shard's segment), the kernel's device time alone
    (``torch.profiler``), the bound, and the wrapper's host enqueue time
-   (the fused kernel's at 1 and 777 rows a shard).
+   (the fused kernel's at 1 and 777 rows a shard).  Then the ring kernels
+   that the dense and select reductions take on a mesh spanning cards,
+   run on the same virtual shards (``route`` ``"ring"``) on the flagship
+   payload and the wide pair, against the twins exactly.
 8. mesh_path — the flagship classifier data-parallel over
    ``build_mesh(data=4, devices=["cuda:0"] * 4)`` with
    ``collective="ring"``, under ``histogramMethod="auto"`` and
@@ -618,15 +621,10 @@ def allreduce_bound_ms(payload_bytes, shards, one_card, seg_bytes=None,
                     wire_bytes=2 * (D - 1) * payload_bytes / D)
 
 
-def _route(cr, mesh):
-    """The route the dense and select wrappers take on ``mesh`` (a
-    checkout from before ``ring_route`` has only the ring)."""
-    route = getattr(cr, "ring_route", None)
-    return route(mesh.devices) if route else "ring"
-
-
-def _ring_rows(devices, tag):
-    """ring_allreduce against its twin, exactly, on the mesh ``devices``."""
+def _ring_rows(devices, tag, shapes=RING_SHAPES, route=None):
+    """ring_allreduce against its twin, exactly, on the mesh ``devices``:
+    through the wrapper (``route`` None, the route the mesh's layout
+    picks), or on the kernel of ``route`` (``"ring"`` on one card)."""
     import numpy as np
     import torch
     from mmlspark_tpu_torch.core.mesh import build_mesh
@@ -635,12 +633,17 @@ def _ring_rows(devices, tag):
     mesh = build_mesh(devices=devices)
     D = len(mesh)
     one_card = len(set(mesh.devices)) == 1
+    if route is None:
+        route, call = cr.ring_route(mesh.devices), cr.ring_allreduce_cuda
+    else:
+        def call(parts, mesh):
+            return cr._allreduce(parts, mesh, route)
     rows = []
-    for k, shape in enumerate(RING_SHAPES):
+    for k, shape in enumerate(shapes):
         rng = np.random.default_rng(100 * D + k)
         parts = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                  .to(d) for d in mesh.devices]
-        got = co.ring_allreduce(parts, mesh)
+        got = call(parts, mesh)
         want = co.ring_allreduce_plain(parts)
         torch.cuda.synchronize()
         exact = all(torch.equal(g.to(want.device), want) for g in got)
@@ -655,15 +658,11 @@ def _ring_rows(devices, tag):
         bms, by = allreduce_bound_ms(want.numel() * 4, D, one_card)
         rows.append({"kernel": "ring_allreduce", "mesh": tag, "shards": D,
                      "shape": list(shape), "accum": "float32",
-                     "route": _route(cr, mesh),
-                     "match": exact, "max_abs_err": err,
-                     "ms": median_ms(lambda: cr.ring_allreduce_cuda(parts,
-                                                                    mesh)),
-                     "device_ms": device_ms(
-                         lambda: cr.ring_allreduce_cuda(parts, mesh),
-                         "ring_allreduce_kernel"),
-                     "enqueue_us": enqueue_us(
-                         lambda: cr.ring_allreduce_cuda(parts, mesh)),
+                     "route": route, "match": exact, "max_abs_err": err,
+                     "ms": median_ms(lambda: call(parts, mesh)),
+                     "device_ms": device_ms(lambda: call(parts, mesh),
+                                            "ring_allreduce_kernel"),
+                     "enqueue_us": enqueue_us(lambda: call(parts, mesh)),
                      "plain_ms": median_ms(
                          lambda: co.ring_allreduce_plain(parts)),
                      "library_ms": median_ms(library),
@@ -671,9 +670,10 @@ def _ring_rows(devices, tag):
     return rows
 
 
-def _select_rows(devices, tag):
+def _select_rows(devices, tag, shapes=SELECT_SHAPES, route=None):
     """ring_allreduce_select against its twin, exactly, on the mesh
-    ``devices``."""
+    ``devices``, through the wrapper or on the kernel of ``route`` (as
+    :func:`_ring_rows`)."""
     import numpy as np
     import torch
     from mmlspark_tpu_torch.core.mesh import build_mesh
@@ -682,8 +682,14 @@ def _select_rows(devices, tag):
     mesh = build_mesh(devices=devices)
     D = len(mesh)
     one_card = len(set(mesh.devices)) == 1
+    if route is None:
+        route = cr.ring_route(mesh.devices)
+        call = cr.ring_allreduce_select_cuda
+    else:
+        def call(parts, cand, mesh):
+            return cr._allreduce_select(parts, cand, mesh, route)
     rows = []
-    for k, (shape, cand_shape) in enumerate(SELECT_SHAPES):
+    for k, (shape, cand_shape) in enumerate(shapes):
         rng = np.random.default_rng(200 * D + k)
         lead = len(cand_shape) - 1
         f = shape[lead]
@@ -693,7 +699,7 @@ def _select_rows(devices, tag):
         cand = torch.from_numpy(cand_np.reshape(cand_shape)).to(devices[0])
         parts = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                  .to(d) for d in mesh.devices]
-        got = co.ring_allreduce_select(parts, cand, mesh)
+        got = call(parts, cand, mesh)
         want = co.ring_allreduce_select_plain(parts, cand)
         torch.cuda.synchronize()
         exact = all(torch.equal(g.to(want.device), want) for g in got)
@@ -714,17 +720,12 @@ def _select_rows(devices, tag):
         rows.append({"kernel": "ring_allreduce_select", "mesh": tag,
                      "shards": D, "shape": list(shape),
                      "cand": list(cand_shape), "accum": "float32",
-                     "route": _route(cr, mesh),
-                     "match": exact, "max_abs_err": err,
-                     "ms": median_ms(lambda: cr.ring_allreduce_select_cuda(
-                         parts, cand, mesh)),
-                     "device_ms": device_ms(
-                         lambda: cr.ring_allreduce_select_cuda(parts, cand,
-                                                               mesh),
-                         "ring_select_kernel"),
-                     "enqueue_us": enqueue_us(
-                         lambda: cr.ring_allreduce_select_cuda(parts, cand,
-                                                               mesh)),
+                     "route": route, "match": exact, "max_abs_err": err,
+                     "ms": median_ms(lambda: call(parts, cand, mesh)),
+                     "device_ms": device_ms(lambda: call(parts, cand, mesh),
+                                            "ring_select_kernel"),
+                     "enqueue_us": enqueue_us(lambda: call(parts, cand,
+                                                           mesh)),
                      "plain_ms": median_ms(
                          lambda: co.ring_allreduce_select_plain(parts, cand)),
                      "library_ms": median_ms(library),
@@ -819,12 +820,18 @@ def phase_collectives(state):
     import torch
     dev = torch.device(DEV, 0)
     inputs = kernel_inputs()
-    rows = []
+    rows, ring_kernels = [], []
     for D in RING_SHARDS:
-        rows += _ring_rows([dev] * D, "virtual")
-        rows += _select_rows([dev] * D, "virtual")
-        rows += _fused_rows([dev] * D, "virtual", inputs)
+        mesh = [dev] * D
+        rows += _ring_rows(mesh, "virtual")
+        rows += _select_rows(mesh, "virtual")
+        rows += _fused_rows(mesh, "virtual", inputs)
+        # the ring kernels that meshes spanning cards take, on one card
+        ring_kernels += _ring_rows(mesh, "virtual", RING_SHAPES[:1], "ring")
+        ring_kernels += _select_rows(mesh, "virtual", SELECT_SHAPES[:1],
+                                     "ring")
     state["ring_rows"] = rows
+    rows = rows + ring_kernels
     _check_rows(rows)
     return {"rows": rows, "tolerance": "ring_allreduce and "
             "ring_allreduce_select exact (torch.equal); "

@@ -21,7 +21,9 @@ rank lies on one card (one ordinary launch that adds each element in the
 ring's order, with no handshake), ``"ring"`` when the mesh spans cards
 (the ring with system-scope handshakes).  A launch that fails raises on
 either route; neither falls back on the other.  The fused kernel always
-runs its ring.
+runs its ring.  The ring kernels also run on one card (:func:`_allreduce`
+and :func:`_allreduce_select` with ``route="ring"``), which is how a
+host with one card holds them against their twins.
 
 Workspace.  Per (mesh, kind, payload, dtype), kept in ``mesh.scratch``:
 on the ring route the comm slots (``2(D-1)`` chunks per rank) and the
@@ -35,16 +37,13 @@ is made, and raises where the cards cannot reach each other.  The number
 of ring blocks per rank is one for the whole mesh (:func:`mesh_blocks`),
 chosen once per workspace and passed to every card's launch.
 
-Host path.  Each workspace keeps the ctypes pointer arrays of the input
-tensors it has launched on, so a call on tensors seen before builds no
-array: the dense and select wrappers key them by the tensors' data
-pointers (the arrays' whole content; they check shape, dtype and device
-on every call), the fused wrapper by every tensor's data pointer, shape,
-strides, dtype and device (a hit there also skips its checks and
-conversions).  The stream is read as its raw handle, and a device
-context is entered only for a card other than the current one.  On the
-direct route the D outputs are one ``(D, *shape)`` allocation, returned
-as its D views.  The fused kernel's phase 1 is cut along the ring's
+Host path.  The fused workspace keeps the ctypes pointer arrays of the
+shard tensors it has launched on, keyed by every tensor's data pointer,
+shape, strides, dtype and device, so a call on tensors seen before skips
+its checks, conversions and arrays.  The stream is read as its raw
+handle, and a device context is entered only for a card other than the
+current one.  On the direct route the D outputs are one ``(D, *shape)``
+allocation, returned as its D views.  The fused kernel's phase 1 is cut along the ring's
 chunks (:func:`fused_chunk_features`), with at most :func:`fused_group`
 features an item.
 """
@@ -68,7 +67,7 @@ LANES = 128
 #: phase-1 tile
 FUSED_THREADS = 512
 FUSED_ROWS_PER_TILE = 256
-#: tensor sets whose pointer arrays a workspace keeps
+#: shard-tensor sets whose pointer arrays a fused workspace keeps
 _POINTER_CACHE = 16
 
 
@@ -192,14 +191,14 @@ class _Workspace:
     reduction."""
 
     def __init__(self, mesh, total: int, chunk: int, dtype: torch.dtype,
-                 fused: bool):
+                 route: str, fused: bool):
         lib = _lib()
         D = len(mesh)
         if not 2 <= D <= lib.ring_max_ranks():
             raise ValueError(f"the ring kernels take 2..{lib.ring_max_ranks()}"
                              f" shards, got {D}")
-        self.route = "ring" if fused else ring_route(mesh.devices)
-        ring = self.route == "ring"
+        self.route = route
+        ring = route == "ring"
         if ring:
             for d, nxt in zip(mesh.devices,
                               mesh.devices[1:] + mesh.devices[:1]):
@@ -228,32 +227,13 @@ class _Workspace:
         self.slots_p, self.flags_p = _ptrs(self.slots), _ptrs(self.flags)
         self.work_p, self.ready_p = _ptrs(self.work), _ptrs(self.ready)
         self._blocks = {}
-        self.pointers = {}   # input tensors' key -> pointer arrays
+        self.pointers = {}   # fused: the shards' key -> pointer arrays
         self.fused_geometry = {}
         self.smem_budget = None
 
     def next_seq(self) -> int:
         self.seq = self.seq % _SEQ_MAX + 1
         return self.seq
-
-    def keep_pointers(self, key, arrays) -> None:
-        """Keep the pointer arrays of the tensors ``key`` describes."""
-        if len(self.pointers) >= _POINTER_CACHE:
-            self.pointers.clear()
-        self.pointers[key] = arrays
-
-    def input_pointers(self, parts) -> Tuple[ctypes.Array, list]:
-        """``(pointer array, contiguous tensors)`` of ``parts``.  The array
-        is kept under the tensors' data pointers, which are its whole
-        content: the wrappers check shape, dtype and device on every call,
-        so a cheaper key than the fused kernel's serves."""
-        x = [p.contiguous() for p in parts]
-        key = tuple([t.data_ptr() for t in x])
-        arr = self.pointers.get(key)
-        if arr is None:
-            arr = (ctypes.c_void_p * len(key))(*key)
-            self.keep_pointers(key, arr)
-        return arr, x
 
     def blocks(self, key, per_card) -> int:
         """The mesh's block count per rank for launches of kind ``key``
@@ -299,11 +279,11 @@ def mesh_blocks(per_card: Sequence[int]) -> int:
 
 
 def _workspace(mesh, kind: str, total: int, chunk: int,
-               dtype: torch.dtype) -> _Workspace:
-    key = ("ring", kind, total, chunk, dtype)
+               dtype: torch.dtype, route: str = "ring") -> _Workspace:
+    key = ("ring", kind, total, chunk, dtype, route)
     ws = mesh.scratch.get(key)
     if ws is None:
-        ws = mesh.scratch[key] = _Workspace(mesh, total, chunk, dtype,
+        ws = mesh.scratch[key] = _Workspace(mesh, total, chunk, dtype, route,
                                             kind == "fused")
     return ws
 
@@ -339,6 +319,12 @@ def ring_allreduce_cuda(parts: Sequence[torch.Tensor], mesh
     the mesh lies on one card, else one ``ring_allreduce`` launch per card
     (:func:`ring_route`).  Raises on tensors that are not on the mesh's
     CUDA devices, and when a launch fails."""
+    return _allreduce(parts, mesh, ring_route(mesh.devices))
+
+
+def _allreduce(parts, mesh, route: str) -> List[torch.Tensor]:
+    """:func:`ring_allreduce_cuda` on the kernel of ``route``; the ring
+    route also runs on a one-card mesh."""
     _check_parts(parts, mesh, "ring_allreduce")
     shape = parts[0].shape
     lib = _lib()
@@ -347,9 +333,10 @@ def ring_allreduce_cuda(parts: Sequence[torch.Tensor], mesh
     if total == 0:
         return [torch.empty_like(p) for p in parts]
     chunk = ring_chunk(total, D)
-    ws = _workspace(mesh, "dense", total, chunk, torch.float32)
-    x_p, x = ws.input_pointers(parts)   # x: alive through the launch
-    if ws.route == "direct":
+    ws = _workspace(mesh, "dense", total, chunk, torch.float32, route)
+    x = [p.contiguous() for p in parts]   # alive through the launch
+    x_p = _ptrs(x)
+    if route == "direct":
         dev = mesh.devices[0]
         out = torch.empty((D,) + tuple(shape), dtype=torch.float32, device=dev)
         rc = _on_card(dev, lib.direct_ring_allreduce_launch, D, x_p,
@@ -389,6 +376,12 @@ def ring_allreduce_select_cuda(parts: Sequence[torch.Tensor],
     tensors off the mesh's CUDA devices and on a failed launch; a ``cand``
     on the host is range-checked here, one on a card by the kernel, which
     traps on an index outside ``[0, f)``."""
+    return _allreduce_select(parts, cand, mesh, ring_route(mesh.devices))
+
+
+def _allreduce_select(parts, cand, mesh, route: str) -> List[torch.Tensor]:
+    """:func:`ring_allreduce_select_cuda` on the kernel of ``route``; the
+    ring route also runs on a one-card mesh."""
     _check_parts(parts, mesh, "ring_allreduce_select")
     shape = parts[0].shape
     if cand.dtype != torch.int32 or cand.dim() not in (1, 2):
@@ -414,10 +407,11 @@ def ring_allreduce_select_cuda(parts: Sequence[torch.Tensor],
         return [torch.empty(out_shape, dtype=torch.float32, device=d)
                 for d in mesh.devices]
     chunk = ring_chunk(total, D)
-    ws = _workspace(mesh, "select", total, chunk, torch.float32)
-    x_p, x = ws.input_pointers(parts)   # x: alive through the launch
+    ws = _workspace(mesh, "select", total, chunk, torch.float32, route)
+    x = [p.contiguous() for p in parts]   # alive through the launch
+    x_p = _ptrs(x)
     flat = cand.reshape(-1).contiguous()
-    if ws.route == "direct":
+    if route == "direct":
         dev = mesh.devices[0]
         if flat.device != dev:
             flat = flat.to(dev)
@@ -525,7 +519,9 @@ def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,
         # `pointed` keeps converted copies alive through the launch
         hit, pointed, converted = _fused_pointers(shards, mesh, out_dtype)
         if not converted:   # the pointers are the caller's tensors'
-            ws.keep_pointers(key, hit)
+            if len(ws.pointers) >= _POINTER_CACHE:
+                ws.pointers.clear()
+            ws.pointers[key] = hit
     bins_p, gh_p, order_p, lengths = hit
     offs, cnts = [], []
     for (_, _, _, off, cnt), length in zip(shards, lengths):

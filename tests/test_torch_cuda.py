@@ -503,6 +503,41 @@ def test_one_card_calls_allocate_no_ring_buffers(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 3, 4])
+def test_ring_kernels_on_one_card_equal_twins(cuda_device, D):
+    """The ring kernels that meshes spanning cards take, run on D virtual
+    shards of one card: exact against the twins over repeated calls, with
+    ``cand`` on the card and on the host, and the dense and select rings
+    of one payload size interleaved on their own flags."""
+    mesh = build_mesh(devices=[cuda_device] * D)
+    for i, shape in enumerate(RING_SHAPES):
+        parts = _parts(shape, mesh.devices, seed=200 + i)
+        want = co.ring_allreduce_plain(parts)
+        for _ in range(3):
+            got = cr._allreduce(parts, mesh, "ring")
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, want) for g in got), shape
+    for i, (shape, cand_shape) in enumerate(SELECT_CASES):
+        parts, cand = _select_inputs(shape, cand_shape, mesh.devices, 300 + i)
+        want = co.ring_allreduce_select_plain(parts, cand)
+        for c in (cand, cand.cpu()):
+            got = cr._allreduce_select(parts, c, mesh, "ring")
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, want) for g in got), shape
+    dense = _parts((64, 256, 3), mesh.devices, seed=1)
+    parts, cand = _select_inputs((2, 200, 256, 3), (2, 32), mesh.devices, 2)
+    for _ in range(4):
+        a = cr._allreduce(dense, mesh, "ring")
+        b = cr._allreduce_select(parts, cand, mesh, "ring")
+    torch.cuda.synchronize()
+    want_a = co.ring_allreduce_plain(dense)
+    want_b = co.ring_allreduce_select_plain(parts, cand)
+    assert all(torch.equal(x, want_a) for x in a)
+    assert all(torch.equal(x, want_b) for x in b)
+    assert _routes(mesh, "dense") == _routes(mesh, "select") == {"ring"}
+
+
+@pytest.mark.cuda
 def test_direct_select_traps_on_a_bad_candidate_on_the_card(cuda_device):
     """A candidate column outside [0, f) on the card traps the kernel (an
     error at the next synchronize) instead of reading outside the
