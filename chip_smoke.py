@@ -11,20 +11,29 @@ Phases, each printing one JSON line:
    process per source, all started together) and prints the seconds and
    each kernel's registers.
 3. kernels — each CUDA kernel, in each accumulation mode, at the main-path
-   shapes (400,000 × 50 rows × features, B = 256; the segment kernel at
-   cnt ∈ {1, 777, the flagship fit's median segment, 200,000}, and on the
-   wide configuration's local 2,048 × 2,000 at a 1,024-row segment)
-   against its plain PyTorch twin on the same inputs, with the median
-   time of 20 launches after warm-up (CUDA events) of the kernel, the twin
-   and a one-call ``index_add_`` yardstick, and for the segment kernel its
-   device time alone (``torch.profiler``) and the wrapper's host enqueue
-   time (a host clock around 1,000 calls without a synchronize).
+   shapes (B = 256; ``hist_full`` at every shape the fits launch it at:
+   the flagship's 400,000 × 50 rows × features, its D = 4 shard of
+   100,000 rows, the wide configuration's 2,048 × 2,000 data shard, 8,192
+   × 500 feature slice and 4,096 × 1,000 data+feature block; the segment
+   kernel at cnt ∈ {1, 777, the flagship fit's median segment, 200,000},
+   and on the wide local 2,048 × 2,000 at a 1,024-row segment) against
+   its plain PyTorch twin on the same inputs, with the median time of 20
+   launches after warm-up (CUDA events) of the kernel, the twin and a
+   one-call ``index_add_`` yardstick, the kernel's device time alone
+   (``torch.profiler``), and the wrapper's host enqueue time (a host clock
+   around 1,000 calls without a synchronize; ``hist_full`` at every row,
+   the segment kernel at 1 and 777 rows).  ``hist_full`` must also equal,
+   bit for bit, the order it states (``histogram_ordered`` on the CPU),
+   and 20 calls in f32 must give the same bits.  The last row,
+   ``hist_segment_every_row``, runs the segment kernel over rows 0 … n−1
+   of the flagship matrix: the other design ``hist_full`` could have had.
 4. main_path — LightGBMClassifier fit → transform at the flagship width
    (400,000 × 50, 50 iterations, 31 leaves, 255 bins), warm-up fit first;
    the launch counts of the timed fit must equal the trees grown (root
    histograms) and the splits made (segment histograms); train AUC must
-   reach 0.955.  ``host_s`` splits the timed fit's host clock
-   (:class:`host_split`).
+   reach 0.955; the warm-up and timed fits must write the same model text
+   (``same_model_text``): card fits are the same run to run.  ``host_s``
+   splits the timed fit's host clock (:class:`host_split`).
 5. cuda_vs_cpu — the same classifier at 20,000 × 50 and 5 iterations on
    the kernels and on the plain CPU path: identical first tree, AUCs
    within 0.002, margins close over the trees whose structure matches.
@@ -59,7 +68,8 @@ Phases, each printing one JSON line:
    ``"pallas_ring"``, each a warm-up fit and a timed fit: train AUC must
    reach 0.955, and the timed fit must launch ``ring_allreduce`` once per
    tree and split (auto) or once per tree with ``fused_segment_hist_ring``
-   once per split (pallas_ring); ``host_s`` as in phase 4.  Then a
+   once per split (pallas_ring); ``host_s`` and ``same_model_text`` as
+   in phase 4 (reported, not required).  Then a
    20,000 × 50, 5-iteration D = 4 fit on the card and on
    ``devices=["cpu"] * 4``: identical first tree, AUCs within 0.002.
 9. voting_path — the repo's wide configuration (``bench.py``'s wide-data
@@ -71,7 +81,8 @@ Phases, each printing one JSON line:
    launches of every kernel, host syncs and the per-tree collective
    schedule.  Voting must launch ``ring_allreduce_select`` once per tree
    and split and no dense ring, ``hist_full`` 4 × trees, carry 0.063012
-   of the dense payload, and reach the data fit's AUC within 0.01.  Then
+   of the dense payload, and reach the data fit's AUC within 0.01; each
+   fit reports ``same_model_text`` against its warm-up fit.  Then
    the voting fit once more under ``torch.profiler`` (device time by
    kernel, the device's idle share), and a 20,000 × 50, 5-iteration D = 4
    voting fit (``topK=5``) on the card and on ``devices=["cpu"] * 4``:
@@ -112,6 +123,11 @@ SEGMENT_COUNTS = (1, 777, MEDIAN_SEGMENT, 200_000)
 #: the wide configuration's local shard (8,192 rows over 4 shards) and
 #: the segment the kernels phase histograms on it
 WIDE_LOCAL_ROWS, WIDE_SEGMENT = 2048, 1024
+#: hist_full's other shapes in the fits: the flagship's D = 4 shard, and
+#: beside the wide configuration's data shard its 1 x 4 feature slice and
+#: 2 x 2 data+feature block (rows, features)
+MESH_SHARD_ROWS = 100_000
+WIDE_FULL_SHAPES = ((8192, 500), (4096, 1000))
 #: calls per host enqueue measurement
 ENQUEUE_CALLS = 1000
 #: f32/bf16 kernel-vs-twin tolerance: |k - p| <= RTOL |p| + ATOL_ULPS u
@@ -387,6 +403,58 @@ def _segment_row(inputs, row_order, cnt, accum):
             "bound_ms": bms, "bound_by": by}
 
 
+def _cut(inputs, rows, features):
+    """The first ``rows`` rows and ``features`` features of kernel
+    inputs, contiguous: a shard or a feature slice of a mesh."""
+    bins, B, gh, gh_int = inputs
+    return (bins[:rows, :features].contiguous(), B, gh[:rows].contiguous(),
+            gh_int[:rows].contiguous())
+
+
+def _full_row(inputs, accum):
+    """hist_full against its twin and against the order it states
+    (``histogram_ordered`` on the CPU, bit for bit), repeated calls
+    against the first (f32), with its call, alone and enqueue times, the
+    twin's and one ``index_add_``'s, and the bound."""
+    import torch
+    from mmlspark_tpu_torch.ops import cuda_histogram as ch
+    bins, B, gh, gh_int = inputs
+    n, f = bins.shape
+    ghm = gh_int if accum == "int32" else gh
+    ghv = ch._gh_values(ghm, accum)
+
+    def kernel():
+        return ch.histogram_cuda(bins, ghm, B, accum)
+
+    kern = kernel()
+    plain = ch.histogram_plain(bins, ghm, B, accum)
+    torch.cuda.synchronize()
+    good, err = compare(kern, plain,
+                        ch.histogram_plain(bins, ghv.abs().float(), B), accum)
+    geom = ch.full_launch_geometry(n, f, B, accum, bins.device)
+    ordered = torch.equal(kern.cpu(), ch.histogram_ordered(
+        bins.cpu(), ghm.cpu(), B, accum, geom))
+    repeats = None
+    if accum == "float32":
+        repeats = all(torch.equal(kernel(), kern) for _ in range(19))
+    flat = (bins.long() + torch.arange(f, device=DEV) * B).reshape(-1)
+    rep = ghv.repeat_interleave(f, 0)
+    lib_out = torch.zeros(f * B, 3, dtype=kern.dtype, device=DEV)
+    bms, by = bound_ms(n * f + n * 12 + f * B * 12, n * f * 3)
+    row = {"kernel": "hist_full", "accum": accum, "rows": n, "features": f,
+           "geometry": geom._asdict(),
+           "match": good and ordered and repeats is not False,
+           "order_exact": ordered, "repeats_identical": repeats,
+           "max_abs_err": err, "ms": median_ms(kernel),
+           "device_ms": device_ms(kernel, "hist_full_kernel"),
+           "enqueue_us": enqueue_us(kernel),
+           "plain_ms": median_ms(lambda: ch.histogram_plain(
+               bins, ghm, B, accum)),
+           "library_ms": median_ms(lambda: lib_out.index_add_(0, flat, rep)),
+           "bound_ms": bms, "bound_by": by}
+    return row
+
+
 def phase_kernels(state):
     import torch
     from mmlspark_tpu_torch.ops import cuda_histogram as ch
@@ -396,37 +464,22 @@ def phase_kernels(state):
     g = torch.Generator(device="cpu").manual_seed(0)
     row_order = torch.randperm(n, generator=g).to(torch.int32).to(DEV)
     wide = kernel_inputs(WIDE_ROWS, WIDE_FEATURES, WIDE_LOCAL_ROWS)
+    wide_all = kernel_inputs(WIDE_ROWS, WIDE_FEATURES)
     wide_order = torch.randperm(WIDE_LOCAL_ROWS, generator=g).to(
         torch.int32).to(DEV)
+    full_inputs = [inputs, _cut(inputs, MESH_SHARD_ROWS, f), wide,
+                   *(_cut(wide_all, *shape) for shape in WIDE_FULL_SHAPES)]
     rows = []
     for accum in ("float32", "bfloat16", "int32"):
-        ghm = gh_int if accum == "int32" else gh
-        ghv = ch._gh_values(ghm, accum)
-        gh_abs = ghv.abs().float()
-        # full histogram
-        kern = ch.histogram_cuda(bins, ghm, B, accum)
-        plain = ch.histogram_plain(bins, ghm, B, accum)
-        torch.cuda.synchronize()
-        good, err = compare(kern, plain,
-                            ch.histogram_plain(bins, gh_abs, B), accum)
-        flat = (bins.long() + torch.arange(f, device=DEV) * B).reshape(-1)
-        rep = ghv.repeat_interleave(f, 0)
-        lib_out = torch.zeros(f * B, 3, dtype=kern.dtype, device=DEV)
-        bms, by = bound_ms(n * f + n * 12 + f * B * 12, n * f * 3)
-        rows.append({"kernel": "hist_full", "accum": accum, "rows": n,
-                     "match": good, "max_abs_err": err,
-                     "ms": median_ms(lambda: ch.histogram_cuda(
-                         bins, ghm, B, accum)),
-                     "plain_ms": median_ms(lambda: ch.histogram_plain(
-                         bins, ghm, B, accum)),
-                     "library_ms": median_ms(
-                         lambda: lib_out.index_add_(0, flat, rep)),
-                     "bound_ms": bms, "bound_by": by})
-        del flat, rep, lib_out
+        rows += [_full_row(ins, accum) for ins in full_inputs]
         # segment histogram
         for cnt in SEGMENT_COUNTS:
             rows.append(_segment_row(inputs, row_order, cnt, accum))
         rows.append(_segment_row(wide, wide_order, WIDE_SEGMENT, accum))
+    # the other design: hist_segment's block step over every row in order
+    every = torch.arange(n, dtype=torch.int32, device=DEV)
+    rows.append({**_segment_row(inputs, every, n, "float32"),
+                 "kernel": "hist_segment_every_row"})
     enqueue = {}
     for cnt in (1, 777):
         off = (n - cnt) // 3
@@ -458,7 +511,7 @@ def phase_main_path(state):
     X, y = bench_data(N_ROWS, N_FEATURES)
     table = {"features": X, "label": y}
     est = _classifier(numIterations=50, device=DEV, parallelism="serial")
-    est.fit(table)                                   # warm-up
+    warm = est.fit(table)                            # warm-up
     ch.histogram_cuda.launches = 0
     ch.histogram_cuda_fused.launches = 0
     grow_tree.host_syncs = 0
@@ -479,10 +532,12 @@ def phase_main_path(state):
     splits = sum(t.num_leaves - 1 for t in trees)
     train_auc = auc(y, prob)
     state["launches"] = launches
+    same = same_model_text(warm, model)
     res = {"rows": N_ROWS, "features": N_FEATURES, "iterations": 50,
            "fit_s": fit_s, "transform_s": transform_s,
            "train_auc": train_auc, "trees": len(trees), "splits": splits,
            "launches": launches, "host_syncs": syncs,
+           "same_model_text": same,
            "host_s": host.spans, "segments": segment_sizes(model)}
     if prob.shape != (N_ROWS,) or not np.isfinite(prob).all():
         raise AssertionError(f"probabilities not finite of shape "
@@ -493,7 +548,17 @@ def phase_main_path(state):
                              f"{len(trees)} trees / {splits} splits: {res}")
     if not train_auc >= 0.955:
         raise AssertionError(f"train AUC {train_auc} < 0.955: {res}")
+    if not same:
+        raise AssertionError(f"the warm-up and timed fits wrote different "
+                             f"model text: {res}")
     return res
+
+
+def same_model_text(a, b):
+    """Whether two fitted models write the same LightGBM text, byte for
+    byte: the card fit's result is the same run to run."""
+    return (a.getModel().save_native_model_string()
+            == b.getModel().save_native_model_string())
 
 
 def phase_cuda_vs_cpu():
@@ -871,7 +936,7 @@ def phase_mesh_path(state):
     for method in ("auto", "pallas_ring"):
         est = _classifier(numIterations=50, device=DEV, collective="ring",
                           histogramMethod=method).setMesh(mesh)
-        est.fit(table)                               # warm-up
+        warm = est.fit(table)                        # warm-up
         for fn in counters.values():
             fn.launches = 0
         grow_tree.host_syncs = 0
@@ -888,7 +953,9 @@ def phase_mesh_path(state):
         res = {"shards": MESH_SHARDS, "fit_s": fit_s,
                "train_auc": auc(y, prob), "trees": len(trees),
                "splits": splits, "launches": launches,
-               "host_syncs": grow_tree.host_syncs, "host_s": host.spans}
+               "host_syncs": grow_tree.host_syncs,
+               "same_model_text": same_model_text(warm, model),
+               "host_s": host.spans}
         fits[method] = res
         if prob.shape != (N_ROWS,) or not np.isfinite(prob).all():
             raise AssertionError(f"{method}: probabilities not finite of "
@@ -982,7 +1049,7 @@ def phase_voting_path(state):
     for name, (mesh, kw) in learners.items():
         est = _classifier(numIterations=WIDE_ITERATIONS, maxDepth=30,
                           device=DEV, **kw).setMesh(mesh)
-        est.fit(table)                               # warm-up
+        warm = est.fit(table)                        # warm-up
         for fn in counters.values():
             fn.launches = 0
         grow_tree.host_syncs = 0
@@ -1004,6 +1071,7 @@ def phase_voting_path(state):
             "trees": len(trees),
             "splits": sum(t.num_leaves - 1 for t in trees),
             "launches": launches, "host_syncs": syncs,
+            "same_model_text": same_model_text(warm, model),
             "collective": info["collective"],
             "collective_downgrade": info["collective_downgrade"],
             "collectives_per_tree": int(info["collective_count_per_tree"]),

@@ -27,6 +27,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .binning import BinMapper
+from .objectives import sigmoid
 
 #: content-digest header: ``save_native_model`` prepends ONE comment line
 #: hashing everything after it, so a torn or bit-flipped model file is
@@ -257,7 +258,7 @@ class Booster:
         obj = self.objective_str.split(" ")[0]
         if obj == "binary":
             sig = _param_from_str(self.objective_str, "sigmoid", 1.0)
-            return torch.sigmoid(sig * m)
+            return sigmoid(sig * m)
         if obj in ("regression", "regression_l2", "l2"):
             return m
         raise NotImplementedError(

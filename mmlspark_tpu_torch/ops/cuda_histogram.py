@@ -19,26 +19,39 @@ kernel launches and nothing else.
 ``accum``: ``"float32"``; ``"bfloat16"`` (gh rounded to bf16, summed in
 f32, as the TPU kernel does); ``"int32"`` (integer gh codes, exact).
 
-The segment kernel's geometry is plain Python (:func:`seg_widest`,
+Both kernels' geometry is plain Python (:func:`full_slots`,
+:func:`full_grid`, :func:`full_smem`; :func:`seg_widest`,
 :func:`seg_grid`, :func:`seg_smem`), so the CPU tests hold it; per card
-the wrapper asks the library once for the shared-memory budget and what
-the card holds at once, and keeps that, and the merge workspace of each
-stream (:class:`_SegCard`).
+each wrapper asks the library once for the shared-memory budget and what
+the card holds at once, and keeps that, its geometry per shape and the
+merge workspace of each stream (:class:`_FullCard`, :class:`_SegCard`).
+``hist_full`` adds every cell in an order that its geometry fixes, and
+:func:`histogram_ordered` states that order, so its f32 and bf16 results
+are the same bits on every call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 ACCUM_MODES = {"float32": 0, "bfloat16": 1, "int32": 2}
 #: largest bin count the kernels accept (the reference's ``BMAX``)
 BMAX = 256
-#: blocks the launch aims for per streaming multiprocessor
-BLOCKS_PER_SM = 4
+#: hist_full (csrc/full_hist.cuh): threads a block, the multiple its
+#: feature slots come in (two threads each, at most FULL_THREADS / 2), the
+#: staged tiles and their bytes, the multiple a block's rows come in, the
+#: rows that justify one more block, and the largest cluster
+FULL_THREADS = 512
+FULL_SLOT_ALIGN = 32
+FULL_STAGES = 3
+FULL_STAGE_BYTES = 8192
+FULL_ROW_ALIGN = 16
+FULL_MIN_ROWS = 512
+FULL_CLUSTER = 16
 #: hist_segment (csrc/seg_hist.cuh): words of padding after each feature's
 #: B·3 cells in shared memory, the most features a block holds, the rows
 #: a warp stages at once, the threads of a block, the largest cluster, the
@@ -53,7 +66,7 @@ SEG_ROWS_PER_BLOCK = 256
 SEG_MIN_GROUP = 4
 #: opt-in shared memory of a block on the H100 (227 KB), less the kernel's
 #: own 4 bytes; the wrapper asks each card for its own figure
-SEG_SMEM_BUDGET = 232_448 - 4
+SMEM_BUDGET = 232_448 - 4
 
 
 def _out_dtype(accum: str) -> torch.dtype:
@@ -77,14 +90,17 @@ def histogram_plain(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
                     accum: str = "float32") -> torch.Tensor:
     """Plain twin of :func:`histogram_cuda`: ``(n, f)`` bins, ``(n, 3)``
     gh → ``(f, num_bins, 3)``, one ``index_add_`` over the flattened
-    (row, feature) cells in row order."""
+    (row, feature) cells in row order.  Bins of ``num_bins`` or more are
+    dropped, as the kernels drop them."""
     n, f = bins.shape
-    out = torch.zeros(f * num_bins, 3, dtype=_out_dtype(accum),
+    out = torch.zeros(f * num_bins + 1, 3, dtype=_out_dtype(accum),
                       device=bins.device)
-    flat = (bins.to(torch.int64)
-            + torch.arange(f, device=bins.device) * num_bins).reshape(-1)
+    b = bins.to(torch.int64)
+    flat = torch.where(b < num_bins,
+                       b + torch.arange(f, device=bins.device) * num_bins,
+                       f * num_bins).reshape(-1)
     out.index_add_(0, flat, _gh_values(gh, accum).repeat_interleave(f, 0))
-    return out.view(f, num_bins, 3)
+    return out[:-1].view(f, num_bins, 3)
 
 
 def histogram_fused_plain(bins: torch.Tensor, gh: torch.Tensor,
@@ -97,18 +113,121 @@ def histogram_fused_plain(bins: torch.Tensor, gh: torch.Tensor,
     return histogram_plain(bins[rows], gh[rows], num_bins, accum)
 
 
-def launch_shape(cnt: int, f: int, group: int, num_sms: int
-                 ) -> Tuple[int, int, int]:
-    """Grid of a histogram launch over ``cnt`` rows: ``(feature groups,
-    row tiles, rows per tile)``.  Tiles are sized so the grid holds about
-    ``BLOCKS_PER_SM`` blocks per SM, and no tile is shorter than one row
-    per thread (256 rows); every block flushes its whole shared
-    histogram, so more blocks than that only add global atomics."""
-    groups = -(-f // group)
-    want = max(1, -(-BLOCKS_PER_SM * num_sms // groups))
-    tiles = max(1, min(want, cnt // 256))
-    rows = -(-cnt // tiles)
-    return groups, -(-cnt // rows), rows
+class FullGeometry(NamedTuple):
+    """A ``hist_full`` launch: ``groups`` groups of ``slots`` features
+    (grid y), each of ``clusters`` clusters of ``cs`` blocks, block ``x``
+    of a group adding rows ``[x * rows, (x + 1) * rows)``."""
+    slots: int
+    groups: int
+    cs: int
+    clusters: int
+    rows: int
+
+
+def full_smem(slots: int, num_bins: int) -> int:
+    """Shared-memory bytes of a ``hist_full`` block (``full_hist.cuh``):
+    the ``(B + 1, slots, 3)`` histogram (bin B: where the rows of a
+    tile's tail and out-of-range bins add), then the staging ring."""
+    return (num_bins + 1) * 3 * slots * 4 + FULL_STAGES * FULL_STAGE_BYTES
+
+
+def full_slots(f: int, num_bins: int,
+               smem_budget: int = SMEM_BUDGET) -> int:
+    """Features a ``hist_full`` block holds: a multiple of
+    ``FULL_SLOT_ALIGN``, as many as ``smem_budget`` bytes allow (at most
+    ``FULL_THREADS / 2``: two threads a feature), and no more than ``f``
+    needs; raises when not one warp's fits."""
+    most = (smem_budget - full_smem(0, num_bins)) // ((num_bins + 1) * 12)
+    most = min(most, FULL_THREADS // 2) // FULL_SLOT_ALIGN * FULL_SLOT_ALIGN
+    if most < FULL_SLOT_ALIGN:
+        raise ValueError(f"{FULL_SLOT_ALIGN} features of {num_bins} bins "
+                         f"need {full_smem(FULL_SLOT_ALIGN, num_bins)} "
+                         f"bytes of shared memory; the card gives "
+                         f"{smem_budget}")
+    return min(most, -(-f // FULL_SLOT_ALIGN) * FULL_SLOT_ALIGN)
+
+
+def full_grid(n: int, f: int, num_bins: int, slots: int, resident: int,
+              fits: Sequence[int]) -> FullGeometry:
+    """The launch over ``n`` rows of ``f`` features in groups of
+    ``slots``, on a card that holds ``resident`` blocks and ``fits[k]``
+    clusters of ``2**k`` blocks at once.
+
+    A group takes as many blocks as its rows justify
+    (``FULL_MIN_ROWS`` each) and the card holds beside the other groups.
+    Of the cluster sizes whose clusters of every group fit at once, it
+    takes the one of least estimated cost in cycles: the adds of a
+    block's rows (a scheduler issues about 4 shared-memory instructions
+    a row for each of its warps, one per 4 cycles; 64 slots put one warp
+    on each of an SM's 4 schedulers) and, with several clusters, the
+    partials the last cluster adds (64 bytes a cycle an SM).  Fewer,
+    larger clusters merge less, more blocks add fewer rows each."""
+    groups = -(-f // slots)
+    per_group = max(1, min(-(-n // FULL_MIN_ROWS), resident // groups))
+    merge_bytes = min(slots, f) * num_bins * 12
+    best = None
+    for k in range(FULL_CLUSTER.bit_length() - 1, -1, -1):
+        cs = 1 << k
+        clusters = min(per_group // cs, fits[k] // groups)
+        if clusters < 1:
+            continue
+        rows = _row_block(n, cs * clusters)
+        cost = rows * 16 * max(1, slots // 64)
+        if clusters > 1:
+            cost += clusters * merge_bytes // (cs * 64)
+        if best is None or cost < best[0]:
+            best = (cost, cs, clusters, rows)
+    if best is None:                  # more groups than the card holds
+        best = (0, 1, 1, _row_block(n, 1))
+    return FullGeometry(slots, groups, *best[1:])
+
+
+def _row_block(n: int, blocks: int) -> int:
+    """Rows a block when ``blocks`` blocks share ``n`` rows: a multiple
+    of ``FULL_ROW_ALIGN``."""
+    rows = -(-max(n, 1) // blocks)
+    return -(-rows // FULL_ROW_ALIGN) * FULL_ROW_ALIGN
+
+
+def histogram_ordered(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
+                      accum: str, geom: FullGeometry) -> torch.Tensor:
+    """:func:`histogram_plain` added in ``hist_full``'s order under the
+    launch ``geom``: each block's rows in row order from zero (block
+    ``x`` of a group holds rows ``[x * rows, (x + 1) * rows)``); then in
+    each cluster of ``cs`` blocks, cell ``(j, b, c)`` lies in slice ``r``,
+    the bins from ``B * r // cs`` on, and its sum is block
+    ``r``'s value plus those of blocks ``r + 1, r + 2, ...`` (mod
+    ``cs``), in that order; with several clusters, zero plus the
+    clusters' sums in cluster order.  Computed on the CPU, where
+    ``index_add_`` adds in index order; the kernel's result is this one,
+    bit for bit."""
+    bins, gh = bins.cpu(), gh.cpu()      # index_add_ adds in order here
+    n, f = bins.shape
+    slots, groups, cs, clusters, rows = geom
+    b = torch.arange(num_bins)
+    rank = torch.div((b + 1) * cs - 1, num_bins, rounding_mode="floor")
+    rank = rank[None, :, None].expand(slots, num_bins, 3)
+    out = torch.empty(f, num_bins, 3, dtype=_out_dtype(accum))
+    for g in range(groups):
+        f0 = g * slots
+        fg = min(slots, f - f0)
+        parts = [histogram_plain(bins[x * rows:(x + 1) * rows, f0:f0 + fg],
+                                 gh[x * rows:(x + 1) * rows], num_bins,
+                                 accum)
+                 for x in range(cs * clusters)]
+        total = torch.zeros(fg, num_bins, 3, dtype=out.dtype)
+        for q in range(clusters):
+            mine = parts[q * cs:(q + 1) * cs]
+            v = torch.empty_like(total)
+            for r in range(cs):
+                m = rank[:fg] == r
+                s = mine[r][m]
+                for p in range(cs - 1):
+                    s = s + mine[(r + 1 + p) % cs][m]
+                v[m] = s
+            total = v if clusters == 1 else total + v
+        out[f0:f0 + fg] = total
+    return out
 
 
 def seg_words(num_bins: int) -> int:
@@ -129,7 +248,7 @@ def seg_smem(group: int, replicas: int, num_bins: int,
 
 
 def seg_widest(limit: int, num_bins: int,
-               smem_budget: int = SEG_SMEM_BUDGET,
+               smem_budget: int = SMEM_BUDGET,
                warps: int = SEG_THREADS // 32) -> int:
     """The most features (at most ``limit`` and ``SEG_MAX_GROUP``) whose
     block of ``warps`` warps fits ``smem_budget`` bytes; raises when not
@@ -146,7 +265,7 @@ def seg_widest(limit: int, num_bins: int,
 
 
 def seg_replicas(group: int, num_bins: int, warps: int,
-                 smem_budget: int = SEG_SMEM_BUDGET) -> int:
+                 smem_budget: int = SMEM_BUDGET) -> int:
     """Histogram copies of a segment block: one per warp beyond the
     group's features (each warp owns whole (copy, feature) units), as far
     as the shared memory holds them."""
@@ -189,8 +308,13 @@ def _lib() -> ctypes.CDLL:
     lib = load("histogram")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.hist_full.argtypes = [p, p, i64, i32, i32, i32, i32, i32, i64, p, p]
+    lib.hist_full.argtypes = [p, p, i64, i32, i32, i32, i32, i32, i32, i64,
+                              p, p, p, p]
     lib.hist_full.restype = i32
+    lib.hist_full_smem.argtypes = [i32, i32]
+    lib.hist_full_smem.restype = i64
+    lib.hist_full_capacity.argtypes = [i32, i32, i32, ip, ip]
+    lib.hist_full_capacity.restype = i32
     lib.hist_segment.argtypes = [p, p, p, i64, i64, i32, i32, i32, i32, i32,
                                  i32, i32, p, p, p, p]
     lib.hist_segment_smem.argtypes = [i32, i32, i32]
@@ -198,12 +322,25 @@ def _lib() -> ctypes.CDLL:
     lib.hist_segment.restype = i32
     lib.hist_segment_capacity.argtypes = [i32, i32, ip, ip]
     lib.hist_segment_capacity.restype = i32
-    for name in ("hist_group_size", "hist_segment_setup",
+    for name in ("hist_full_setup", "hist_full_threads",
+                 "hist_full_slot_align", "hist_full_row_align",
+                 "hist_full_stages", "hist_full_stage_bytes",
+                 "hist_full_cluster",
+                 "hist_segment_setup",
                  "hist_segment_pad", "hist_segment_max_group",
                  "hist_segment_cluster", "hist_segment_warp_rows",
                  "hist_segment_threads"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
+    if (lib.hist_full_threads(), lib.hist_full_slot_align(),
+            lib.hist_full_row_align(), lib.hist_full_stages(),
+            lib.hist_full_stage_bytes(), lib.hist_full_cluster()) != (
+                FULL_THREADS, FULL_SLOT_ALIGN, FULL_ROW_ALIGN, FULL_STAGES,
+                FULL_STAGE_BYTES, FULL_CLUSTER) or any(
+            lib.hist_full_smem(s, b) != full_smem(s, b)
+            for s, b in ((64, 256), (256, 63), (256, 2))):
+        raise RuntimeError("csrc/full_hist.cuh and ops/cuda_histogram.py "
+                           "disagree on the full kernel's geometry")
     if (lib.hist_segment_pad(), lib.hist_segment_max_group(),
             lib.hist_segment_cluster(), lib.hist_segment_warp_rows(),
             lib.hist_segment_threads()) != (SEG_PAD, SEG_MAX_GROUP,
@@ -214,6 +351,105 @@ def _lib() -> ctypes.CDLL:
         raise RuntimeError("csrc/seg_hist.cuh and ops/cuda_histogram.py "
                            "disagree on the segment kernel's geometry")
     return lib
+
+
+def _stream(dev: torch.device) -> int:
+    """The raw handle of ``torch.cuda.current_stream(dev)``, without making
+    its Python object (a few µs a call on the host)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _on_card(dev: torch.device, launch, *args) -> int:
+    """``launch(*args)`` with ``dev`` the current device, switching to it
+    only when it is not."""
+    if dev.index == torch.cuda.current_device():
+        return launch(*args)
+    with torch.cuda.device(dev):
+        return launch(*args)
+
+
+class _FullCard:
+    """What the full-histogram wrapper keeps per card: the library's
+    entry, the shared-memory budget, for each ``(f, B, mode)`` the slots
+    and what the card holds at once, for each ``(n, f, B, mode)`` the
+    launch's :class:`FullGeometry`, and the merge workspace (partials and
+    tickets) of each stream."""
+
+    def __init__(self, dev: torch.device):
+        lib = _lib()
+        budget = _on_card(dev, lib.hist_full_setup)
+        if budget <= 0:
+            _raise_if_failed(-budget, "hist_full_setup")
+        self.dev = dev
+        self.launch = lib.hist_full
+        self.budget = budget
+        self.capacity = {}
+        self.geoms = {}
+        self.workspace = {}
+
+    def geometry(self, n, f, num_bins, mode) -> FullGeometry:
+        key = (n, f, num_bins, mode)
+        g = self.geoms.get(key)
+        if g is None:
+            slots, resident, fits = self.holds(f, num_bins, mode)
+            g = self.geoms[key] = full_grid(n, f, num_bins, slots, resident,
+                                            fits)
+        return g
+
+    def holds(self, f, num_bins, mode):
+        """``(slots, resident blocks, clusters of 1, 2, 4, 8, 16 that
+        fit)``."""
+        key = (f, num_bins, mode)
+        h = self.capacity.get(key)
+        if h is None:
+            slots = full_slots(f, num_bins, self.budget)
+            blocks = ctypes.c_int()
+            fits = (ctypes.c_int * FULL_CLUSTER.bit_length())()
+            rc = _on_card(self.dev, _lib().hist_full_capacity, mode, slots,
+                          num_bins, ctypes.byref(blocks), fits)
+            _raise_if_failed(rc, "hist_full_capacity")
+            if blocks.value < 1:
+                raise RuntimeError(f"{self.dev} cannot hold one hist_full "
+                                   f"block of {full_smem(slots, num_bins)} "
+                                   f"bytes")
+            h = self.capacity[key] = (slots, blocks.value, tuple(fits))
+        return h
+
+    def merge_space(self, stream, words, groups):
+        """Partials of ``words`` words and zeroed tickets of ``groups``
+        groups for a multi-cluster launch on ``stream``; each grows to the
+        most any launch has asked for."""
+        ws = self.workspace.get(stream)
+        if ws is None or ws[0].numel() < words \
+                or ws[1].numel() < groups * FULL_CLUSTER:
+            if ws is not None:
+                words = max(words, ws[0].numel())
+                groups = max(groups, ws[1].numel() // FULL_CLUSTER)
+            ws = self.workspace[stream] = (
+                torch.empty(words, dtype=torch.int32, device=self.dev),
+                torch.zeros(groups * FULL_CLUSTER, dtype=torch.int32,
+                            device=self.dev))
+        return ws
+
+
+_full_cards = {}
+
+
+def _full_card(dev: torch.device) -> _FullCard:
+    card = _full_cards.get(dev.index)
+    if card is None:
+        card = _full_cards[dev.index] = _FullCard(dev)
+    return card
+
+
+def full_launch_geometry(n: int, f: int, num_bins: int, accum: str,
+                         dev: torch.device) -> FullGeometry:
+    """The geometry :func:`histogram_cuda` launches ``hist_full`` with on
+    the card ``dev`` for ``n`` rows of ``f`` features."""
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return _full_card(dev).geometry(n, f, num_bins, ACCUM_MODES[accum])
 
 
 class _SegCard:
@@ -312,13 +548,6 @@ def _check_inputs(bins, gh, num_bins, accum):
     return bins.contiguous(), gh.contiguous(), out_dtype
 
 
-def _launch_args(bins, cnt, dev):
-    lib = _lib()
-    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return lib, launch_shape(cnt, bins.shape[1], lib.hist_group_size(),
-                             num_sms)
-
-
 def _raise_if_failed(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with cudaError {rc}")
@@ -328,21 +557,29 @@ def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
                    accum: str = "float32") -> torch.Tensor:
     """``(n, f)`` bins (< ``num_bins`` ≤ 256), ``(n, 3)`` pre-masked gh →
     ``(f, num_bins, 3)`` histogram (int32 when ``accum="int32"``).  On a
-    CUDA tensor this launches the ``hist_full`` kernel; on a CPU tensor it
-    runs :func:`histogram_plain`."""
+    CUDA tensor this launches the ``hist_full`` kernel, which writes every
+    cell (no fill) in the order of :func:`histogram_ordered`; on a CPU
+    tensor it runs :func:`histogram_plain`."""
     if not bins.is_cuda:
         return histogram_plain(bins, gh, num_bins, accum)
     bins, gh, out_dtype = _check_inputs(bins, gh, num_bins, accum)
+    dev = bins.device
     n, f = bins.shape
-    out = torch.zeros(f, num_bins, 3, dtype=out_dtype, device=bins.device)
-    if n == 0:
+    out = torch.empty(f, num_bins, 3, dtype=out_dtype, device=dev)
+    if f == 0:
         return out
-    lib, (groups, tiles, rows) = _launch_args(bins, n, bins.device)
-    stream = torch.cuda.current_stream(bins.device).cuda_stream
-    with torch.cuda.device(bins.device):
-        rc = lib.hist_full(bins.data_ptr(), gh.data_ptr(), n, f, num_bins,
-                           ACCUM_MODES[accum], groups, tiles, rows,
-                           out.data_ptr(), stream)
+    card = _full_card(dev)
+    mode = ACCUM_MODES[accum]
+    slots, groups, cs, clusters, rows = card.geometry(n, f, num_bins, mode)
+    stream = _stream(dev)
+    partial = tickets = None
+    if clusters > 1:
+        partial, tickets = card.merge_space(
+            stream, clusters * groups * (num_bins + 1) * 3 * slots, groups)
+        partial, tickets = partial.data_ptr(), tickets.data_ptr()
+    rc = _on_card(dev, card.launch, bins.data_ptr(), gh.data_ptr(), n, f,
+                  num_bins, mode, slots, cs, clusters, rows, out.data_ptr(),
+                  partial, tickets, stream)
     _raise_if_failed(rc, "hist_full")
     histogram_cuda.launches += 1
     return out

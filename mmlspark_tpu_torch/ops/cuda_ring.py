@@ -56,8 +56,9 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from .cuda_histogram import (SEG_SMEM_BUDGET, _out_dtype, _raise_if_failed,
-                             seg_replicas, seg_smem, seg_widest)
+from .cuda_histogram import (SMEM_BUDGET, _on_card, _out_dtype,
+                             _raise_if_failed, _stream, seg_replicas,
+                             seg_smem, seg_widest)
 
 _MODES = {"float32": 0, "int32": 2}
 _SEQ_MAX = 0xFFFFFFFF
@@ -94,7 +95,7 @@ def fused_chunk_features(f: int, num_bins: int, chunk: int, num_shards: int
 
 
 def fused_group(f: int, num_bins: int, chunk: int, num_shards: int,
-                smem_budget: int = SEG_SMEM_BUDGET) -> int:
+                smem_budget: int = SMEM_BUDGET) -> int:
     """Features per phase-1 item of the fused kernel: a chunk's whole
     feature range where the shared memory holds it beside the staging
     tile, else the most it holds.  Raises when not one feature fits."""
@@ -169,21 +170,6 @@ def ring_route(devices: Sequence[torch.device]) -> str:
     (one per rank), by its layout alone: ``"direct"`` when every rank lies
     on one device, ``"ring"`` when the ranks span devices."""
     return "direct" if len(set(devices)) == 1 else "ring"
-
-
-def _stream(dev: torch.device) -> int:
-    """The raw handle of ``torch.cuda.current_stream(dev)``, without making
-    its Python object (a few µs a call on the host)."""
-    return torch._C._cuda_getCurrentRawStream(dev.index)
-
-
-def _on_card(dev: torch.device, launch, *args) -> int:
-    """``launch(*args)`` with ``dev`` the current device, switching to it
-    only when it is not."""
-    if dev.index == torch.cuda.current_device():
-        return launch(*args)
-    with torch.cuda.device(dev):
-        return launch(*args)
 
 
 class _Workspace:

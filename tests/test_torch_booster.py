@@ -139,9 +139,81 @@ def test_golden_model_loads_and_scores_identically(golden_text):
     Q = Q.astype(np.float32)
     np.testing.assert_array_equal(port.predict_margin(Q).numpy(),
                                   np.asarray(ref.predict_margin(Q)))
-    np.testing.assert_allclose(port.predict(Q).numpy(),
-                               np.asarray(ref.predict(Q)), rtol=1e-6)
+    np.testing.assert_array_equal(port.predict(Q).numpy(),
+                                  np.asarray(ref.predict(Q)))
     assert port.save_native_model_string() == ref.save_native_model_string()
+
+
+#: a margin whose probability ``torch.sigmoid`` rounds 2 ulp away from
+#: ``jax.nn.sigmoid`` (f32 bits -1120146669, -0.04587848)
+TIED_MARGIN = np.array([-1120146669], np.int32).view(np.float32)
+
+
+def _margin_model_text(margins, sigmoid):
+    """A LightGBM text model of one balanced tree over feature 0 whose
+    leaf k, reached by x0 = k, holds ``margins[k]``."""
+    L = len(margins)
+    split_feature, threshold, left, right = [], [], [], []
+
+    def build(lo, hi):
+        if hi - lo == 1:
+            return ~lo
+        node = len(threshold)
+        mid = (lo + hi) // 2
+        split_feature.append(0)
+        threshold.append(mid - 0.5)
+        left.append(None)
+        right.append(None)
+        left[node] = build(lo, mid)
+        right[node] = build(mid, hi)
+        return node
+
+    build(0, L)
+
+    def ints(a):
+        return " ".join(str(int(v)) for v in a)
+
+    def floats(a):
+        return " ".join(repr(float(v)) for v in a)
+
+    tree = [
+        "Tree=0", f"num_leaves={L}", "num_cat=0",
+        f"split_feature={ints(split_feature)}",
+        f"split_gain={floats([1.0] * (L - 1))}",
+        f"threshold={floats(threshold)}",
+        f"decision_type={ints([2] * (L - 1))}",
+        f"left_child={ints(left)}", f"right_child={ints(right)}",
+        f"leaf_value={floats(np.asarray(margins, np.float32))}",
+        f"leaf_weight={floats([1.0] * L)}", f"leaf_count={ints([1] * L)}",
+        f"internal_value={floats([0.0] * (L - 1))}",
+        f"internal_weight={floats([1.0] * (L - 1))}",
+        f"internal_count={ints([1] * (L - 1))}",
+        "is_linear=0", "shrinkage=1", "", ""]
+    return "\n".join([
+        "tree", "version=v3", "num_class=1", "num_tree_per_iteration=1",
+        "label_index=0", "max_feature_idx=0",
+        f"objective=binary sigmoid:{sigmoid:g}", "feature_names=x",
+        f"feature_infos=[0:{L - 1}]", "", *tree, "end of trees", "",
+        "parameters:", "end of parameters", ""])
+
+
+@pytest.mark.parametrize("sigmoid", [1.0, 0.5])
+def test_binary_probabilities_equal_the_reference_bit_for_bit(sigmoid):
+    """Booster.predict's probabilities against the reference's on the
+    margins of one tree: the tied margin above and 2,047 drawn from
+    N(0, 4^2); both packages must evaluate XLA's sigmoid."""
+    rng = np.random.default_rng(0)
+    margins = np.concatenate(
+        [TIED_MARGIN, (rng.normal(size=2047) * 4).astype(np.float32)])
+    text = _margin_model_text(margins, sigmoid)
+    ref = RefBooster.load_native_model_string(text)
+    port = Booster.load_native_model_string(text, device="cpu")
+    X = np.arange(len(margins), dtype=np.float32)[:, None]
+    np.testing.assert_array_equal(port.predict_margin(X).numpy(), margins)
+    np.testing.assert_array_equal(np.asarray(ref.predict_margin(X)),
+                                  margins)
+    np.testing.assert_array_equal(port.predict(X).numpy(),
+                                  np.asarray(ref.predict(X)))
 
 
 def test_predict_on_cuda_raises_without_a_gpu(golden_text):

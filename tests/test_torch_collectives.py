@@ -268,7 +268,7 @@ def test_fused_chunk_map_covers_every_element_once(d, f, B):
     ranges = cr.fused_chunk_features(f, B, chunk, d)
     group = cr.fused_group(f, B, chunk, d)
     assert ch.seg_smem(group, 1, B, cr.FUSED_THREADS // 32) \
-        <= ch.SEG_SMEM_BUDGET
+        <= ch.SMEM_BUDGET
     assert 1 <= group <= ch.SEG_MAX_GROUP
     seen = np.zeros(total, np.int32)
     for c, (fa, fb) in enumerate(ranges):

@@ -63,6 +63,116 @@ def test_hist_full_matches_twin(cuda_device, B, accum):
     assert ch.histogram_cuda.launches == before + 1
 
 
+#: hist_full's shapes in the fits (rows, features; B = 256): the serial
+#: flagship, its D = 4 shard, the wide data (voting) shard, the wide
+#: feature 1 x 4 and data+feature 2 x 2 slices; then the edges (B < 256,
+#: f not a multiple of 32, fewer rows than a tile, no row)
+FULL_FIT_SHAPES = [(400_000, 50, 256), (100_000, 50, 256), (2048, 2000, 256),
+                   (8192, 500, 256), (4096, 1000, 256)]
+FULL_EDGE_SHAPES = [(20_000, 13, 16), (20_000, 13, 63), (5000, 1, 63),
+                    (1, 1, 16), (1, 13, 256), (127, 13, 63), (127, 50, 256),
+                    (0, 13, 256)]
+
+
+def _full_inputs(n, f, B, accum, seed, bin_range=None):
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, bin_range or B, size=(n, f), dtype=np.uint8)
+    if accum == "int32":
+        gh = rng.integers(-300, 300, size=(n, 3)).astype(np.int32)
+    else:
+        gh = rng.normal(size=(n, 3)).astype(np.float32)
+    return torch.from_numpy(bins), torch.from_numpy(gh)
+
+
+def _check_full(n, f, B, accum, bin_range=None):
+    """hist_full against its twin (int32 exactly; f32 and bf16 within the
+    per-cell tolerance) and against the order it states
+    (``histogram_ordered`` on the CPU), bit for bit; one launch."""
+    bins, gh = _full_inputs(n, f, B, accum, seed=n + f + B, bin_range=bin_range)
+    b, g = bins.cuda(), gh.cuda()
+    before = ch.histogram_cuda.launches
+    got = ch.histogram_cuda(b, g, B, accum)
+    assert ch.histogram_cuda.launches == before + 1
+    assert got.shape == (f, B, 3)
+    want = ch.histogram_plain(b, g, B, accum)
+    gh_abs = ch._gh_values(g, accum).abs().float()
+    _check_tol(got, want, ch.histogram_plain(b, gh_abs, B), accum)
+    geom = ch.full_launch_geometry(n, f, B, accum, b.device)
+    order = ch.histogram_ordered(bins, gh, B, accum, geom)
+    assert torch.equal(got.cpu(), order), geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("n,f,B", FULL_FIT_SHAPES)
+def test_hist_full_at_the_fit_shapes(cuda_device, n, f, B, accum):
+    _check_full(n, f, B, accum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("n,f,B", FULL_EDGE_SHAPES)
+def test_hist_full_at_the_edges(cuda_device, n, f, B, accum):
+    _check_full(n, f, B, accum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("B", [16, 63, 200])
+def test_hist_full_drops_out_of_range_bins(cuda_device, B, accum):
+    _check_full(20_000, 13, B, accum, bin_range=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("n,f", [(400_000, 50), (2048, 2000)])
+def test_hist_full_repeats_bit_for_bit(cuda_device, n, f, accum):
+    """20 calls on the same inputs give the same bits: no atomic decides
+    an order."""
+    bins, gh = _full_inputs(n, f, 256, accum, seed=3)
+    b, g = bins.cuda(), gh.cuda()
+    first = ch.histogram_cuda(b, g, 256, accum)
+    for _ in range(19):
+        assert torch.equal(ch.histogram_cuda(b, g, 256, accum), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("n,f,B", [(20_000, 13, 256), (5000, 1000, 63)])
+def test_hist_full_on_unaligned_views(cuda_device, n, f, B, accum):
+    """Row views that start one row into their tensors: bins on no
+    16-byte boundary, gh 12 bytes past one (staged by 4-byte copies),
+    whole rows (f = 13) and row windows (f = 1000)."""
+    bins, gh = _full_inputs(n + 1, f, B, accum, seed=5)
+    b, g = bins.cuda()[1:], gh.cuda()[1:]
+    assert b.data_ptr() % 16 and g.data_ptr() % 16
+    got = ch.histogram_cuda(b, g, B, accum)
+    want = ch.histogram_plain(b, g, B, accum)
+    gh_abs = ch._gh_values(g, accum).abs().float()
+    _check_tol(got, want, ch.histogram_plain(b, gh_abs, B), accum)
+    geom = ch.full_launch_geometry(n, f, B, accum, b.device)
+    assert torch.equal(got.cpu(), ch.histogram_ordered(bins[1:], gh[1:], B,
+                                                       accum, geom))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f", [(400_000, 50), (1, 13), (4096, 1000)])
+def test_hist_full_needs_no_fill(cuda_device, n, f):
+    """The kernel writes every cell: an output block that held NaNs just
+    before the call comes back right."""
+    B = 256
+    bins, gh = _full_inputs(n, f, B, "float32", seed=4)
+    b, g = bins.cuda(), gh.cuda()
+    want = ch.histogram_cuda(b, g, B)          # the workspace, allocated
+    torch.cuda.synchronize()
+    junk = torch.full((f, B, 3), float("nan"), device=cuda_device)
+    at = junk.data_ptr()
+    del junk
+    got = ch.histogram_cuda(b, g, B)
+    assert got.data_ptr() == at
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("accum", ACCUMS)
 @pytest.mark.parametrize("cnt", [0, 1, 777, 15_000])

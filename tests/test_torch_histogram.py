@@ -132,14 +132,168 @@ def test_methods_and_devices_are_checked():
         compute_histogram(bins, gh, 16, "dot16")
 
 
-@pytest.mark.parametrize("cnt,f,num_sms", [(1, 50, 132), (777, 50, 132),
-                                           (400_000, 50, 132),
-                                           (200_000, 3, 132)])
-def test_launch_shape_covers_every_row_once(cnt, f, num_sms):
-    groups, tiles, rows = ch.launch_shape(cnt, f, 8, num_sms)
-    assert groups * 8 >= f > (groups - 1) * 8
-    assert tiles * rows >= cnt > (tiles - 1) * rows
-    assert rows >= min(cnt, 256)
+# -- the full kernel's geometry and order (csrc/full_hist.cuh) --------------
+
+#: what an H100 SXM (132 SMs; as an H100 80GB HBM3 reports it) and an
+#: H100 PCIe (114 SMs; scaled) hold at once of hist_full blocks of
+#: 221,952 bytes: blocks, and clusters of 1, 2, 4, 8, 16
+CARDS = {"sxm": (132, (132, 66, 30, 15, 7)),
+         "pcie": (114, (114, 57, 26, 13, 6))}
+#: the fits' hist_full shapes (rows, features; B = 256), then the edges
+FULL_SHAPES = [(400_000, 50, 256), (100_000, 50, 256), (2048, 2000, 256),
+               (8192, 500, 256), (4096, 1000, 256), (20_000, 13, 16),
+               (20_000, 13, 63), (1, 50, 256), (127, 13, 256), (0, 5, 16)]
+H100_BUDGET = 232_448
+
+
+def _card(card, slots, num_bins):
+    """``CARDS[card]`` scaled to the blocks of ``slots`` features that
+    one SM holds (one at B = 256, 64 slots)."""
+    sms, fits = CARDS[card]
+    per_sm = min(H100_BUDGET // (ch.full_smem(slots, num_bins) + 4),
+                 2048 // ch.FULL_THREADS)
+    return sms * per_sm, tuple(min(x * per_sm, sms * per_sm >> k)
+                               for k, x in enumerate(fits))
+
+
+@pytest.mark.parametrize("card", sorted(CARDS))
+@pytest.mark.parametrize("n,f,B", FULL_SHAPES)
+def test_full_grid_covers_every_row_and_feature_once(n, f, B, card):
+    """Groups of ``slots`` features cover the f features once each, the
+    blocks' row ranges cover the n rows once each, a block fits the
+    H100's 232,448 bytes, the layout's ``slots`` is a multiple of 32, and
+    the clusters of every group fit on the card at once."""
+    slots = ch.full_slots(f, B)
+    resident, fits = _card(card, slots, B)
+    g = ch.full_grid(n, f, B, slots, resident, fits)
+    assert g.slots == slots and slots % 32 == 0
+    assert ch.full_smem(slots, B) + 4 <= H100_BUDGET
+    sizes = [min(slots, f - k * slots) for k in range(g.groups)]
+    assert min(sizes) >= 1 and sum(sizes) == f
+    blocks = g.cs * g.clusters
+    assert g.rows % ch.FULL_ROW_ALIGN == 0 and g.rows >= ch.FULL_ROW_ALIGN
+    covered = [min(n, (x + 1) * g.rows) - min(n, x * g.rows)
+               for x in range(blocks)]
+    assert sum(covered) == n and min(covered) >= 0
+    assert g.cs in (1, 2, 4, 8, 16)
+    assert g.groups * g.clusters <= fits[g.cs.bit_length() - 1]
+    assert blocks * g.groups <= max(resident, g.groups)
+
+
+def test_full_slots_fill_shared_memory():
+    # the flagship: all 50 features in one block of two warps
+    assert ch.full_slots(50, 256) == 64
+    assert ch.full_smem(64, 256) == 257 * 3 * 64 * 4 + 3 * 8192
+    # the wide tables: 64 features a block at B = 256, more at fewer bins
+    assert ch.full_slots(2000, 256) == 64
+    assert ch.full_slots(2000, 63) == 256
+    assert ch.full_slots(2000, 16) == ch.FULL_THREADS // 2
+    assert ch.full_slots(1, 256) == 32
+    with pytest.raises(ValueError):
+        ch.full_slots(4, 256, smem_budget=100_000)
+
+
+def test_full_grid_at_the_fit_shapes():
+    """(slots, groups, cluster size, clusters, rows) on an H100 SXM: the
+    flagship in 15 clusters of 8 (fewer partials than 30 of 4), its D = 4
+    shard in 7 of 16, the wide shapes in small clusters over every SM."""
+    def grid(n, f):
+        slots = ch.full_slots(f, 256)
+        return tuple(ch.full_grid(n, f, 256, slots, *_card("sxm", slots,
+                                                           256)))
+    assert grid(400_000, 50) == (64, 1, 8, 15, 3344)
+    assert grid(100_000, 50) == (64, 1, 16, 7, 896)
+    assert grid(2048, 2000) == (64, 32, 2, 2, 512)
+    assert grid(8192, 500) == (64, 8, 4, 3, 688)
+    assert grid(4096, 1000) == (64, 16, 2, 4, 512)
+    assert grid(1, 50) == (64, 1, 1, 1, 16)
+
+
+def _ordered_numpy(bins, gh, B, accum, geom):
+    """hist_full's order written out with numpy: ``np.add.at`` adds each
+    block's rows in row order, then the cluster and cluster-order merges
+    cell by cell."""
+    n, f = bins.shape
+    slots, groups, cs, clusters, rows = geom
+    dt = np.int32 if accum == "int32" else np.float32
+    ghv = ch._gh_values(torch.from_numpy(gh), accum).numpy().astype(dt)
+    out = np.zeros((f, B, 3), dt)
+    for g in range(groups):
+        f0, fg = g * slots, min(slots, f - g * slots)
+        parts = []
+        for x in range(cs * clusters):
+            p = np.zeros((fg, B, 3), dt)
+            for r in range(x * rows, min(n, (x + 1) * rows)):
+                for j in range(fg):
+                    if bins[r, f0 + j] < B:
+                        np.add.at(p, (j, bins[r, f0 + j]), ghv[r])
+            parts.append(p)
+        for j in range(fg):
+            for b in range(B):
+                for c in range(3):
+                    r = next(k for k in range(cs, -1, -1)
+                             if B * k // cs <= b)
+                    total = dt(0)
+                    for q in range(clusters):
+                        v = parts[q * cs + r][j, b, c]
+                        for p in range(cs - 1):
+                            v = dt(v + parts[q * cs + (r + 1 + p) % cs][
+                                j, b, c])
+                        total = v if clusters == 1 else dt(total + v)
+                    out[f0 + j, b, c] = total
+    return out
+
+
+#: small launches of every kind (slots, groups, cs, clusters): one block;
+#: clusters of 2, 4, 8; several clusters; several groups.  Rows a block
+#: follow the rows (:func:`_order_geom`), leaving trailing blocks empty.
+ORDER_GEOMS = [(32, 1, 1, 1), (32, 1, 2, 1), (32, 1, 4, 3), (64, 1, 8, 2),
+               (32, 2, 2, 2)]
+
+
+def _order_geom(k, n, f):
+    slots, groups, cs, clusters = ORDER_GEOMS[k]
+    if groups > 1:
+        slots = -(-f // groups)
+    return ch.FullGeometry(slots, groups, cs, clusters,
+                           ch._row_block(n, cs * clusters))
+
+
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("k", range(len(ORDER_GEOMS)))
+def test_histogram_ordered_follows_its_stated_order(k, accum):
+    """The summation-order twin against the order written out cell by
+    cell, bit for bit (out-of-range bins among the rows)."""
+    n, f, B = 300, 5, 16
+    geom = _order_geom(k, n, f)
+    bins, gh = _inputs(n, f, B + 3, accum, seed=10 + k)
+    got = ch.histogram_ordered(torch.from_numpy(bins), torch.from_numpy(gh),
+                               B, accum, geom).numpy()
+    np.testing.assert_array_equal(got, _ordered_numpy(bins, gh, B, accum,
+                                                      geom))
+
+
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("k", range(len(ORDER_GEOMS)))
+def test_histogram_ordered_matches_histogram_pallas(k, accum):
+    """The order the card's kernel adds in gives the reference's
+    histogram within the kernels' tolerance (int32 exactly)."""
+    n, B = 1000, 63
+    bins, gh = _inputs(n, F_MAX, B, accum)
+    got = ch.histogram_ordered(torch.from_numpy(bins), torch.from_numpy(gh),
+                               B, accum, _order_geom(k, n, F_MAX)).numpy()
+    _check(got, _pallas_full(n, B, accum), accum)
+
+
+@pytest.mark.parametrize("accum", ACCUMS)
+def test_plain_twin_drops_out_of_range_bins(accum):
+    """Bins of B or more fall in no cell, as in the kernels and the
+    one-hot oracle."""
+    n, f, B = 500, 6, 40
+    bins, gh = _inputs(n, f, 64, accum, seed=11)
+    b, g = torch.from_numpy(bins), torch.from_numpy(gh)
+    want = compute_histogram(b, ch._gh_values(g, accum), B, "onehot")
+    _check(ch.histogram_plain(b, g, B, accum).numpy(), want.numpy(), accum)
 
 
 # -- the segment kernel's geometry (csrc/seg_hist.cuh, histogram.cu) ---------
@@ -164,7 +318,7 @@ def test_seg_grid_puts_every_feature_in_one_group(f, B, cnt, resident, most):
     reps = ch.seg_replicas(group, B, ch.SEG_THREADS // 32)
     assert 1 <= reps <= max(1, ch.SEG_THREADS // 32 // group)
     assert group * (B * 3 + ch.SEG_PAD) * 4 < ch.seg_smem(group, reps, B) \
-        <= ch.SEG_SMEM_BUDGET
+        <= ch.SMEM_BUDGET
     assert 1 <= cs <= ch.SEG_CLUSTER and cs & (cs - 1) == 0
     per_group = cs * clusters
     assert per_group <= max(1, -(-cnt // ch.SEG_ROWS_PER_BLOCK))
