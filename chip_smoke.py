@@ -87,7 +87,31 @@ Phases, each printing one JSON line:
    kernel, the device's idle share), and a 20,000 × 50, 5-iteration D = 4
    voting fit (``topK=5``) on the card and on ``devices=["cpu"] * 4``:
    identical first tree, AUCs within 0.002.
-10. collectives_cross_card — phase 7's checks with one shard per card,
+10. categorical_path — the flagship with categorical columns
+   (``categorical_data``: columns 40–49 category ids of 2 … 10,000
+   categories, a label with scattered-subset terms), 50 iterations, 31
+   leaves, 255 bins, ``categoricalSlotIndexes`` 40–49: a warm-up and a
+   timed serial fit (fit, transform and host seconds; ``hist_full`` once
+   a tree and ``hist_segment`` once a split; at least one categorical
+   split; train AUC ≥ 0.955 and above the same fit with the columns left
+   numeric; ``same_model_text``); a 20-iteration data-ring fit and
+   voting fit (``topK`` 5) on four virtual shards of the card
+   (``ring_allreduce`` / ``ring_allreduce_select`` once a tree and split,
+   AUC within 0.01 of the serial fit's first 20 iterations); a
+   20,000-row, 5-iteration card-vs-CPU check from the
+   init score 0, where the first tree's sums are exact, serially and at
+   D = 4 (data ring, voting, feature 1 × 4, ``pallas_ring``, the last
+   fitted twice on the card for ``same_model_text``, reported): first
+   tree identical, AUCs within 0.002.
+11. multiclass_path — the flagship's features with five classes
+   (``multiclass_data``), ``multiclass`` and ``multiclassova``, 20
+   iterations: a warm-up and a timed serial fit each (100 trees and 100
+   ``hist_full`` launches, train accuracy, multi-logloss of the first and
+   the last iteration, which must fall, ``same_model_text``); a
+   10-iteration data-ring fit on four virtual shards; a 20,000-row,
+   5-iteration card-vs-CPU check: the first K trees identical and the
+   probabilities allclose 1e-4 over the matching iterations.
+12. collectives_cross_card — phase 7's checks with one shard per card,
    D = min(cards, 4), where the host has at least two cards; elsewhere it
    prints ``"ran": false`` (not a failure).
 
@@ -163,6 +187,15 @@ SOURCES = {
     "ring_allreduce_select": "mmlspark_tpu_torch/csrc/ring.cu",
     "fused_segment_hist_ring": "mmlspark_tpu_torch/csrc/ring.cu",
 }
+#: the categorical configuration: bench.py's data with columns 40-49
+#: categorical, of these cardinalities
+CAT_COLUMNS = tuple(range(40, 50))
+CAT_CARDINALITIES = (2, 3, 4, 12, 24, 64, 200, 254, 1000, 10_000)
+#: iterations of its two fits on four virtual shards (the serial fit's
+#: 50 cut, to hold the phase's time)
+CAT_MESH_ITERATIONS = 20
+#: the multiclass configuration: classes and iterations (mesh fit: 10)
+NUM_CLASSES, MULTICLASS_ITERATIONS = 5, 20
 #: the card the kernels and the main path run on
 DEV = "cuda"
 
@@ -171,14 +204,65 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bench_data(n, f):
-    """bench.py's synthetic binary task (numpy default_rng(0))."""
+def bench_logits(n, f):
+    """bench.py's synthetic task (numpy default_rng(0)): the features and
+    the logits whose sign is its binary label."""
     import numpy as np
     rng = np.random.default_rng(0)
     X = rng.normal(size=(n, f)).astype(np.float32)
     logits = (X[:, 0] * 1.5 + X[:, 1] * X[:, 2] + np.sin(X[:, 3] * 2)
               + rng.normal(size=n) * 0.5)
-    return X, (logits > 0).astype(np.float64)
+    return X, logits
+
+
+def bench_data(n, f):
+    """bench.py's synthetic binary task (numpy default_rng(0))."""
+    X, logits = bench_logits(n, f)
+    return X, (logits > 0).astype("float64")
+
+
+def categorical_data(n):
+    """``bench_logits(n, 50)`` with columns 40–49 replaced by category ids
+    drawn from numpy ``default_rng(1)``, of cardinalities
+    ``CAT_CARDINALITIES`` (1,000 and 10,000 have more categories than the
+    254 category bins of 255 bins: the rarer ones share the missing bin).
+    The label is
+
+        y = [logits + 2·[c44 ∈ S24] + 1.5·[c46 ∈ S200] − 1.4 > 0]
+
+    with c44 the 24-category column, S24 = {0, 8} ∪ {1, 4, 7, …, 22}, c46
+    the 200-category column and S200 = {c : 37c mod 11 < 4}: subsets
+    scattered over the ids, which no numeric threshold expresses."""
+    import numpy as np
+    X, logits = bench_logits(n, N_FEATURES)
+    rng = np.random.default_rng(1)
+    for j, card in zip(CAT_COLUMNS, CAT_CARDINALITIES):
+        X[:, j] = rng.integers(0, card, size=n)
+    c24, c200 = X[:, 44].astype(np.int64), X[:, 46].astype(np.int64)
+    in24 = np.isin(c24, sorted(set(range(1, 24, 3)) | {0, 8}))
+    in200 = (37 * c200) % 11 < 4
+    return X, (logits + 2.0 * in24 + 1.5 * in200 - 1.4 > 0).astype(
+        np.float64)
+
+
+def multiclass_data(n):
+    """``bench_logits(n, 50)``'s features with ``NUM_CLASSES`` classes:
+    y = argmax_k (X[:, :10] · W[:, k] + e_k), W a 10 × 5 standard normal
+    matrix and e an n × 5 standard normal noise, both drawn from numpy
+    ``default_rng(2)``."""
+    import numpy as np
+    X, _ = bench_logits(n, N_FEATURES)
+    rng = np.random.default_rng(2)
+    W = rng.normal(size=(10, NUM_CLASSES))
+    scores = X[:, :10] @ W + rng.normal(size=(n, NUM_CLASSES))
+    return X, scores.argmax(1).astype(np.float64)
+
+
+def multi_logloss(y, prob):
+    """Mean negative log probability of the true class."""
+    import numpy as np
+    p = prob[np.arange(len(y)), y.astype(np.int64)]
+    return float(-np.log(np.clip(p, 1e-15, 1.0)).mean())
 
 
 def auc(y, s):
@@ -505,25 +589,12 @@ def _classifier(**kw):
 
 def phase_main_path(state):
     import numpy as np
-    import torch
-    from mmlspark_tpu_torch.gbdt.grower import grow_tree
-    from mmlspark_tpu_torch.ops import cuda_histogram as ch
     X, y = bench_data(N_ROWS, N_FEATURES)
     table = {"features": X, "label": y}
     est = _classifier(numIterations=50, device=DEV, parallelism="serial")
-    warm = est.fit(table)                            # warm-up
-    ch.histogram_cuda.launches = 0
-    ch.histogram_cuda_fused.launches = 0
-    grow_tree.host_syncs = 0
-    torch.cuda.synchronize()
-    with host_split() as host:
-        t0 = time.perf_counter()
-        model = est.fit(table)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-    launches = {"hist_full": ch.histogram_cuda.launches,
-                "hist_segment": ch.histogram_cuda_fused.launches}
-    syncs = grow_tree.host_syncs
+    warm, model, fit_s, counts, host_s, syncs = _timed_fit(est, table,
+                                                           _counters())
+    launches = {k: counts[k] for k in ("hist_full", "hist_segment")}
     t0 = time.perf_counter()
     out = model.transform(table)
     transform_s = time.perf_counter() - t0
@@ -538,7 +609,7 @@ def phase_main_path(state):
            "train_auc": train_auc, "trees": len(trees), "splits": splits,
            "launches": launches, "host_syncs": syncs,
            "same_model_text": same,
-           "host_s": host.spans, "segments": segment_sizes(model)}
+           "host_s": host_s, "segments": segment_sizes(model)}
     if prob.shape != (N_ROWS,) or not np.isfinite(prob).all():
         raise AssertionError(f"probabilities not finite of shape "
                              f"({N_ROWS},): {res}")
@@ -924,9 +995,7 @@ def phase_collectives_cross_card():
 
 def phase_mesh_path(state):
     import numpy as np
-    import torch
     from mmlspark_tpu_torch import build_mesh
-    from mmlspark_tpu_torch.gbdt.grower import grow_tree
     counters = _counters()
     X, y = bench_data(N_ROWS, N_FEATURES)
     table = {"features": X, "label": y}
@@ -936,26 +1005,17 @@ def phase_mesh_path(state):
     for method in ("auto", "pallas_ring"):
         est = _classifier(numIterations=50, device=DEV, collective="ring",
                           histogramMethod=method).setMesh(mesh)
-        warm = est.fit(table)                        # warm-up
-        for fn in counters.values():
-            fn.launches = 0
-        grow_tree.host_syncs = 0
-        torch.cuda.synchronize()
-        with host_split() as host:
-            t0 = time.perf_counter()
-            model = est.fit(table)
-            torch.cuda.synchronize()
-            fit_s = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
+        warm, model, fit_s, launches, host_s, syncs = _timed_fit(
+            est, table, counters)
         prob = model.transform(table)["probability"][:, 1]
         trees = model.getModel().trees
         splits = sum(t.num_leaves - 1 for t in trees)
         res = {"shards": MESH_SHARDS, "fit_s": fit_s,
                "train_auc": auc(y, prob), "trees": len(trees),
                "splits": splits, "launches": launches,
-               "host_syncs": grow_tree.host_syncs,
+               "host_syncs": syncs,
                "same_model_text": same_model_text(warm, model),
-               "host_s": host.spans}
+               "host_s": host_s}
         fits[method] = res
         if prob.shape != (N_ROWS,) or not np.isfinite(prob).all():
             raise AssertionError(f"{method}: probabilities not finite of "
@@ -1026,10 +1086,8 @@ def phase_voting_path(state):
     """The wide configuration under each learner on four virtual devices
     of the card, then a small voting fit on the card against the CPU."""
     import numpy as np
-    import torch
     from mmlspark_tpu_torch import build_mesh
     from mmlspark_tpu_torch.gbdt import engine
-    from mmlspark_tpu_torch.gbdt.grower import grow_tree
     counters = _counters()
     X, y = bench_data(WIDE_ROWS, WIDE_FEATURES)
     table = {"features": X, "label": y}
@@ -1049,17 +1107,8 @@ def phase_voting_path(state):
     for name, (mesh, kw) in learners.items():
         est = _classifier(numIterations=WIDE_ITERATIONS, maxDepth=30,
                           device=DEV, **kw).setMesh(mesh)
-        warm = est.fit(table)                        # warm-up
-        for fn in counters.values():
-            fn.launches = 0
-        grow_tree.host_syncs = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model = est.fit(table)
-        torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
-        syncs = grow_tree.host_syncs
+        warm, model, fit_s, launches, _, syncs = _timed_fit(est, table,
+                                                            counters)
         info = dict(engine.last_fit_info)
         prob = model.transform(table)["probability"][:, 1]
         trees = model.getModel().trees
@@ -1130,6 +1179,305 @@ def _voting_card_vs_cpu():
     return res
 
 
+def _timed_fit(est, table, counters):
+    """A warm-up fit of ``est``, then a timed fit with every kernel's
+    launch count and the grower's host syncs set to 0 just before it:
+    ``(warm-up model, model, fit_s, launches, host_s, host_syncs)``."""
+    import torch
+    from mmlspark_tpu_torch.gbdt.grower import grow_tree
+    warm = est.fit(table)
+    for fn in counters.values():
+        fn.launches = 0
+    grow_tree.host_syncs = 0
+    torch.cuda.synchronize()
+    with host_split() as host:
+        t0 = time.perf_counter()
+        model = est.fit(table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    return (warm, model, fit_s,
+            {k: fn.launches for k, fn in counters.items()}, host.spans,
+            grow_tree.host_syncs)
+
+
+def _counted_fit(est, table, counters):
+    """One fit of ``est`` with the launch counts set to 0 just before it:
+    ``(model, fit_s, launches)``."""
+    import torch
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = est.fit(table)
+    torch.cuda.synchronize()
+    return (model, time.perf_counter() - t0,
+            {k: fn.launches for k, fn in counters.items()})
+
+
+def phase_categorical_path(state):
+    """The flagship with categorical columns (``categorical_data``): a
+    warm-up and a timed serial fit at full width with
+    ``categoricalSlotIndexes`` 40–49, against the same fit with the
+    columns left numeric; then one data-ring fit and one voting fit
+    (``topK`` 5) of ``CAT_MESH_ITERATIONS`` iterations on four virtual
+    shards of the card (each the first fit of its configuration, its AUC
+    held against the serial fit's first as many iterations), and a
+    20,000-row card-vs-CPU check."""
+    import numpy as np
+    from mmlspark_tpu_torch import build_mesh
+    counters = _counters()
+    X, y = categorical_data(N_ROWS)
+    table = {"features": X, "label": y}
+    cats = list(CAT_COLUMNS)
+    est = _classifier(numIterations=50, device=DEV, parallelism="serial",
+                      categoricalSlotIndexes=cats)
+    warm, model, fit_s, launches, host_s, syncs = _timed_fit(
+        est, table, counters)
+    t0 = time.perf_counter()
+    prob = model.transform(table)["probability"][:, 1]
+    transform_s = time.perf_counter() - t0
+    trees = model.getModel().trees
+    splits = sum(t.num_leaves - 1 for t in trees)
+    numeric = _classifier(numIterations=50, device=DEV,
+                          parallelism="serial").fit(table)
+    res = {"rows": N_ROWS, "features": N_FEATURES, "iterations": 50,
+           "categorical_columns": cats,
+           "cardinalities": list(CAT_CARDINALITIES),
+           "fit_s": fit_s, "transform_s": transform_s, "host_s": host_s,
+           "host_syncs": syncs, "trees": len(trees), "splits": splits,
+           "categorical_splits": sum(t.num_cat for t in trees),
+           "launches": launches, "train_auc": auc(y, prob),
+           "numeric_train_auc": auc(
+               y, numeric.transform(table)["probability"][:, 1]),
+           "same_model_text": same_model_text(warm, model)}
+    if prob.shape != (N_ROWS,) or not np.isfinite(prob).all():
+        raise AssertionError(f"probabilities not finite of shape "
+                             f"({N_ROWS},): {res}")
+    if launches["hist_full"] != len(trees) or \
+            launches["hist_segment"] != splits:
+        raise AssertionError(f"launch counts {launches} do not match "
+                             f"{len(trees)} trees / {splits} splits: {res}")
+    if res["categorical_splits"] < 1:
+        raise AssertionError(f"no categorical split: {res}")
+    if not res["train_auc"] >= 0.955 or \
+            not res["train_auc"] > res["numeric_train_auc"]:
+        raise AssertionError(f"train AUC {res['train_auc']} is below 0.955 "
+                             f"or the numeric treatment's: {res}")
+    if not res["same_model_text"]:
+        raise AssertionError(f"the warm-up and timed fits wrote different "
+                             f"model text: {res}")
+    mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
+    T = CAT_MESH_ITERATIONS
+    res["train_auc_at_mesh_iterations"] = auc(
+        y, model.getModel().predict_margin(X, num_iteration=T).cpu().numpy())
+    fits = {}
+    for name, kw, kernel in (
+            ("data_ring", dict(collective="ring"), "ring_allreduce"),
+            ("voting_ring", dict(collective="ring", parallelism="voting",
+                                 topK=5), "ring_allreduce_select")):
+        m, mesh_s, counts = _counted_fit(
+            _classifier(numIterations=T, device=DEV,
+                        categoricalSlotIndexes=cats, **kw).setMesh(mesh),
+            table, counters)
+        mt = m.getModel().trees
+        fits[name] = {"fit_s": mesh_s, "launches": counts,
+                      "trees": len(mt),
+                      "splits": sum(t.num_leaves - 1 for t in mt),
+                      "categorical_splits": sum(t.num_cat for t in mt),
+                      "train_auc": auc(
+                          y, m.transform(table)["probability"][:, 1])}
+        f = fits[name]
+        if counts[kernel] != f["trees"] + f["splits"]:
+            raise AssertionError(f"{name}: {kernel} launched "
+                                 f"{counts[kernel]} times, not once per "
+                                 f"tree and split: {fits}")
+        if abs(f["train_auc"] - res["train_auc_at_mesh_iterations"]) \
+                > 0.01:
+            raise AssertionError(f"{name}: AUC not within 0.01 of the "
+                                 f"serial fit's first {T} iterations: "
+                                 f"{fits}")
+    return {**res, "mesh_fits": fits,
+            "card_vs_cpu": _categorical_card_vs_cpu()}
+
+
+def _same_tree(a, b):
+    """Whether two trees have the same structure and splits."""
+    import numpy as np
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("split_feature", "threshold", "decision_type",
+                         "left_child", "right_child", "cat_boundaries",
+                         "cat_threshold"))
+
+
+def _categorical_card_vs_cpu():
+    """The categorical configuration at 20,000 rows and 5 iterations on
+    the card and on the CPU, from the init score 0 (``boostFromAverage``
+    off): serially and on D = 4 (data ring, voting, feature 1 × 4, and
+    ``pallas_ring``, fitted twice on the card for ``same_model_text``).
+
+    At score 0 every first-tree gradient is ±0.5 and every hessian 0.25,
+    so each histogram cell is an exact float32 sum on both sides and the
+    first trees must agree entirely.  From the label average they need
+    not: the card adds a cell's rows in another order than the CPU's
+    sequential twin (on an H100, 0.62 apart in the root's largest cells
+    at 20,000 rows, the twin the less exact), the sibling subtraction
+    carries that error into a deep leaf's small cells, and the
+    sorted-subset search orders those cells by their ratio.  That serial
+    fit is reported
+    (``boost_from_average_matching_splits``: how many leading split
+    features agree), not held."""
+    import numpy as np
+    from mmlspark_tpu_torch import build_mesh
+    X, y = categorical_data(20_000)
+    table = {"features": X, "label": y}
+    D = MESH_SHARDS
+    learners = {
+        "serial": (None, {}),
+        "data_ring": ((D, 1), dict(collective="ring")),
+        "voting_ring": ((D, 1), dict(collective="ring",
+                                     parallelism="voting", topK=5)),
+        "feature_1x4": ((1, D), dict(parallelism="feature")),
+        "pallas_ring": ((D, 1), dict(collective="ring",
+                                     histogramMethod="pallas_ring")),
+    }
+
+    def fit(dev, shape, kw):
+        est = _classifier(numIterations=5, device=dev.split(":")[0],
+                          categoricalSlotIndexes=list(CAT_COLUMNS), **kw)
+        if shape is not None:
+            est.setMesh(build_mesh(*shape, devices=[dev] * D))
+        return est.fit(table)
+
+    res = {}
+    for name, (shape, kw) in learners.items():
+        kw = {**kw, "boostFromAverage": False}
+        card = fit(f"{DEV}:0", shape, kw)
+        cpu = fit("cpu", shape, {k: v for k, v in kw.items()
+                                 if k != "histogramMethod"})
+        a, b = card.getModel().trees[0], cpu.getModel().trees[0]
+        aucs = [auc(y, m.transform(table)["probability"][:, 1])
+                for m in (card, cpu)]
+        row = {"first_tree_equal": _same_tree(a, b),
+               "first_tree_leaf_values_equal": bool(
+                   np.array_equal(a.leaf_value, b.leaf_value)),
+               "first_tree_categorical_splits": int(a.num_cat),
+               "auc_card": aucs[0], "auc_cpu": aucs[1]}
+        if name == "pallas_ring":
+            row["same_model_text"] = same_model_text(
+                card, fit(f"{DEV}:0", shape, kw))
+        res[name] = row
+        if not row["first_tree_equal"] or abs(aucs[0] - aucs[1]) > 0.002:
+            raise AssertionError(f"{name}: the card fit differs from the "
+                                 f"cpu fit: {res}")
+    a, b = (fit(dev, None, {}).getModel().trees[0]
+            for dev in (f"{DEV}:0", "cpu"))
+    same = a.split_feature == b.split_feature \
+        if len(a.split_feature) == len(b.split_feature) else [False]
+    res["boost_from_average_matching_splits"] = int(
+        np.argmin(np.append(same, False)))
+    return res
+
+
+def phase_multiclass_path(state):
+    """The flagship width with ``NUM_CLASSES`` classes
+    (``multiclass_data``): for ``multiclass`` and ``multiclassova`` a
+    warm-up and a timed serial fit of ``MULTICLASS_ITERATIONS``
+    iterations (K trees an iteration, K root histograms); then one
+    10-iteration multiclass data-ring fit on four virtual shards of the
+    card, and a 20,000-row card-vs-CPU check."""
+    import numpy as np
+    from mmlspark_tpu_torch import build_mesh
+    counters = _counters()
+    X, y = multiclass_data(N_ROWS)
+    table = {"features": X, "label": y}
+    K, T = NUM_CLASSES, MULTICLASS_ITERATIONS
+    fits = {}
+    for objective in ("multiclass", "multiclassova"):
+        est = _classifier(numIterations=T, device=DEV, objective=objective,
+                          parallelism="serial")
+        warm, model, fit_s, launches, host_s, syncs = _timed_fit(
+            est, table, counters)
+        booster = model.getModel()
+        out = model.transform(table)
+        first = booster.predict(X, num_iteration=1).cpu().numpy()
+        last = booster.predict(X).cpu().numpy()
+        trees = booster.trees
+        f = fits[objective] = {
+            "fit_s": fit_s, "host_s": host_s, "host_syncs": syncs,
+            "trees": len(trees),
+            "splits": sum(t.num_leaves - 1 for t in trees),
+            "launches": launches,
+            "train_accuracy": float((out["prediction"] == y).mean()),
+            "multi_logloss_first_iteration": multi_logloss(y, first),
+            "multi_logloss": multi_logloss(y, last),
+            "same_model_text": same_model_text(warm, model)}
+        if last.shape != (N_ROWS, K) or not np.isfinite(last).all() or \
+                out["probability"].shape != (N_ROWS, K):
+            raise AssertionError(f"{objective}: probabilities not finite "
+                                 f"of shape ({N_ROWS}, {K}): {f}")
+        if f["trees"] != K * T or launches["hist_full"] != K * T or \
+                launches["hist_segment"] != f["splits"]:
+            raise AssertionError(f"{objective}: {f['trees']} trees, "
+                                 f"launches {launches}, not K = {K} a "
+                                 f"tree for {T} iterations: {f}")
+        if not f["multi_logloss"] < f["multi_logloss_first_iteration"]:
+            raise AssertionError(f"{objective}: the multi-logloss did not "
+                                 f"fall: {f}")
+        if not f["same_model_text"]:
+            raise AssertionError(f"{objective}: the warm-up and timed fits "
+                                 f"wrote different model text: {f}")
+    mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
+    m, mesh_s, counts = _counted_fit(
+        _classifier(numIterations=10, device=DEV, objective="multiclass",
+                    collective="ring").setMesh(mesh), table, counters)
+    mt = m.getModel().trees
+    mesh_fit = {"iterations": 10, "fit_s": mesh_s, "launches": counts,
+                "trees": len(mt),
+                "splits": sum(t.num_leaves - 1 for t in mt),
+                "train_accuracy": float(
+                    (m.transform(table)["prediction"] == y).mean())}
+    if counts["ring_allreduce"] != mesh_fit["trees"] + mesh_fit["splits"] \
+            or mesh_fit["trees"] != 10 * K:
+        raise AssertionError(f"multiclass D = {MESH_SHARDS}: launches do "
+                             f"not match the trees and splits: {mesh_fit}")
+    return {"rows": N_ROWS, "features": N_FEATURES, "classes": K,
+            "iterations": T, "fits": fits, "mesh_data_ring": mesh_fit,
+            "card_vs_cpu": _multiclass_card_vs_cpu()}
+
+
+def _multiclass_card_vs_cpu():
+    """Both multiclass objectives at 20,000 × 50 and 5 iterations on the
+    card and on the CPU: the first K trees identical, and
+    ``Booster.predict`` allclose 1e-4 over the iterations whose K trees
+    all match."""
+    import numpy as np
+    X, y = multiclass_data(20_000)
+    table = {"features": X, "label": y}
+    K = NUM_CLASSES
+    res = {}
+    for objective in ("multiclass", "multiclassova"):
+        card, cpu = (_classifier(numIterations=5, device=dev,
+                                 objective=objective).fit(table).getModel()
+                     for dev in (DEV, "cpu"))
+        it = 0
+        while it < min(len(card.trees), len(cpu.trees)) // K and all(
+                _same_tree(a, b) for a, b in
+                zip(card.trees[it * K:(it + 1) * K],
+                    cpu.trees[it * K:(it + 1) * K])):
+            it += 1
+        row = {"matching_iterations": it,
+               "trees": [len(card.trees), len(cpu.trees)]}
+        if it:
+            pg = card.predict(X, num_iteration=it).cpu().numpy()
+            pc = cpu.predict(X, num_iteration=it, device="cpu").numpy()
+            row["prob_max_abs_diff"] = float(np.abs(pg - pc).max())
+        res[objective] = row
+        if it < 1 or not np.allclose(pg, pc, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{objective}: the card's first iteration "
+                                 f"differs from the cpu's: {res}")
+    return res
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r["accum"] == "float32"
@@ -1191,6 +1539,8 @@ def main(argv) -> int:
               ("collectives", lambda: phase_collectives(state)),
               ("mesh_path", lambda: phase_mesh_path(state)),
               ("voting_path", lambda: phase_voting_path(state)),
+              ("categorical_path", lambda: phase_categorical_path(state)),
+              ("multiclass_path", lambda: phase_multiclass_path(state)),
               ("collectives_cross_card", phase_collectives_cross_card)]
     if only is not None:
         unknown = only - {name for name, _ in phases}

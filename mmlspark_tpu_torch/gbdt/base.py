@@ -5,10 +5,10 @@ on the host (:func:`.binning.fit_bin_mapper`), build the objective, and
 run the boosting loop (:func:`.engine.train`) on ``device`` — serially, or
 over a mesh pinned with :meth:`setMesh` or, on a host with more than one
 card, built over all of them (as ``parallelism`` lays them out) for a fit
-of at least ``autoMeshMinRows`` rows.  Param names mirror the reference's (and
-so the reference's public API); the port adds ``device``.  Params whose feature is not ported yet are
-declared so that asking for one raises ``NotImplementedError`` instead of
-training something else.
+of at least ``autoMeshMinRows`` rows.  Param names mirror the reference's
+(and so the reference's public API); the port adds ``device``.  Params
+whose feature is not ported yet are declared so that asking for one
+raises ``NotImplementedError`` instead of training something else.
 """
 
 from __future__ import annotations
@@ -115,6 +115,24 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
     topK = Param("topK", "Voting parallelism: features each data shard "
                  "votes per split", default=20,
                  typeConverter=TypeConverters.toInt)
+    categoricalSlotIndexes = Param(
+        "categoricalSlotIndexes", "Feature indexes treated as categorical "
+        "(non-negative integer values)", default=None,
+        typeConverter=TypeConverters.toListInt)
+    categoricalSlotNames = Param(
+        "categoricalSlotNames", "Feature names treated as categorical "
+        "(resolved against the features column names)", default=None,
+        typeConverter=TypeConverters.toListString)
+    catSmooth = Param("catSmooth", "Categorical smoothing (cat_smooth)",
+                      default=10.0, typeConverter=TypeConverters.toFloat)
+    catL2 = Param("catL2", "Extra L2 for categorical splits (cat_l2)",
+                  default=10.0, typeConverter=TypeConverters.toFloat)
+    maxCatThreshold = Param(
+        "maxCatThreshold", "Max categories on the smaller split side",
+        default=32, typeConverter=TypeConverters.toInt)
+    maxCatToOnehot = Param(
+        "maxCatToOnehot", "Cardinality at or below which one-vs-rest "
+        "splits are used", default=4, typeConverter=TypeConverters.toInt)
     # -- params of features the port has not reached yet (ROADMAP.md) ------
     boostingType = Param("boostingType", "gbdt (goss, dart and rf are not "
                          "ported yet)", default="gbdt",
@@ -122,12 +140,6 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
     earlyStoppingRound = Param("earlyStoppingRound", "Early stopping is not "
                                "ported yet; 0 disables", default=0,
                                typeConverter=TypeConverters.toInt)
-    categoricalSlotIndexes = Param(
-        "categoricalSlotIndexes", "Categorical features are not ported yet",
-        default=None, typeConverter=TypeConverters.toListInt)
-    categoricalSlotNames = Param(
-        "categoricalSlotNames", "Categorical features are not ported yet",
-        default=None, typeConverter=TypeConverters.toListString)
     quantizedGrad = Param("quantizedGrad", "Quantized-gradient training is "
                           "not ported yet; 'off'", default="off",
                           typeConverter=TypeConverters.toString)
@@ -145,9 +157,6 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
             "earlyStoppingRound": self.getEarlyStoppingRound() > 0,
             "validationIndicatorCol": bool(
                 self.getValidationIndicatorCol()),
-            "categoricalSlotIndexes": bool(
-                self.getCategoricalSlotIndexes()),
-            "categoricalSlotNames": bool(self.getCategoricalSlotNames()),
             "quantizedGrad": str(self.getQuantizedGrad()).lower()
             not in ("off", "", "0", "false", "none"),
             "enableBundle": self.getEnableBundle(),
@@ -183,6 +192,10 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
             parallelism=self.getParallelism(),
             collective=self.getCollective(),
             top_k=self.getTopK(),
+            cat_smooth=self.getCatSmooth(),
+            cat_l2=self.getCatL2(),
+            max_cat_threshold=self.getMaxCatThreshold(),
+            max_cat_to_onehot=self.getMaxCatToOnehot(),
             verbosity=self.getVerbosity(),
         )
 
@@ -227,6 +240,31 @@ class LightGBMBase(Estimator, LightGBMParams):
     def _prepare_labels(self, y: np.ndarray) -> np.ndarray:
         return np.asarray(y, np.float64)
 
+    def _resolve_objective(self, y: np.ndarray):
+        """The fit's objective: the resolved name (a classifier may promote
+        to multiclass) with its class count, K = max label + 1 for the
+        multiclass objectives."""
+        name = getattr(self, "_resolved_objective", None) \
+            or self.getObjective() or self._default_objective
+        num_class = getattr(self, "_num_class", 1)
+        if name in ("multiclass", "softmax", "multiclassova",
+                    "ova") and num_class <= 1:
+            num_class = int(np.max(y)) + 1
+        return get_objective(name, num_class=num_class,
+                             **self._objective_kwargs())
+
+    def _categorical_indexes(self, feature_names):
+        """``categoricalSlotIndexes`` and the indexes of
+        ``categoricalSlotNames`` among the feature names, sorted."""
+        idx = list(self.getCategoricalSlotIndexes() or [])
+        for nm in self.getCategoricalSlotNames() or []:
+            if not feature_names or nm not in feature_names:
+                raise ValueError(
+                    f"categoricalSlotNames: {nm!r} not found among feature "
+                    f"columns {feature_names}")
+            idx.append(feature_names.index(nm))
+        return sorted(set(idx))
+
     def _make_model(self, booster: Booster) -> "LightGBMModelBase":
         raise NotImplementedError
 
@@ -236,14 +274,14 @@ class LightGBMBase(Estimator, LightGBMParams):
         y = self._prepare_labels(table[self.getLabelCol()])
         wcol = self.getWeightCol()
         w = np.asarray(table[wcol], np.float64) if wcol else None
-        objective = get_objective(
-            self.getObjective() or self._default_objective,
-            **self._objective_kwargs())
+        objective = self._resolve_objective(y)
         feature_names = list(
             getattr(table[self.getFeaturesCol()], "columns", [])) or None
+        cat_idx = self._categorical_indexes(feature_names)
         mesh = self._fit_mesh(len(y))
         mapper = fit_bin_mapper(X, max_bin=self.getMaxBin(),
-                                seed=self.getSeed())
+                                seed=self.getSeed(),
+                                categorical_features=cat_idx or None)
         device = self.getDevice() if mesh is None else mesh.devices[0]
         booster = train(mapper.transform(X, device), y, w, mapper,
                         objective, self._train_params(),

@@ -1,17 +1,20 @@
 """Quantile feature binning — the port's BinMapper.
 
-The port's copy of ``mmlspark_tpu/gbdt/binning.py`` for numeric features
-(categorical binning is not ported yet; see ROADMAP.md).  Bounds are
-learned on host numpy exactly as the reference learns them; the transform
-is a float64 ``torch.searchsorted`` on the requested device, the same
-semantics as the reference's ``BinMapper.transform`` (``side="left"``
-against float64 upper bounds, NaN → the trailing missing bin).
+The port's copy of ``mmlspark_tpu/gbdt/binning.py``.  Bounds and
+category lists are learned on host numpy exactly as the reference learns
+them; the transform runs on the requested device with the semantics of
+the reference's ``BinMapper.transform``: a numeric column is a float64
+``torch.searchsorted`` (``side="left"`` against float64 upper bounds); a
+categorical column maps each category to its bin by identity (the value
+truncated to an integer); NaN, and a category that has no bin, go to the
+trailing missing bin.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -21,16 +24,35 @@ from ..device import DeviceLike, resolve_device
 
 @dataclass
 class BinMapper:
-    """Per-feature binning spec: ``upper_bounds[f]`` sorted ascending."""
+    """Per-feature binning spec: ``upper_bounds[f]`` sorted ascending.
+
+    A categorical feature (``categorical[f]``) bins by category identity:
+    ``cat_values[f]`` holds the raw (non-negative integer) category of
+    each bin, most frequent first."""
 
     upper_bounds: List[np.ndarray]   # len f, each (num_bins_f - 1,) finite
     has_missing: np.ndarray          # (f,) bool
     num_total_bins: int              # B used for histogram sizing
     missing_bin: int                 # index reserved for NaN (== B - 1)
+    categorical: Optional[np.ndarray] = None   # (f,) bool
+    cat_values: Optional[List[Optional[np.ndarray]]] = None  # cat per bin
 
     @property
     def num_features(self) -> int:
         return len(self.upper_bounds)
+
+    @property
+    def has_categorical(self) -> bool:
+        return self.categorical is not None and bool(self.categorical.any())
+
+    def is_categorical(self, j: int) -> bool:
+        return self.categorical is not None and bool(self.categorical[j])
+
+    def feature_num_bins(self, j: int) -> int:
+        """Value bins feature j uses (the missing bin not counted)."""
+        if self.is_categorical(j):
+            return len(self.cat_values[j])
+        return len(self.upper_bounds[j]) + 1
 
     @property
     def bin_dtype(self) -> torch.dtype:
@@ -55,7 +77,27 @@ class BinMapper:
         out = torch.searchsorted(torch.as_tensor(bounds, device=dev), Xt,
                                  side="left")
         out = torch.where(torch.isnan(Xt), self.missing_bin, out)
+        for j in range(f):
+            if self.is_categorical(j):
+                out[j] = self._transform_cat(Xt[j], j)
         return out.T.to(self.bin_dtype).contiguous()
+
+    def _transform_cat(self, col: torch.Tensor, j: int) -> torch.Tensor:
+        """Bin of each value of categorical column ``j``: the value, NaN
+        as −1, truncated to an integer and looked up among the column's
+        categories; a value that is none of them goes to the missing
+        bin."""
+        cats = torch.as_tensor(self.cat_values[j], dtype=torch.int64,
+                               device=col.device)
+        if cats.numel() == 0:
+            return torch.full(col.shape, self.missing_bin,
+                              dtype=torch.int64, device=col.device)
+        sorted_cats, order = torch.sort(cats)
+        vals = torch.nan_to_num(col, nan=-1.0).to(torch.int64)
+        pos = torch.searchsorted(sorted_cats, vals).clamp(
+            max=len(sorted_cats) - 1)
+        return torch.where(sorted_cats[pos] == vals, order[pos],
+                           self.missing_bin)
 
     def bin_threshold_value(self, feature: int, bin_idx: int) -> float:
         """Real-valued threshold for a split at ``bin <= bin_idx`` (the bin
@@ -67,19 +109,70 @@ class BinMapper:
         return float(ub[bin_idx])
 
     def feature_infos(self) -> List[str]:
-        """LightGBM model-file ``feature_infos`` entries ([min:max])."""
-        return ["none" if len(ub) == 0 else f"[{ub[0]:.6g}:{ub[-1]:.6g}]"
-                for ub in self.upper_bounds]
+        """LightGBM model-file ``feature_infos`` entries: [min:max] for a
+        numeric feature, the sorted categories joined by colons for a
+        categorical one."""
+        infos = []
+        for j, ub in enumerate(self.upper_bounds):
+            if self.is_categorical(j):
+                cats = np.sort(self.cat_values[j])
+                infos.append(":".join(str(int(c)) for c in cats) or "none")
+            elif len(ub) == 0:
+                infos.append("none")
+            else:
+                infos.append(f"[{ub[0]:.6g}:{ub[-1]:.6g}]")
+        return infos
+
+    def to_json(self) -> str:
+        """The mapper as JSON, in the reference's format (``format`` 1):
+        float64 bounds round-trip exactly, so a mapper saved by either
+        package bins identically after ``from_json``."""
+        doc = {
+            "format": 1,
+            "upper_bounds": [ub.tolist() for ub in self.upper_bounds],
+            "has_missing": self.has_missing.astype(int).tolist(),
+            "num_total_bins": int(self.num_total_bins),
+            "missing_bin": int(self.missing_bin),
+        }
+        if self.categorical is not None:
+            doc["categorical"] = self.categorical.astype(int).tolist()
+            doc["cat_values"] = [None if cv is None else cv.tolist()
+                                 for cv in (self.cat_values or [])]
+        return json.dumps(doc, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "BinMapper":
+        doc = json.loads(text)
+        if doc.get("format") != 1:
+            raise ValueError(
+                f"unsupported BinMapper format {doc.get('format')!r}")
+        cat = doc.get("categorical")
+        return cls(
+            upper_bounds=[np.asarray(ub, np.float64)
+                          for ub in doc["upper_bounds"]],
+            has_missing=np.asarray(doc["has_missing"], bool),
+            num_total_bins=int(doc["num_total_bins"]),
+            missing_bin=int(doc["missing_bin"]),
+            categorical=None if cat is None else np.asarray(cat, bool),
+            cat_values=None if cat is None else [
+                None if cv is None else np.asarray(cv, np.float64)
+                for cv in doc["cat_values"]])
 
 
 def fit_bin_mapper(X: np.ndarray, max_bin: int = 255,
                    sample_cnt: int = 200000,
                    min_data_in_bin: int = 3,
-                   seed: int = 0) -> BinMapper:
+                   seed: int = 0,
+                   categorical_features: Optional[List[int]] = None
+                   ) -> BinMapper:
     """Learn per-feature bin upper bounds (GreedyFindBin analog).
 
     ``max_bin`` counts value bins; one extra trailing bin is reserved for
     missing values, giving ``num_total_bins = max_bin + 1``.
+
+    ``categorical_features``: column indexes binned by category identity
+    (non-negative integer values, LightGBM's contract); the ``max_bin -
+    1`` most frequent categories get bins, the rest join the missing bin.
     """
     n, f = X.shape
     if n > sample_cnt:
@@ -89,17 +182,49 @@ def fit_bin_mapper(X: np.ndarray, max_bin: int = 255,
         sample = X[idx]
     else:
         sample = X
+    cat_set = set(int(c) for c in (categorical_features or []))
+    for c in cat_set:
+        if not 0 <= c < f:
+            raise ValueError(
+                f"categorical feature index {c} out of range [0, {f})")
     bounds: List[np.ndarray] = []
     has_missing = np.zeros(f, dtype=bool)
+    categorical = np.zeros(f, dtype=bool)
+    cat_values: List[Optional[np.ndarray]] = [None] * f
     for j in range(f):
         col = sample[:, j]
         nan = np.isnan(col)
         has_missing[j] = bool(nan.any())
-        bounds.append(_find_bounds(col[~nan], max_bin, min_data_in_bin))
+        col = col[~nan]
+        if j in cat_set:
+            categorical[j] = True
+            cat_values[j] = _find_categories(col, max_bin, j)
+            bounds.append(np.empty(0, dtype=np.float64))
+        else:
+            bounds.append(_find_bounds(col, max_bin, min_data_in_bin))
     num_total_bins = max_bin + 1
     return BinMapper(upper_bounds=bounds, has_missing=has_missing,
                      num_total_bins=num_total_bins,
-                     missing_bin=num_total_bins - 1)
+                     missing_bin=num_total_bins - 1,
+                     categorical=categorical if cat_set else None,
+                     cat_values=cat_values if cat_set else None)
+
+
+def _find_categories(col: np.ndarray, max_bin: int, j: int) -> np.ndarray:
+    """The ``max_bin - 1`` most frequent categories of a column (NaN
+    removed), most frequent first, ties by value (a stable sort of the
+    counts)."""
+    if col.size and (col < 0).any():
+        raise ValueError(
+            f"Categorical feature {j} has negative values; categories must "
+            "be non-negative integers (LightGBM contract)")
+    ints = col.astype(np.int64)
+    if col.size and not np.array_equal(ints, col):
+        raise ValueError(
+            f"Categorical feature {j} has non-integer values")
+    vals, counts = np.unique(ints, return_counts=True)
+    order = np.argsort(-counts, kind="stable")
+    return vals[order][:max_bin - 1].astype(np.int64)
 
 
 def _find_bounds(col: np.ndarray, max_bin: int,

@@ -27,7 +27,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .binning import BinMapper
-from .objectives import sigmoid
+from .objectives import sigmoid, softmax, sum_last
 
 #: content-digest header: ``save_native_model`` prepends ONE comment line
 #: hashing everything after it, so a torn or bit-flipped model file is
@@ -115,18 +115,39 @@ class HostTree:
 
 
 def host_tree_from_arrays(tree, mapper: BinMapper) -> HostTree:
-    """Trim a grower ``TreeArrays`` (numeric splits) to its actual size
-    with real thresholds."""
+    """Trim a grower ``TreeArrays`` to its actual size with real
+    thresholds.  A categorical node's bin bitset becomes LightGBM's
+    bitset over raw category values (``cat_boundaries`` /
+    ``cat_threshold``, ``threshold`` its index), with decision_type bit 1
+    set when the missing bin goes left."""
     num_leaves = int(tree.num_leaves)
     m = max(num_leaves - 1, 0)
     feat = np.asarray(tree.node_feat)[:m]
     bins = np.asarray(tree.node_bin)[:m]
+    is_cat = np.asarray(tree.node_is_cat)[:m] > 0
+    cat_bits = np.asarray(tree.node_cat_bits)[:m]
     thr = np.array([mapper.bin_threshold_value(int(f), int(b))
                     for f, b in zip(feat, bins)], dtype=np.float64)
     # missing (NaN) routes right in training (the missing bin is the
     # trailing bin): 8 = missing:NaN, 2 = default-left (numerical)
     dt = np.where(mapper.has_missing[feat] if m else np.zeros(0, bool),
                   8, 2).astype(np.int32)
+    miss = mapper.missing_bin
+    cat_boundaries = [0]
+    cat_words: List[np.ndarray] = []
+    for i in np.flatnonzero(is_cat):
+        cats = mapper.cat_values[int(feat[i])]
+        bits = cat_bits[i]
+        left_cats = sorted(int(cats[b]) for b in range(len(cats))
+                           if (bits[b >> 5] >> (b & 31)) & 1)
+        missing_left = bool((bits[miss >> 5] >> (miss & 31)) & 1)
+        words = np.zeros(max(left_cats, default=0) // 32 + 1, np.uint32)
+        for c in left_cats:
+            words[c >> 5] |= np.uint32(1) << np.uint32(c & 31)
+        dt[i] = 1 | (2 if missing_left else 0)
+        thr[i] = float(len(cat_words))      # index into cat_boundaries
+        cat_words.append(words)
+        cat_boundaries.append(cat_boundaries[-1] + len(words))
     return HostTree(
         split_feature=feat.astype(np.int32),
         threshold=thr,
@@ -142,6 +163,10 @@ def host_tree_from_arrays(tree, mapper: BinMapper) -> HostTree:
         internal_weight=np.asarray(tree.node_weight, np.float64)[:m],
         internal_count=np.asarray(tree.node_count, np.float64)[:m]
             .astype(np.int64),
+        num_cat=len(cat_words),
+        cat_boundaries=np.asarray(cat_boundaries, np.int32),
+        cat_threshold=(np.concatenate(cat_words) if cat_words
+                       else np.zeros(0, np.uint32)),
     )
 
 
@@ -252,6 +277,9 @@ class Booster:
     def predict(self, X, raw_score: bool = False,
                 num_iteration: Optional[int] = None,
                 device: Optional[DeviceLike] = None) -> torch.Tensor:
+        """The objective's output transform of the margins, in the
+        reference's float order: the sigmoid (binary), the softmax
+        (multiclass), the sigmoids normalised to sum 1 (multiclassova)."""
         m = self.predict_margin(X, num_iteration, device)
         if raw_score:
             return m
@@ -261,6 +289,12 @@ class Booster:
             return sigmoid(sig * m)
         if obj in ("regression", "regression_l2", "l2"):
             return m
+        if obj in ("multiclass", "softmax"):
+            return softmax(m)
+        if obj == "multiclassova":
+            sig = _param_from_str(self.objective_str, "sigmoid", 1.0)
+            p = sigmoid(sig * m)
+            return p / torch.clamp(sum_last(p), min=1e-12)
         raise NotImplementedError(
             f"output transform of objective {obj!r} is not ported yet; "
             "predict(raw_score=True) gives the margins")

@@ -1,8 +1,9 @@
-"""LightGBMClassifier / LightGBMClassificationModel (binary).
+"""LightGBMClassifier / LightGBMClassificationModel.
 
-The port's counterpart of ``mmlspark_tpu/gbdt/classifier.py``: the same
-output columns, rawPrediction (margin vector), probability and
-prediction.  Multiclass is not ported yet.
+The port's counterpart of ``mmlspark_tpu/gbdt/classifier.py``: binary and
+multiclass (``multiclass`` / ``multiclassova``, or more than two label
+classes, which promote to ``multiclass``), with the same output columns,
+rawPrediction (margin vector), probability and prediction.
 """
 
 from __future__ import annotations
@@ -42,13 +43,26 @@ class LightGBMClassifier(LightGBMBase, _ClassifierParams):
                     scale_pos_weight=self.getScalePosWeight())
 
     def _prepare_labels(self, y):
+        """Labels as the objective takes them: class ids for a multiclass
+        objective (NaN refused), else floats; more than two classes
+        promote the fit to ``multiclass`` with K = max label + 1 (kept
+        off the param map: a fit does not change the estimator)."""
         y = np.asarray(y)
+        self._num_class = 1
+        self._resolved_objective = self.getObjective()
+        if self.getObjective() in ("multiclass", "softmax",
+                                   "multiclassova", "ova"):
+            if y.dtype.kind == "f" and np.isnan(y).any():
+                raise ValueError(
+                    "multiclass labels contain NaN; labels must be "
+                    "integer class ids in [0, num_class)")
+            return y.astype(np.int64)
         uniq = np.unique(y[~np.isnan(y.astype(np.float64))]) \
             if y.dtype.kind == "f" else np.unique(y)
         if len(uniq) > 2:
-            raise NotImplementedError(
-                f"{len(uniq)} label classes: multiclass training is not "
-                "ported to mmlspark_tpu_torch yet")
+            self._resolved_objective = "multiclass"
+            self._num_class = int(np.max(y)) + 1
+            return y.astype(np.int64)
         return y.astype(np.float64)
 
     def _make_model(self, booster: Booster) -> "LightGBMClassificationModel":
@@ -60,12 +74,13 @@ class LightGBMClassificationModel(LightGBMModelBase, _ClassifierParams):
     def _transform(self, table: DataTable) -> DataTable:
         margins = self._margins(features_matrix(table,
                                                 self.getFeaturesCol()))
-        if margins.ndim != 1:
-            raise NotImplementedError(
-                "multiclass scoring is not ported yet")
-        raw = np.stack([-margins, margins], axis=1)
-        p1 = 1.0 / (1.0 + np.exp(-self.getSigmoid() * margins))
-        prob = np.stack([1.0 - p1, p1], axis=1)
+        if margins.ndim == 1:
+            raw = np.stack([-margins, margins], axis=1)
+            p1 = 1.0 / (1.0 + np.exp(-self.getSigmoid() * margins))
+            prob = np.stack([1.0 - p1, p1], axis=1)
+        else:
+            raw = margins
+            prob = _softmax(margins)
         thresholds = self.getThresholds()
         if thresholds:
             pred = np.argmax(prob / np.asarray(thresholds)[None, :], axis=1)
@@ -82,3 +97,11 @@ class LightGBMClassificationModel(LightGBMModelBase, _ClassifierParams):
     @property
     def numClasses(self) -> int:
         return max(self._booster.num_class, 2)
+
+
+def _softmax(x):
+    """Row softmax in numpy, as the reference's estimator computes its
+    multiclass probability column (for ``multiclassova`` too)."""
+    z = x - np.max(x, axis=-1, keepdims=True)
+    e = np.exp(z)
+    return e / np.sum(e, axis=-1, keepdims=True)

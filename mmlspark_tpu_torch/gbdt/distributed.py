@@ -15,9 +15,10 @@ host loop:
   feature slice ``j`` holding ``f_local`` consecutive columns — so both
   packages grow the same forests;
 * :func:`boost_iteration` is the iteration body of the reference's
-  ``make_boost_scan`` (gbdt): per device the objective's (grad, hess)
-  masked by bag and ``real``, one tree grown over the mesh
-  (:func:`.grower.grow_tree_sharded`), and each device's score update.
+  ``make_boost_scan`` (gbdt) and ``make_multiclass_scan``: per device the
+  objective's (grad, hess) masked by bag and ``real``, then per class
+  one tree grown over the mesh (:func:`.grower.grow_tree_sharded`) and
+  each device's score update.
 
 ``parallelism`` maps onto the learner as in the reference: ``data`` and
 ``voting`` shard rows (voting keeps histograms local and reduces only the
@@ -106,13 +107,15 @@ class ShardArrays:
 
 def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
                    weights: np.ndarray, devices: Sequence[torch.device],
-                   init: float, feature: int = 1) -> ShardArrays:
+                   init: float, feature: int = 1,
+                   num_class: int = 1) -> ShardArrays:
     """Lay the rows and features out over ``devices``, a ``(D, feature)``
     grid in row-major order: rows padded to a multiple of D and cut into
     D shards, features padded to a multiple of ``feature`` and cut into
     slices, each piece moved to its device.  Pad rows carry zero bins,
     labels and weights and ``real = 0`` (excluded from every histogram
-    through the bag mask); pad features are constant bin 0."""
+    through the bag mask); pad features are constant bin 0.  Scores are
+    ``(S,)``, or ``(S, num_class)`` for a multiclass objective."""
     D = len(devices) // feature
     n, f = bins.shape
     rp = pad_to_multiple(n, D) - n
@@ -137,28 +140,44 @@ def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
         for name, host in (("labels", lab), ("weights", w), ("real", real)):
             getattr(arrays, name).append(torch.as_tensor(
                 host[rows], dtype=torch.float32, device=dev))
-        arrays.scores.append(torch.full((S,), init, dtype=torch.float32,
-                                        device=dev))
+        arrays.scores.append(torch.full(
+            (S,) if num_class == 1 else (S, num_class), init,
+            dtype=torch.float32, device=dev))
     return arrays
 
 
 def boost_iteration(arrays: ShardArrays, bag: Sequence[torch.Tensor],
                     feat_info: np.ndarray, objective: Objective,
                     cfg: GrowerConfig, learning_rate: float,
-                    mesh: Optional[Mesh]) -> TreeArrays:
-    """One gbdt iteration over every device: masked (grad, hess, count),
-    one tree, and the score update (``scores + lr·leaf``, an FMA as in the
-    reference) with the leaf values of the device's own learner.  Returns
-    the unshrunk tree; updates ``arrays.scores``."""
-    gh = []
+                    mesh: Optional[Mesh]) -> List[TreeArrays]:
+    """One gbdt iteration over every device: the objective's (grad, hess)
+    once, then one tree per class (K = ``num_model_per_iteration``,
+    LightGBM's softmax semantics: every class's tree fits the gradients of
+    the iteration's start), each grown over the mesh
+    (:func:`.grower.grow_tree_sharded`) from the masked (grad, hess,
+    count) of its class and followed by that class's score update
+    (``scores + lr·leaf``, an FMA as in the reference) with the leaf
+    values of the device's own learner.  Returns the K unshrunk trees;
+    updates ``arrays.scores``."""
+    K = objective.num_model_per_iteration
+    grads, masks = [], []
     for k in range(len(arrays.bins)):
-        b = bag[k] * arrays.real[k]
-        g, h = objective.grad_hess(arrays.scores[k], arrays.labels[k],
-                                   arrays.weights[k])
-        gh.append(torch.stack([g * b, h * b, b], dim=1))
-    tree, row_leaf, values = grow_tree_sharded(arrays.bins, gh, feat_info,
-                                               cfg, mesh)
-    for k, (leaf, value) in enumerate(zip(row_leaf, values)):
-        arrays.scores[k] = fma32(value.to(leaf.device)[leaf], learning_rate,
-                                 arrays.scores[k])
-    return tree
+        masks.append(bag[k] * arrays.real[k])
+        grads.append(objective.grad_hess(arrays.scores[k], arrays.labels[k],
+                                         arrays.weights[k]))
+    trees = []
+    for c in range(K):
+        gh = [torch.stack([g * b, h * b, b], dim=1) if K == 1 else
+              torch.stack([g[:, c] * b, h[:, c] * b, b], dim=1)
+              for (g, h), b in zip(grads, masks)]
+        tree, row_leaf, values = grow_tree_sharded(arrays.bins, gh,
+                                                   feat_info, cfg, mesh)
+        for k, (leaf, value) in enumerate(zip(row_leaf, values)):
+            s = arrays.scores[k]
+            add = value.to(leaf.device)[leaf]
+            if K == 1:
+                arrays.scores[k] = fma32(add, learning_rate, s)
+            else:
+                s[:, c] = fma32(add, learning_rate, s[:, c])
+        trees.append(tree)
+    return trees

@@ -1,9 +1,11 @@
 """Boosting loop — ``boosting="gbdt"`` training, serial or on a mesh.
 
 The port's counterpart of ``mmlspark_tpu/gbdt/engine.py`` (``train`` →
-``_train_impl`` → ``_boost_scan`` serially, ``_train_distributed`` on a
-mesh): per iteration, (grad, hess) from the objective, one tree from
-:func:`..grower.grow_tree_sharded`, and the score update.  A serial fit is
+``_train_impl`` → ``_boost_scan`` / ``_boost_scan_multi`` serially,
+``_train_distributed`` on a mesh): per iteration, (grad, hess) from the
+objective, one tree per class from :func:`..grower.grow_tree_sharded`
+(iteration-major, class-minor, the model file's order), and the score
+updates.  A serial fit is
 the one-device case of the mesh loop (:mod:`.distributed`); the mesh's
 shape decides between the data (or voting), feature and data+feature
 learners.  Bagging and feature-fraction draws use numpy ``default_rng``
@@ -67,6 +69,10 @@ class TrainParams:
     #: PV-Tree voting: features each shard votes per split (LightGBM
     #: top_k); read only when ``parallelism == "voting"``
     top_k: int = 20
+    cat_smooth: float = 10.0
+    cat_l2: float = 10.0
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4
     verbosity: int = 1
 
 
@@ -107,6 +113,16 @@ def _record_fit_resolution(cfg: GrowerConfig, collective: str,
             f"{sched['payload_bytes'] / max(1, sched['dense_payload_bytes']):.6f}"))
 
 
+def _feat_info_from_mapper(mapper: BinMapper, f: int) -> np.ndarray:
+    """``(f, 3)`` [mask, is_cat, n_value_bins] from the fitted mapper."""
+    fi = np.zeros((f, 3), np.float32)
+    fi[:, 0] = 1.0
+    if mapper.has_categorical:
+        fi[:, 1] = mapper.categorical.astype(np.float32)
+        fi[:, 2] = [mapper.feature_num_bins(j) for j in range(f)]
+    return fi
+
+
 def _draw_feature_fraction(rng, fi_base: np.ndarray, f: int,
                            feature_fraction: float) -> np.ndarray:
     """One per-iteration featureFraction mask draw (the reference's draw)."""
@@ -134,8 +150,6 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         raise NotImplementedError(
             f"boostingType={params.boosting!r} is not ported yet; the port "
             "trains 'gbdt' (ROADMAP.md, left out of the first slice)")
-    if objective.num_model_per_iteration != 1:
-        raise NotImplementedError("multiclass training is not ported yet")
     if mesh is not None:
         dev = mesh.devices[0]
     elif isinstance(bins, torch.Tensor):
@@ -165,7 +179,11 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         min_sum_hessian_in_leaf=params.min_sum_hessian_in_leaf,
         min_gain_to_split=params.min_gain_to_split,
         hist_method=params.histogram_method, collective=collective,
-        voting_k=params.top_k if params.parallelism == "voting" else 0)
+        voting_k=params.top_k if params.parallelism == "voting" else 0,
+        use_categorical=mapper.has_categorical,
+        cat_smooth=params.cat_smooth, cat_l2=params.cat_l2,
+        max_cat_threshold=params.max_cat_threshold,
+        max_cat_to_onehot=params.max_cat_to_onehot)
     cfg = sharded_cfg(shard_mesh, cfg)
     if cfg.voting_k > 0 and cfg.data_axis_size > 1 \
             and cfg.feature_axis_size > 1:
@@ -176,10 +194,11 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         cfg, collective, downgrade,
         collective_schedule(cfg, f, n_rows_local=-(-n // cfg.data_axis_size)),
         dev.type)
-    arrays = prepare_arrays(bins, labels, w, devices, init, F)
+    K = objective.num_model_per_iteration
+    arrays = prepare_arrays(bins, labels, w, devices, init, F, K)
     # pad features (to a multiple of the feature axis) stay masked out
     fi_base = np.zeros((pad_to_multiple(f, F), 3), np.float32)
-    fi_base[:f, 0] = 1.0
+    fi_base[:f] = _feat_info_from_mapper(mapper, f)
     use_bag = params.bagging_freq > 0 and params.bagging_fraction < 1.0
     use_ff = params.feature_fraction < 1.0
 
@@ -197,13 +216,15 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         fi = (_draw_feature_fraction(rng, fi_base, f,
                                      params.feature_fraction)
               if use_ff else fi_base)
-        tree = boost_iteration(arrays, bag, fi, objective, cfg,
-                               params.learning_rate, shard_mesh)
-        trees.append(host_tree_from_arrays(
-            apply_shrinkage(tree, params.learning_rate), mapper))
-        if int(tree.num_leaves) <= 1:
-            # LightGBM stops at the first iteration that cannot split;
-            # the reference keeps that stump and records it as the stop
+        grown = boost_iteration(arrays, bag, fi, objective, cfg,
+                                params.learning_rate, shard_mesh)
+        trees += [host_tree_from_arrays(
+            apply_shrinkage(tree, params.learning_rate), mapper)
+            for tree in grown]
+        if all(int(tree.num_leaves) <= 1 for tree in grown):
+            # LightGBM stops at the first iteration in which no class's
+            # tree can split; the reference keeps those stumps and
+            # records the iteration as the stop
             if params.verbosity > 0:
                 log.info("No further splits with positive gain; stopping "
                          "at iteration %d", it)
@@ -211,9 +232,11 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
             break
 
     if trees and params.boost_from_average and init != 0.0:
-        # bake the init score into the first tree, as LightGBM does
-        trees[0].leaf_value = trees[0].leaf_value + init
-        trees[0].internal_value = trees[0].internal_value + init
+        # bake the init score into the first tree of each class, as
+        # LightGBM does
+        for t in trees[:K]:
+            t.leaf_value = t.leaf_value + init
+            t.internal_value = t.internal_value + init
     engine_params = {
         "boosting": params.boosting,
         "objective": objective.model_str,
@@ -223,7 +246,7 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         "max_depth": str(params.max_depth),
         "max_bin": str(params.max_bin),
     }
-    return Booster(trees, num_class=1, objective_str=objective.model_str,
+    return Booster(trees, num_class=K, objective_str=objective.model_str,
                    init_score=0.0, feature_names=feature_names,
                    feature_infos=mapper.feature_infos(),
                    max_feature_idx=f - 1, params=engine_params, device=dev)

@@ -1,7 +1,7 @@
 """Leaf-wise histogram tree grower.
 
-The port's counterpart of ``mmlspark_tpu/gbdt/grower.py`` for numeric
-splits, on one device or over a ``data × feature`` mesh.  The reference
+The port's counterpart of ``mmlspark_tpu/gbdt/grower.py``, on one device
+or over a ``data × feature`` mesh.  The reference
 grows a tree inside one jitted ``fori_loop`` with static shapes; here
 PyTorch runs eagerly, so a Python loop drives the split steps and the host
 keeps the small per-leaf state (segment offsets and counts, best splits,
@@ -42,10 +42,15 @@ and the leaf histograms stay on the devices:
   leaf totals (from its own first feature) and so its own leaf values and
   scores, as every device of the reference does; the tree carries slice
   0's.
+* **Categorical splits** (``cfg.use_categorical``): beside the numeric
+  scan, LightGBM's sorted-subset search over the categorical features
+  (:func:`cat_split_gains`); a winning subset is a bin bitset, which
+  partitions the rows, travels with the winning slice on a feature axis
+  and scores the feature's vote under voting.
 * **Host syncs.**  Two per split: the partition counts of all shards in
-  one fetch (launch sizing needs them) and the children's best splits
-  (the next leaf choice needs them).  ``grow_tree.host_syncs`` counts
-  them.
+  one fetch (launch sizing needs them) and the children's best splits,
+  bitsets included, as one int64 tensor (the next leaf choice needs
+  them).  ``grow_tree.host_syncs`` counts them.
 * **Float order.**  :func:`prefix_sum_bins` and :func:`sum_bins` add in
   the order XLA's CPU backend uses for ``jnp.cumsum`` and ``jnp.sum``
   over the bins axis, so split gains and leaf totals on the CPU match the
@@ -78,7 +83,7 @@ _SUM_BLOCK = 32
 
 @dataclass(frozen=True)
 class GrowerConfig:
-    """Hyper-parameters of one tree (numeric splits)."""
+    """Hyper-parameters of one tree."""
     num_leaves: int = 31
     max_depth: int = -1
     num_bins: int = 256
@@ -103,17 +108,31 @@ class GrowerConfig:
     #: shard votes its ``voting_k`` best features, and only the voted
     #: columns are reduced.  0 = off.
     voting_k: int = 0
+    #: categorical split search (LightGBM's sorted-subset search) for the
+    #: features flagged in ``feat_info[:, 1]``; set by the engine when the
+    #: bin mapper has a categorical feature
+    use_categorical: bool = False
+    #: smoothing of the gradient ratio that orders a feature's bins
+    cat_smooth: float = 10.0
+    #: extra L2 of a categorical split's gains
+    cat_l2: float = 10.0
+    #: most categories on the smaller side of a sorted-subset split
+    max_cat_threshold: int = 32
+    #: at or below this many value bins a feature splits one bin against
+    #: the rest
+    max_cat_to_onehot: int = 4
 
     @property
     def cat_words(self) -> int:
-        """Words per node of the (unused, zero) categorical bitset."""
+        """32-bit words of a node's bin bitset (stored in int64)."""
         return max(1, (self.num_bins + 31) // 32)
 
 
 class TreeArrays(NamedTuple):
     """One grown tree (host tensors).  A child value ``c >= 0`` is an
-    internal node index, ``c < 0`` is leaf ``~c``.  The categorical fields
-    are kept, and zero, so the layout matches the reference's."""
+    internal node index, ``c < 0`` is leaf ``~c``.  A categorical node
+    (``node_is_cat``) sends a row left when its bin is set in the node's
+    bin bitset, 32 bits a word (``node_bin`` is 0 there)."""
     node_feat: torch.Tensor    # (L-1,) i32
     node_bin: torch.Tensor     # (L-1,) i32 threshold bin (<= goes left)
     node_left: torch.Tensor    # (L-1,) i32
@@ -122,17 +141,21 @@ class TreeArrays(NamedTuple):
     node_value: torch.Tensor   # (L-1,) f32 internal output
     node_weight: torch.Tensor  # (L-1,) f32 sum of hessians
     node_count: torch.Tensor   # (L-1,) f32 row count
-    node_is_cat: torch.Tensor  # (L-1,) i32, zero
-    node_cat_bits: torch.Tensor  # (L-1, W) i64, zero
+    node_is_cat: torch.Tensor  # (L-1,) i32 1 = categorical split
+    node_cat_bits: torch.Tensor  # (L-1, W) i64 u32 words: bit set -> left
     leaf_value: torch.Tensor   # (L,) f32
     leaf_weight: torch.Tensor  # (L,) f32
     leaf_count: torch.Tensor   # (L,) f32
     num_leaves: torch.Tensor   # () i32 actual leaves grown
 
 
+def _leaf_gain_l2(g, h, l1, l2):
+    t = torch.sign(g) * torch.clamp(torch.abs(g) - l1, min=0.0)
+    return torch.square(t) / (h + l2)
+
+
 def _leaf_gain(g, h, cfg: GrowerConfig):
-    t = torch.sign(g) * torch.clamp(torch.abs(g) - cfg.lambda_l1, min=0.0)
-    return torch.square(t) / (h + cfg.lambda_l2)
+    return _leaf_gain_l2(g, h, cfg.lambda_l1, cfg.lambda_l2)
 
 
 def _leaf_output(g, h, cfg: GrowerConfig):
@@ -193,13 +216,21 @@ def sum_bins(x: torch.Tensor) -> torch.Tensor:
     return sum_bins(_seq_sum(blocks))
 
 
+def _parents(hist: torch.Tensor, *totals):
+    """Parent totals (each of shape ``(...)``) as ``(..., 1, 1)`` tensors
+    on the histogram's device."""
+    return [torch.as_tensor(t, device=hist.device)[..., None, None]
+            for t in totals]
+
+
 def split_gains(hist: torch.Tensor, parent_g, parent_h, parent_c,
                 feat_info: torch.Tensor, depth_ok: bool,
                 cfg: GrowerConfig) -> torch.Tensor:
     """Gain of every numeric split of a ``(..., f, B, 3)`` histogram
     against the parent totals (each of shape ``(...)``), ``-inf`` where
     the split is not allowed; ``feat_info`` is ``(f, 3)`` or ``(..., f,
-    3)`` (only its mask column is read).
+    3)`` [mask, is_cat, n_value_bins].  Under ``cfg.use_categorical`` the
+    categorical features have no numeric split.
 
     Mirrors the reference (LightGBM's FindBestThreshold): left = bins <=
     b, validity by min_data_in_leaf / min_sum_hessian, the last bin never
@@ -208,18 +239,137 @@ def split_gains(hist: torch.Tensor, parent_g, parent_h, parent_c,
     B = hist.shape[-2]
     cum = prefix_sum_bins(hist)
     gl, hl, cl = cum.unbind(-1)
-    pg, ph, pc = (torch.as_tensor(t, device=hist.device)[..., None, None]
-                  for t in (parent_g, parent_h, parent_c))
+    pg, ph, pc = _parents(hist, parent_g, parent_h, parent_c)
     gr, hr, cr = pg - gl, ph - hl, pc - cl
     valid = ((cl >= cfg.min_data_in_leaf) & (cr >= cfg.min_data_in_leaf)
              & (hl >= cfg.min_sum_hessian_in_leaf)
              & (hr >= cfg.min_sum_hessian_in_leaf))
     valid &= torch.arange(B, device=hist.device) < B - 1
-    valid &= (feat_info[..., 0] > 0)[..., None]
+    numeric = feat_info[..., 0] > 0
+    if cfg.use_categorical:
+        numeric &= ~(feat_info[..., 1] > 0)
+    valid &= numeric[..., None]
     valid &= bool(depth_ok)
     parent_gain = _leaf_gain(pg, ph, cfg)
     gains = _leaf_gain(gl, hl, cfg) + _leaf_gain(gr, hr, cfg) - parent_gain
     return torch.where(valid, gains, -torch.inf)
+
+
+def _cat_allowed(feat_info: torch.Tensor, depth_ok: bool) -> torch.Tensor:
+    """The features a categorical split may take: flagged categorical and
+    not masked out, and none beyond the depth limit."""
+    return (feat_info[..., 1] > 0) & (feat_info[..., 0] > 0) & bool(depth_ok)
+
+
+def cat_split_gains(hist: torch.Tensor, parent_g, parent_h, parent_c,
+                    cat_allowed: torch.Tensor, feat_nbins: torch.Tensor,
+                    cfg: GrowerConfig):
+    """Gain of every categorical split of a ``(..., f, B, 3)`` histogram
+    (the reference's ``_cat_split_gains``, LightGBM's sorted-subset
+    search): ``(gains (..., f, B), order (..., f, B), use_onehot (...,
+    f))``.
+
+    A feature with at most ``max_cat_to_onehot`` value bins
+    (``feat_nbins``) splits one bin against the rest: its gain at bin b
+    sends bin b left.  Any other feature orders its non-empty bins by
+    ``g / (h + cat_smooth)`` (a stable sort; empty bins last) and its
+    gain at position p sends the first p + 1 bins of ``order`` left.  The
+    missing bin never goes left, so rare, unseen and NaN categories go
+    right in training and in prediction.  Gains use ``lambda_l2 +
+    cat_l2``; ``-inf`` where the split is not allowed."""
+    B = hist.shape[-2]
+    dev = hist.device
+    g_b, h_b, c_b = hist.unbind(-1)
+    pg, ph, pc = _parents(hist, parent_g, parent_h, parent_c)
+    nonzero = (c_b > 0) & (torch.arange(B, device=dev) != B - 1)
+    l1, l2c = cfg.lambda_l1, cfg.lambda_l2 + cfg.cat_l2
+    md, mh = cfg.min_data_in_leaf, cfg.min_sum_hessian_in_leaf
+    parent_gain = _leaf_gain_l2(pg, ph, l1, l2c)
+
+    ratio = torch.where(nonzero, g_b / (h_b + cfg.cat_smooth), torch.inf)
+    order = torch.sort(ratio, dim=-1, stable=True).indices
+    cums = prefix_sum_bins(hist.gather(-2, order[..., None].expand(
+        hist.shape)))
+    gls, hls, cls = cums.unbind(-1)
+    grs, hrs, crs = pg - gls, ph - hls, pc - cls
+    nz_cnt = nonzero.sum(-1, dtype=torch.float32)[..., None]
+    used_left = torch.arange(1, B + 1, device=dev, dtype=torch.float32)
+    used_right = nz_cnt - used_left
+    valid_s = ((cls >= md) & (crs >= md) & (hls >= mh) & (hrs >= mh)
+               & (used_right >= 1)
+               & (torch.minimum(used_left, used_right)
+                  <= cfg.max_cat_threshold))
+    gains_s = (_leaf_gain_l2(gls, hls, l1, l2c)
+               + _leaf_gain_l2(grs, hrs, l1, l2c) - parent_gain)
+    gains_s = torch.where(valid_s, gains_s, -torch.inf)
+
+    gr1, hr1, cr1 = pg - g_b, ph - h_b, pc - c_b
+    valid_1 = (nonzero & (c_b >= md) & (cr1 >= md) & (h_b >= mh)
+               & (hr1 >= mh) & (nz_cnt >= 2))
+    gains_1 = (_leaf_gain_l2(g_b, h_b, l1, l2c)
+               + _leaf_gain_l2(gr1, hr1, l1, l2c) - parent_gain)
+    gains_1 = torch.where(valid_1, gains_1, -torch.inf)
+
+    use_onehot = (feat_nbins <= cfg.max_cat_to_onehot).expand(
+        gains_s.shape[:-1])
+    gains = torch.where(use_onehot[..., None], gains_1, gains_s)
+    return (torch.where(cat_allowed[..., None], gains, -torch.inf), order,
+            use_onehot)
+
+
+def pack_bin_mask(mask: torch.Tensor, words: int) -> torch.Tensor:
+    """``(..., B)`` bool bin subset → ``(..., words)`` bitset, 32 bits a
+    word (bit ``b % 32`` of word ``b // 32`` is bin b), in int64."""
+    B = mask.shape[-1]
+    m = torch.nn.functional.pad(mask.to(torch.int64), (0, 32 * words - B))
+    return (m.unflatten(-1, (words, 32))
+            << torch.arange(32, device=mask.device)).sum(-1)
+
+
+def bin_in_bitset(bits: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """Whether each bin of ``col`` is set in the ``(W,)`` bitset."""
+    col = col.to(torch.int64)
+    return ((bits[col >> 5] >> (col & 31)) & 1).to(torch.bool)
+
+
+def find_best_cat_split(hist: torch.Tensor, parent_g, parent_h, parent_c,
+                        cat_allowed: torch.Tensor, feat_nbins: torch.Tensor,
+                        cfg: GrowerConfig):
+    """Best categorical split over :func:`cat_split_gains` (the
+    reference's ``_find_best_cat_split``): ``(gain, feature, position,
+    bits)``, the first maximum over the flattened ``(f, B)`` gains, and
+    the ``(..., W)`` bitset of the bins it sends left."""
+    gains, order, use_onehot = cat_split_gains(
+        hist, parent_g, parent_h, parent_c, cat_allowed, feat_nbins, cfg)
+    gain, feat, k = _first_max(gains)
+    B = hist.shape[-2]
+    pos = torch.arange(B, device=hist.device)
+    onehot_win = use_onehot.gather(-1, feat[..., None])
+    order_f = order.gather(-2, feat[..., None, None].expand(
+        feat.shape + (1, B)))[..., 0, :]
+    sorted_left = torch.zeros_like(order_f).scatter(
+        -1, order_f, (pos <= k[..., None]).to(order_f.dtype)) > 0
+    mask = torch.where(onehot_win, pos == k[..., None], sorted_left)
+    return gain, feat, k, pack_bin_mask(mask, cfg.cat_words)
+
+
+def _with_cat(num, cat):
+    """Merge the numeric winner ``(gain, feature, bin)`` with the
+    categorical one ``(gain, feature, bits)``: the categorical split wins
+    only with a strictly larger gain, and stores bin 0.  Returns ``(gain,
+    feature, bin, is_cat, bits)``."""
+    best, feat, b = num
+    cg, cf, cb = cat
+    wins = cg > best
+    return (torch.maximum(best, cg), torch.where(wins, cf, feat),
+            torch.where(wins, 0, b), wins.to(torch.int64),
+            torch.where(wins[..., None], cb, 0))
+
+
+def _no_cat(best, feat, b, cfg: GrowerConfig):
+    zero = torch.zeros_like(feat)
+    return best, feat, b, zero, zero[..., None].expand(
+        feat.shape + (cfg.cat_words,))
 
 
 def _first_max(gains: torch.Tensor):
@@ -236,18 +386,32 @@ def _gain_floor(best: torch.Tensor, cfg: GrowerConfig) -> torch.Tensor:
                        -torch.inf)
 
 
+def _best_split(hist, parent_g, parent_h, parent_c, feat_info, depth_ok,
+                cfg: GrowerConfig):
+    """:func:`find_best_split` before the gain floor."""
+    num = _first_max(split_gains(hist, parent_g, parent_h, parent_c,
+                                 feat_info, depth_ok, cfg))
+    if not cfg.use_categorical:
+        return _no_cat(*num, cfg)
+    cg, cf, _, cb = find_best_cat_split(
+        hist, parent_g, parent_h, parent_c,
+        _cat_allowed(feat_info, depth_ok), feat_info[..., 2], cfg)
+    return _with_cat(num, (cg, cf, cb))
+
+
 def find_best_split(hist: torch.Tensor, parent_g, parent_h, parent_c,
                     feat_info: torch.Tensor, depth_ok: bool,
-                    cfg: GrowerConfig
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Best numeric split over a ``(..., f, B, 3)`` histogram (see
-    :func:`split_gains`).  Returns ``(gain, feature, bin)``, gain ``-inf``
-    where no split clears the floor; the first-occurrence argmax over the
-    flattened ``(f, B)`` gains breaks ties, as in the reference."""
-    best, feat, b = _first_max(split_gains(hist, parent_g, parent_h,
-                                           parent_c, feat_info, depth_ok,
-                                           cfg))
-    return _gain_floor(best, cfg), feat, b
+                    cfg: GrowerConfig):
+    """Best split over a ``(..., f, B, 3)`` histogram: the numeric scan
+    (:func:`split_gains`) and, under ``cfg.use_categorical``, the
+    categorical search (:func:`find_best_cat_split`).  Returns ``(gain,
+    feature, bin, is_cat, bits)``, gain ``-inf`` where no split clears
+    the floor, ``bits`` the ``(..., W)`` bitset of a categorical split's
+    left bins (zeros for a numeric one); the first-occurrence argmax over
+    the flattened ``(f, B)`` gains breaks ties, as in the reference."""
+    best, *rest = _best_split(hist, parent_g, parent_h, parent_c,
+                              feat_info, depth_ok, cfg)
+    return (_gain_floor(best, cfg), *rest)
 
 
 # -- PV-Tree voting (reference grower.py _voting_* and
@@ -271,12 +435,18 @@ def voting_votes(hist_local: torch.Tensor, feat_info: torch.Tensor,
                  depth_ok: bool, cfg: GrowerConfig) -> torch.Tensor:
     """A shard's vote: the ``min(voting_k, f)`` features with the best local
     split gain of its ``(..., f, B, 3)`` local histogram, scored against
-    the shard's local leaf totals."""
+    the shard's local leaf totals; a categorical feature scores its best
+    categorical split."""
     f = hist_local.shape[-3]
     tot = sum_bins(hist_local[..., 0, :, :])
-    gains = split_gains(hist_local, tot[..., 0], tot[..., 1], tot[..., 2],
-                        feat_info, depth_ok, cfg)
-    return top_k_indices(gains.amax(-1), min(cfg.voting_k, f))
+    score = split_gains(hist_local, tot[..., 0], tot[..., 1], tot[..., 2],
+                        feat_info, depth_ok, cfg).amax(-1)
+    if cfg.use_categorical:
+        cat, _, _ = cat_split_gains(
+            hist_local, tot[..., 0], tot[..., 1], tot[..., 2],
+            _cat_allowed(feat_info, depth_ok), feat_info[..., 2], cfg)
+        score = torch.maximum(score, cat.amax(-1))
+    return top_k_indices(score, min(cfg.voting_k, f))
 
 
 def voting_candidates(votes: torch.Tensor, f: int,
@@ -295,12 +465,14 @@ def voting_decide(slab: torch.Tensor, cand: torch.Tensor, parent_g,
                   depth_ok: bool, cfg: GrowerConfig):
     """The exact split over the reduced ``(..., k2, B, 3)`` candidate slab
     (``cand`` of shape ``(..., k2)``); features map back through
-    ``cand``.  Returns ``(gain, feature, bin)`` as :func:`find_best_split`.
-    """
+    ``cand``.  Returns ``(gain, feature, bin, is_cat, bits)`` as
+    :func:`find_best_split`."""
     idx = cand.to(slab.device, torch.int64)
-    best, j, b = _first_max(split_gains(slab, parent_g, parent_h, parent_c,
-                                        feat_info[idx], depth_ok, cfg))
-    return _gain_floor(best, cfg), idx.gather(-1, j[..., None])[..., 0], b
+    best, j, b, is_cat, bits = _best_split(slab, parent_g, parent_h,
+                                           parent_c, feat_info[idx],
+                                           depth_ok, cfg)
+    return (_gain_floor(best, cfg), idx.gather(-1, j[..., None])[..., 0], b,
+            is_cat, bits)
 
 
 def find_best_split_voting(hists: Sequence[torch.Tensor], tot: torch.Tensor,
@@ -334,16 +506,19 @@ def find_best_split_voting(hists: Sequence[torch.Tensor], tot: torch.Tensor,
 
 
 def _partition_left(row_order: torch.Tensor, col: torch.Tensor, thr: int,
-                    off: int, cnt: int) -> torch.Tensor:
+                    off: int, cnt: int,
+                    bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stable in-place partition of ``row_order[off:off+cnt]`` into the
-    rows with ``col[row] <= thr`` followed by the rest (LightGBM's
-    ``DataPartition::Split``; ``col`` is the split feature's bin column).
-    Returns the left count as a one-element tensor on the device (no host
-    sync)."""
+    rows that go left — ``col[row] <= thr``, or with a categorical split's
+    ``(W,)`` bin bitset ``bits`` (on the device), the rows whose bin is in
+    it — followed by the rest (LightGBM's ``DataPartition::Split``;
+    ``col`` is the split feature's bin column).  Returns the left count as
+    a one-element tensor on the device (no host sync)."""
     if cnt == 0:
         return torch.zeros(1, dtype=torch.int64, device=row_order.device)
     seg = row_order[off:off + cnt]
-    go_l = col[seg.to(torch.int64)] <= thr
+    c = col[seg.to(torch.int64)]
+    go_l = c <= thr if bits is None else bin_in_bitset(bits, c)
     csum_l = torch.cumsum(go_l, 0)
     n_l = csum_l[-1:]
     tgt = torch.where(go_l, csum_l - 1, n_l + torch.cumsum(~go_l, 0) - 1)
@@ -354,13 +529,14 @@ def _partition_left(row_order: torch.Tensor, col: torch.Tensor, thr: int,
 
 
 def partition(row_order: torch.Tensor, bins: torch.Tensor, feat: int,
-              thr: int, off: int, cnt: int) -> int:
+              thr: int, off: int, cnt: int,
+              bits: Optional[torch.Tensor] = None) -> int:
     """:func:`_partition_left` on ``bins[:, feat]``, returning the left
     count (one host sync)."""
     if cnt == 0:
         return 0
     return int(_fetch(_partition_left(row_order, bins[:, feat], thr, off,
-                                      cnt))[0])
+                                      cnt, bits))[0])
 
 
 def _fetch(t: torch.Tensor) -> np.ndarray:
@@ -426,7 +602,7 @@ def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
               cfg: GrowerConfig) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree on ``bins``' device.  ``bins``: ``(n, f)`` bin codes;
     ``gh``: ``(n, 3)`` masked (grad, hess, count); ``feat_info``: ``(f,
-    3)`` [mask, is_cat, n_value_bins] (only the mask is read).  Returns
+    3)`` [mask, is_cat, n_value_bins].  Returns
     the tree (host tensors) and the ``(n,)`` leaf of every row (on the
     device)."""
     tree, row_leaf, _ = grow_tree_sharded([bins], [gh], feat_info, cfg)
@@ -490,30 +666,48 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         return [sum_bins(h[..., 0, :, :]) for h in hists]
 
     def best_splits(hists, tots, depth):
-        """(gain, feature, bin) on ``dev`` for the (m, ...) children."""
+        """(gain, feature, bin, is_cat, bits) on ``dev`` for the (m, ...)
+        children."""
         ok = depth_ok(depth)
         if voting:
             return find_best_split_voting(hists, tots[0], fi, ok, cfg, mesh)
-        per = [_first_max(split_gains(h, t[..., 0], t[..., 1], t[..., 2],
-                                      fi[j], ok, cfg))
+        per = [_best_split(h, t[..., 0], t[..., 1], t[..., 2], fi[j], ok,
+                           cfg)
                for j, (h, t) in enumerate(zip(hists, tots))]
         if F == 1:
-            best, feat, b = per[0]
-        else:
-            # the first slice with the largest gain wins; its local
-            # feature index becomes global
-            best = torch.stack([p[0].to(dev) for p in per])
-            s = best.argmax(0, keepdim=True)
-            best = best.gather(0, s)[0]
-            feat = torch.stack([p[1].to(dev) + j * f_loc
-                                for j, p in enumerate(per)]).gather(0, s)[0]
-            b = torch.stack([p[2].to(dev) for p in per]).gather(0, s)[0]
-        return _gain_floor(best, cfg), feat, b
+            best, *rest = per[0]
+            return (_gain_floor(best, cfg), *rest)
+        # the first slice with the largest gain wins; its local feature
+        # index becomes global, and its bitset travels with it
+        stk = [torch.stack([p[i].to(dev) for p in per]) for i in range(5)]
+        stk[1] = stk[1] + torch.arange(F, device=dev).reshape(
+            (F,) + (1,) * (stk[1].dim() - 1)) * f_loc
+        s = stk[0].argmax(0)[None]
 
-    def fetch(tots, gain, feat, b):
-        return _fetch(torch.cat([t.to(dev).reshape(-1) for t in tots]
-                                + [gain.reshape(-1), feat.reshape(-1).float(),
-                                   b.reshape(-1).float()]))
+        def pick(x):
+            i = s.reshape(s.shape + (1,) * (x.dim() - s.dim()))
+            return x.gather(0, i.expand((1,) + x.shape[1:]))[0]
+
+        best, *rest = (pick(x) for x in stk)
+        return (_gain_floor(best, cfg), *rest)
+
+    W = cfg.cat_words
+
+    def fetch(tots, gain, feat, b, is_cat, bits):
+        """One host sync: the m children's totals and gains (float32
+        bits) with their features, bins, categorical flags and bitsets,
+        as one int64 tensor.  Returns ``(tots (V, m, 3), gain (m,), feat,
+        bin, is_cat (m,), bits (m, W))`` in numpy."""
+        fl = torch.cat([t.to(dev).reshape(-1) for t in tots]
+                       + [gain.reshape(-1)])
+        a = _fetch(torch.cat([fl.view(torch.int32).to(torch.int64)]
+                             + [x.reshape(-1).to(torch.int64)
+                                for x in (feat, b, is_cat, bits)]))
+        m = gain.numel()
+        fh = a[:fl.numel()].astype(np.int32).view(np.float32)
+        ints = a[fl.numel():]
+        return (fh[:-m].reshape(V, m, 3), fh[-m:], ints[:m],
+                ints[m:2 * m], ints[2 * m:3 * m], ints[3 * m:].reshape(m, W))
 
     hist0 = holders([compute_histogram(b, g, B, cfg.hist_method)
                      for b, g in zip(bins, gh)])
@@ -524,11 +718,14 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     for store, h in zip(leaf_hist, hist0):
         store[0] = h
     leaf_tot = np.zeros((V, L, 3), np.float32)
-    leaf_tot[:, 0] = res[:3 * V].reshape(V, 3)
     best_gain = np.full(L, -np.inf, np.float32)
     best_feat = np.zeros(L, np.int64)
     best_bin = np.zeros(L, np.int64)
-    best_gain[0], best_feat[0], best_bin[0] = res[3 * V:]
+    best_is_cat = np.zeros(L, np.int64)
+    best_bits = np.zeros((L, W), np.int64)
+    leaf_tot[:, 0] = res[0][:, 0]
+    (best_gain[0], best_feat[0], best_bin[0], best_is_cat[0],
+     best_bits[0]) = (r[0] for r in res[1:])
     # per-data-shard segment of every leaf
     leaf_start = np.zeros((Dd, L), np.int64)
     leaf_cnt = np.zeros((Dd, L), np.int64)
@@ -543,6 +740,8 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     node_right = np.zeros(m, np.int32)
     node_gain = np.zeros(m, np.float32)
     node_tot = np.zeros((m, 3), np.float32)
+    node_is_cat = np.zeros(m, np.int32)
+    node_bits = np.zeros((m, W), np.int64)
     # one row permutation per device; the devices of a data shard
     # partition theirs alike
     row_order = [torch.arange(int(n[k // F]), dtype=torch.int32, device=d)
@@ -556,15 +755,17 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         new = i + 1
         feat, thr = int(best_feat[l]), int(best_bin[l])
         off, cnt = leaf_start[:, l], leaf_cnt[:, l]
-        # the owner slice's split column partitions every device of its
-        # data shard
+        # the owner slice's split column (and a categorical split's
+        # bitset) partitions every device of its data shard
         owner, lidx = divmod(feat, f_loc)
+        bits = ({d: torch.as_tensor(best_bits[l], device=d)
+                 for d in set(devs)} if best_is_cat[l] else {})
         n_l = []
         for k in range(K):
             d = k // F
             col = bins[d * F + owner][:, lidx].to(devs[k])
             n_l.append(_partition_left(row_order[k], col, thr, int(off[d]),
-                                       int(cnt[d])))
+                                       int(cnt[d]), bits.get(devs[k])))
         cnt_l = _fetch(torch.cat([c.to(dev) for c in n_l[::F]])
                        ).astype(np.int64)
         cnt_r = cnt - cnt_l
@@ -597,11 +798,11 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         node_left[i], node_right[i] = ~l, ~new
         node_gain[i] = best_gain[l]
         node_tot[i] = leaf_tot[0, l]
-        pair = res[:6 * V].reshape(V, 2, 3)
-        leaf_tot[:, l], leaf_tot[:, new] = pair[:, 0], pair[:, 1]
-        best_gain[[l, new]] = res[6 * V:6 * V + 2]
-        best_feat[[l, new]] = res[6 * V + 2:6 * V + 4]
-        best_bin[[l, new]] = res[6 * V + 4:6 * V + 6]
+        node_is_cat[i], node_bits[i] = best_is_cat[l], best_bits[l]
+        leaf_tot[:, [l, new]] = res[0]
+        for arr, r in zip((best_gain, best_feat, best_bin, best_is_cat,
+                           best_bits), res[1:]):
+            arr[[l, new]] = r
         leaf_start[:, new] = off + cnt_l
         leaf_cnt[:, l], leaf_cnt[:, new] = cnt_l, cnt_r
         leaf_depth[[l, new]] = d_child
@@ -625,8 +826,8 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
                                _leaf_output(nt[:, 0], nt[:, 1], cfg), zero),
         node_weight=nt[:, 1].clone(),
         node_count=nt[:, 2].clone(),
-        node_is_cat=torch.zeros(m, dtype=torch.int32),
-        node_cat_bits=torch.zeros(m, cfg.cat_words, dtype=torch.int64),
+        node_is_cat=torch.from_numpy(node_is_cat),
+        node_cat_bits=torch.from_numpy(node_bits),
         leaf_value=values[0],
         leaf_weight=lt[:, 1].clone(),
         leaf_count=lt[:, 2].clone(),
@@ -688,11 +889,15 @@ def apply_shrinkage(tree: TreeArrays, learning_rate: float) -> TreeArrays:
 def predict_tree_binned(tree: TreeArrays, bins: torch.Tensor,
                         max_steps: int) -> torch.Tensor:
     """Leaf value of every row of ``bins`` through one tree, walked with
-    binned thresholds (``bin <= node_bin`` goes left)."""
+    binned thresholds (``bin <= node_bin`` goes left; at a categorical
+    node, a bin set in the node's bitset)."""
     dev = bins.device
     n = bins.shape[0]
     feat = tree.node_feat.to(dev, torch.int64)
     thr = tree.node_bin.to(dev)
+    is_cat = tree.node_is_cat.to(dev) > 0
+    cat_bits = tree.node_cat_bits.to(dev, torch.int64)
+    has_cat = bool(tree.node_is_cat.any())
     left = tree.node_left.to(dev, torch.int64)
     right = tree.node_right.to(dev, torch.int64)
     node = torch.full((n,), 0 if int(tree.num_leaves) > 1 else -1,
@@ -703,7 +908,12 @@ def predict_tree_binned(tree: TreeArrays, bins: torch.Tensor,
         if not bool(inner.any()):
             break
         safe = node.clamp(min=0)
-        go_left = bins[rows, feat[safe]].to(torch.int32) <= thr[safe]
+        val = bins[rows, feat[safe]].to(torch.int64)
+        go_left = val <= thr[safe]
+        if has_cat:
+            word = cat_bits[safe].gather(1, (val >> 5)[:, None])[:, 0]
+            go_left = torch.where(is_cat[safe], ((word >> (val & 31)) & 1)
+                                  .to(torch.bool), go_left)
         node = torch.where(inner, torch.where(go_left, left[safe],
                                               right[safe]), node)
     return tree.leaf_value.to(dev)[~node]

@@ -1,7 +1,8 @@
 """Training objectives: gradient/hessian functions.
 
-The port's counterpart of ``mmlspark_tpu/gbdt/objectives.py`` for the
-objectives of its first slice, ``binary`` and ``regression`` (l2).
+The port's counterpart of ``mmlspark_tpu/gbdt/objectives.py`` for
+``binary``, ``regression`` (l2), ``multiclass`` (softmax) and
+``multiclassova``.
 ``init_score`` is host numpy, identical to the reference's; ``grad_hess``
 is torch on the scores' device.  Semantics track LightGBM.
 """
@@ -32,13 +33,11 @@ def fma32(a: Tensor, b, c) -> Tensor:
     return (a.double() * b + c).float()
 
 
-def sigmoid(x: Tensor) -> Tensor:
-    """``1 / (1 + exp(-x))`` in float32, evaluated as the reference's XLA
-    CPU backend evaluates ``jax.nn.sigmoid``: its Cephes polynomial exp
-    with fused multiply-adds, and subnormal results flushed to zero.  The
-    binary objective's gradients then agree with the reference's bit for
-    bit, so both packages grow the same trees."""
-    v = torch.clamp(-x, *_EXP_CLAMP)
+def exp32(x: Tensor) -> Tensor:
+    """float32 ``exp(x)`` as XLA's CPU backend evaluates it: its Cephes
+    polynomial with fused multiply-adds, the argument clamped to
+    [-87.8, 88.8], and subnormal results flushed to zero."""
+    v = torch.clamp(x, *_EXP_CLAMP)
     n = torch.floor(fma32(v, _LOG2E, 0.5)).clamp(-127.0, 127.0)
     r = fma32(n, -_LN2_HI, v)
     r = fma32(n, -_LN2_LO, r)
@@ -47,8 +46,37 @@ def sigmoid(x: Tensor) -> Tensor:
         p = fma32(p, r, c)
     y = 1.0 + fma32(p, r * r, r)
     two_n = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
-    out = 1.0 / (y * two_n + 1.0)
-    return torch.where(out < _F32_TINY, 0.0, out)
+    return _flush(y * two_n)
+
+
+def _flush(x: Tensor) -> Tensor:
+    return torch.where(x.abs() < _F32_TINY, 0.0, x)
+
+
+def sigmoid(x: Tensor) -> Tensor:
+    """``1 / (1 + exp(-x))`` in float32, evaluated as the reference's XLA
+    CPU backend evaluates ``jax.nn.sigmoid`` (:func:`exp32`), subnormal
+    results flushed to zero.  The binary objective's gradients then agree
+    with the reference's bit for bit, so both packages grow the same
+    trees."""
+    return _flush(1.0 / (exp32(-x) + 1.0))
+
+
+def softmax(x: Tensor) -> Tensor:
+    """Softmax over the last axis in float32, in the order of
+    ``jax.nn.softmax`` on XLA's CPU backend: subtract the row's max,
+    :func:`exp32`, add the row in order, divide."""
+    e = exp32(x - x.amax(-1, keepdim=True))
+    return _flush(e / sum_last(e))
+
+
+def sum_last(x: Tensor) -> Tensor:
+    """Sum over the last axis, kept, added in index order (XLA's CPU order
+    for a row of at most 32)."""
+    tot = x[..., :1].clone()
+    for k in range(1, x.shape[-1]):
+        tot += x[..., k:k + 1]
+    return tot
 
 
 class Objective:
@@ -124,15 +152,71 @@ class RegressionL2(Objective):
         return (scores - labels) * weights, weights
 
 
-#: reference objective names whose port is still to come (ROADMAP.md,
-#: "Left out of the first slice")
+class MulticlassOvaObjective(Objective):
+    """One-vs-all multiclass (LightGBM ``multiclassova``): K independent
+    sigmoid classifiers, one tree per class per iteration."""
+
+    name = "multiclassova"
+
+    def __init__(self, num_class: int, sigmoid_coef: float = 1.0):
+        if num_class < 2:
+            raise ValueError("multiclassova requires num_class >= 2")
+        self.num_class = int(num_class)
+        self.num_model_per_iteration = self.num_class
+        self.sigma = float(sigmoid_coef)
+        self.model_str = (f"multiclassova num_class:{self.num_class} "
+                          f"sigmoid:{self.sigma:g}")
+
+    def grad_hess(self, scores, labels, weights):
+        """scores ``(n, K)``, labels ``(n,)`` class ids → ``(n, K)``."""
+        y = _one_hot(labels, self.num_class, scores.dtype)
+        p = sigmoid(self.sigma * scores)
+        w = weights[:, None]
+        g = self.sigma * (p - y) * w
+        h = self.sigma * self.sigma * p * (1.0 - p) * w
+        return g, h
+
+
+class MulticlassObjective(Objective):
+    """Softmax over K per-class score columns (LightGBM ``multiclass``);
+    K trees per iteration."""
+
+    name = "multiclass"
+
+    def __init__(self, num_class: int):
+        if num_class < 2:
+            raise ValueError("multiclass requires num_class >= 2")
+        self.num_class = int(num_class)
+        self.num_model_per_iteration = self.num_class
+        self.model_str = f"multiclass num_class:{self.num_class}"
+        self.factor = self.num_class / (self.num_class - 1.0)
+
+    def grad_hess(self, scores, labels, weights):
+        """scores ``(n, K)``, labels ``(n,)`` class ids → ``(n, K)``."""
+        p = softmax(scores)
+        y = _one_hot(labels, self.num_class, p.dtype)
+        w = weights[:, None]
+        g = (p - y) * w
+        h = self.factor * p * (1.0 - p) * w
+        return g, h
+
+
+def _one_hot(labels: Tensor, num_class: int, dtype) -> Tensor:
+    """``jax.nn.one_hot`` of the labels truncated to int32: an id outside
+    ``[0, num_class)`` gives a row of zeros."""
+    ids = labels.to(torch.int32).to(torch.int64)
+    return (ids[:, None] == torch.arange(num_class, device=labels.device)
+            ).to(dtype)
+
+
+#: reference objective names whose port is still to come (ROADMAP.md
+#: Queue A item 7)
 _NOT_PORTED = ("regression_l1", "l1", "mae", "huber", "fair", "poisson",
                "quantile", "mape", "gamma", "tweedie", "cross_entropy",
-               "xentropy", "multiclass", "softmax", "multiclassova", "ova",
-               "lambdarank")
+               "xentropy", "lambdarank")
 
 
-def get_objective(name: str, **kwargs) -> Objective:
+def get_objective(name: str, num_class: int = 1, **kwargs) -> Objective:
     name = name.lower()
     if name == "binary":
         return BinaryObjective(
@@ -142,8 +226,14 @@ def get_objective(name: str, **kwargs) -> Objective:
     if name in ("regression", "regression_l2", "l2", "mean_squared_error",
                 "mse"):
         return RegressionL2()
+    if name in ("multiclass", "softmax"):
+        return MulticlassObjective(num_class)
+    if name in ("multiclassova", "ova"):
+        return MulticlassOvaObjective(
+            num_class, sigmoid_coef=kwargs.get("sigmoid", 1.0))
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"objective {name!r} is not ported to mmlspark_tpu_torch yet "
-            "(ROADMAP.md Queue A item 3); binary and regression are")
+            "(ROADMAP.md Queue A item 7); binary, regression, multiclass "
+            "and multiclassova are")
     raise ValueError(f"Unknown objective {name!r}")

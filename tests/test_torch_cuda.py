@@ -802,3 +802,89 @@ def test_mesh_fit_on_the_card_grows_the_cpu_mesh_tree(cuda_device, method):
         assert (ring, fused) == (len(trees[0]) + splits, 0)
     else:
         assert (ring, fused) == (len(trees[0]), splits)
+
+
+@pytest.mark.cuda
+def test_bitset_partition_on_the_card_equals_the_cpu(cuda_device):
+    """A categorical split's partition (bins in the node's bitset go
+    left) on the card: the same stable order and left count as on the
+    CPU."""
+    from mmlspark_tpu_torch.gbdt import grower
+    rng = np.random.default_rng(3)
+    n, B = 50_000, 256
+    col = torch.from_numpy(rng.integers(0, B, size=n).astype(np.uint8))
+    order = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    bits = grower.pack_bin_mask(torch.from_numpy(rng.random(B) < 0.3), 8)
+    got = order.to(cuda_device)
+    n_card = grower._partition_left(got, col.to(cuda_device), 0, 777,
+                                    40_000, bits.to(cuda_device))
+    want = order.clone()
+    n_cpu = grower._partition_left(want, col, 0, 777, 40_000, bits)
+    assert int(n_card) == int(n_cpu) > 0
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def _same_trees(a, b, count):
+    for ta, tb in zip(a[:count], b[:count]):
+        for k in ("split_feature", "threshold", "decision_type",
+                  "left_child", "right_child", "cat_boundaries",
+                  "cat_threshold"):
+            np.testing.assert_array_equal(getattr(ta, k), getattr(tb, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_d", [1, 4])
+def test_categorical_fit_on_the_card_grows_the_cpu_tree(cuda_device,
+                                                        mesh_d):
+    """Two categorical columns (24 and 300 categories, the second beyond
+    maxBin − 1 = 63) beside numeric ones, serially and on D = 4 virtual
+    shards with the ring: the card's first tree is the CPU's, with its
+    categorical splits."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    rng = np.random.default_rng(4)
+    n = 6000
+    X = rng.normal(size=(n, 5)).astype(np.float32)
+    X[:, 0] = rng.integers(0, 24, size=n)
+    X[:, 3] = rng.integers(0, 300, size=n)
+    y = (np.isin(X[:, 0], [1, 4, 8, 13, 21]) + 0.5 * X[:, 1]
+         + (X[:, 3] % 7 == 0) + rng.normal(size=n) * 0.3 > 0.6)
+    table = {"features": X, "label": y.astype(np.float64)}
+    trees = []
+    for dev in (cuda_device, "cpu"):
+        est = LightGBMClassifier(numIterations=3, numLeaves=15, maxBin=63,
+                                 categoricalSlotIndexes=[0, 3],
+                                 collective="ring",
+                                 device=str(torch.device(dev).type))
+        if mesh_d > 1:
+            est.setMesh(build_mesh(devices=[dev] * mesh_d))
+        trees.append(est.fit(table).getModel().trees)
+    assert trees[0][0].num_cat >= 1
+    _same_trees(trees[0], trees[1], 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["multiclass", "multiclassova"])
+def test_multiclass_fit_on_the_card_grows_the_cpu_trees(cuda_device,
+                                                        objective):
+    """Three classes: the card's first iteration (K trees, one root
+    histogram each) is the CPU's, and so are its probabilities."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(6000, 6)).astype(np.float32)
+    s = np.stack([X[:, 0], X[:, 1] - X[:, 2], 0.5 * X[:, 3]], 1)
+    y = (s + rng.normal(size=s.shape) * 0.5).argmax(1).astype(np.float64)
+    table = {"features": X, "label": y}
+    models = []
+    before = ch.histogram_cuda.launches
+    for dev in (cuda_device, "cpu"):
+        models.append(LightGBMClassifier(
+            numIterations=3, numLeaves=15, objective=objective,
+            device=str(torch.device(dev).type)).fit(table))
+    trees = [m.getModel().trees for m in models]
+    assert len(trees[0]) == len(trees[1]) == 9
+    assert ch.histogram_cuda.launches - before == 9
+    _same_trees(trees[0], trees[1], 3)
+    probs = [m.getModel().predict(X, num_iteration=1, device=dev).cpu()
+             for m, dev in zip(models, (cuda_device, "cpu"))]
+    np.testing.assert_allclose(probs[0].numpy(), probs[1].numpy(),
+                               rtol=1e-4, atol=1e-4)

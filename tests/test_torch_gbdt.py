@@ -128,7 +128,7 @@ def test_estimators_default_to_cuda():
 
 ASKS = [
     dict(boostingType="goss"), dict(boostingType="dart"),
-    dict(earlyStoppingRound=5), dict(categoricalSlotIndexes=[1]),
+    dict(earlyStoppingRound=5), dict(objective="poisson"),
     dict(quantizedGrad="16"), dict(enableBundle=True),
     dict(initModelPath="model.txt"), dict(checkpointDir="ckpt"),
     dict(validationIndicatorCol="val"), dict(objective="huber"),
@@ -146,10 +146,17 @@ def test_unported_features_refuse(ask):
 
 
 def test_multiclass_labels_refuse():
+    """3-class labels no longer refuse: they fit as multiclass, with one
+    tree per class per iteration, as the reference's auto-promotion
+    does."""
     X = np.random.default_rng(0).normal(size=(90, 2))
-    with pytest.raises(NotImplementedError, match="multiclass"):
-        LightGBMClassifier(device="cpu").fit(
-            {"features": X, "label": np.arange(90) % 3})
+    model = LightGBMClassifier(device="cpu", numIterations=2,
+                               minDataInLeaf=5).fit(
+        {"features": X, "label": np.arange(90) % 3})
+    booster = model.getModel()
+    assert booster.num_class == 3 and len(booster.trees) == 6
+    assert booster.objective_str == "multiclass num_class:3"
+    assert model.transform({"features": X})["probability"].shape == (90, 3)
 
 
 def _port_sources():

@@ -54,9 +54,8 @@ def test_find_best_split_winner_identity(B, which):
         fi[:, 0] = (rng.random(f) < 0.8) if trial % 5 == 4 else 1.0
         tot = port.sum_bins(h[0])
         depth_ok = trial % 11 != 10
-        pg, pf, pb = port.find_best_split(h, tot[0], tot[1], tot[2],
-                                          torch.from_numpy(fi), depth_ok,
-                                          pcfg)
+        pg, pf, pb, _, _ = port.find_best_split(
+            h, tot[0], tot[1], tot[2], torch.from_numpy(fi), depth_ok, pcfg)
         rg, rf, rb, _, _ = _ref_split(jnp.asarray(h.numpy()), tot[0].item(),
                                       tot[1].item(), tot[2].item(),
                                       jnp.asarray(fi), depth_ok, cfg=rcfg)

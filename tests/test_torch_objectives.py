@@ -68,7 +68,7 @@ def test_sigmoid_matches_xla_bit_for_bit():
                                   np.asarray(jax.jit(jax.nn.sigmoid)(x)))
 
 
-@pytest.mark.parametrize("name", ["huber", "multiclass", "lambdarank"])
+@pytest.mark.parametrize("name", ["huber", "quantile", "lambdarank"])
 def test_unported_objectives_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_objective(name)

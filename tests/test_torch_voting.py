@@ -198,7 +198,7 @@ def test_voting_pair_equals_reference_on_a_mesh(d, collective):
              for a, b in zip(hl, hr)]
     tot = torch.from_numpy(np.stack([tl, tr]))
     fis = [torch.from_numpy(fi)] * d
-    g, feat, b = port.find_best_split_voting(
+    g, feat, b, _, _ = port.find_best_split_voting(
         hists, tot, fis, True, pcfg, build_mesh(devices=["cpu"] * d))
     np.testing.assert_array_equal(g.numpy(), np.asarray(gains)[0])
     np.testing.assert_array_equal(torch.cat([feat, b]).numpy(),
