@@ -111,12 +111,49 @@ Phases, each printing one JSON line:
    10-iteration data-ring fit on four virtual shards; a 20,000-row,
    5-iteration card-vs-CPU check: the first K trees identical and the
    probabilities allclose 1e-4 over the matching iterations.
-12. collectives_cross_card — phase 7's checks with one shard per card,
+12. validation_path — the flagship with 20% of its rows flagged by
+   ``validationIndicatorCol`` (numpy ``default_rng(3)``),
+   ``earlyStoppingRound`` 10 at learning rate 0.5 (300 iterations asked):
+   a warm-up and a timed serial fit (the stop fires early, the model text
+   records ``best_iter + 1`` iterations and the forest holds as many
+   trees, one model text), the device time of one validation walk, a D =
+   4 data-ring fit under the same rule, and a 20,000-row, 10-iteration
+   card-vs-CPU check (``earlyStoppingRound`` 3): the same stop iteration,
+   validation metrics within 1e-5 relative.
+13. goss_path — the flagship under ``boostingType="goss"`` (``topRate``
+   0.2, ``otherRate`` 0.1, 50 iterations): a warm-up and a timed serial
+   fit (``hist_full`` 50 times on the 120,000 sampled rows, train AUC ≥
+   0.955, one model text), the device time of one iteration's sampling, a
+   20-iteration D = 4 data-ring fit (20,000 + 10,000 rows a shard), and a
+   20,000-row, 5-iteration card-vs-CPU check: the first tree identical and
+   iteration 0's sampled rows equal (``torch.equal``).
+14. quantized_path — ``quantizedGrad`` "16" (max_code 5,368) and "8"
+   (127) on the flagship, a warm-up and a timed serial fit each (the
+   int32 ``hist_full`` once a tree and ``hist_segment`` once a split, AUC
+   within 0.005 of the same call's f32 fit, one model text); the
+   flagship on D = 4 with the ring, which the reference's gate turns to
+   psum (``quantized_unsupported``); the reference's quantized
+   configuration (``artifacts/bench_quant_r17.json``: max_code 3, int16
+   wire) on the wide data (8,192 × 2,000, 4 iterations, 31 leaves,
+   ``maxDepth`` 30) under the data ring, data ``pallas_ring`` (the int32
+   ``fused_hist_ring``, fitted twice: one model text), voting (``topK``
+   32) and feature 1 × 4, each with its ``quantized_*`` fit info and
+   payload over the dense f32 payload; and a 20,000-row, 5-iteration
+   card-vs-CPU check: the first tree identical where the g-max bits agree
+   (both printed), AUCs within 0.002 where they do not.
+15. collectives_cross_card — phase 7's checks with one shard per card,
    D = min(cards, 4), where the host has at least two cards; elsewhere it
    prints ``"ran": false`` (not a failure).
 
-Then the ``{"kernels": [...]}`` line, the card line, and last the
-``{"ok": true, ...}`` line.  Any failed phase makes the script exit 1
+The kernels phase also runs ``hist_full`` f32 at GOSS's 120,000 sampled
+rows and the int32 ``hist_full`` and ``hist_segment`` on the quantized
+flagship's codes; the collectives phase the int32 ``fused_hist_ring`` at
+2,048 rows a shard × 2,000 features (codes of the reference
+configuration's grid).
+
+Then the ``{"kernels": [...]}`` line (a row per kernel, launches from the
+main path, plus a row per int32 mode, launches from ``quantized_path``),
+the card line, and last the ``{"ok": true, ...}`` line.  Any failed phase makes the script exit 1
 without that last line.
 
     python3 chip_smoke.py --phases kernels,main_path
@@ -196,6 +233,17 @@ CAT_CARDINALITIES = (2, 3, 4, 12, 24, 64, 200, 254, 1000, 10_000)
 CAT_MESH_ITERATIONS = 20
 #: the multiclass configuration: classes and iterations (mesh fit: 10)
 NUM_CLASSES, MULTICLASS_ITERATIONS = 5, 20
+#: the validation configuration: the flagship with this fraction of its
+#: rows flagged (numpy default_rng(VAL_SEED)), a learning rate at which
+#: the validation logloss turns within the iterations asked, and the
+#: early-stopping round
+VAL_FRACTION, VAL_SEED = 0.2, 3
+VAL_ITERATIONS, VAL_LR, VAL_ESR = 300, 0.5, 10
+#: GOSS on the flagship: rates, iterations (D = 4 fit: 20)
+GOSS_TOP_RATE, GOSS_OTHER_RATE = 0.2, 0.1
+GOSS_ITERATIONS, GOSS_MESH_ITERATIONS = 50, 20
+#: quantized flagship iterations
+QUANT_ITERATIONS = 50
 #: the card the kernels and the main path run on
 DEV = "cuda"
 
@@ -442,6 +490,29 @@ def kernel_inputs(n=None, f=None, rows=None):
     return bins, mapper.num_total_bins, gh, gh_int
 
 
+def max_code(bits, n, data_shards=1):
+    """The quantized grid's largest |code| for n rows (the engine's
+    ``_resolve_quantized``): 2^(bits-1) - 1 clamped to int32 headroom,
+    and on a data mesh to the int16 wire: at the flagship's 400,000 rows
+    5,368 (16 bits) and 127 (8); at the wide 8,192 rows on four shards
+    3."""
+    mc = min((1 << (bits - 1)) - 1, (2 ** 31 - 1) // n)
+    if data_shards > 1 and n * mc > 32767 and 32767 // n >= 3:
+        mc = 32767 // n
+    return mc
+
+
+def quant_inputs(inputs, max_code):
+    """Kernel inputs with the int32 codes a quantized fit's first tree
+    histograms: the gradient triples on the port's 16-bit grid clamped to
+    ``max_code`` (:func:`mmlspark_tpu_torch.gbdt.grower.quantize_gh`)."""
+    from mmlspark_tpu_torch.gbdt.grower import GrowerConfig, quantize_gh
+    bins, B, gh, _ = inputs
+    codes, _ = quantize_gh([gh], GrowerConfig(
+        quantized_bits=16, quantized_seed=42, quantized_max_code=max_code))
+    return bins, B, gh, codes[0]
+
+
 def compare(kern, plain, gh_abs_hist, accum):
     import torch
     if accum == "int32":
@@ -560,6 +631,15 @@ def phase_kernels(state):
         for cnt in SEGMENT_COUNTS:
             rows.append(_segment_row(inputs, row_order, cnt, accum))
         rows.append(_segment_row(wide, wide_order, WIDE_SEGMENT, accum))
+    # the new paths' shapes: GOSS's 120,000 sampled rows (f32), and the
+    # quantized flagship's codes (|code| <= 5,368) in the int32 mode
+    goss = _cut(inputs, int(N_ROWS * (GOSS_TOP_RATE + GOSS_OTHER_RATE)), f)
+    rows.append({**_full_row(goss, "float32"), "path": "goss_path"})
+    quant = quant_inputs(inputs, max_code(16, N_ROWS))
+    rows.append({**_full_row(quant, "int32"), "path": "quantized_path"})
+    for cnt in (MEDIAN_SEGMENT, max(SEGMENT_COUNTS)):
+        rows.append({**_segment_row(quant, row_order, cnt, "int32"),
+                     "path": "quantized_path"})
     # the other design: hist_segment's block step over every row in order
     every = torch.arange(n, dtype=torch.int32, device=DEV)
     rows.append({**_segment_row(inputs, every, n, "float32"),
@@ -583,8 +663,9 @@ def phase_kernels(state):
 
 def _classifier(**kw):
     from mmlspark_tpu_torch import LightGBMClassifier
-    return LightGBMClassifier(learningRate=0.1, numLeaves=31, maxBin=255,
-                              minDataInLeaf=20, verbosity=0, **kw)
+    return LightGBMClassifier(**{**dict(learningRate=0.1, numLeaves=31,
+                                        maxBin=255, minDataInLeaf=20,
+                                        verbosity=0), **kw})
 
 
 def phase_main_path(state):
@@ -603,6 +684,7 @@ def phase_main_path(state):
     splits = sum(t.num_leaves - 1 for t in trees)
     train_auc = auc(y, prob)
     state["launches"] = launches
+    state["main_auc"] = train_auc
     same = same_model_text(warm, model)
     res = {"rows": N_ROWS, "features": N_FEATURES, "iterations": 50,
            "fit_s": fit_s, "transform_s": transform_s,
@@ -869,9 +951,10 @@ def _select_rows(devices, tag, shapes=SELECT_SHAPES, route=None):
     return rows
 
 
-def _fused_rows(devices, tag, inputs):
+def _fused_rows(devices, tag, inputs, accums=("float32", "int32")):
     """fused_segment_hist_ring against its twin on the flagship matrix cut
-    into len(devices) shards (shard d holds rows [d·S, (d+1)·S))."""
+    into len(devices) shards (shard d holds rows [d·S, (d+1)·S)), in the
+    ``accums`` modes."""
     import torch
     from mmlspark_tpu_torch.core.mesh import build_mesh
     from mmlspark_tpu_torch.ops import collectives as co
@@ -888,7 +971,7 @@ def _fused_rows(devices, tag, inputs):
               torch.randperm(S, generator=g).to(torch.int32).to(dev), d)
              for d, dev in enumerate(mesh.devices)]
     rows = []
-    for accum in ("float32", "int32"):
+    for accum in accums:
         ghm = gh_int if accum == "int32" else gh
         ghv = ch._gh_values(ghm, accum)
         for cnt in SHARD_SEGMENT_COUNTS:
@@ -966,6 +1049,12 @@ def phase_collectives(state):
         ring_kernels += _ring_rows(mesh, "virtual", RING_SHAPES[:1], "ring")
         ring_kernels += _select_rows(mesh, "virtual", SELECT_SHAPES[:1],
                                      "ring")
+    # the quantized reference configuration's fused kernel: int32 codes
+    # (|code| <= 3) on the wide data, 2,048 rows a shard at D = 4
+    wide = quant_inputs(kernel_inputs(WIDE_ROWS, WIDE_FEATURES),
+                        max_code(16, WIDE_ROWS, MESH_SHARDS))
+    rows += [{**r, "path": "quantized_path"} for r in _fused_rows(
+        [dev] * MESH_SHARDS, "virtual", wide, ("int32",))]
     state["ring_rows"] = rows
     rows = rows + ring_kernels
     _check_rows(rows)
@@ -1478,6 +1567,464 @@ def _multiclass_card_vs_cpu():
     return res
 
 
+def _recorder(fn):
+    """Wrap the function ``fn = (module, name)`` in its module so that its
+    calls are kept in ``wrapper.calls`` as ``(args, kwargs, result)``;
+    returns ``(wrapper, restore)``."""
+    mod, name = fn
+    orig = getattr(mod, name)
+
+    def wrapper(*args, **kw):
+        out = orig(*args, **kw)
+        wrapper.calls.append((args, kw, out))
+        return out
+
+    wrapper.calls = []
+    setattr(mod, name, wrapper)
+    return wrapper, lambda: setattr(mod, name, orig)
+
+
+def _hist_full_calls(rec):
+    """The rows and gh dtype of each ``hist_full`` call a recorder of
+    ``ops.histogram.histogram_cuda`` kept."""
+    return [(int(args[0].shape[0]), str(args[1].dtype).split(".")[-1])
+            for args, _, _ in rec.calls]
+
+
+def _stop(model):
+    return int(model.getModel().params["num_iterations"])
+
+
+def phase_validation_path(state):
+    """The flagship with ``VAL_FRACTION`` of its rows flagged for
+    validation (numpy ``default_rng(VAL_SEED)``) and
+    ``earlyStoppingRound`` ``VAL_ESR``: a warm-up and a timed serial fit
+    (the stop must fire before ``VAL_ITERATIONS``, the model text records
+    ``best_iter + 1`` iterations and the forest holds as many trees, the
+    two fits write one model text), the device time of one validation
+    walk, then a D = 4 data-ring fit on four virtual shards of the card
+    under the same rule, and a 20,000-row card-vs-CPU check."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import build_mesh
+    from mmlspark_tpu_torch.gbdt import engine
+    from mmlspark_tpu_torch.gbdt.grower import predict_tree_binned
+    counters = _counters()
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    val = np.random.default_rng(VAL_SEED).random(N_ROWS) < VAL_FRACTION
+    table = {"features": X, "label": y, "val": val}
+    kw = dict(numIterations=VAL_ITERATIONS, learningRate=VAL_LR,
+              validationIndicatorCol="val", earlyStoppingRound=VAL_ESR)
+    est = _classifier(device=DEV, parallelism="serial", **kw)
+    walks, restore = _recorder((engine, "predict_tree_binned"))
+    try:
+        warm, model, fit_s, launches, host_s, syncs = _timed_fit(
+            est, table, counters)
+    finally:
+        restore()
+    info = dict(engine.last_validation)
+    trees = model.getModel().trees
+    # one validation walk (the last tree over the validation bins), timed
+    # on the device
+    args = walks.calls[-1][0]
+    walk_ms = median_ms(lambda: predict_tree_binned(*args))
+    prob = model.transform({"features": X[val]})["probability"][:, 1]
+    res = {"rows": N_ROWS, "validation_rows": int(val.sum()),
+           "iterations_asked": VAL_ITERATIONS, "learning_rate": VAL_LR,
+           "early_stopping_round": VAL_ESR, "fit_s": fit_s,
+           "host_s": host_s, "host_syncs": syncs,
+           "stop_iteration": _stop(model),
+           "best_iteration": info["best_iteration"],
+           "best_validation_logloss": info["best_metric"],
+           "iterations_run": len(info["metrics"]),
+           "non_finite_metrics": int(sum(not np.isfinite(v)
+                                         for v in info["metrics"])),
+           "validation_host_s_per_iteration":
+               info["seconds"] / len(info["metrics"]),
+           "validation_walk_ms_per_tree": walk_ms, "trees": len(trees),
+           "launches": launches, "validation_auc": auc(y[val], prob),
+           "same_model_text": same_model_text(warm, model)}
+    if not res["stop_iteration"] < VAL_ITERATIONS:
+        raise AssertionError(f"the fit did not stop early: {res}")
+    if res["stop_iteration"] != info["best_iteration"] + 1 or \
+            len(trees) != res["stop_iteration"]:
+        raise AssertionError(f"the forest is not cut at best_iter + 1: "
+                             f"{res}")
+    if launches["hist_full"] != res["iterations_run"]:
+        raise AssertionError(f"hist_full did not run once an iteration: "
+                             f"{res}")
+    if not res["same_model_text"]:
+        raise AssertionError(f"the warm-up and timed fits wrote different "
+                             f"model text: {res}")
+    mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
+    m, mesh_s, counts = _counted_fit(
+        _classifier(device=DEV, collective="ring", **kw).setMesh(mesh),
+        table, counters)
+    minfo = dict(engine.last_validation)
+    res["mesh_data_ring"] = {
+        "fit_s": mesh_s, "stop_iteration": _stop(m),
+        "best_iteration": minfo["best_iteration"],
+        "best_validation_logloss": minfo["best_metric"],
+        "serial_stop_iteration": res["stop_iteration"], "launches": counts}
+    if not (_stop(m) < VAL_ITERATIONS
+            and _stop(m) == minfo["best_iteration"] + 1):
+        raise AssertionError(f"D = {MESH_SHARDS}: the stop rule did not "
+                             f"hold: {res['mesh_data_ring']}")
+    if counts["ring_allreduce"] == 0:
+        raise AssertionError("D = 4: the ring did not run")
+    res["card_vs_cpu"] = _validation_card_vs_cpu()
+    torch.cuda.synchronize()
+    return res
+
+
+def _validation_card_vs_cpu():
+    """20,000 rows, 10 iterations, ``earlyStoppingRound`` 3, on the card
+    and on the CPU, in f32 and with ``quantizedGrad`` "16": the same stop
+    iteration, and the validation metrics within 1e-5 relative over the
+    iterations whose trees agree on both sides.  The quantized fits sum
+    integer codes, exactly on both sides, so every tree and every metric
+    must agree; the f32 fits add each histogram cell in another order on
+    the card, and a near-tie may part a later tree (reported as
+    ``matching_iterations``)."""
+    import numpy as np
+    from mmlspark_tpu_torch.gbdt import engine
+    X, y = bench_data(20_000, N_FEATURES)
+    val = np.random.default_rng(VAL_SEED).random(20_000) < VAL_FRACTION
+    table = {"features": X, "label": y, "val": val}
+    res = {}
+    for name, extra in (("float32", {}),
+                        ("quantized_16", {"quantizedGrad": "16"})):
+        out = {}
+        for dev in (DEV, "cpu"):
+            m = _classifier(numIterations=10, learningRate=VAL_LR,
+                            device=dev, validationIndicatorCol="val",
+                            earlyStoppingRound=3, **extra).fit(table)
+            out[dev] = (_stop(m), list(engine.last_validation["metrics"]),
+                        m.getModel().trees)
+        (sa, ma, ta), (sb, mb, tb) = out[DEV], out["cpu"]
+        k = 0
+        while k < min(len(ta), len(tb)) and _same_tree(ta[k], tb[k]):
+            k += 1
+        n = min(len(ma), len(mb))
+        rel = np.abs(np.subtract(ma[:n], mb[:n])) / np.abs(mb[:n])
+        row = res[name] = {
+            "stop_iteration": [sa, sb], "matching_iterations": k,
+            "metrics_card": ma, "metrics_cpu": mb,
+            "metric_max_rel_diff_matching": float(rel[:k].max())
+            if k else None,
+            "metric_max_rel_diff": float(rel.max())}
+        held = k if name == "float32" else n
+        if sa != sb or k < 1 or (name != "float32" and k < min(
+                len(ta), len(tb))) or float(rel[:held].max()) > 1e-5:
+            raise AssertionError(f"{name}: the card's validation differs "
+                                 f"from the cpu's: {row}")
+    return res
+
+
+def phase_goss_path(state):
+    """The flagship under ``boostingType="goss"`` (``topRate`` 0.2,
+    ``otherRate`` 0.1, ``GOSS_ITERATIONS`` iterations): a warm-up and a
+    timed serial fit (``hist_full`` once an iteration on the 120,000
+    sampled rows, train AUC ≥ 0.955, one model text), the device time of
+    one iteration's sampling (the influence sort, the threefry draw and
+    its sort, the gathers); then a ``GOSS_MESH_ITERATIONS``-iteration
+    D = 4 data-ring fit on four virtual shards (20,000 + 10,000 rows a
+    shard), and a 20,000-row card-vs-CPU check."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import build_mesh
+    from mmlspark_tpu_torch.gbdt import fit_bin_mapper, get_objective
+    from mmlspark_tpu_torch.gbdt.distributed import goss_sample
+    from mmlspark_tpu_torch.ops import histogram
+    from mmlspark_tpu_torch.ops.threefry import prng_key, split
+    counters = _counters()
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    table = {"features": X, "label": y}
+    kw = dict(boostingType="goss", topRate=GOSS_TOP_RATE,
+              otherRate=GOSS_OTHER_RATE)
+    k1, k2 = int(np.ceil(N_ROWS * GOSS_TOP_RATE)), \
+        int(np.ceil(N_ROWS * GOSS_OTHER_RATE))
+    est = _classifier(numIterations=GOSS_ITERATIONS, device=DEV,
+                      parallelism="serial", **kw)
+    rec, restore = _recorder((histogram, "histogram_cuda"))
+    try:
+        warm, model, fit_s, launches, host_s, syncs = _timed_fit(
+            est, table, counters)
+    finally:
+        restore()
+    calls = _hist_full_calls(rec)
+    timed_rows = sorted({r for r, _ in calls[len(calls) // 2:]})
+    state["goss_launches"] = launches["hist_full"]
+    prob = model.transform(table)["probability"][:, 1]
+    trees = model.getModel().trees
+    # one iteration's sample at the flagship, from the init gradients
+    obj = get_objective("binary")
+    w = np.ones(N_ROWS)
+    obj.prepare(y, w)
+    scores = torch.full((N_ROWS,), obj.init_score(y, w), device=DEV)
+    yt = torch.as_tensor(y, dtype=torch.float32, device=DEV)
+    g, h = obj.grad_hess(scores, yt, torch.ones_like(yt))
+    key = split(prng_key(3, DEV), GOSS_ITERATIONS)[0]
+    bins = fit_bin_mapper(X, max_bin=255).transform(X, DEV)
+
+    amp = (1.0 - GOSS_TOP_RATE) / GOSS_OTHER_RATE
+
+    def sample():
+        idx, wts = goss_sample(g, h, key, k1, k2, amp)
+        return bins[idx], g[idx] * wts, h[idx] * wts
+
+    res = {"rows": N_ROWS, "iterations": GOSS_ITERATIONS,
+           "top_rate": GOSS_TOP_RATE, "other_rate": GOSS_OTHER_RATE,
+           "sampled_rows": k1 + k2, "fit_s": fit_s, "host_s": host_s,
+           "host_syncs": syncs, "trees": len(trees),
+           "splits": sum(t.num_leaves - 1 for t in trees),
+           "launches": launches, "hist_full_rows": timed_rows,
+           "sampling_ms_per_iteration": median_ms(sample),
+           "train_auc": auc(y, prob),
+           "same_model_text": same_model_text(warm, model)}
+    if launches["hist_full"] != GOSS_ITERATIONS or timed_rows != [k1 + k2]:
+        raise AssertionError(f"hist_full did not run once an iteration on "
+                             f"{k1 + k2} rows: {res}")
+    if not res["train_auc"] >= 0.955:
+        raise AssertionError(f"train AUC {res['train_auc']} < 0.955: {res}")
+    if not res["same_model_text"]:
+        raise AssertionError(f"the warm-up and timed fits wrote different "
+                             f"model text: {res}")
+    mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
+    rec, restore = _recorder((histogram, "histogram_cuda"))
+    try:
+        m, mesh_s, counts = _counted_fit(
+            _classifier(numIterations=GOSS_MESH_ITERATIONS, device=DEV,
+                        collective="ring", **kw).setMesh(mesh),
+            table, counters)
+    finally:
+        restore()
+    calls = _hist_full_calls(rec)
+    mt = m.getModel().trees
+    S = N_ROWS // MESH_SHARDS
+    res["mesh_data_ring"] = {
+        "iterations": GOSS_MESH_ITERATIONS, "fit_s": mesh_s,
+        "launches": counts, "trees": len(mt),
+        "splits": sum(t.num_leaves - 1 for t in mt),
+        "hist_full_rows": sorted({r for r, _ in calls}),
+        "train_auc": auc(y, m.transform(table)["probability"][:, 1])}
+    mf = res["mesh_data_ring"]
+    want_rows = int(np.ceil(S * GOSS_TOP_RATE) + np.ceil(S * GOSS_OTHER_RATE))
+    if counts["ring_allreduce"] != mf["trees"] + mf["splits"] or \
+            counts["hist_full"] != MESH_SHARDS * mf["trees"] or \
+            mf["hist_full_rows"] != [want_rows]:
+        raise AssertionError(f"D = {MESH_SHARDS} GOSS: launches do not "
+                             f"match: {mf}")
+    res["card_vs_cpu"] = _goss_card_vs_cpu()
+    return res
+
+
+def _goss_card_vs_cpu():
+    """20,000 × 50, 5 GOSS iterations on the card and on the CPU: the
+    first tree identical, and iteration 0's sampled rows equal
+    (``torch.equal``)."""
+    from mmlspark_tpu_torch.gbdt import distributed
+    X, y = bench_data(20_000, N_FEATURES)
+    table = {"features": X, "label": y}
+    res, samples, models = {}, {}, {}
+    for dev in (DEV, "cpu"):
+        rec, restore = _recorder((distributed, "goss_sample"))
+        try:
+            models[dev] = _classifier(
+                numIterations=5, device=dev, boostingType="goss",
+                topRate=GOSS_TOP_RATE, otherRate=GOSS_OTHER_RATE).fit(table)
+        finally:
+            restore()
+        samples[dev] = rec.calls[0][2][0].cpu()
+    a, b = (models[d].getModel().trees[0] for d in (DEV, "cpu"))
+    aucs = {d: auc(y, m.transform(table)["probability"][:, 1])
+            for d, m in models.items()}
+    res = {"first_tree_equal": _same_tree(a, b),
+           "iteration0_sample_equal": samples[DEV].shape ==
+           samples["cpu"].shape and bool((samples[DEV]
+                                          == samples["cpu"]).all()),
+           "sampled_rows": int(samples[DEV].numel()), "auc": aucs}
+    if not res["first_tree_equal"] or not res["iteration0_sample_equal"]:
+        raise AssertionError(f"the card's GOSS fit differs from the cpu's: "
+                             f"{res}")
+    return res
+
+
+def _quant_fit_info():
+    from mmlspark_tpu_torch.gbdt import engine
+    return {k: v for k, v in engine.last_fit_info.items()
+            if k.startswith("quantized") or k.startswith("collective")}
+
+
+def phase_quantized_path(state):
+    """Quantized-gradient training: the flagship serially with
+    ``quantizedGrad`` "16" (max_code 5,368) and "8" (127), a warm-up and
+    a timed fit each (``hist_full`` in its int32 mode once a tree,
+    ``hist_segment``'s int32 mode once a split, AUC within 0.005 of the
+    same call's f32 flagship fit, one model text); the flagship on D = 4
+    with the ring (the reference's gate turns it to psum:
+    ``quantized_unsupported``); the reference's quantized configuration
+    (``artifacts/bench_quant_r17.json``: max_code 3, int16 wire) on the
+    wide data under the data ring, data ``pallas_ring`` (the int32
+    ``fused_hist_ring``, fitted twice: one model text), voting and
+    feature 1 × 4; and a 20,000-row card-vs-CPU check."""
+    from mmlspark_tpu_torch import build_mesh
+    from mmlspark_tpu_torch.ops import histogram
+    counters = _counters()
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    table = {"features": X, "label": y}
+    f32_auc = state.get("main_auc")
+    if f32_auc is None:
+        m = _classifier(numIterations=QUANT_ITERATIONS, device=DEV,
+                        parallelism="serial").fit(table)
+        f32_auc = auc(y, m.transform(table)["probability"][:, 1])
+    fits = {}
+    for bits in ("16", "8"):
+        mc = max_code(int(bits), N_ROWS)
+        est = _classifier(numIterations=QUANT_ITERATIONS, device=DEV,
+                          parallelism="serial", quantizedGrad=bits)
+        rec, restore = _recorder((histogram, "histogram_cuda"))
+        try:
+            warm, model, fit_s, launches, host_s, syncs = _timed_fit(
+                est, table, counters)
+        finally:
+            restore()
+        calls = _hist_full_calls(rec)
+        info = _quant_fit_info()
+        trees = model.getModel().trees
+        splits = sum(t.num_leaves - 1 for t in trees)
+        prob = model.transform(table)["probability"][:, 1]
+        f = fits[bits] = {
+            "fit_s": fit_s, "host_s": host_s, "host_syncs": syncs,
+            "trees": len(trees), "splits": splits, "launches": launches,
+            "hist_full_modes": sorted({d for _, d in calls}),
+            "train_auc": auc(y, prob), "f32_train_auc": f32_auc,
+            "fit_info": info,
+            "same_model_text": same_model_text(warm, model)}
+        if bits == "16":
+            state["quant_launches"] = {k: launches[k] for k in
+                                       ("hist_full", "hist_segment")}
+        if info["quantized_max_code"] != str(mc):
+            raise AssertionError(f"{bits} bits: max_code is not {mc}: {f}")
+        if launches["hist_full"] != len(trees) or \
+                launches["hist_segment"] != splits or \
+                f["hist_full_modes"] != ["int32"]:
+            raise AssertionError(f"{bits} bits: the int32 kernels did not "
+                                 f"run once a tree and split: {f}")
+        if abs(f["train_auc"] - f32_auc) > 0.005:
+            raise AssertionError(f"{bits} bits: AUC not within 0.005 of the "
+                                 f"f32 fit's: {f}")
+        if not f["same_model_text"]:
+            raise AssertionError(f"{bits} bits: the warm-up and timed fits "
+                                 f"wrote different model text: {f}")
+    # a tree's quantization at the flagship, on the device: the threefry
+    # draw alone, then the whole grid (max, draw, rounding, codes)
+    from mmlspark_tpu_torch.gbdt.grower import GrowerConfig, quantize_gh
+    from mmlspark_tpu_torch.ops.threefry import fold_in, prng_key, uniform
+    _, _, gh, _ = kernel_inputs()
+    key = fold_in(prng_key(42, DEV), 1056980546)
+    qcfg = GrowerConfig(quantized_bits=16, quantized_seed=42,
+                        quantized_max_code=max_code(16, N_ROWS))
+    per_tree = {"threefry_uniform_ms": median_ms(
+        lambda: uniform(key, (N_ROWS, 2))),
+        "quantize_gh_ms": median_ms(lambda: quantize_gh([gh], qcfg))}
+    card = [f"{DEV}:0"] * MESH_SHARDS
+    _counted_fit(_classifier(numIterations=2, device=DEV, collective="ring",
+                             quantizedGrad="16").setMesh(
+        build_mesh(data=MESH_SHARDS, devices=card)), table, counters)
+    down = _quant_fit_info()
+    if down["quantized_downgrade"] != "quantized_unsupported" or \
+            down["collective"] != "psum":
+        raise AssertionError(f"the D = 4 flagship ring fit was not turned "
+                             f"to psum: {down}")
+    return {"rows": N_ROWS, "iterations": QUANT_ITERATIONS, "fits": fits,
+            "per_tree": per_tree, "flagship_d4_ring": down,
+            "reference_configuration": _quantized_wide(state, counters),
+            "card_vs_cpu": _quantized_card_vs_cpu()}
+
+
+def _quantized_wide(state, counters):
+    """The reference's quantized configuration (quantizedGrad 16 at 8,192
+    rows on a data mesh: max_code 3, int16 wire) on the wide data, 4
+    iterations, 31 leaves, maxDepth 30, on four virtual devices."""
+    from mmlspark_tpu_torch import build_mesh
+    X, y = bench_data(WIDE_ROWS, WIDE_FEATURES)
+    table = {"features": X, "label": y}
+    card = [f"{DEV}:0"] * MESH_SHARDS
+    data_mesh = build_mesh(data=MESH_SHARDS, devices=card)
+    learners = {
+        "data_ring": (data_mesh, dict(collective="ring")),
+        "data_pallas_ring": (data_mesh, dict(collective="ring",
+                                             histogramMethod="pallas_ring")),
+        "voting_ring": (data_mesh, dict(parallelism="voting",
+                                        collective="ring",
+                                        topK=WIDE_TOP_K)),
+        "feature_1x4": (build_mesh(1, MESH_SHARDS, devices=card),
+                        dict(parallelism="feature")),
+    }
+    fits = {}
+    for name, (mesh, kw) in learners.items():
+        est = _classifier(numIterations=WIDE_ITERATIONS, maxDepth=30,
+                          device=DEV, quantizedGrad="16",
+                          **kw).setMesh(mesh)
+        m, fit_s, counts = _counted_fit(est, table, counters)
+        info = _quant_fit_info()
+        trees = m.getModel().trees
+        f = fits[name] = {
+            "fit_s": fit_s, "launches": counts, "trees": len(trees),
+            "splits": sum(t.num_leaves - 1 for t in trees),
+            "train_auc": auc(y, m.transform(table)["probability"][:, 1]),
+            "fit_info": info,
+            "payload_vs_dense": float(info["collective_payload_vs_dense"])}
+        if name == "data_pallas_ring":
+            state["quant_fused_launches"] = counts["fused_segment_hist_ring"]
+            f["same_model_text"] = same_model_text(m, est.fit(table))
+            if not f["same_model_text"] or \
+                    counts["fused_segment_hist_ring"] != f["splits"]:
+                raise AssertionError(f"quantized pallas_ring: {f}")
+        want = max_code(16, WIDE_ROWS, 1 if name == "feature_1x4"
+                        else MESH_SHARDS)
+        if info["quantized_max_code"] != str(want) or (
+                name != "feature_1x4" and info["quantized_wire"] != "int16"):
+            raise AssertionError(f"{name}: not the reference's grid: {f}")
+    return fits
+
+
+def _quantized_card_vs_cpu():
+    """20,000 × 50, 5 quantized iterations ("16", max_code 32,767) on the
+    card and on the CPU: the first tree identical; the first tree's
+    g-max bits on each side."""
+    from mmlspark_tpu_torch.gbdt import grower
+    from mmlspark_tpu_torch.ops.threefry import float_bits
+    X, y = bench_data(20_000, N_FEATURES)
+    table = {"features": X, "label": y}
+    models, gmax = {}, {}
+    for dev in (DEV, "cpu"):
+        rec, restore = _recorder((grower, "quantize_gh"))
+        try:
+            models[dev] = _classifier(numIterations=5, device=dev,
+                                      quantizedGrad="16").fit(table)
+        finally:
+            restore()
+        gh = rec.calls[0][0][0][0]
+        gmax[dev] = int(float_bits(gh[:, 0].abs().amax()).cpu())
+    a, b = (models[d].getModel().trees[0] for d in (DEV, "cpu"))
+    aucs = {d: auc(y, m.transform(table)["probability"][:, 1])
+            for d, m in models.items()}
+    res = {"first_tree_equal": _same_tree(a, b),
+           "first_tree_leaf_values_equal": bool(
+               (a.leaf_value == b.leaf_value).all()),
+           "gmax_bits": gmax, "gmax_bits_equal": gmax[DEV] == gmax["cpu"],
+           "auc": aucs}
+    if res["gmax_bits_equal"] and not res["first_tree_equal"]:
+        raise AssertionError(f"same g-max bits, yet the card's first "
+                             f"quantized tree differs from the cpu's: {res}")
+    if not res["gmax_bits_equal"] and abs(aucs[DEV] - aucs["cpu"]) > 0.002:
+        raise AssertionError(f"the card's quantized fit differs from the "
+                             f"cpu's: {res}")
+    return res
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r["accum"] == "float32"
@@ -1493,12 +2040,26 @@ def kernels_line(state):
     launches = {**state.get("launches", {}),
                 **state.get("mesh_launches", {}),
                 "ring_allreduce_select": state.get("voting_launches", 0)}
+    # the int32 modes, on the quantized path: their rows at its shapes,
+    # their launches from its timed fits
+    quant = {}
+    for r in state.get("kernel_rows", []) + state.get("ring_rows", []):
+        if r.get("path") == "quantized_path" and r["rows"] in (
+                N_ROWS, max(SEGMENT_COUNTS), WIDE_LOCAL_ROWS):
+            quant[r["kernel"]] = r
+    qlaunch = {**state.get("quant_launches", {}),
+               "fused_segment_hist_ring": state.get("quant_fused_launches",
+                                                    0)}
     out = []
-    for name in REPLACES:
-        r = rows.get(name, {})
-        out.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                    "replaces": REPLACES[name],
-                    "launches": launches.get(name, 0),
+    for name, r, n_launch, mode in (
+            [(k, rows.get(k, {}), launches.get(k, 0), "float32")
+             for k in REPLACES]
+            + [(k, quant.get(k, {}), qlaunch.get(k, 0), "int32")
+               for k in ("hist_full", "hist_segment",
+                         "fused_segment_hist_ring")]):
+        out.append({"name": name if mode == "float32" else f"{name}_int32",
+                    "mode": mode, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name], "launches": n_launch,
                     "max_abs_err": r.get("max_abs_err"),
                     "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                     "bound_ms": r.get("bound_ms"),
@@ -1541,6 +2102,9 @@ def main(argv) -> int:
               ("voting_path", lambda: phase_voting_path(state)),
               ("categorical_path", lambda: phase_categorical_path(state)),
               ("multiclass_path", lambda: phase_multiclass_path(state)),
+              ("validation_path", lambda: phase_validation_path(state)),
+              ("goss_path", lambda: phase_goss_path(state)),
+              ("quantized_path", lambda: phase_quantized_path(state)),
               ("collectives_cross_card", phase_collectives_cross_card)]
     if only is not None:
         unknown = only - {name for name, _ in phases}

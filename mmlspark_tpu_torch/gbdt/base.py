@@ -133,16 +133,33 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
     maxCatToOnehot = Param(
         "maxCatToOnehot", "Cardinality at or below which one-vs-rest "
         "splits are used", default=4, typeConverter=TypeConverters.toInt)
-    # -- params of features the port has not reached yet (ROADMAP.md) ------
-    boostingType = Param("boostingType", "gbdt (goss, dart and rf are not "
-                         "ported yet)", default="gbdt",
+    boostingType = Param("boostingType", "gbdt (plain boosting) or goss "
+                         "(gradient-based one-side sampling); dart and rf "
+                         "are not ported yet", default="gbdt",
                          typeConverter=TypeConverters.toString)
-    earlyStoppingRound = Param("earlyStoppingRound", "Early stopping is not "
-                               "ported yet; 0 disables", default=0,
+    topRate = Param("topRate",
+                    "GOSS: fraction of rows kept by largest gradient",
+                    default=0.2, typeConverter=TypeConverters.toFloat)
+    otherRate = Param("otherRate",
+                      "GOSS: fraction of remaining rows sampled (amplified "
+                      "by (1-topRate)/otherRate)", default=0.1,
+                      typeConverter=TypeConverters.toFloat)
+    earlyStoppingRound = Param("earlyStoppingRound",
+                               "Stop when the validation metric has not "
+                               "improved for this many iterations (rows "
+                               "flagged by validationIndicatorCol); 0 "
+                               "disables", default=0,
                                typeConverter=TypeConverters.toInt)
-    quantizedGrad = Param("quantizedGrad", "Quantized-gradient training is "
-                          "not ported yet; 'off'", default="off",
-                          typeConverter=TypeConverters.toString)
+    quantizedGrad = Param(
+        "quantizedGrad",
+        "Quantized-gradient training (LightGBM use_quantized_grad "
+        "analog): 'off' keeps f32 gradients; '16'/'8' discretize (g,h) "
+        "per boost round onto a seeded stochastically-rounded integer "
+        "grid, accumulate histograms in int32 and cross shards in the "
+        "narrowest wire dtype the row count admits.  Gains still "
+        "evaluate in f32", default="off",
+        typeConverter=TypeConverters.toString)
+    # -- params of features the port has not reached yet (ROADMAP.md) ------
     enableBundle = Param("enableBundle", "Exclusive Feature Bundling is not "
                          "ported yet", default=False,
                          typeConverter=TypeConverters.toBool)
@@ -154,11 +171,6 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
 
     def _refuse_unported(self) -> None:
         asks = {
-            "earlyStoppingRound": self.getEarlyStoppingRound() > 0,
-            "validationIndicatorCol": bool(
-                self.getValidationIndicatorCol()),
-            "quantizedGrad": str(self.getQuantizedGrad()).lower()
-            not in ("off", "", "0", "false", "none"),
             "enableBundle": self.getEnableBundle(),
             "initModelPath": bool(self.getInitModelPath()),
             "checkpointDir": bool(self.getCheckpointDir()),
@@ -167,7 +179,7 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
         if asked:
             raise NotImplementedError(
                 f"{', '.join(asked)}: not ported to mmlspark_tpu_torch yet "
-                "(ROADMAP.md lists what the first slice left out)")
+                "(ROADMAP.md lists what the port still refuses)")
 
     def _train_params(self) -> TrainParams:
         return TrainParams(
@@ -184,10 +196,14 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
             bagging_fraction=self.getBaggingFraction(),
             bagging_freq=self.getBaggingFreq(),
             feature_fraction=self.getFeatureFraction(),
+            early_stopping_round=self.getEarlyStoppingRound(),
             boost_from_average=self.getBoostFromAverage(),
             seed=self.getSeed(),
             bagging_seed=self.getBaggingSeed(),
             boosting=self.getBoostingType(),
+            top_rate=self.getTopRate(),
+            other_rate=self.getOtherRate(),
+            quantized_grad=self.getQuantizedGrad(),
             histogram_method=self.getHistogramMethod(),
             parallelism=self.getParallelism(),
             collective=self.getCollective(),
@@ -215,9 +231,10 @@ class LightGBMBase(Estimator, LightGBMParams):
 
     def _fit_mesh(self, n_rows: int):
         """The mesh this fit shards over: the pinned one, else all CUDA
-        cards when the host has more than one, the device is CUDA and
-        there are at least ``autoMeshMinRows`` rows; else None
-        (serial)."""
+        cards when the host has more than one, the device is CUDA, the fit
+        is not GOSS (per-shard sampling is a choice the caller makes by
+        pinning a mesh, as in the reference) and there are at least
+        ``autoMeshMinRows`` training rows; else None (serial)."""
         parallelism = self.getParallelism()
         mesh = self._mesh
         if mesh is not None:
@@ -229,6 +246,7 @@ class LightGBMBase(Estimator, LightGBMParams):
             return mesh
         device = resolve_device(self.getDevice())
         if (parallelism != "serial" and device.type == "cuda"
+                and self.getBoostingType() != "goss"
                 and torch.cuda.device_count() > 1
                 and n_rows >= self.getAutoMeshMinRows()):
             return resolve_mesh(parallelism)
@@ -268,24 +286,45 @@ class LightGBMBase(Estimator, LightGBMParams):
     def _make_model(self, booster: Booster) -> "LightGBMModelBase":
         raise NotImplementedError
 
+    def _val_metric(self):
+        """The validation metric ``(margins, labels, weights) -> float``,
+        lower is better (numpy on the host)."""
+        raise NotImplementedError
+
     def _fit(self, table: DataTable) -> "LightGBMModelBase":
         self._refuse_unported()
         X = features_matrix(table, self.getFeaturesCol())
         y = self._prepare_labels(table[self.getLabelCol()])
         wcol = self.getWeightCol()
         w = np.asarray(table[wcol], np.float64) if wcol else None
+        # rows flagged by validationIndicatorCol form the validation set:
+        # the mapper is fit on the training rows alone and bins both
+        vcol = self.getValidationIndicatorCol()
+        val = np.asarray(table[vcol]).astype(bool) if vcol else None
+        X_train, y_train, w_train = X, y, w
+        if val is not None:
+            X_train, y_train = X[~val], y[~val]
+            w_train = w[~val] if w is not None else None
         objective = self._resolve_objective(y)
         feature_names = list(
             getattr(table[self.getFeaturesCol()], "columns", [])) or None
         cat_idx = self._categorical_indexes(feature_names)
-        mesh = self._fit_mesh(len(y))
-        mapper = fit_bin_mapper(X, max_bin=self.getMaxBin(),
+        mesh = self._fit_mesh(len(y_train))
+        mapper = fit_bin_mapper(X_train, max_bin=self.getMaxBin(),
                                 seed=self.getSeed(),
                                 categorical_features=cat_idx or None)
         device = self.getDevice() if mesh is None else mesh.devices[0]
-        booster = train(mapper.transform(X, device), y, w, mapper,
-                        objective, self._train_params(),
-                        feature_names=feature_names, mesh=mesh)
+        val_kwargs = {}
+        if val is not None and val.any():
+            val_kwargs = dict(
+                val_bins=mapper.transform(X[val], device),
+                val_labels=y[val],
+                val_weights=w[val] if w is not None else None,
+                val_metric=self._val_metric())
+        booster = train(mapper.transform(X_train, device), y_train, w_train,
+                        mapper, objective, self._train_params(),
+                        feature_names=feature_names, mesh=mesh,
+                        **val_kwargs)
         model = self._make_model(booster)
         model.setParams(**{k: v for k, v in self._iterSetParams()
                            if model.hasParam(k)})

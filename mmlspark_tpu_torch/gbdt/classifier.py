@@ -65,6 +65,36 @@ class LightGBMClassifier(LightGBMBase, _ClassifierParams):
             return y.astype(np.int64)
         return y.astype(np.float64)
 
+    def _val_metric(self):
+        """Validation logloss (the reference's): binary through the
+        sigmoid, multi-logloss through :func:`_softmax` for a multiclass
+        objective; weighted by the validation weights."""
+        obj = getattr(self, "_resolved_objective", self.getObjective())
+
+        if obj in ("multiclass", "softmax", "multiclassova", "ova"):
+            def logloss_mc(scores, labels, weights):
+                p = _softmax(scores)
+                n = len(labels)
+                eps = 1e-15
+                ll = -np.log(np.clip(
+                    p[np.arange(n), labels.astype(int)], eps, 1.0))
+                if weights is not None:
+                    return float(np.average(ll, weights=weights))
+                return float(np.mean(ll))
+            return logloss_mc
+
+        sig = self.getSigmoid()
+
+        def logloss(scores, labels, weights):
+            p = 1.0 / (1.0 + np.exp(-sig * scores))
+            eps = 1e-15
+            p = np.clip(p, eps, 1 - eps)
+            ll = -(labels * np.log(p) + (1 - labels) * np.log(1 - p))
+            if weights is not None:
+                return float(np.average(ll, weights=weights))
+            return float(np.mean(ll))
+        return logloss
+
     def _make_model(self, booster: Booster) -> "LightGBMClassificationModel":
         return LightGBMClassificationModel(booster=booster)
 

@@ -18,7 +18,12 @@ host loop:
   ``make_boost_scan`` (gbdt) and ``make_multiclass_scan``: per device the
   objective's (grad, hess) masked by bag and ``real``, then per class
   one tree grown over the mesh (:func:`.grower.grow_tree_sharded`) and
-  each device's score update.
+  each device's score update;
+* :func:`goss_iteration` is the iteration body of the reference's
+  ``_boost_scan_goss`` (serial) and ``make_goss_scan`` (mesh): each data
+  shard samples its own rows (:func:`goss_sample`), the sampled rows
+  train the iteration's trees, and every row's score moves by a binned
+  walk of each tree.
 
 ``parallelism`` maps onto the learner as in the reference: ``data`` and
 ``voting`` shard rows (voting keeps histograms local and reduces only the
@@ -36,8 +41,10 @@ import numpy as np
 import torch
 
 from ..core.mesh import Mesh, build_mesh, pad_to_multiple
-from .grower import GrowerConfig, TreeArrays, grow_tree_sharded
-from .objectives import Objective, fma32
+from ..ops.threefry import fold_in, uniform
+from .grower import (GrowerConfig, TreeArrays, grow_tree_sharded,
+                     leaf_index_binned)
+from .objectives import Objective, fma32, sum_last
 
 VALID_PARALLELISM = ("serial", "data", "feature", "data+feature", "voting")
 
@@ -173,11 +180,109 @@ def boost_iteration(arrays: ShardArrays, bag: Sequence[torch.Tensor],
         tree, row_leaf, values = grow_tree_sharded(arrays.bins, gh,
                                                    feat_info, cfg, mesh)
         for k, (leaf, value) in enumerate(zip(row_leaf, values)):
-            s = arrays.scores[k]
-            add = value.to(leaf.device)[leaf]
-            if K == 1:
-                arrays.scores[k] = fma32(add, learning_rate, s)
-            else:
-                s[:, c] = fma32(add, learning_rate, s[:, c])
+            _add_leaf_values(arrays, k, c, value, leaf, learning_rate, K)
+        trees.append(tree)
+    return trees
+
+
+def _add_leaf_values(arrays: ShardArrays, k: int, c: int,
+                     value: torch.Tensor, leaf: torch.Tensor,
+                     learning_rate: float, K: int) -> None:
+    """Device k's scores (class c's column when K > 1) plus ``lr ·
+    value[leaf]`` of every row, rounded once as the reference's FMA."""
+    s = arrays.scores[k]
+    add = value.to(s.device)[leaf.to(s.device)]
+    if K == 1:
+        arrays.scores[k] = fma32(add, learning_rate, s)
+    else:
+        s[:, c] = fma32(add, learning_rate, s[:, c])
+
+
+def stable_order(x: torch.Tensor, descending: bool = False) -> torch.Tensor:
+    """Stable argsort of a float32 vector whose values are >= 0 or NaN,
+    NaN last either way: ``jnp.argsort(x)`` (``descending``:
+    ``jnp.argsort(-x)``).  It sorts the values' int32 bit patterns, which
+    order non-negative floats as the floats do, so the CPU and the card
+    break ties alike."""
+    key = x.view(torch.int32)
+    key = torch.where(torch.isnan(x), -1 if descending else 2 ** 31 - 1,
+                      key)
+    return torch.sort(key, descending=descending, stable=True).indices
+
+
+def goss_sample(g: torch.Tensor, h: torch.Tensor, key: torch.Tensor,
+                k1: int, k2: int, amp: float):
+    """One shard's GOSS sample (the reference's ``_boost_scan_goss`` /
+    ``make_goss_scan`` body): the ``k1`` rows of largest influence
+    ``|g·h|`` (summed over the classes of an ``(n, K)`` g), in a stable
+    descending order, then the first ``k2`` of the rest by a stable
+    ascending sort of ``uniform(key, (n − k1,))``.  Returns the ``(k1 +
+    k2,)`` row indices and the weights of their gradients (1, then
+    ``amp``)."""
+    gh = (g * h).abs()
+    infl = gh if gh.dim() == 1 else sum_last(gh)[:, 0]
+    rank = stable_order(infl, descending=True)
+    rest = rank[k1:]
+    rk = uniform(key, (rest.shape[0],))
+    idx = torch.cat([rank[:k1], rest[stable_order(rk)[:k2]]])
+    w = torch.cat([torch.ones(k1, dtype=torch.float32, device=g.device),
+                   torch.full((k2,), amp, dtype=torch.float32,
+                              device=g.device)])
+    return idx, w
+
+
+def shard_full_bins(arrays: ShardArrays) -> List[torch.Tensor]:
+    """Each data shard's bins over every feature, on the shard's first
+    device (its feature slices side by side; the slices themselves under
+    a mesh without a feature axis)."""
+    F = arrays.feature
+    if F == 1:
+        return arrays.bins
+    return [torch.cat([b.to(arrays.bins[d * F].device)
+                       for b in arrays.bins[d * F:(d + 1) * F]], dim=1)
+            for d in range(len(arrays.bins) // F)]
+
+
+def goss_iteration(arrays: ShardArrays, key: torch.Tensor,
+                   feat_info: np.ndarray, objective: Objective,
+                   cfg: GrowerConfig, learning_rate: float,
+                   mesh: Optional[Mesh], k1: int, k2: int, amp: float,
+                   full_bins: Sequence[torch.Tensor]) -> List[TreeArrays]:
+    """One GOSS iteration over every device: per device the objective's
+    (grad, hess) masked by ``real``, and the device's sample
+    (:func:`goss_sample`, its key ``fold_in(key, data shard)`` on a data
+    mesh, so shards draw independent remainders); then per class one tree
+    grown over the mesh on the sampled rows (gh = (g·w, h·w, real)), and
+    every row's score updated (an FMA, as :func:`boost_iteration` does)
+    with the leaf its shard's binned walk of the tree (``full_bins``,
+    :func:`shard_full_bins`) reaches.  One sample feeds all K class
+    trees.  Returns the K unshrunk trees; updates ``arrays.scores``."""
+    K = objective.num_model_per_iteration
+    F = arrays.feature
+    data = len(arrays.bins) // F
+    grads, samples = [], []
+    for k, real in enumerate(arrays.real):
+        g, h = objective.grad_hess(arrays.scores[k], arrays.labels[k],
+                                   arrays.weights[k])
+        mask = real if K == 1 else real[:, None]
+        g, h = g * mask, h * mask
+        kd = key.to(real.device)
+        if data > 1:
+            kd = fold_in(kd, k // F)
+        idx, w = goss_sample(g, h, kd, k1, k2, amp)
+        grads.append((g[idx], h[idx]))
+        samples.append((idx, w, real[idx]))
+    bins = [b[idx] for b, (idx, _, _) in zip(arrays.bins, samples)]
+    trees = []
+    for c in range(K):
+        gh = [torch.stack([(g if K == 1 else g[:, c]) * w,
+                           (h if K == 1 else h[:, c]) * w, valid], dim=1)
+              for (g, h), (_, w, valid) in zip(grads, samples)]
+        tree, _, values = grow_tree_sharded(bins, gh, feat_info, cfg, mesh)
+        leaves = [leaf_index_binned(tree, b, cfg.num_leaves)
+                  for b in full_bins]
+        for k, value in enumerate(values):
+            _add_leaf_values(arrays, k, c, value, leaves[k // F],
+                             learning_rate, K)
         trees.append(tree)
     return trees

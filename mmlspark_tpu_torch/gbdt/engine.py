@@ -1,26 +1,42 @@
-"""Boosting loop — ``boosting="gbdt"`` training, serial or on a mesh.
+"""Boosting loop — ``boosting="gbdt"`` and ``"goss"`` training, serial or
+on a mesh, with validation and early stopping.
 
 The port's counterpart of ``mmlspark_tpu/gbdt/engine.py`` (``train`` →
-``_train_impl`` → ``_boost_scan`` / ``_boost_scan_multi`` serially,
-``_train_distributed`` on a mesh): per iteration, (grad, hess) from the
-objective, one tree per class from :func:`..grower.grow_tree_sharded`
-(iteration-major, class-minor, the model file's order), and the score
-updates.  A serial fit is
-the one-device case of the mesh loop (:mod:`.distributed`); the mesh's
-shape decides between the data (or voting), feature and data+feature
-learners.  Bagging and feature-fraction draws use numpy ``default_rng``
-streams seeded as the reference seeds them, so both packages draw the
-same rows and features: on a mesh the bag draws exactly n randoms and
-scatters them into the padded layout, and feature fraction draws over the
-original f features, the pad features staying masked, as the reference
-does.
+``_train_impl`` → ``_boost_scan`` / ``_boost_scan_multi`` /
+``_boost_scan_goss`` serially, ``_train_distributed`` on a mesh): per
+iteration, (grad, hess) from the objective, one tree per class from
+:func:`..grower.grow_tree_sharded` (iteration-major, class-minor, the
+model file's order), and the score updates.  A serial fit is the
+one-device case of the mesh loop (:mod:`.distributed`); the mesh's shape
+decides between the data (or voting), feature and data+feature learners.
+
+* **Sampling.**  Bagging and feature-fraction draws use numpy
+  ``default_rng`` streams seeded as the reference seeds them, so both
+  packages draw the same rows and features: on a mesh the bag draws
+  exactly n randoms and scatters them into the padded layout, and feature
+  fraction draws over the original f features, the pad features staying
+  masked, as the reference does.  GOSS draws with the reference's
+  threefry keys, ``split(PRNGKey(bagging_seed), T)``
+  (:mod:`..ops.threefry`).
+* **Quantized gradients** (``quantized_grad`` "16" / "8"):
+  :func:`_resolve_quantized` picks the grid, the wire dtype and the
+  ring → psum downgrade as the reference does; the grower quantizes.
+* **Validation.**  The validation scores start at the training scores'
+  init and add each iteration's shrunk trees (a binned walk at lr = 1, in
+  f32, on the first device); the metric runs on the host, one sync an
+  iteration.  A metric below ``best − 1e-12`` is a new best; otherwise
+  the fit stops once ``it − best_iter ≥ early_stopping_round`` and keeps
+  ``best_iter + 1`` iterations.  As in the reference, an iteration in
+  which no class's tree split then cuts the forest after it and records
+  it as the stop.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -28,19 +44,26 @@ import torch
 from ..core.mesh import Mesh, pad_to_multiple
 from ..device import DeviceLike, resolve_device
 from ..ops.collectives import resolve_collective
+from ..ops.threefry import prng_key, split
 from .binning import BinMapper
 from .booster import Booster, host_tree_from_arrays
 from .distributed import (boost_iteration, check_parallelism,
-                          prepare_arrays, sharded_cfg)
-from .grower import GrowerConfig, apply_shrinkage, collective_schedule
+                          goss_iteration, prepare_arrays, shard_full_bins,
+                          sharded_cfg)
+from .grower import (GrowerConfig, apply_shrinkage, collective_schedule,
+                     predict_tree_binned)
 from .objectives import Objective
 
 log = logging.getLogger("mmlspark_tpu_torch.gbdt")
 
 #: What the last fit in this process ran: the histogram method, the
 #: collective and why a ring request was downgraded, the devices' type,
-#: and the per-tree collective schedule.
+#: the quantized grid and wire, and the per-tree collective schedule.
 last_fit_info: Dict[str, str] = {}
+#: The last fit's validation: the metric of every iteration, the best
+#: iteration and metric, the iteration count kept, and the host seconds
+#: the validation walks and metrics took (empty without a validation set).
+last_validation: Dict[str, object] = {}
 
 
 @dataclass
@@ -59,10 +82,18 @@ class TrainParams:
     bagging_fraction: float = 1.0
     bagging_freq: int = 0
     feature_fraction: float = 1.0
+    #: stop once the validation metric has not improved for this many
+    #: iterations (0: never; the metric is still tracked)
+    early_stopping_round: int = 0
     boost_from_average: bool = True
     seed: int = 42
     bagging_seed: int = 3
+    #: "gbdt" or "goss" (gradient-based one-side sampling: the top_rate
+    #: rows of largest |g·h| and an other_rate sample of the rest,
+    #: amplified by (1 − top_rate) / other_rate)
     boosting: str = "gbdt"
+    top_rate: float = 0.2
+    other_rate: float = 0.1
     histogram_method: str = "auto"
     parallelism: str = "data"
     collective: str = "auto"
@@ -73,7 +104,19 @@ class TrainParams:
     cat_l2: float = 10.0
     max_cat_threshold: int = 32
     max_cat_to_onehot: int = 4
+    #: quantized-gradient training: "off", or "16" / "8" bits ("", "0",
+    #: "false" and "none" mean "off")
+    quantized_grad: str = "off"
     verbosity: int = 1
+
+    def __post_init__(self):
+        qg = str(self.quantized_grad).strip().lower()
+        self.quantized_grad = {"": "off", "0": "off", "false": "off",
+                               "none": "off"}.get(qg, qg)
+        if self.quantized_grad not in ("off", "8", "16"):
+            raise ValueError(
+                f"quantizedGrad={self.quantized_grad!r} is not supported; "
+                "valid: off, 16, 8")
 
 
 def _resolve_collective_cfg(params: TrainParams, mesh: Optional[Mesh]):
@@ -97,13 +140,53 @@ def _resolve_collective_cfg(params: TrainParams, mesh: Optional[Mesh]):
     return collective, "none"
 
 
+def _resolve_quantized(params: TrainParams, n: int, data_shards: int,
+                       collective: str):
+    """``params.quantized_grad`` → ``(bits, max_code, wire, collective,
+    downgrade)``, as the reference's ``_resolve_quantized``.
+
+    ``max_code`` is ``2^(bits-1) - 1`` clamped so that ``n · max_code``
+    (the largest |int32| cell: every row in one bin) fits int32.  The wire
+    is the narrowest integer the same bound fits: int8, int16, or int16
+    with the grid clamped to ``32767 // n`` when that keeps at least 3
+    levels, else int32; a serial fit has none.  A ring whose f32 lanes
+    cannot carry the codes exactly (``n · max_code ≥ 2^24``) falls back
+    to psum, with downgrade ``quantized_unsupported``."""
+    if params.quantized_grad == "off":
+        return 0, 0, "none", collective, "none"
+    bits = int(params.quantized_grad)
+    mc = min((1 << (bits - 1)) - 1, (2 ** 31 - 1) // max(n, 1))
+    if data_shards <= 1:
+        return bits, mc, "none", collective, "none"
+    if n * mc <= 127:
+        wire = "int8"
+    elif n * mc <= 32767:
+        wire = "int16"
+    elif 32767 // max(n, 1) >= 3:
+        mc = 32767 // n
+        wire = "int16"
+    else:
+        wire = "int32"
+    if collective == "ring" and n * mc >= (1 << 24):
+        log.info("collective='ring' carries histograms in f32 lanes; "
+                 "quantized codes up to n*max_code=%d cannot ride it "
+                 "exactly; this fit keeps psum (quantized_unsupported)",
+                 n * mc)
+        return bits, mc, wire, "psum", "quantized_unsupported"
+    return bits, mc, wire, collective, "none"
+
+
 def _record_fit_resolution(cfg: GrowerConfig, collective: str,
-                           downgrade: str, sched: dict,
-                           backend: str) -> None:
+                           downgrade: str, sched: dict, backend: str,
+                           quantized_downgrade: str = "none") -> None:
     last_fit_info.clear()
     last_fit_info.update(
         histogram_method=cfg.hist_method, collective=collective,
         collective_downgrade=downgrade, backend=backend,
+        quantized_bits=str(cfg.quantized_bits),
+        quantized_max_code=str(cfg.quantized_max_code),
+        quantized_wire=cfg.quantized_wire,
+        quantized_downgrade=quantized_downgrade,
         data_shards=str(cfg.data_axis_size),
         feature_shards=str(cfg.feature_axis_size),
         voting_k=str(cfg.voting_k),
@@ -111,6 +194,9 @@ def _record_fit_resolution(cfg: GrowerConfig, collective: str,
         collective_payload_bytes_per_tree=str(sched["payload_bytes"]),
         collective_payload_vs_dense=(
             f"{sched['payload_bytes'] / max(1, sched['dense_payload_bytes']):.6f}"))
+    if sched["quantized_scale_bytes"]:
+        last_fit_info["quantized_scale_bytes_per_tree"] = str(
+            sched["quantized_scale_bytes"])
 
 
 def _feat_info_from_mapper(mapper: BinMapper, f: int) -> np.ndarray:
@@ -134,22 +220,68 @@ def _draw_feature_fraction(rng, fi_base: np.ndarray, f: int,
     return fi_it
 
 
+def _goss_sizes(params: TrainParams, rows: int):
+    """GOSS's checks and its sample over ``rows`` rows (a shard's on a
+    mesh): ``(k1, k2, amp)``, or None when the sample covers every row
+    (the fit falls back to gbdt)."""
+    if params.bagging_freq > 0 and params.bagging_fraction < 1.0:
+        raise ValueError("Cannot use bagging in GOSS (as in LightGBM); "
+                         "unset baggingFraction/baggingFreq or use "
+                         "boostingType='gbdt'")
+    if not (0.0 < params.top_rate < 1.0 and 0.0 < params.other_rate < 1.0) \
+            or params.top_rate + params.other_rate >= 1.0:
+        raise ValueError("GOSS needs 0 < topRate < 1, 0 < otherRate < 1 "
+                         "and topRate + otherRate < 1, got "
+                         f"{params.top_rate}/{params.other_rate}")
+    k1 = max(1, int(np.ceil(rows * params.top_rate)))
+    k2 = max(1, int(np.ceil(rows * params.other_rate)))
+    if k1 + k2 >= rows:
+        if params.verbosity > 0:
+            log.info("GOSS sample covers every row (%d a shard); training "
+                     "falls back to plain gbdt", rows)
+        return None
+    return k1, k2, (1.0 - params.top_rate) / params.other_rate
+
+
+def _truncate(trees: list, grew: List[bool], K: int, stop_iter: int,
+              verbosity: int):
+    """The reference's cut: the first ``stop_iter`` iterations, then
+    through the first iteration in which no class's tree split, which
+    becomes the recorded stop (LightGBM keeps that iteration's stumps)."""
+    trees = trees[:stop_iter * K]
+    grew = grew[:stop_iter]
+    if all(grew):
+        return trees, stop_iter
+    first = grew.index(False)
+    if verbosity > 0:
+        log.info("No further splits with positive gain; stopping at "
+                 "iteration %d", first)
+    return trees[:(first + 1) * K], min(stop_iter, first)
+
+
 def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
           mapper: BinMapper, objective: Objective, params: TrainParams,
           feature_names: Optional[List[str]] = None,
-          device: DeviceLike = "cuda", mesh: Optional[Mesh] = None
-          ) -> Booster:
+          device: DeviceLike = "cuda", mesh: Optional[Mesh] = None,
+          val_bins=None, val_labels: Optional[np.ndarray] = None,
+          val_weights: Optional[np.ndarray] = None,
+          val_metric: Optional[Callable] = None) -> Booster:
     """Train a forest.  ``bins``: ``(n, f)`` bin codes — a tensor or a
     numpy array.  Without a mesh the fit runs on the tensor's device (an
     array moves to ``device``).  With a mesh of more than one device the
     rows are sharded over its data axis and the features over its feature
     axis (``params.parallelism="voting"`` selects PV-Tree voting on the
-    data axis); a one-device mesh fits serially on its device."""
+    data axis); a one-device mesh fits serially on its device.
+
+    ``val_bins`` (binned by the same mapper) with ``val_labels``,
+    ``val_weights`` and ``val_metric(margins, labels, weights)`` (lower
+    is better, numpy on the host): the validation set that
+    ``params.early_stopping_round`` stops on."""
     check_parallelism(params.parallelism)
-    if params.boosting != "gbdt":
+    if params.boosting not in ("gbdt", "goss"):
         raise NotImplementedError(
             f"boostingType={params.boosting!r} is not ported yet; the port "
-            "trains 'gbdt' (ROADMAP.md, left out of the first slice)")
+            "trains 'gbdt' and 'goss' (ROADMAP.md)")
     if mesh is not None:
         dev = mesh.devices[0]
     elif isinstance(bins, torch.Tensor):
@@ -172,6 +304,8 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         else 0.0
     shard_mesh = mesh if use_mesh else None
     collective, downgrade = _resolve_collective_cfg(params, shard_mesh)
+    qbits, qmc, qwire, collective, qdown = _resolve_quantized(
+        params, n, 1 if shard_mesh is None else shard_mesh.data, collective)
     cfg = GrowerConfig(
         num_leaves=params.num_leaves, max_depth=params.max_depth,
         num_bins=mapper.num_total_bins, lambda_l1=params.lambda_l1,
@@ -183,7 +317,9 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         use_categorical=mapper.has_categorical,
         cat_smooth=params.cat_smooth, cat_l2=params.cat_l2,
         max_cat_threshold=params.max_cat_threshold,
-        max_cat_to_onehot=params.max_cat_to_onehot)
+        max_cat_to_onehot=params.max_cat_to_onehot,
+        quantized_bits=qbits, quantized_seed=params.seed,
+        quantized_max_code=qmc, quantized_wire=qwire)
     cfg = sharded_cfg(shard_mesh, cfg)
     if cfg.voting_k > 0 and cfg.data_axis_size > 1 \
             and cfg.feature_axis_size > 1:
@@ -193,7 +329,7 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     _record_fit_resolution(
         cfg, collective, downgrade,
         collective_schedule(cfg, f, n_rows_local=-(-n // cfg.data_axis_size)),
-        dev.type)
+        dev.type, qdown)
     K = objective.num_model_per_iteration
     arrays = prepare_arrays(bins, labels, w, devices, init, F, K)
     # pad features (to a multiple of the feature axis) stay masked out
@@ -201,12 +337,35 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     fi_base[:f] = _feat_info_from_mapper(mapper, f)
     use_bag = params.bagging_freq > 0 and params.bagging_fraction < 1.0
     use_ff = params.feature_fraction < 1.0
+    T = params.num_iterations
+    goss = None
+    if params.boosting == "goss":
+        goss = _goss_sizes(params, arrays.rows_per_shard)
+    if goss is not None:
+        goss_keys = split(prng_key(params.bagging_seed, dev), T)
+        full_bins = shard_full_bins(arrays)
 
-    trees = []
-    stop_iter = params.num_iterations
+    has_val = val_bins is not None and val_metric is not None \
+        and len(val_bins) > 0
+    last_validation.clear()
+    if has_val:
+        if not isinstance(val_bins, torch.Tensor):
+            val_bins = torch.as_tensor(np.asarray(val_bins),
+                                       dtype=mapper.bin_dtype)
+        val_bins = val_bins.to(dev).contiguous()
+        nv = val_bins.shape[0]
+        val_scores = torch.full((nv,) if K == 1 else (nv, K), init,
+                                dtype=torch.float32, device=dev)
+        val_labels = np.asarray(val_labels)
+        last_validation.update(metrics=[], seconds=0.0)
+    best_metric, best_iter = np.inf, -1
+    esr = params.early_stopping_round
+
+    trees, grew = [], []
+    stop_iter = T
     bag = [torch.ones(arrays.rows_per_shard, dtype=torch.float32, device=d)
            for d in devices]
-    for it in range(params.num_iterations):
+    for it in range(T):
         if use_bag and it % params.bagging_freq == 0:
             # exactly n randoms, scattered into the padded layout (pad
             # rows stay 0), so the stream matches a serial fit's
@@ -216,21 +375,48 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         fi = (_draw_feature_fraction(rng, fi_base, f,
                                      params.feature_fraction)
               if use_ff else fi_base)
-        grown = boost_iteration(arrays, bag, fi, objective, cfg,
-                                params.learning_rate, shard_mesh)
-        trees += [host_tree_from_arrays(
-            apply_shrinkage(tree, params.learning_rate), mapper)
-            for tree in grown]
-        if all(int(tree.num_leaves) <= 1 for tree in grown):
-            # LightGBM stops at the first iteration in which no class's
-            # tree can split; the reference keeps those stumps and
-            # records the iteration as the stop
-            if params.verbosity > 0:
-                log.info("No further splits with positive gain; stopping "
-                         "at iteration %d", it)
-            stop_iter = it
+        if goss is None:
+            grown = boost_iteration(arrays, bag, fi, objective, cfg,
+                                    params.learning_rate, shard_mesh)
+        else:
+            grown = goss_iteration(arrays, goss_keys[it], fi, objective,
+                                   cfg, params.learning_rate, shard_mesh,
+                                   *goss, full_bins)
+        shrunk = [apply_shrinkage(t, params.learning_rate) for t in grown]
+        trees += [host_tree_from_arrays(t, mapper) for t in shrunk]
+        grew.append(any(int(t.num_leaves) > 1 for t in grown))
+        if has_val:
+            t0 = time.perf_counter()
+            # the trees are shrunk already: the walk adds them at lr = 1
+            for c, t in enumerate(shrunk):
+                add = predict_tree_binned(t, val_bins, params.num_leaves)
+                if K == 1:
+                    val_scores = val_scores + add
+                else:
+                    val_scores[:, c] += add
+            metric = float(val_metric(val_scores.cpu().numpy(), val_labels,
+                                      val_weights))
+            last_validation["metrics"].append(metric)
+            last_validation["seconds"] += time.perf_counter() - t0
+            if metric < best_metric - 1e-12:
+                best_metric, best_iter = metric, it
+            elif esr > 0 and it - best_iter >= esr:
+                if params.verbosity > 0:
+                    log.info("Early stopping at iteration %d (best %d, "
+                             "metric %.6f)", it, best_iter, best_metric)
+                stop_iter = best_iter + 1
+                break
+        elif not grew[-1]:
+            # no validation to stop on: the first iteration in which no
+            # class's tree can split ends the fit (_truncate records it)
             break
 
+    trees, stop_iter = _truncate(trees, grew, K, stop_iter,
+                                 params.verbosity)
+    if has_val:
+        last_validation.update(best_iteration=best_iter,
+                               best_metric=best_metric,
+                               stop_iteration=stop_iter)
     if trees and params.boost_from_average and init != 0.0:
         # bake the init score into the first tree of each class, as
         # LightGBM does

@@ -47,6 +47,14 @@ and the leaf histograms stay on the devices:
   (:func:`cat_split_gains`); a winning subset is a bin bitset, which
   partitions the rows, travels with the winning slice on a feature axis
   and scores the feature's vote under voting.
+* **Quantized gradients** (``cfg.quantized_bits``, the reference's
+  ``_quantize_gh``): each tree's (grad, hess) become integer codes on a
+  grid of ``quantized_max_code`` steps, rounded stochastically with the
+  reference's threefry stream (:mod:`..ops.threefry`); every histogram
+  then runs the kernels' exact int32 mode, the sibling subtraction stays
+  in integers, cross-shard sums ride the psum at the wire width or the
+  rings as f32 lanes, and the totals and each histogram are dequantized
+  (codes · scale) before the split search.
 * **Host syncs.**  Two per split: the partition counts of all shards in
   one fetch (launch sizing needs them) and the children's best splits,
   bitsets included, as one int64 tensor (the next leaf choice needs
@@ -73,6 +81,8 @@ from ..ops.collectives import (fused_segment_hist_ring, gather_cand,
                                psum_plain, ring_allreduce,
                                ring_allreduce_select)
 from ..ops.histogram import accum_mode, compute_histogram, segment_histogram
+from ..ops.threefry import float_bits, fold_in, prng_key, uniform
+from .objectives import fma32
 
 EPS_GAIN = 1e-10
 #: block widths of XLA's CPU prefix scan and tree reduction over the bins
@@ -121,6 +131,15 @@ class GrowerConfig:
     #: at or below this many value bins a feature splits one bin against
     #: the rest
     max_cat_to_onehot: int = 4
+    #: quantized-gradient training (set by the engine's
+    #: ``_resolve_quantized``): the grid's bits (0 = off), the seed of
+    #: its stochastic rounding, the grid's largest |code|, and the dtype a
+    #: psum carries integer histograms in ("none", "int8", "int16",
+    #: "int32")
+    quantized_bits: int = 0
+    quantized_seed: int = 0
+    quantized_max_code: int = 0
+    quantized_wire: str = "none"
 
     @property
     def cat_words(self) -> int:
@@ -477,7 +496,7 @@ def voting_decide(slab: torch.Tensor, cand: torch.Tensor, parent_g,
 
 def find_best_split_voting(hists: Sequence[torch.Tensor], tot: torch.Tensor,
                            feat_info: Sequence[torch.Tensor], depth_ok: bool,
-                           cfg: GrowerConfig, mesh):
+                           cfg: GrowerConfig, mesh, scales=None):
     """PV-Tree split finding over the shards' local histograms ``hists[d]``
     (``(f, B, 3)``, or ``(m, f, B, 3)`` for the m children of one grow
     step; ``feat_info[d]`` on shard d's device) against the global totals
@@ -487,11 +506,16 @@ def find_best_split_voting(hists: Sequence[torch.Tensor], tot: torch.Tensor,
     reduced — by one ``ring_allreduce_select`` under the ring collective,
     else gathered and summed in shard order (the reference's psum) — for
     the exact decision on the first shard's device.  The m children ride
-    one reduction of their stacked ``(m, k2, B, 3)`` slab."""
+    one reduction of their stacked ``(m, k2, B, 3)`` slab.  Quantized
+    (``scales[d]``, shard d's grid scale): the votes and the decision run
+    on dequantized histograms, and the slab crosses as integer codes and
+    is dequantized after the reduction."""
     dev = hists[0].device
     f = hists[0].shape[-3]
-    votes = torch.stack([voting_votes(h, fi, depth_ok, cfg).to(dev)
-                         for h, fi in zip(hists, feat_info)])
+    scales = scales or [None] * len(hists)
+    votes = torch.stack([voting_votes(dequantize(h, s), fi, depth_ok,
+                                      cfg).to(dev)
+                         for h, fi, s in zip(hists, feat_info, scales)])
     if votes.dim() == 2:
         cand = voting_candidates(votes, f, cfg)
     else:
@@ -500,9 +524,74 @@ def find_best_split_voting(hists: Sequence[torch.Tensor], tot: torch.Tensor,
     if cfg.collective == "ring":
         slab = ring_allreduce_select(hists, cand, mesh)[0]
     else:
-        slab = psum_plain([gather_cand(h, cand) for h in hists])
-    return voting_decide(slab, cand, tot[..., 0], tot[..., 1], tot[..., 2],
-                         feat_info[0], depth_ok, cfg)
+        slab = wire_psum([gather_cand(h, cand) for h in hists], cfg)
+    return voting_decide(dequantize(slab, scales[0]), cand, tot[..., 0],
+                         tot[..., 1], tot[..., 2], feat_info[0], depth_ok,
+                         cfg)
+
+
+# -- quantized gradients (reference grower.py _quantize_gh, _wire_cast_psum)
+
+
+def is_quantized(cfg: GrowerConfig) -> bool:
+    return cfg.quantized_bits > 0 and cfg.quantized_max_code > 0
+
+
+def quantize_gh(gh: Sequence[torch.Tensor], cfg: GrowerConfig
+                ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Each device's ``(n, 3)`` float gh → ``(codes (n, 3) int32, scale
+    (3,) f32)``, with ``codes · scale`` the dequantization (the
+    reference's ``_quantize_gh``).  The grid scale of (grad, hess) is the
+    largest |value| over the data shards of the device's feature slice
+    (the reference's ``pmax`` over the data axis) times ``1 / max_code``;
+    stochastic rounding ``floor(x) + (u < frac(x))`` draws ``u =
+    uniform(fold_in(PRNGKey(seed), bits(g-max)), (n, 2))``, the same key
+    on every shard; codes clip to ±``max_code``; the count channel (the
+    0/1 mask) casts exactly."""
+    F = cfg.feature_axis_size
+    mc = cfg.quantized_max_code
+    peak = [torch.stack([torch.stack([p[:, 0].abs().amax(),
+                                      p[:, 1].abs().amax()]).to(gh[j].device)
+                         for p in gh[j::F]]).amax(0)
+            for j in range(F)]
+    codes, scales = [], []
+    for k, x in enumerate(gh):
+        dev = x.device
+        gmax, hmax = peak[k % F].to(dev).unbind()
+        # the reference's compiled form of ``max / max_code``: XLA turns
+        # the division by a constant into a product with its f32 inverse
+        step = torch.stack([gmax, hmax]).clamp(min=1e-30) * torch.full(
+            (2,), 1.0 / mc, dtype=torch.float32, device=dev)
+        key = fold_in(prng_key(cfg.quantized_seed, dev), float_bits(gmax))
+        u = uniform(key, (x.shape[0], 2))
+        q = x[:, :2] / step
+        lo = torch.floor(q)
+        code = (lo + (u < q - lo).to(torch.float32)).clamp(-mc, mc)
+        codes.append(torch.cat([code.to(torch.int32),
+                                x[:, 2:3].to(torch.int32)], dim=1))
+        scales.append(torch.cat([step, step.new_ones(1)]))
+    return codes, scales
+
+
+def dequantize(h: torch.Tensor, scale: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """Integer histogram cells or totals (last axis (g, h, count)) →
+    float32 ``codes · scale``; ``h`` itself when ``scale`` is None."""
+    if scale is None:
+        return h
+    return h.to(torch.float32) * scale.to(h.device)
+
+
+def wire_psum(parts: Sequence[torch.Tensor], cfg: GrowerConfig
+              ) -> torch.Tensor:
+    """The shard-order sum (:func:`psum_plain`), integer slabs cast to the
+    fit's int8 / int16 wire dtype and back (the reference's
+    ``_wire_cast_psum``): the engine's headroom rule keeps every sum
+    inside the wire dtype, so the result is the exact int32 sum."""
+    wire = {"int8": torch.int8, "int16": torch.int16}.get(cfg.quantized_wire)
+    if wire is None or parts[0].dtype.is_floating_point:
+        return psum_plain(parts)
+    return psum_plain([p.to(wire) for p in parts]).to(parts[0].dtype)
 
 
 def _partition_left(row_order: torch.Tensor, col: torch.Tensor, thr: int,
@@ -548,12 +637,13 @@ def _reduce_hist(parts: Sequence[torch.Tensor], cfg: GrowerConfig,
                  mesh) -> torch.Tensor:
     """Cross-shard sum of local histograms, on the first shard's device:
     the ``ring_allreduce`` kernel under ``collective="ring"``, else the
-    shard-order sum (the reference's f32 ``psum``)."""
+    shard-order sum (the reference's ``psum``; integer slabs at the wire
+    width, :func:`wire_psum`)."""
     if len(parts) == 1:
         return parts[0]
     if cfg.collective == "ring":
         return ring_allreduce(parts, mesh)[0]
-    return psum_plain(parts)
+    return wire_psum(parts, cfg)
 
 
 def collective_schedule(cfg: GrowerConfig, f: int, *,
@@ -574,28 +664,37 @@ def collective_schedule(cfg: GrowerConfig, f: int, *,
     * feature axis (``n_rows_local`` rows per data shard): L-1 split-
       column broadcasts and the 2L-1 gathers of each slice's best split.
 
+    Histogram slabs and partition counts are priced at the quantized
+    wire's itemsize (1 or 2 bytes for int8 / int16; the rings carry f32
+    lanes, 4); ``dense_payload_bytes`` stays f32.  A quantized data-axis
+    fit also reports ``quantized_scale_bytes``, its grid-scale max pair.
     Serial fits return zeros."""
     B, L, W = cfg.num_bins, cfg.num_leaves, cfg.cat_words
     dense = L * f * B * 3 * 4
-    count = payload = 0
+    wire = {"int8": 1, "int16": 2}.get(cfg.quantized_wire, 4)
+    item = 4 if cfg.collective == "ring" else wire
+    count = payload = scale_bytes = 0
     if cfg.data_axis_size > 1:
         if _is_voting(cfg):
             k = min(cfg.voting_k, f)
-            slab = min(2 * k, f) * B * 3 * 4
+            slab = min(2 * k, f) * B * 3 * item
             count += L
             payload += slab + (L - 1) * 2 * slab   # root + stacked pairs
             payload += 4 * (k + (L - 1) * 2 * k)   # vote gathers (i32)
             payload += L * 3 * 4                   # leaf-total sums
         else:
             count += L
-            payload += L * f * B * 3 * 4
-        payload += (L - 1) * 2 * 4                 # partition counts
+            payload += L * f * B * 3 * item
+        if is_quantized(cfg):
+            scale_bytes = 2 * 4                    # grid-scale max pair
+        payload += (L - 1) * 2 * wire              # partition counts
     if cfg.feature_axis_size > 1:
         count += L - 1                             # split-column broadcasts
         payload += (L - 1) * n_rows_local * 4
         payload += (2 * L - 1) * (16 + W * 4)      # best-split gathers
     return {"count": count, "payload_bytes": payload,
-            "dense_payload_bytes": dense}
+            "dense_payload_bytes": dense,
+            "quantized_scale_bytes": scale_bytes}
 
 
 def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
@@ -651,6 +750,12 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     # (leaf totals): one global under voting, else one per slice.
     H = Dd if voting else F
     V = 1 if voting else F
+    # quantized: integer codes, and the grid scale each histogram holder
+    # (device k < H) dequantizes its histograms and totals with
+    scale = [None] * H
+    if is_quantized(cfg):
+        gh, scales = quantize_gh(gh, cfg)
+        scale = scales[:H]
 
     def depth_ok(d):
         return cfg.max_depth <= 0 or d < cfg.max_depth
@@ -662,18 +767,35 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
 
     def totals(hists):
         if voting:
-            return [psum_plain([sum_bins(h[0]) for h in hists])]
-        return [sum_bins(h[..., 0, :, :]) for h in hists]
+            return [psum_plain([dequantize(sum_bins(h[0]), s)
+                                for h, s in zip(hists, scale)])]
+        return [dequantize(sum_bins(h[..., 0, :, :]), s)
+                for h, s in zip(hists, scale)]
+
+    def left_totals(parent, hists_r, tots_r):
+        """``parent − right`` of each value learner; quantized outside
+        voting, the reference's compiled form of ``parent − codes ·
+        scale``, one fused multiply-add."""
+        out = []
+        for v, (t, s) in enumerate(zip(tots_r, scale)):
+            p = torch.as_tensor(parent[v], device=t.device)
+            if s is None or voting:
+                out.append(p - t)
+            else:
+                codes = sum_bins(hists_r[v][..., 0, :, :]).to(torch.float32)
+                out.append(fma32(-codes, s, p))
+        return out
 
     def best_splits(hists, tots, depth):
         """(gain, feature, bin, is_cat, bits) on ``dev`` for the (m, ...)
         children."""
         ok = depth_ok(depth)
         if voting:
-            return find_best_split_voting(hists, tots[0], fi, ok, cfg, mesh)
-        per = [_best_split(h, t[..., 0], t[..., 1], t[..., 2], fi[j], ok,
-                           cfg)
-               for j, (h, t) in enumerate(zip(hists, tots))]
+            return find_best_split_voting(hists, tots[0], fi, ok, cfg, mesh,
+                                          scale)
+        per = [_best_split(dequantize(h, s), t[..., 0], t[..., 1],
+                           t[..., 2], fi[j], ok, cfg)
+               for j, (h, t, s) in enumerate(zip(hists, tots, scale))]
         if F == 1:
             best, *rest = per[0]
             return (_gain_floor(best, cfg), *rest)
@@ -777,8 +899,8 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
                   for s, store in zip(small, leaf_hist)]
         hist_l = [store[l] - r for r, store in zip(hist_r, leaf_hist)]
         tot_r = totals(hist_r)
-        tot_l = [torch.as_tensor(leaf_tot[v, l], device=t.device) - t
-                 for v, t in enumerate(tot_r)]
+        tot_l = left_totals(leaf_tot[:, l], hist_r, tot_r)
+
         tots = [torch.stack([a, b]) for a, b in zip(tot_l, tot_r)]
         d_child = int(leaf_depth[l]) + 1
         res = fetch(tots, *best_splits(
@@ -888,9 +1010,32 @@ def apply_shrinkage(tree: TreeArrays, learning_rate: float) -> TreeArrays:
 
 def predict_tree_binned(tree: TreeArrays, bins: torch.Tensor,
                         max_steps: int) -> torch.Tensor:
-    """Leaf value of every row of ``bins`` through one tree, walked with
-    binned thresholds (``bin <= node_bin`` goes left; at a categorical
-    node, a bin set in the node's bitset)."""
+    """Leaf value of every row of ``bins`` through one tree
+    (:func:`leaf_index_binned`)."""
+    return tree.leaf_value.to(bins.device)[
+        leaf_index_binned(tree, bins, max_steps)]
+
+
+def tree_depth(tree: TreeArrays) -> int:
+    """Internal nodes on the tree's longest root-to-leaf path, from its
+    host arrays (a node's children are created after it)."""
+    m = int(tree.num_leaves) - 1
+    depth = np.zeros(max(m, 1), np.int64)
+    depth[0] = 1
+    for i, (a, b) in enumerate(zip(tree.node_left[:m].tolist(),
+                                   tree.node_right[:m].tolist())):
+        for c in (a, b):
+            if c >= 0:
+                depth[c] = depth[i] + 1
+    return int(depth[:m].max()) if m > 0 else 0
+
+
+def leaf_index_binned(tree: TreeArrays, bins: torch.Tensor,
+                      max_steps: int) -> torch.Tensor:
+    """Leaf of every row of ``bins`` through one tree, walked with binned
+    thresholds (``bin <= node_bin`` goes left; at a categorical node, a
+    bin set in the node's bitset): as many steps as the tree is deep (at
+    most ``max_steps``), with no host sync."""
     dev = bins.device
     n = bins.shape[0]
     feat = tree.node_feat.to(dev, torch.int64)
@@ -903,10 +1048,8 @@ def predict_tree_binned(tree: TreeArrays, bins: torch.Tensor,
     node = torch.full((n,), 0 if int(tree.num_leaves) > 1 else -1,
                       dtype=torch.int64, device=dev)
     rows = torch.arange(n, device=dev)
-    for _ in range(max_steps):
+    for _ in range(min(max_steps, tree_depth(tree))):
         inner = node >= 0
-        if not bool(inner.any()):
-            break
         safe = node.clamp(min=0)
         val = bins[rows, feat[safe]].to(torch.int64)
         go_left = val <= thr[safe]
@@ -916,4 +1059,4 @@ def predict_tree_binned(tree: TreeArrays, bins: torch.Tensor,
                                   .to(torch.bool), go_left)
         node = torch.where(inner, torch.where(go_left, left[safe],
                                               right[safe]), node)
-    return tree.leaf_value.to(dev)[~node]
+    return ~node

@@ -16,6 +16,15 @@ from .booster import Booster
 class LightGBMRegressor(LightGBMBase):
     _default_objective = "regression"
 
+    def _val_metric(self):
+        """Validation l2: the (weighted) mean squared error."""
+        def l2(scores, labels, weights):
+            d = (scores - labels) ** 2
+            if weights is not None:
+                return float(np.average(d, weights=weights))
+            return float(np.mean(d))
+        return l2
+
     def _make_model(self, booster: Booster) -> "LightGBMRegressionModel":
         return LightGBMRegressionModel(booster=booster)
 

@@ -35,6 +35,11 @@ gathers each shard's segment, histograms it and ring-reduces the result;
 its twin is :func:`..cuda_histogram.histogram_fused_plain` per shard
 followed by :func:`ring_allreduce_plain`.
 
+Integer (quantized) parts ride the dense and select rings as f32 lanes
+and are cast back, as the reference's ``_ring_flat`` does: the kernels
+and the twins add float32, which is exact while every sum stays below
+2**24 (the engine's ``_resolve_quantized`` keeps a ring fit there).
+
 On a CUDA tensor the ring entries launch their kernels or raise: there is
 no fallback to a twin or to a library collective.  The reference's TPU
 VMEM gates (``RING_MAX_BYTES``, ``FUSED_RING_MAX_BINST_BYTES``) are
@@ -61,9 +66,28 @@ def psum_plain(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return acc
 
 
+def _f32_lanes(parts: Sequence[torch.Tensor]):
+    """Integer parts as float32 lanes and the dtype to cast the sum back
+    to; float parts as they are (and None)."""
+    dtype = parts[0].dtype
+    if dtype.is_floating_point:
+        return parts, None
+    return [p.to(torch.float32) for p in parts], dtype
+
+
+def _cast_back(out, dtype):
+    if dtype is None:
+        return out
+    if isinstance(out, torch.Tensor):
+        return out.to(dtype)
+    return [o.to(dtype) for o in out]
+
+
 def ring_allreduce_plain(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """The ring kernel's sum, on the first shard's device: chunk ``c`` of
-    the flattened array is added up starting at shard ``c``."""
+    the flattened array is added up starting at shard ``c`` (integer
+    parts as f32 lanes, cast back)."""
+    parts, dtype = _f32_lanes(parts)
     dev = parts[0].device
     D = len(parts)
     flat = [p.to(dev).reshape(-1) for p in parts]
@@ -76,7 +100,7 @@ def ring_allreduce_plain(parts: Sequence[torch.Tensor]) -> torch.Tensor:
         for k in range(1, D):
             acc = acc + flat[(c + k) % D][lo:hi]
         out[lo:hi] = acc
-    return out.view(parts[0].shape)
+    return _cast_back(out.view(parts[0].shape), dtype)
 
 
 def resolve_collective(collective: str, data_shards: int = 0) -> str:
@@ -93,16 +117,18 @@ def resolve_collective(collective: str, data_shards: int = 0) -> str:
 
 
 def ring_allreduce(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
-    """All-reduce of the float32 ``parts`` (one per shard of ``mesh``):
-    every shard gets the ring-order sum, on its own device.  CUDA tensors
-    go through :func:`.cuda_ring.ring_allreduce_cuda` (the direct kernel
-    on one card, the ring across cards); CPU tensors through
+    """All-reduce of the float32 or integer ``parts`` (one per shard of
+    ``mesh``): every shard gets the ring-order sum, on its own device.
+    CUDA tensors go through :func:`.cuda_ring.ring_allreduce_cuda` (the
+    direct kernel on one card, the ring across cards; integer parts as
+    f32 lanes, cast back); CPU tensors through
     :func:`ring_allreduce_plain`."""
     if len(parts) != len(mesh):
         raise ValueError(f"{len(parts)} parts for a mesh of {len(mesh)} "
                          "shards")
     if parts[0].is_cuda:
-        return cuda_ring.ring_allreduce_cuda(parts, mesh)
+        lanes, dtype = _f32_lanes(parts)
+        return _cast_back(cuda_ring.ring_allreduce_cuda(lanes, mesh), dtype)
     out = ring_allreduce_plain(parts)
     return [out.to(d) for d in mesh.devices]
 
@@ -121,7 +147,8 @@ def ring_allreduce_select_plain(parts: Sequence[torch.Tensor],
                                 cand: torch.Tensor) -> torch.Tensor:
     """Twin of :func:`ring_allreduce_select`: each shard's gathered slab,
     then the ring-order sum of the flattened slab (on the first shard's
-    device).  One shard: the gathered slab."""
+    device; integer slabs as f32 lanes, cast back).  One shard: the
+    gathered slab."""
     return ring_allreduce_plain([gather_cand(p, cand) for p in parts])
 
 
@@ -131,14 +158,17 @@ def ring_allreduce_select(parts: Sequence[torch.Tensor], cand: torch.Tensor,
     ``gather_cand(parts[d], cand)``, on every shard's device.  CUDA tensors
     go through :func:`.cuda_ring.ring_allreduce_select_cuda` (the direct
     select kernel on one card, ``ring_select`` across cards; both gather
-    in-kernel); CPU tensors through :func:`ring_allreduce_select_plain`."""
+    in-kernel; integer parts as f32 lanes, cast back); CPU tensors through
+    :func:`ring_allreduce_select_plain`."""
     if len(parts) != len(mesh):
         raise ValueError(f"{len(parts)} parts for a mesh of {len(mesh)} "
                          "shards")
     if len(parts) == 1:
         return [gather_cand(parts[0], cand)]
     if parts[0].is_cuda:
-        return cuda_ring.ring_allreduce_select_cuda(parts, cand, mesh)
+        lanes, dtype = _f32_lanes(parts)
+        return _cast_back(cuda_ring.ring_allreduce_select_cuda(
+            lanes, cand, mesh), dtype)
     out = ring_allreduce_select_plain(parts, cand)
     return [out.to(d) for d in mesh.devices]
 

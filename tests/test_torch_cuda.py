@@ -888,3 +888,185 @@ def test_multiclass_fit_on_the_card_grows_the_cpu_trees(cuda_device,
              for m, dev in zip(models, (cuda_device, "cpu"))]
     np.testing.assert_allclose(probs[0].numpy(), probs[1].numpy(),
                                rtol=1e-4, atol=1e-4)
+
+
+# -- quantized training and its PRNG -------------------------------------------
+
+
+@pytest.mark.cuda
+def test_threefry_on_the_card_equals_the_cpu(cuda_device):
+    """The threefry module gives the same words and uniforms on the card
+    as on the CPU (where the CPU tests hold it to jax.random)."""
+    from mmlspark_tpu_torch.ops import threefry as tf
+    for seed in (0, 42, 2 ** 31 - 1):
+        keys = {d: tf.prng_key(seed, d) for d in ("cpu", cuda_device)}
+        for shape in ((7,), (65_537,), (400_000, 2)):
+            a, b = (tf.uniform(k, shape) for k in keys.values())
+            assert torch.equal(a, b.cpu()), (seed, shape)
+        a, b = (tf.split(k, 50) for k in keys.values())
+        assert torch.equal(a, b.cpu())
+        g = torch.tensor(3.8995044, dtype=torch.float32)
+        a, b = (tf.fold_in(k, tf.float_bits(g.to(k.device)))
+                for k in keys.values())
+        assert torch.equal(a, b.cpu())
+
+
+#: the flagship's headroom edge: 400,000 rows at max_code 5,368 (16 bits,
+#: (2^31 - 1) // 400,000), every row in one bin: n * max_code =
+#: 2,147,200,000, 283,647 below 2^31 - 1
+EDGE_ROWS, EDGE_CODE = 400_000, 5_368
+
+
+def _edge_inputs(dev, sign, rows=EDGE_ROWS, f=50):
+    bins = torch.full((rows, f), 7, dtype=torch.uint8, device=dev)
+    gh = torch.tensor([sign * EDGE_CODE, EDGE_CODE, 1], dtype=torch.int32,
+                      device=dev).expand(rows, 3).contiguous()
+    return bins, gh
+
+
+def _edge_want(rows, f, B=256, sign=1):
+    want = torch.zeros((f, B, 3), dtype=torch.int64)
+    want[:, 7] = torch.tensor([sign * rows * EDGE_CODE, rows * EDGE_CODE,
+                               rows])
+    return want.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [1, -1])
+def test_int32_histograms_hold_the_headroom_edge(cuda_device, sign):
+    """Every row in one bin and every code at ±max_code: hist_full and
+    hist_segment (the segment of every row) give the exact int32 cells
+    n·max_code, as their twins do."""
+    bins, gh = _edge_inputs(cuda_device, sign)
+    want = _edge_want(EDGE_ROWS, 50, sign=sign)
+    full = ch.histogram_cuda(bins, gh, 256, "int32")
+    order = torch.arange(EDGE_ROWS, dtype=torch.int32, device=cuda_device)
+    seg = ch.histogram_cuda_fused(bins, gh, order, 0, EDGE_ROWS, 256,
+                                  "int32")
+    for got, twin in ((full, ch.histogram_plain(bins, gh, 256, "int32")),
+                      (seg, ch.histogram_fused_plain(
+                          bins, gh, order, 0, EDGE_ROWS, 256, "int32"))):
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(twin.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [1, -1])
+def test_int32_fused_ring_holds_the_headroom_edge(cuda_device, sign):
+    """The same edge split over D = 4 virtual shards of 100,000 rows:
+    fused_hist_ring's int32 partials and merges stay exact."""
+    D, S = 4, EDGE_ROWS // 4
+    mesh = build_mesh(devices=[cuda_device] * D)
+    shards = []
+    for d in range(D):
+        bins, gh = _edge_inputs(cuda_device, sign, rows=S)
+        order = torch.arange(S, dtype=torch.int32, device=cuda_device)
+        shards.append((bins, gh, order, 0, S))
+    got = co.fused_segment_hist_ring(shards, 256, mesh, "int32")
+    want = _edge_want(EDGE_ROWS, 50, sign=sign)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), want) for g in got)
+    assert torch.equal(co.fused_segment_hist_ring_plain(
+        shards, 256, "int32").cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["direct", "ring"])
+@pytest.mark.parametrize("D", [2, 4])
+def test_integer_slabs_ride_the_rings_exactly(cuda_device, D, route):
+    """Quantized histograms cross the dense and select rings as f32 lanes
+    and cast back: the wrappers' integer results equal the twins' and the
+    exact sums (every sum below 2^24), on both routes."""
+    mesh = build_mesh(devices=[cuda_device] * D)
+    rng = np.random.default_rng(D)
+    parts = [torch.from_numpy(rng.integers(-2 ** 21, 2 ** 21, (2, 40, 64, 3))
+                              .astype(np.int32)).to(cuda_device)
+             for _ in range(D)]
+    cand = torch.from_numpy(np.stack([rng.choice(40, 9, replace=False)
+                                      for _ in range(2)]).astype(np.int32))
+    want = sum(p.long() for p in parts).int()
+    want_sel = torch.stack([want[c][cand[c].long().to(want.device)]
+                            for c in range(2)])
+    lanes = [p.float() for p in parts]
+    dense = [g.int() for g in cr._allreduce(lanes, mesh, route)]
+    sel = [g.int() for g in cr._allreduce_select(
+        lanes, cand.to(cuda_device), mesh, route)]
+    if route == cr.ring_route(mesh.devices):
+        dense += co.ring_allreduce(parts, mesh)
+        sel += co.ring_allreduce_select(parts, cand.to(cuda_device), mesh)
+    torch.cuda.synchronize()
+    assert torch.equal(co.ring_allreduce_plain(parts), want)
+    assert all(g.dtype == torch.int32 and torch.equal(g, want)
+               for g in dense)
+    assert all(torch.equal(g, want_sel) for g in sel)
+
+
+def _quant_data(n=8192, f=100, seed=6):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    y = (X[:, 0] * 1.5 + X[:, 1] * X[:, 2] + rng.normal(size=n) * 0.5 > 0)
+    return {"features": X, "label": y.astype(np.float64)}
+
+
+@pytest.mark.cuda
+def test_quantized_pallas_ring_fit_is_the_same_run_to_run(cuda_device):
+    """A quantized D = 4 pallas_ring fit (max_code 3, int16 wire, ring
+    kept) runs the int32 fused kernel, and its integer sums commute: two
+    fits write one model text, which is the CPU mesh fit's."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    from mmlspark_tpu_torch.gbdt import engine
+    table = _quant_data()
+    texts = []
+    for dev in (cuda_device, cuda_device, "cpu"):
+        est = LightGBMClassifier(
+            numIterations=4, numLeaves=15, quantizedGrad="16",
+            collective="ring", histogramMethod="pallas_ring",
+            device=str(torch.device(dev).type))
+        est.setMesh(build_mesh(devices=[dev] * 4))
+        before = cr.fused_segment_hist_ring_cuda.launches
+        texts.append(est.fit(table).getNativeModel())
+        if dev != "cpu":
+            assert cr.fused_segment_hist_ring_cuda.launches > before
+        assert engine.last_fit_info["quantized_max_code"] == "3"
+        assert engine.last_fit_info["collective"] == "ring"
+    assert texts[0] == texts[1] == texts[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(boostingType="goss"),
+                                dict(quantizedGrad="16"),
+                                dict(quantizedGrad="8")],
+                         ids=["goss", "q16", "q8"])
+def test_goss_and_quantized_fits_on_the_card_grow_the_cpu_trees(cuda_device,
+                                                               kw):
+    """GOSS draws the same sample and the quantizer the same codes on the
+    card as on the CPU (threefry, sorts of integer keys), so the first
+    trees agree."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    table = _quant_data(20_000, 20)
+    trees = [LightGBMClassifier(numIterations=3, numLeaves=15, device=d,
+                                **kw).fit(table).getModel().trees
+             for d in ("cuda", "cpu")]
+    _same_trees(trees[0], trees[1], 1)
+
+
+@pytest.mark.cuda
+def test_early_stopping_on_the_card_stops_where_the_cpu_does(cuda_device):
+    """20,000 rows, 10 iterations, earlyStoppingRound 3: the card stops at
+    the CPU's iteration, with validation metrics within 1e-5 relative at
+    every iteration."""
+    from mmlspark_tpu_torch import LightGBMClassifier
+    from mmlspark_tpu_torch.gbdt import engine
+    table = _quant_data(20_000, 20)
+    table["val"] = np.random.default_rng(3).random(20_000) < 0.2
+    stops, metrics = [], []
+    for dev in ("cuda", "cpu"):
+        booster = LightGBMClassifier(
+            numIterations=10, learningRate=0.5, numLeaves=31, device=dev,
+            validationIndicatorCol="val", earlyStoppingRound=3,
+        ).fit(table).getModel()
+        stops.append(booster.params["num_iterations"])
+        metrics.append(engine.last_validation["metrics"])
+    assert stops[0] == stops[1]
+    np.testing.assert_allclose(metrics[0], metrics[1], rtol=1e-5)

@@ -127,11 +127,14 @@ def test_estimators_default_to_cuda():
 
 
 ASKS = [
-    dict(boostingType="goss"), dict(boostingType="dart"),
-    dict(earlyStoppingRound=5), dict(objective="poisson"),
-    dict(quantizedGrad="16"), dict(enableBundle=True),
-    dict(initModelPath="model.txt"), dict(checkpointDir="ckpt"),
-    dict(validationIndicatorCol="val"), dict(objective="huber"),
+    dict(boostingType="dart"), dict(objective="poisson"),
+    dict(enableBundle=True), dict(initModelPath="model.txt"),
+    dict(checkpointDir="ckpt"), dict(objective="huber"),
+]
+#: features a later slice ported: they fit now, on both estimators
+LIFTED = [
+    dict(boostingType="goss"), dict(earlyStoppingRound=5),
+    dict(quantizedGrad="16"), dict(validationIndicatorCol="val"),
 ]
 
 
@@ -143,6 +146,25 @@ def test_unported_features_refuse(ask):
     table = {"features": X, "label": X[:, 0], "val": X[:, 1] > 0}
     with pytest.raises(NotImplementedError):
         LightGBMRegressor(numIterations=2, device="cpu", **ask).fit(table)
+
+
+@pytest.mark.parametrize("ask", LIFTED, ids=lambda a: next(iter(
+    a.items()))[0] + "=" + str(next(iter(a.values()))))
+def test_lifted_features_fit(ask):
+    """boostingType="goss", quantizedGrad, validationIndicatorCol and
+    earlyStoppingRound fit on both estimators and score every row."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(400, 3))
+    table = {"features": X, "label": (X[:, 0] > 0).astype(float),
+             "val": X[:, 1] > 0.5}
+    kw = dict(numIterations=3, numLeaves=4, minDataInLeaf=5,
+              device="cpu", verbosity=0, **ask)
+    if "earlyStoppingRound" in ask:
+        kw["validationIndicatorCol"] = "val"
+    for est in (LightGBMClassifier(**kw), LightGBMRegressor(**kw)):
+        model = est.fit(table)
+        assert 1 <= len(model.getModel().trees) <= 3
+        assert np.isfinite(model.transform(table)["prediction"]).all()
 
 
 def test_multiclass_labels_refuse():
