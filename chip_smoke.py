@@ -37,12 +37,14 @@ Phases, each printing one JSON line:
 5. cuda_vs_cpu — the same classifier at 20,000 × 50 and 5 iterations on
    the kernels and on the plain CPU path: identical first tree, AUCs
    within 0.002, margins close over the trees whose structure matches.
-6. profile — where a 10-iteration flagship fit spends its time:
+6. profile — where a 5-iteration flagship fit spends its time:
    ``torch.profiler`` device time by kernel, the device's idle share, and
    the host binning pass timed alone; the quantiles of its segment sizes
-   (the smaller child of each split); then the same 10-iteration fit on
+   (the smaller child of each split); then the same 5-iteration fit on
    four virtual shards under ``histogramMethod="pallas_ring"``, for the
-   device time of ``fused_hist_ring`` per fit, and under ``"auto"``.
+   device time of ``fused_hist_ring`` per fit, and under ``"auto"``; and
+   a 5-iteration ranking fit (``ranking_data``): the lambda gradient's
+   share of the device.
 7. collectives — the kernels of ``csrc/ring.cu`` on D ∈ {2, 4}
    virtual shards of the card (the dense and select reductions on their
    direct route, as ``route`` says): ``ring_allreduce`` against its plain twin
@@ -104,10 +106,11 @@ Phases, each printing one JSON line:
    fitted twice on the card for ``same_model_text``, reported): first
    tree identical, AUCs within 0.002.
 11. multiclass_path — the flagship's features with five classes
-   (``multiclass_data``), ``multiclass`` and ``multiclassova``, 20
-   iterations: a warm-up and a timed serial fit each (100 trees and 100
-   ``hist_full`` launches, train accuracy, multi-logloss of the first and
-   the last iteration, which must fall, ``same_model_text``); a
+   (``multiclass_data``), ``multiclass`` and ``multiclassova``, 10
+   iterations (cut from 20 to hold the script's time): a warm-up and a
+   timed serial fit each (50 trees and 50 ``hist_full`` launches, train
+   accuracy, multi-logloss of the first and the last iteration, which
+   must fall, ``same_model_text``); a
    10-iteration data-ring fit on four virtual shards; a 20,000-row,
    5-iteration card-vs-CPU check: the first K trees identical and the
    probabilities allclose 1e-4 over the matching iterations.
@@ -141,20 +144,65 @@ Phases, each printing one JSON line:
    payload over the dense f32 payload; and a 20,000-row, 5-iteration
    card-vs-CPU check: the first tree identical where the g-max bits agree
    (both printed), AUCs within 0.002 where they do not.
-15. collectives_cross_card — phase 7's checks with one shard per card,
+15. objectives_path — the flagship's features with a label for each
+   regression family (``objective_data``), each of ``OBJECTIVES`` fitted
+   20 iterations (31 leaves, 255 bins) after one warm-up fit: fit seconds,
+   the objective's LightGBM metric (``objective_loss``) at iterations 0
+   and 19, which must fall, ``transform`` equal to the objective's
+   ``transform_prediction`` of ``predict_margin``, ``hist_full`` once a
+   tree and ``hist_segment`` once a split; a 20,000-row, 5-iteration
+   card-vs-CPU check of each: the first tree identical, the predictions
+   close over the matching iterations.
+16. dart_path — the flagship under ``boostingType="dart"`` (LightGBM's
+   defaults: ``dropRate`` 0.1, ``maxDrop`` 50, ``skipDrop`` 0.5,
+   ``dropSeed`` 4), 50 iterations, a warm-up and a timed fit: fit and
+   transform seconds, train AUC ≥ 0.94 (``DART_MIN_AUC``), the drops of
+   every iteration (some above 0), one model text, and the fit's final
+   training scores equal to the exported model's margins walked over the
+   bins within 1e-5 of their largest magnitude (the baked scales; the
+   rows where the float thresholds route a row apart from its bin are
+   counted, ``rows_where_thresholds_route_apart``); a 20-iteration D = 4
+   fit asking for the ring, which keeps psum with the downgrade
+   ``"dart"``; a 20,000-row,
+   5-iteration card-vs-CPU check with drops in every iteration: the
+   first tree identical, the same drops and scales, AUCs within 0.002.
+17. rf_path — the flagship under ``boostingType="rf"`` (``baggingFraction``
+   0.8, ``baggingFreq`` 1, ``featureFraction`` 0.8), 50 iterations: fit
+   seconds and AUC; then 20-iteration D = 4 fits under the data ring
+   (``ring_allreduce`` once per tree and split), ``pallas_ring``
+   (``fused_hist_ring`` once per split) and voting with the ring (``topK``
+   5, ``ring_allreduce_select`` once per tree and split), each AUC within
+   0.01 of the serial fit's first 20 iterations; a 20,000-row card-vs-CPU
+   check.
+18. ranking_path — the slice's main path: ``LightGBMRanker`` on data of
+   MSLR-WEB30K's shape (``ranking_data``: 3,000 queries of 20–230
+   documents, 136 features, grades 0–4), 50 iterations, 31 leaves, 255
+   bins, ``maxPosition`` 30, ``sigma`` 1, a warm-up and a timed fit: fit
+   and transform seconds, the lambda gradient's milliseconds an iteration
+   (CUDA events), train NDCG@1/3/5/10 against the score-0 baseline
+   (NDCG@10 must rise by 0.1), one model text, ``hist_full`` once a tree
+   and ``hist_segment`` once a split; a fit with 20% of the queries held
+   out and ``earlyStoppingRound`` 10 on the negative NDCG@10 (learning
+   rate 0.5; the stop rule must hold whether or not it fires); a
+   20-iteration D = 4 data fit (each query on one shard); a 200-query,
+   5-iteration card-vs-CPU check: the first tree identical, NDCG@10
+   within 0.002.
+19. collectives_cross_card — phase 7's checks with one shard per card,
    D = min(cards, 4), where the host has at least two cards; elsewhere it
    prints ``"ran": false`` (not a failure).
 
 The kernels phase also runs ``hist_full`` f32 at GOSS's 120,000 sampled
-rows and the int32 ``hist_full`` and ``hist_segment`` on the quantized
-flagship's codes; the collectives phase the int32 ``fused_hist_ring`` at
-2,048 rows a shard × 2,000 features (codes of the reference
-configuration's grid).
+rows and at the ranking configuration's rows × 136 features on its first
+lambda gradients (and ``hist_segment`` there), the int32 ``hist_full``
+and ``hist_segment`` on the quantized flagship's codes; the collectives
+phase the int32 ``fused_hist_ring`` at 2,048 rows a shard × 2,000
+features (codes of the reference configuration's grid).
 
 Then the ``{"kernels": [...]}`` line (a row per kernel, launches from the
-main path, plus a row per int32 mode, launches from ``quantized_path``),
-the card line, and last the ``{"ok": true, ...}`` line.  Any failed phase makes the script exit 1
-without that last line.
+main path, plus a row per int32 mode, launches from ``quantized_path``,
+and the histogram kernels at the ranking shapes, launches from
+``ranking_path``), the card line, and last the ``{"ok": true, ...}``
+line.  Any failed phase makes the script exit 1 without that last line.
 
     python3 chip_smoke.py --phases kernels,main_path
 
@@ -232,7 +280,7 @@ CAT_CARDINALITIES = (2, 3, 4, 12, 24, 64, 200, 254, 1000, 10_000)
 #: 50 cut, to hold the phase's time)
 CAT_MESH_ITERATIONS = 20
 #: the multiclass configuration: classes and iterations (mesh fit: 10)
-NUM_CLASSES, MULTICLASS_ITERATIONS = 5, 20
+NUM_CLASSES, MULTICLASS_ITERATIONS = 5, 10
 #: the validation configuration: the flagship with this fraction of its
 #: rows flagged (numpy default_rng(VAL_SEED)), a learning rate at which
 #: the validation logloss turns within the iterations asked, and the
@@ -244,6 +292,33 @@ GOSS_TOP_RATE, GOSS_OTHER_RATE = 0.2, 0.1
 GOSS_ITERATIONS, GOSS_MESH_ITERATIONS = 50, 20
 #: quantized flagship iterations
 QUANT_ITERATIONS = 50
+#: the objectives configuration: the flagship's features, one label per
+#: family (numpy default_rng(4)), each objective fitted this many
+#: iterations
+OBJECTIVES = ("regression_l1", "huber", "fair", "poisson", "quantile",
+              "mape", "gamma", "tweedie", "cross_entropy")
+OBJ_ITERATIONS = 20
+#: DART with LightGBM's default drops, rf with its bagging; iterations of
+#: the serial fits and of the D = 4 fits
+DART_ITERATIONS, DART_MESH_ITERATIONS = 50, 20
+#: DART's train AUC floor on the flagship: each new iteration joins at
+#: 1/(k+1) and the dropped ones shrink, so at learning rate 0.1 the
+#: 50-iteration fit reaches 0.9448 (PR 9, chip call 1), below gbdt's
+#: 0.955 floor; the CPU fits equal the reference's byte for byte
+DART_MIN_AUC = 0.94
+RF_ITERATIONS, RF_MESH_ITERATIONS, RF_TOP_K = 50, 20, 5
+#: the ranking configuration, MSLR-WEB30K's shape: queries, documents a
+#: query (uniform), features, the quantiles the grades 0-4 are cut at
+#: (numpy default_rng(5)), iterations (D = 4 fit: 20), NDCG positions
+RANK_QUERIES, RANK_DOCS, RANK_FEATURES = 3000, (20, 230), 136
+RANK_CUTS = (0.50, 0.82, 0.95, 0.985)
+RANK_ITERATIONS, RANK_MESH_ITERATIONS = 50, 20
+RANK_EVAL_AT = (1, 3, 5, 10)
+#: the held-out fit's learning rate (its validation NDCG turns sooner)
+RANK_ES_LR = 0.5
+#: iterations of each profiled fit (the profiler multiplies a fit's
+#: host time)
+PROFILE_ITERATIONS = 5
 #: the card the kernels and the main path run on
 DEV = "cuda"
 
@@ -311,6 +386,106 @@ def multi_logloss(y, prob):
     import numpy as np
     p = prob[np.arange(len(y)), y.astype(np.int64)]
     return float(-np.log(np.clip(p, 1e-15, 1.0)).mean())
+
+
+def objective_data(name, n=None):
+    """The flagship's features with a label for ``name``'s family, drawn
+    from numpy ``default_rng(4)`` around the flagship's hidden logit z: a
+    Poisson count of mean exp(0.3 z) (poisson), a Gamma (shape 2) and a
+    Tweedie (ρ 1.5, compound Poisson-Gamma, φ 1) of the same mean,
+    sigmoid(z) (cross_entropy), else z plus Student-t(2) noise."""
+    import numpy as np
+    n = n or N_ROWS
+    X, z = bench_logits(n, N_FEATURES)
+    rng = np.random.default_rng(4)
+    mu = np.exp(0.3 * z)
+    if name == "poisson":
+        y = rng.poisson(mu).astype(np.float64)
+    elif name == "gamma":
+        y = rng.gamma(2.0, mu / 2.0)
+    elif name == "tweedie":
+        rho = 1.5
+        lam = mu ** (2 - rho) / (2 - rho)
+        alpha = (2 - rho) / (rho - 1)
+        count = rng.poisson(lam)
+        y = np.where(count > 0, rng.gamma(np.maximum(count * alpha, 1e-9),
+                                          (rho - 1) * mu ** (rho - 1)), 0.0)
+    elif name == "cross_entropy":
+        y = 1.0 / (1.0 + np.exp(-z))
+    else:
+        y = z + rng.standard_t(2, size=n)
+    return X, y.astype(np.float64)
+
+
+def objective_loss(name, y, margin):
+    """LightGBM's metric for each objective (numpy, mean over rows) at
+    the margins: l1, huber (δ 0.9), fair (c 1), poisson / gamma /
+    tweedie (ρ 1.5) negative log-likelihood up to constants, quantile
+    (α 0.9), mape, cross_entropy."""
+    import numpy as np
+    m = np.asarray(margin, np.float64)
+    d = m - y
+    if name == "regression_l1":
+        loss = np.abs(d)
+    elif name == "huber":
+        loss = np.where(np.abs(d) <= 0.9, 0.5 * d * d,
+                        0.9 * (np.abs(d) - 0.45))
+    elif name == "fair":
+        loss = np.abs(d) - np.log1p(np.abs(d))
+    elif name == "poisson":
+        loss = np.exp(m) - y * m
+    elif name == "quantile":
+        loss = np.where(d >= 0, 0.1 * d, -0.9 * d)
+    elif name == "mape":
+        loss = np.abs(d) / np.maximum(np.abs(y), 1.0)
+    elif name == "gamma":
+        loss = y * np.exp(-m) + m
+    elif name == "tweedie":
+        loss = y * np.exp(-0.5 * m) / 0.5 + np.exp(0.5 * m) / 0.5
+    else:
+        p = np.clip(1.0 / (1.0 + np.exp(-m)), 1e-15, 1 - 1e-15)
+        loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
+    return float(loss.mean())
+
+
+_RANKING = {}
+
+
+def ranking_data(n_queries=None):
+    """Data of MSLR-WEB30K's shape, from numpy ``default_rng(5)``:
+    ``n_queries`` queries of uniformly 20–230 documents, 136 standard
+    normal features, and grades 0–4 cut at the quantiles ``RANK_CUTS`` of
+    a noisy linear score (weights on 20 features).  The data and its cuts
+    are this script's own, not MSLR's published label shares."""
+    import numpy as np
+    n_queries = n_queries or RANK_QUERIES
+    if n_queries in _RANKING:
+        return _RANKING[n_queries]
+    rng = np.random.default_rng(5)
+    sizes = rng.integers(RANK_DOCS[0], RANK_DOCS[1] + 1, size=n_queries)
+    q = np.repeat(np.arange(n_queries), sizes)
+    X = rng.normal(size=(len(q), RANK_FEATURES)).astype(np.float32)
+    score = X[:, :20] @ rng.normal(size=20) + rng.normal(size=len(q)) * 2.0
+    y = np.digitize(score, np.quantile(score, RANK_CUTS)).astype(np.float64)
+    _RANKING[n_queries] = (X, y, q)
+    return X, y, q
+
+
+def ranking_inputs():
+    """Kernel inputs of the ranking main path's first tree: its binned
+    matrix and the lambda gradients at score 0, on the card."""
+    import torch
+    from mmlspark_tpu_torch.gbdt import fit_bin_mapper
+    from mmlspark_tpu_torch.gbdt.ranking import LambdarankGradient
+    X, y, q = ranking_data()
+    mapper = fit_bin_mapper(X, max_bin=255)
+    bins = mapper.transform(X, DEV)
+    g, h = LambdarankGradient.serial(y, q, 1.0, 30, DEV).grad_hess(
+        0, torch.zeros(len(y), device=DEV))
+    gh = torch.stack([g, h, torch.ones_like(g)], dim=1)
+    scale = gh.abs().amax(0).clamp(min=1e-30) / 127
+    return bins, mapper.num_total_bins, gh, torch.round(gh / scale).to(
+        torch.int32)
 
 
 def auc(y, s):
@@ -640,6 +815,14 @@ def phase_kernels(state):
     for cnt in (MEDIAN_SEGMENT, max(SEGMENT_COUNTS)):
         rows.append({**_segment_row(quant, row_order, cnt, "int32"),
                      "path": "quantized_path"})
+    # the ranking main path's shapes: its matrix and first gradients
+    rank = ranking_inputs()
+    rank_order = torch.randperm(rank[0].shape[0], generator=g).to(
+        torch.int32).to(DEV)
+    rows.append({**_full_row(rank, "float32"), "path": "ranking_path"})
+    for cnt in (MEDIAN_SEGMENT, rank[0].shape[0] // 2):
+        rows.append({**_segment_row(rank, rank_order, cnt, "float32"),
+                     "path": "ranking_path"})
     # the other design: hist_segment's block step over every row in order
     every = torch.arange(n, dtype=torch.int32, device=DEV)
     rows.append({**_segment_row(inputs, every, n, "float32"),
@@ -750,8 +933,10 @@ def phase_cuda_vs_cpu():
 
 
 def phase_profile():
-    """Where a flagship fit's time goes: ``torch.profiler`` over a
-    10-iteration fit at full width, device time summed by kernel."""
+    """Where a fit's time goes: ``torch.profiler`` over a
+    ``PROFILE_ITERATIONS``-iteration fit at full width (the flagship
+    serially and on four virtual shards, and the ranking configuration),
+    device time summed by kernel."""
     import torch
     from mmlspark_tpu_torch.gbdt import fit_bin_mapper
     X, y = bench_data(N_ROWS, N_FEATURES)
@@ -761,14 +946,21 @@ def phase_profile():
     torch.cuda.synchronize()
     binning_s = time.perf_counter() - t0
     from mmlspark_tpu_torch import build_mesh
-    est = _classifier(numIterations=10, device=DEV, parallelism="serial")
+    T = PROFILE_ITERATIONS
+    est = _classifier(numIterations=T, device=DEV, parallelism="serial")
     serial = profiled_fit(est, table, ("hist_full", "hist_segment"))
     mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
-    ring = _classifier(numIterations=10, device=DEV, collective="ring",
+    ring = _classifier(numIterations=T, device=DEV, collective="ring",
                        histogramMethod="pallas_ring").setMesh(mesh)
-    auto = _classifier(numIterations=10, device=DEV, collective="ring",
+    auto = _classifier(numIterations=T, device=DEV, collective="ring",
                        histogramMethod="auto").setMesh(mesh)
-    return {"iterations": 10, "binning_s": binning_s, **serial,
+    Xr, yr, qr = ranking_data()
+    ranking = profiled_fit(
+        _ranker(numIterations=T, device=DEV),
+        {"features": Xr, "label": yr, "query": qr},
+        ("hist_full", "hist_segment"))
+    return {"iterations": T, "binning_s": binning_s, **serial,
+            "ranking": ranking,
             "pallas_ring_d4": profiled_fit(
                 ring, table, ("hist_full", "fused_hist_ring",
                               "ring_allreduce")),
@@ -2025,6 +2217,413 @@ def _quantized_card_vs_cpu():
     return res
 
 
+def _regressor(**kw):
+    from mmlspark_tpu_torch import LightGBMRegressor
+    return LightGBMRegressor(**{**dict(learningRate=0.1, numLeaves=31,
+                                       maxBin=255, minDataInLeaf=20,
+                                       verbosity=0), **kw})
+
+
+def _splits(model):
+    return sum(t.num_leaves - 1 for t in model.getModel().trees)
+
+
+def phase_objectives_path(state):
+    """Each of ``OBJECTIVES`` on the flagship's features with its
+    family's label (``objective_data``), ``OBJ_ITERATIONS`` iterations
+    after one warm-up fit: fit seconds, the LightGBM metric at iterations
+    0 and 19 (it must fall), ``transform`` equal to the objective's
+    ``transform_prediction`` of ``predict_margin``, ``hist_full`` once a
+    tree and ``hist_segment`` once a split; then the card-vs-CPU check."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.gbdt import get_objective
+    counters = _counters()
+    X, y = objective_data("huber")
+    _regressor(objective="huber", numIterations=OBJ_ITERATIONS,
+               device=DEV).fit({"features": X, "label": y})
+    res = {"rows": N_ROWS, "iterations": OBJ_ITERATIONS, "fits": {}}
+    for name in OBJECTIVES:
+        X, y = objective_data(name)
+        table = {"features": X, "label": y}
+        model, fit_s, counts = _counted_fit(
+            _regressor(objective=name, numIterations=OBJ_ITERATIONS,
+                       device=DEV), table, counters)
+        booster = model.getModel()
+        m0, m19 = (booster.predict_margin(X, num_iteration=k).cpu().numpy()
+                   for k in (1, OBJ_ITERATIONS))
+        t0 = time.perf_counter()
+        pred = model.transform(table)["prediction"]
+        transform_s = time.perf_counter() - t0
+        want = get_objective(name).transform_prediction(
+            booster.predict_margin(X)).cpu().numpy().astype(np.float64)
+        row = res["fits"][name] = {
+            "fit_s": fit_s, "transform_s": transform_s,
+            "loss_iteration_0": objective_loss(name, y, m0),
+            "loss_iteration_19": objective_loss(name, y, m19),
+            "trees": len(booster.trees), "splits": _splits(model),
+            "launches": {k: counts[k] for k in ("hist_full",
+                                                "hist_segment")},
+            "transform_is_the_objective_s": bool(np.array_equal(pred,
+                                                                want))}
+        if not row["loss_iteration_19"] < row["loss_iteration_0"]:
+            raise AssertionError(f"{name}: the loss did not fall: {row}")
+        if not row["transform_is_the_objective_s"] or \
+                not np.isfinite(pred).all():
+            raise AssertionError(f"{name}: transform is not the "
+                                 f"objective's transform: {row}")
+        if row["launches"] != {"hist_full": row["trees"],
+                               "hist_segment": row["splits"]}:
+            raise AssertionError(f"{name}: launches do not match the "
+                                 f"trees and splits: {row}")
+    state["objective_launches"] = {
+        k: sum(r["launches"][k] for r in res["fits"].values())
+        for k in ("hist_full", "hist_segment")}
+    res["card_vs_cpu"] = _objectives_card_vs_cpu()
+    torch.cuda.synchronize()
+    return res
+
+
+def _matching(ta, tb):
+    k = 0
+    while k < min(len(ta), len(tb)) and _same_tree(ta[k], tb[k]):
+        k += 1
+    return k
+
+
+def _objectives_card_vs_cpu():
+    """20,000 rows, 5 iterations of each objective on the card and on the
+    CPU: the first tree identical, the predictions within 1e-4 over the
+    matching iterations (the f32 histograms add each cell in another
+    order on the card, so a near-tie may part a later tree)."""
+    import numpy as np
+    out = {}
+    for name in OBJECTIVES:
+        X, y = objective_data(name, 20_000)
+        table = {"features": X, "label": y}
+        models = {d: _regressor(objective=name, numIterations=5,
+                                device=d).fit(table) for d in (DEV, "cpu")}
+        k = _matching(*(models[d].getModel().trees for d in (DEV, "cpu")))
+        pa = models[DEV].getModel().predict(X, num_iteration=k)
+        pb = models["cpu"].getModel().predict(X, num_iteration=k,
+                                              device="cpu")
+        diff = float((pa.cpu() - pb).abs().max()) if k else None
+        out[name] = {"matching_trees": k, "prediction_max_abs_diff": diff}
+        if k < 1 or not np.allclose(pa.cpu().numpy(), pb.numpy(),
+                                    rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{name}: the card's fit differs from the "
+                                 f"cpu's: {out[name]}")
+    return out
+
+
+def phase_dart_path(state):
+    """The flagship under DART with LightGBM's default drops,
+    ``DART_ITERATIONS`` iterations, a warm-up and a timed fit; a D = 4
+    fit asking for the ring (psum, downgrade ``"dart"``); the card-vs-CPU
+    check."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import build_mesh
+    from mmlspark_tpu_torch.gbdt import engine
+    from mmlspark_tpu_torch.gbdt.grower import leaf_index_binned
+    counters = _counters()
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    table = {"features": X, "label": y}
+    kw = dict(boostingType="dart", dropRate=0.1, maxDrop=50, skipDrop=0.5,
+              dropSeed=4)
+    est = _classifier(numIterations=DART_ITERATIONS, device=DEV,
+                      parallelism="serial", **kw)
+    drops, restore_d = _recorder((engine, "_dart_draw_drops"))
+    fits, restore_f = _recorder((engine, "_dart_fit"))
+    try:
+        warm, model, fit_s, launches, host_s, syncs = _timed_fit(
+            est, table, counters)
+    finally:
+        restore_d()
+        restore_f()
+    per_iteration = [len(out) for _, _, out in drops.calls[-DART_ITERATIONS:]]
+    args, _, (trees_dev, _, _, scores) = fits.calls[-1]
+    bins = args[0].bins[0]
+    t0 = time.perf_counter()
+    prob = model.transform(table)["probability"][:, 1]
+    transform_s = time.perf_counter() - t0
+    booster = model.getModel()
+    trees = booster.trees
+    margin = booster.predict_margin(X)
+    # the exported trees (scales and init baked in) walked over the bins,
+    # added in tree order as predict_margin adds them
+    binned = torch.zeros_like(margin)
+    for t, host in zip(trees_dev, trees):
+        binned += torch.as_tensor(host.leaf_value, dtype=torch.float32,
+                                  device=bins.device)[
+            leaf_index_binned(t, bins, 31)]
+    scores = scores[0]
+    res = {"rows": N_ROWS, "iterations": DART_ITERATIONS, **kw,
+           "fit_s": fit_s, "transform_s": transform_s, "host_s": host_s,
+           "host_syncs": syncs, "trees": len(trees),
+           "splits": _splits(model), "launches": launches,
+           "drops_per_iteration": per_iteration,
+           "train_auc": auc(y, prob),
+           "scores_vs_binned_model_max_abs_diff": float(
+               (scores - binned).abs().max()),
+           "margin_max_abs": float(margin.abs().max()),
+           "rows_where_thresholds_route_apart": int(
+               (margin != binned).sum()),
+           "same_model_text": same_model_text(warm, model)}
+    state["dart_launches"] = launches
+    if not res["train_auc"] >= DART_MIN_AUC:
+        raise AssertionError(f"train AUC {res['train_auc']} < "
+                             f"{DART_MIN_AUC}: {res}")
+    if not max(per_iteration) > 0:
+        raise AssertionError(f"no iteration dropped a tree: {res}")
+    if res["scores_vs_binned_model_max_abs_diff"] > \
+            1e-5 * res["margin_max_abs"]:
+        raise AssertionError(f"the training scores are not the exported "
+                             f"model's margins: {res}")
+    if launches["hist_full"] != len(trees) or \
+            launches["hist_segment"] != res["splits"]:
+        raise AssertionError(f"launches do not match the trees and "
+                             f"splits: {res}")
+    if not res["same_model_text"]:
+        raise AssertionError(f"the warm-up and timed fits wrote different "
+                             f"model text: {res}")
+    mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
+    m, mesh_s, counts = _counted_fit(
+        _classifier(numIterations=DART_MESH_ITERATIONS, device=DEV,
+                    collective="ring", **kw).setMesh(mesh), table, counters)
+    res["mesh_psum"] = {
+        "iterations": DART_MESH_ITERATIONS, "fit_s": mesh_s,
+        "launches": counts,
+        "collective": engine.last_fit_info["collective"],
+        "collective_downgrade": engine.last_fit_info["collective_downgrade"],
+        "train_auc": auc(y, m.transform(table)["probability"][:, 1])}
+    if res["mesh_psum"]["collective_downgrade"] != "dart" or \
+            counts["hist_full"] != MESH_SHARDS * len(m.getModel().trees):
+        raise AssertionError(f"D = {MESH_SHARDS} DART: {res['mesh_psum']}")
+    res["card_vs_cpu"] = _dart_card_vs_cpu()
+    torch.cuda.synchronize()
+    return res
+
+
+def _dart_card_vs_cpu():
+    """20,000 rows, 5 DART iterations dropping in every iteration
+    (``skipDrop`` 0, ``dropRate`` 0.5) on the card and on the CPU: the
+    first tree identical, the same scales (the same drops), AUCs within
+    0.002."""
+    X, y = bench_data(20_000, N_FEATURES)
+    table = {"features": X, "label": y}
+    models = {d: _classifier(numIterations=5, device=d, boostingType="dart",
+                             skipDrop=0.0, dropRate=0.5).fit(table)
+              for d in (DEV, "cpu")}
+    ta, tb = (models[d].getModel().trees for d in (DEV, "cpu"))
+    aucs = {d: auc(y, m.transform(table)["probability"][:, 1])
+            for d, m in models.items()}
+    res = {"matching_trees": _matching(ta, tb),
+           "same_scales": [t.shrinkage for t in ta]
+           == [t.shrinkage for t in tb], "auc": aucs}
+    if res["matching_trees"] < 1 or not res["same_scales"] or \
+            abs(aucs[DEV] - aucs["cpu"]) > 0.002:
+        raise AssertionError(f"the card's DART fit differs from the cpu's: "
+                             f"{res}")
+    return res
+
+
+def phase_rf_path(state):
+    """The flagship as a random forest, ``RF_ITERATIONS`` iterations; then
+    D = 4 fits under the data ring, ``pallas_ring`` and voting, each
+    against the serial fit's first ``RF_MESH_ITERATIONS`` iterations; the
+    card-vs-CPU check."""
+    import torch
+    from mmlspark_tpu_torch import build_mesh
+    counters = _counters()
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    table = {"features": X, "label": y}
+    kw = dict(boostingType="rf", baggingFraction=0.8, baggingFreq=1,
+              featureFraction=0.8)
+    model, fit_s, launches = _counted_fit(
+        _classifier(numIterations=RF_ITERATIONS, device=DEV,
+                    parallelism="serial", **kw), table, counters)
+    booster = model.getModel()
+    serial20 = auc(y, booster.predict_margin(
+        X, num_iteration=RF_MESH_ITERATIONS).cpu().numpy())
+    res = {"rows": N_ROWS, "iterations": RF_ITERATIONS, **kw,
+           "fit_s": fit_s, "launches": launches,
+           "trees": len(booster.trees), "splits": _splits(model),
+           "train_auc": auc(y, model.transform(table)["probability"][:, 1]),
+           "train_auc_first_20": serial20, "mesh": {}}
+    if launches["hist_full"] != len(booster.trees) or \
+            launches["hist_segment"] != res["splits"]:
+        raise AssertionError(f"launches do not match: {res}")
+    mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
+    for name, extra in (("data_ring", dict(collective="ring")),
+                        ("pallas_ring", dict(collective="ring",
+                                             histogramMethod="pallas_ring")),
+                        ("voting_ring", dict(collective="ring",
+                                             parallelism="voting",
+                                             topK=RF_TOP_K))):
+        m, mesh_s, counts = _counted_fit(
+            _classifier(numIterations=RF_MESH_ITERATIONS, device=DEV,
+                        **kw, **extra).setMesh(mesh), table, counters)
+        T, S = len(m.getModel().trees), _splits(m)
+        row = res["mesh"][name] = {
+            "fit_s": mesh_s, "launches": counts, "trees": T, "splits": S,
+            "train_auc": auc(y, m.transform(table)["probability"][:, 1])}
+        want = {"data_ring": ("ring_allreduce", T + S),
+                "pallas_ring": ("fused_segment_hist_ring", S),
+                "voting_ring": ("ring_allreduce_select", T + S)}[name]
+        if counts[want[0]] != want[1] or \
+                abs(row["train_auc"] - serial20) > 0.01:
+            raise AssertionError(f"D = {MESH_SHARDS} rf {name}: {row}")
+    state["rf_launches"] = {k: sum(r["launches"][k]
+                                   for r in res["mesh"].values())
+                            for k in counters}
+    res["card_vs_cpu"] = _rf_card_vs_cpu(kw)
+    torch.cuda.synchronize()
+    return res
+
+
+def _rf_card_vs_cpu(kw):
+    X, y = bench_data(20_000, N_FEATURES)
+    table = {"features": X, "label": y}
+    models = {d: _classifier(numIterations=5, device=d, **kw).fit(table)
+              for d in (DEV, "cpu")}
+    aucs = {d: auc(y, m.transform(table)["probability"][:, 1])
+            for d, m in models.items()}
+    res = {"matching_trees": _matching(*(models[d].getModel().trees
+                                         for d in (DEV, "cpu"))),
+           "auc": aucs}
+    if res["matching_trees"] < 1 or abs(aucs[DEV] - aucs["cpu"]) > 0.002:
+        raise AssertionError(f"the card's rf fit differs from the cpu's: "
+                             f"{res}")
+    return res
+
+
+def _ranker(**kw):
+    from mmlspark_tpu_torch import LightGBMRanker
+    return LightGBMRanker(**{**dict(learningRate=0.1, numLeaves=31,
+                                    maxBin=255, minDataInLeaf=20,
+                                    maxPosition=30, sigma=1.0,
+                                    verbosity=0), **kw})
+
+
+def _ndcgs(scores, y, q):
+    from mmlspark_tpu_torch import ndcg_at_k
+    return {f"ndcg@{k}": ndcg_at_k(scores, y, q, k) for k in RANK_EVAL_AT}
+
+
+def phase_ranking_path(state):
+    """``LightGBMRanker`` on ``ranking_data``: a warm-up and a timed fit
+    of ``RANK_ITERATIONS`` iterations, the lambda gradient timed alone,
+    train NDCG against the score-0 baseline; a held-out fit with early
+    stopping; a D = 4 data fit; the card-vs-CPU check."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import build_mesh
+    from mmlspark_tpu_torch.gbdt import engine
+    from mmlspark_tpu_torch.gbdt.ranking import LambdarankGradient
+    counters = _counters()
+    X, y, q = ranking_data()
+    table = {"features": X, "label": y, "query": q}
+    est = _ranker(numIterations=RANK_ITERATIONS, device=DEV,
+                  parallelism="serial")
+    warm, model, fit_s, launches, host_s, syncs = _timed_fit(est, table,
+                                                            counters)
+    t0 = time.perf_counter()
+    pred = model.transform(table)["prediction"]
+    transform_s = time.perf_counter() - t0
+    grad = LambdarankGradient.serial(y, q, 1.0, 30, DEV)
+    zero = torch.zeros(len(y), device=DEV)
+    lam_ms = median_ms(lambda: grad.grad_hess(0, zero), reps=5, warm=1)
+    trees = model.getModel().trees
+    splits = _splits(model)
+    base = _ndcgs(np.zeros_like(pred), y, q)
+    got = _ndcgs(pred, y, q)
+    state["rank_launches"] = {k: launches[k] for k in ("hist_full",
+                                                       "hist_segment")}
+    res = {"queries": RANK_QUERIES, "rows": len(y),
+           "features": RANK_FEATURES, "iterations": RANK_ITERATIONS,
+           "max_documents": int(np.bincount(q).max()), "fit_s": fit_s,
+           "transform_s": transform_s, "host_s": host_s,
+           "host_syncs": syncs, "lambda_gradient_ms_per_iteration": lam_ms,
+           "trees": len(trees), "splits": splits, "launches": launches,
+           "train_ndcg": got, "baseline_ndcg": base,
+           "same_model_text": same_model_text(warm, model)}
+    if pred.shape != (len(y),) or not np.isfinite(pred).all():
+        raise AssertionError(f"predictions not finite: {res}")
+    if got["ndcg@10"] < base["ndcg@10"] + 0.1:
+        raise AssertionError(f"NDCG@10 rose less than 0.1: {res}")
+    if launches["hist_full"] != len(trees) or \
+            launches["hist_segment"] != splits:
+        raise AssertionError(f"launches do not match the trees and "
+                             f"splits: {res}")
+    if not res["same_model_text"]:
+        raise AssertionError(f"the warm-up and timed fits wrote different "
+                             f"model text: {res}")
+    val = np.isin(q, np.random.default_rng(5).choice(
+        RANK_QUERIES, RANK_QUERIES // 5, replace=False))
+    m, es_s, counts = _counted_fit(
+        _ranker(numIterations=RANK_ITERATIONS, learningRate=RANK_ES_LR,
+                device=DEV, validationIndicatorCol="val",
+                earlyStoppingRound=10),
+        {**table, "val": val}, counters)
+    info = dict(engine.last_validation)
+    res["early_stopping"] = {
+        "validation_queries": RANK_QUERIES // 5,
+        "learning_rate": RANK_ES_LR, "fit_s": es_s,
+        "stop_iteration": _stop(m),
+        "best_iteration": info["best_iteration"],
+        "best_validation_ndcg@10": -info["best_metric"],
+        "iterations_run": len(info["metrics"])}
+    stopped = len(info["metrics"]) < RANK_ITERATIONS
+    res["early_stopping"]["stopped_early"] = stopped
+    if _stop(m) != (info["best_iteration"] + 1 if stopped
+                    else RANK_ITERATIONS) or len(m.getModel().trees) != \
+            _stop(m):
+        raise AssertionError(f"the stop rule did not hold: "
+                             f"{res['early_stopping']}")
+    mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
+    m, mesh_s, counts = _counted_fit(
+        _ranker(numIterations=RANK_MESH_ITERATIONS, device=DEV)
+        .setMesh(mesh), table, counters)
+    res["mesh_data_psum"] = {
+        "iterations": RANK_MESH_ITERATIONS, "fit_s": mesh_s,
+        "launches": counts,
+        "train_ndcg": _ndcgs(m.transform(table)["prediction"], y, q)}
+    if counts["hist_full"] != MESH_SHARDS * len(m.getModel().trees):
+        raise AssertionError(f"D = {MESH_SHARDS} ranking: "
+                             f"{res['mesh_data_psum']}")
+    res["card_vs_cpu"] = _ranking_card_vs_cpu()
+    torch.cuda.synchronize()
+    return res
+
+
+def _ranking_card_vs_cpu():
+    """200 queries, 5 iterations on the card and on the CPU: the lambda
+    gradients at score 0 equal (``torch.equal``), the first tree
+    identical, NDCG@10 within 0.002."""
+    import torch
+    from mmlspark_tpu_torch.gbdt.ranking import LambdarankGradient
+    X, y, q = ranking_data(200)
+    table = {"features": X, "label": y, "query": q}
+    grads = [LambdarankGradient.serial(y, q, 1.0, 30, d).grad_hess(
+        0, torch.zeros(len(y), device=d)) for d in (DEV, "cpu")]
+    models = {d: _ranker(numIterations=5, device=d).fit(table)
+              for d in (DEV, "cpu")}
+    ndcg = {d: _ndcgs(m.transform(table)["prediction"], y, q)["ndcg@10"]
+            for d, m in models.items()}
+    res = {"rows": len(y),
+           "gradients_equal": all(torch.equal(a.cpu(), b)
+                                  for a, b in zip(*grads)),
+           "matching_trees": _matching(*(models[d].getModel().trees
+                                         for d in (DEV, "cpu"))),
+           "ndcg@10": ndcg}
+    if not res["gradients_equal"] or res["matching_trees"] < 1 or \
+            abs(ndcg[DEV] - ndcg["cpu"]) > 0.002:
+        raise AssertionError(f"the card's ranking fit differs from the "
+                             f"cpu's: {res}")
+    return res
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r["accum"] == "float32"
@@ -2050,15 +2649,25 @@ def kernels_line(state):
     qlaunch = {**state.get("quant_launches", {}),
                "fused_segment_hist_ring": state.get("quant_fused_launches",
                                                     0)}
+    # the histogram kernels at the ranking main path's shapes, their
+    # launches from its timed fit
+    rank = {}
+    for r in state.get("kernel_rows", []):
+        if r.get("path") == "ranking_path" and (
+                r["kernel"] == "hist_full" or r["rows"] == MEDIAN_SEGMENT):
+            rank[r["kernel"]] = r
     out = []
     for name, r, n_launch, mode in (
             [(k, rows.get(k, {}), launches.get(k, 0), "float32")
              for k in REPLACES]
             + [(k, quant.get(k, {}), qlaunch.get(k, 0), "int32")
                for k in ("hist_full", "hist_segment",
-                         "fused_segment_hist_ring")]):
-        out.append({"name": name if mode == "float32" else f"{name}_int32",
-                    "mode": mode, "route": "cuda", "source": SOURCES[name],
+                         "fused_segment_hist_ring")]
+            + [(k, rank.get(k, {}), state.get("rank_launches", {}).get(k, 0),
+                "ranking") for k in ("hist_full", "hist_segment")]):
+        out.append({"name": name if mode == "float32" else f"{name}_{mode}",
+                    "mode": "float32" if mode == "ranking" else mode,
+                    "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name], "launches": n_launch,
                     "max_abs_err": r.get("max_abs_err"),
                     "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
@@ -2105,6 +2714,10 @@ def main(argv) -> int:
               ("validation_path", lambda: phase_validation_path(state)),
               ("goss_path", lambda: phase_goss_path(state)),
               ("quantized_path", lambda: phase_quantized_path(state)),
+              ("objectives_path", lambda: phase_objectives_path(state)),
+              ("dart_path", lambda: phase_dart_path(state)),
+              ("rf_path", lambda: phase_rf_path(state)),
+              ("ranking_path", lambda: phase_ranking_path(state)),
               ("collectives_cross_card", phase_collectives_cross_card)]
     if only is not None:
         unknown = only - {name for name, _ in phases}

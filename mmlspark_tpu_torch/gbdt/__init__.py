@@ -1,5 +1,6 @@
 from .classifier import LightGBMClassifier, LightGBMClassificationModel
 from .regressor import LightGBMRegressor, LightGBMRegressionModel
+from .ranking import LightGBMRanker, LightGBMRankerModel, ndcg_at_k
 from .booster import Booster, HostTree
 from .binning import BinMapper, fit_bin_mapper
 from .engine import TrainParams, train
@@ -9,6 +10,7 @@ from .objectives import Objective, get_objective
 __all__ = [
     "LightGBMClassifier", "LightGBMClassificationModel",
     "LightGBMRegressor", "LightGBMRegressionModel",
+    "LightGBMRanker", "LightGBMRankerModel", "ndcg_at_k",
     "Booster", "HostTree", "BinMapper", "fit_bin_mapper",
     "TrainParams", "train", "GrowerConfig", "TreeArrays", "grow_tree",
     "Objective", "get_objective",

@@ -133,10 +133,20 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
     maxCatToOnehot = Param(
         "maxCatToOnehot", "Cardinality at or below which one-vs-rest "
         "splits are used", default=4, typeConverter=TypeConverters.toInt)
-    boostingType = Param("boostingType", "gbdt (plain boosting) or goss "
-                         "(gradient-based one-side sampling); dart and rf "
-                         "are not ported yet", default="gbdt",
+    boostingType = Param("boostingType",
+                         "gbdt (plain boosting), goss (gradient-based "
+                         "one-side sampling), dart (dropout boosting) or "
+                         "rf (random forest)", default="gbdt",
                          typeConverter=TypeConverters.toString)
+    dropRate = Param("dropRate", "dart: per-tree dropout probability",
+                     default=0.1, typeConverter=TypeConverters.toFloat)
+    maxDrop = Param("maxDrop", "dart: max trees dropped per iteration",
+                    default=50, typeConverter=TypeConverters.toInt)
+    skipDrop = Param("skipDrop", "dart: probability of skipping dropout "
+                     "for an iteration", default=0.5,
+                     typeConverter=TypeConverters.toFloat)
+    dropSeed = Param("dropSeed", "dart: dropout random seed", default=4,
+                     typeConverter=TypeConverters.toInt)
     topRate = Param("topRate",
                     "GOSS: fraction of rows kept by largest gradient",
                     default=0.2, typeConverter=TypeConverters.toFloat)
@@ -203,6 +213,10 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
             boosting=self.getBoostingType(),
             top_rate=self.getTopRate(),
             other_rate=self.getOtherRate(),
+            drop_rate=self.getDropRate(),
+            max_drop=self.getMaxDrop(),
+            skip_drop=self.getSkipDrop(),
+            drop_seed=self.getDropSeed(),
             quantized_grad=self.getQuantizedGrad(),
             histogram_method=self.getHistogramMethod(),
             parallelism=self.getParallelism(),
@@ -217,7 +231,8 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
 
 
 class LightGBMBase(Estimator, LightGBMParams):
-    """Shared fit() orchestration for the classifier and the regressor."""
+    """Shared fit() orchestration for the classifier, the regressor and
+    the ranker."""
 
     _default_objective = "regression"
     _mesh = None
@@ -229,12 +244,13 @@ class LightGBMBase(Estimator, LightGBMParams):
         self._mesh = mesh
         return self
 
-    def _fit_mesh(self, n_rows: int):
+    def _fit_mesh(self, n_rows: int, ranking: bool = False):
         """The mesh this fit shards over: the pinned one, else all CUDA
         cards when the host has more than one, the device is CUDA, the fit
-        is not GOSS (per-shard sampling is a choice the caller makes by
-        pinning a mesh, as in the reference) and there are at least
-        ``autoMeshMinRows`` training rows; else None (serial)."""
+        is neither GOSS nor DART nor lambdarank (per-shard sampling and
+        query packing are choices the caller makes by pinning a mesh, as
+        in the reference) and there are at least ``autoMeshMinRows``
+        training rows; else None (serial)."""
         parallelism = self.getParallelism()
         mesh = self._mesh
         if mesh is not None:
@@ -246,7 +262,8 @@ class LightGBMBase(Estimator, LightGBMParams):
             return mesh
         device = resolve_device(self.getDevice())
         if (parallelism != "serial" and device.type == "cuda"
-                and self.getBoostingType() != "goss"
+                and self.getBoostingType() not in ("goss", "dart")
+                and not ranking
                 and torch.cuda.device_count() > 1
                 and n_rows >= self.getAutoMeshMinRows()):
             return resolve_mesh(parallelism)
@@ -291,6 +308,15 @@ class LightGBMBase(Estimator, LightGBMParams):
         lower is better (numpy on the host)."""
         raise NotImplementedError
 
+    def _val_metric_fn(self, table: DataTable, val_rows):
+        """The validation metric of this fit; a ranker's closes over the
+        validation rows' queries."""
+        return self._val_metric()
+
+    def _ranking_info(self, table: DataTable, train_rows):
+        """A ranker's query structure for the engine; None otherwise."""
+        return None
+
     def _fit(self, table: DataTable) -> "LightGBMModelBase":
         self._refuse_unported()
         X = features_matrix(table, self.getFeaturesCol())
@@ -302,14 +328,17 @@ class LightGBMBase(Estimator, LightGBMParams):
         vcol = self.getValidationIndicatorCol()
         val = np.asarray(table[vcol]).astype(bool) if vcol else None
         X_train, y_train, w_train = X, y, w
+        train_rows = slice(None)
         if val is not None:
+            train_rows = ~val
             X_train, y_train = X[~val], y[~val]
             w_train = w[~val] if w is not None else None
         objective = self._resolve_objective(y)
         feature_names = list(
             getattr(table[self.getFeaturesCol()], "columns", [])) or None
         cat_idx = self._categorical_indexes(feature_names)
-        mesh = self._fit_mesh(len(y_train))
+        ranking_info = self._ranking_info(table, train_rows)
+        mesh = self._fit_mesh(len(y_train), ranking_info is not None)
         mapper = fit_bin_mapper(X_train, max_bin=self.getMaxBin(),
                                 seed=self.getSeed(),
                                 categorical_features=cat_idx or None)
@@ -320,11 +349,11 @@ class LightGBMBase(Estimator, LightGBMParams):
                 val_bins=mapper.transform(X[val], device),
                 val_labels=y[val],
                 val_weights=w[val] if w is not None else None,
-                val_metric=self._val_metric())
+                val_metric=self._val_metric_fn(table, val))
         booster = train(mapper.transform(X_train, device), y_train, w_train,
                         mapper, objective, self._train_params(),
                         feature_names=feature_names, mesh=mesh,
-                        **val_kwargs)
+                        ranking_info=ranking_info, **val_kwargs)
         model = self._make_model(booster)
         model.setParams(**{k: v for k, v in self._iterSetParams()
                            if model.hasParam(k)})

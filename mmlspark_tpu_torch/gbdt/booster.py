@@ -27,7 +27,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .binning import BinMapper
-from .objectives import sigmoid, softmax, sum_last
+from .objectives import exp32, sigmoid, softmax, sum_last
 
 #: content-digest header: ``save_native_model`` prepends ONE comment line
 #: hashing everything after it, so a torn or bit-flipped model file is
@@ -278,8 +278,10 @@ class Booster:
                 num_iteration: Optional[int] = None,
                 device: Optional[DeviceLike] = None) -> torch.Tensor:
         """The objective's output transform of the margins, in the
-        reference's float order: the sigmoid (binary), the softmax
-        (multiclass), the sigmoids normalised to sum 1 (multiclassova)."""
+        reference's float order: the sigmoid (binary, cross_entropy), the
+        softmax (multiclass), the sigmoids normalised to sum 1
+        (multiclassova), the exp of the log link (poisson, gamma,
+        tweedie), else the margins."""
         m = self.predict_margin(X, num_iteration, device)
         if raw_score:
             return m
@@ -287,17 +289,17 @@ class Booster:
         if obj == "binary":
             sig = _param_from_str(self.objective_str, "sigmoid", 1.0)
             return sigmoid(sig * m)
-        if obj in ("regression", "regression_l2", "l2"):
-            return m
         if obj in ("multiclass", "softmax"):
             return softmax(m)
+        if obj in ("poisson", "gamma", "tweedie"):
+            return exp32(m)
+        if obj in ("cross_entropy", "xentropy"):
+            return sigmoid(m)
         if obj == "multiclassova":
             sig = _param_from_str(self.objective_str, "sigmoid", 1.0)
             p = sigmoid(sig * m)
             return p / torch.clamp(sum_last(p), min=1e-12)
-        raise NotImplementedError(
-            f"output transform of objective {obj!r} is not ported yet; "
-            "predict(raw_score=True) gives the margins")
+        return m
 
     # -- feature importance --------------------------------------------------
 

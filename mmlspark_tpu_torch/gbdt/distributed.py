@@ -42,8 +42,8 @@ import torch
 
 from ..core.mesh import Mesh, build_mesh, pad_to_multiple
 from ..ops.threefry import fold_in, uniform
-from .grower import (GrowerConfig, TreeArrays, grow_tree_sharded,
-                     leaf_index_binned)
+from .grower import (GrowerConfig, TreeArrays, apply_shrinkage,
+                     grow_tree_sharded, leaf_index_binned)
 from .objectives import Objective, fma32, sum_last
 
 VALID_PARALLELISM = ("serial", "data", "feature", "data+feature", "voting")
@@ -89,15 +89,18 @@ class ShardArrays:
     """Per-device arrays of one fit: index ``k`` is device ``k`` of the
     mesh, data shard ``k // feature``, feature slice ``k % feature``.
     Every device of a data shard holds that shard's rows, labels and
-    weights, and its own scores."""
+    weights, and its own scores.  ``perm`` (a ranking fit's query-packed
+    layout, :func:`.ranking.shard_queries`) maps each padded slot to its
+    source row, −1 on a pad; without it the ``n`` real rows come first."""
     bins: List[torch.Tensor]
     labels: List[torch.Tensor]
     weights: List[torch.Tensor]
     real: List[torch.Tensor]
     scores: List[torch.Tensor]
     rows_per_shard: int
-    n: int                      # real rows; pad rows follow them
+    n: int                      # real rows
     feature: int = 1            # size of the feature axis
+    perm: Optional[np.ndarray] = None
 
     @property
     def n_padded(self) -> int:
@@ -111,91 +114,148 @@ class ShardArrays:
                                     (k // self.feature + 1) * S], device=dev)
                 for k, dev in enumerate(devices)]
 
+    def scatter(self, values: np.ndarray) -> np.ndarray:
+        """An ``(n,)`` vector over the source rows laid into the padded
+        layout, pad slots 0."""
+        row = np.zeros(self.n_padded, np.float32)
+        if self.perm is None:
+            row[:self.n] = values
+        else:
+            valid = self.perm >= 0
+            row[valid] = values[self.perm[valid]]
+        return row
+
 
 def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
                    weights: np.ndarray, devices: Sequence[torch.device],
                    init: float, feature: int = 1,
-                   num_class: int = 1) -> ShardArrays:
+                   num_class: int = 1,
+                   perm: Optional[np.ndarray] = None) -> ShardArrays:
     """Lay the rows and features out over ``devices``, a ``(D, feature)``
     grid in row-major order: rows padded to a multiple of D and cut into
     D shards, features padded to a multiple of ``feature`` and cut into
     slices, each piece moved to its device.  Pad rows carry zero bins,
     labels and weights and ``real = 0`` (excluded from every histogram
     through the bag mask); pad features are constant bin 0.  Scores are
-    ``(S,)``, or ``(S, num_class)`` for a multiclass objective."""
+    ``(S,)``, or ``(S, num_class)`` for a multiclass objective.  With
+    ``perm`` (``(D·S,)``, source row or −1) the rows take that packed
+    layout instead."""
     D = len(devices) // feature
     n, f = bins.shape
-    rp = pad_to_multiple(n, D) - n
     fp = pad_to_multiple(f, feature) - f
-    S = (n + rp) // D
+    if perm is None:
+        rp = pad_to_multiple(n, D) - n
+        if rp:
+            bins = torch.cat([bins, bins.new_zeros((rp, f))])
+        pad = np.zeros(rp)
+        lab = np.concatenate([np.asarray(labels, np.float64), pad])
+        w = np.concatenate([np.asarray(weights, np.float64), pad])
+        real = np.concatenate([np.ones(n), pad])
+    else:
+        valid = perm >= 0
+        src = torch.as_tensor(np.where(valid, perm, 0), device=bins.device)
+        bins = bins[src] * torch.as_tensor(
+            valid, device=bins.device)[:, None].to(bins.dtype)
+        real = valid.astype(np.float64)
+        lab = np.where(valid, np.asarray(labels, np.float64)[
+            np.where(valid, perm, 0)], 0.0)
+        w = np.where(valid, np.asarray(weights, np.float64)[
+            np.where(valid, perm, 0)], 0.0)
+    rows = bins.shape[0]
+    S = rows // D
     f_loc = (f + fp) // feature
-    if rp:
-        bins = torch.cat([bins, bins.new_zeros((rp, f))])
     if fp:
-        bins = torch.cat([bins, bins.new_zeros((n + rp, fp))], dim=1)
-    pad = np.zeros(rp)
-    lab = np.concatenate([np.asarray(labels, np.float64), pad])
-    w = np.concatenate([np.asarray(weights, np.float64), pad])
-    real = np.concatenate([np.ones(n), pad])
+        bins = torch.cat([bins, bins.new_zeros((rows, fp))], dim=1)
     arrays = ShardArrays(bins=[], labels=[], weights=[], real=[], scores=[],
-                         rows_per_shard=S, n=n, feature=feature)
+                         rows_per_shard=S, n=n, feature=feature, perm=perm)
     for k, dev in enumerate(devices):
         d, j = divmod(k, feature)
-        rows = slice(d * S, (d + 1) * S)
+        sl = slice(d * S, (d + 1) * S)
         arrays.bins.append(
-            bins[rows, j * f_loc:(j + 1) * f_loc].to(dev).contiguous())
+            bins[sl, j * f_loc:(j + 1) * f_loc].to(dev).contiguous())
         for name, host in (("labels", lab), ("weights", w), ("real", real)):
             getattr(arrays, name).append(torch.as_tensor(
-                host[rows], dtype=torch.float32, device=dev))
+                host[sl], dtype=torch.float32, device=dev))
         arrays.scores.append(torch.full(
             (S,) if num_class == 1 else (S, num_class), init,
             dtype=torch.float32, device=dev))
     return arrays
 
 
+def objective_grads(arrays: ShardArrays, bag: Sequence[torch.Tensor],
+                    objective: Objective,
+                    scores: Optional[Sequence[torch.Tensor]] = None):
+    """Per device the objective's (grad, hess) at ``scores`` (default the
+    arrays' scores) with its mask and count channel, both bag · real:
+    ``(g, h, mask, count)``, the form :func:`grow_trees` takes."""
+    scores = arrays.scores if scores is None else scores
+    out = []
+    for k, s in enumerate(scores):
+        m = bag[k] * arrays.real[k]
+        g, h = objective.grad_hess(s, arrays.labels[k], arrays.weights[k])
+        out.append((g, h, m, m))
+    return out
+
+
+def grow_trees(arrays: ShardArrays, grads, feat_info: np.ndarray,
+               cfg: GrowerConfig, mesh: Optional[Mesh], K: int):
+    """One tree per class over the mesh from per-device ``(g, h, mask,
+    count)`` (``(n, K)`` g and h when K > 1): the grower's channels are
+    ``(g·mask, h·mask, count)``.  Returns ``[(tree, row_leaf, values)]``
+    per class (:func:`.grower.grow_tree_sharded`)."""
+    out = []
+    for c in range(K):
+        gh = [torch.stack([(g if K == 1 else g[:, c]) * m,
+                           (h if K == 1 else h[:, c]) * m, cnt], dim=1)
+              for g, h, m, cnt in grads]
+        out.append(grow_tree_sharded(arrays.bins, gh, feat_info, cfg, mesh))
+    return out
+
+
 def boost_iteration(arrays: ShardArrays, bag: Sequence[torch.Tensor],
                     feat_info: np.ndarray, objective: Objective,
                     cfg: GrowerConfig, learning_rate: float,
-                    mesh: Optional[Mesh]) -> List[TreeArrays]:
-    """One gbdt iteration over every device: the objective's (grad, hess)
-    once, then one tree per class (K = ``num_model_per_iteration``,
+                    mesh: Optional[Mesh], rf: bool = False, grads=None,
+                    fused: bool = True) -> List[TreeArrays]:
+    """One gbdt (or rf) iteration over every device: the gradients once —
+    the objective's (:func:`objective_grads`) unless ``grads`` gives
+    them — then one tree per class (K = ``num_model_per_iteration``,
     LightGBM's softmax semantics: every class's tree fits the gradients of
-    the iteration's start), each grown over the mesh
-    (:func:`.grower.grow_tree_sharded`) from the masked (grad, hess,
-    count) of its class and followed by that class's score update
-    (``scores + lr·leaf``, an FMA as in the reference) with the leaf
-    values of the device's own learner.  Returns the K unshrunk trees;
-    updates ``arrays.scores``."""
+    the iteration's start), each grown over the mesh and followed by that
+    class's score update with the leaf values of the device's own learner
+    (:func:`_add_leaf_values`; ``fused=False`` rounds the product and the
+    sum apart, as an eager host loop does).  ``rf`` (random forest) leaves
+    the scores at their init.  Returns the K unshrunk trees."""
     K = objective.num_model_per_iteration
-    grads, masks = [], []
-    for k in range(len(arrays.bins)):
-        masks.append(bag[k] * arrays.real[k])
-        grads.append(objective.grad_hess(arrays.scores[k], arrays.labels[k],
-                                         arrays.weights[k]))
+    if grads is None:
+        grads = objective_grads(arrays, bag, objective)
     trees = []
-    for c in range(K):
-        gh = [torch.stack([g * b, h * b, b], dim=1) if K == 1 else
-              torch.stack([g[:, c] * b, h[:, c] * b, b], dim=1)
-              for (g, h), b in zip(grads, masks)]
-        tree, row_leaf, values = grow_tree_sharded(arrays.bins, gh,
-                                                   feat_info, cfg, mesh)
-        for k, (leaf, value) in enumerate(zip(row_leaf, values)):
-            _add_leaf_values(arrays, k, c, value, leaf, learning_rate, K)
+    for c, (tree, row_leaf, values) in enumerate(
+            grow_trees(arrays, grads, feat_info, cfg, mesh, K)):
+        if not rf:
+            for k, (leaf, value) in enumerate(zip(row_leaf, values)):
+                _add_leaf_values(arrays, k, c, value, leaf, learning_rate,
+                                 K, fused)
         trees.append(tree)
     return trees
 
 
 def _add_leaf_values(arrays: ShardArrays, k: int, c: int,
                      value: torch.Tensor, leaf: torch.Tensor,
-                     learning_rate: float, K: int) -> None:
+                     learning_rate: float, K: int,
+                     fused: bool = True) -> None:
     """Device k's scores (class c's column when K > 1) plus ``lr ·
-    value[leaf]`` of every row, rounded once as the reference's FMA."""
+    value[leaf]`` of every row, rounded once as the reference's FMA (or,
+    ``fused=False``, the product and the sum each rounded)."""
     s = arrays.scores[k]
     add = value.to(s.device)[leaf.to(s.device)]
+    col = s if K == 1 else s[:, c]
+    new = fma32(add, learning_rate, col) if fused \
+        else col + add * learning_rate
     if K == 1:
-        arrays.scores[k] = fma32(add, learning_rate, s)
+        arrays.scores[k] = new
     else:
-        s[:, c] = fma32(add, learning_rate, s[:, c])
+        s[:, c] = new
 
 
 def stable_order(x: torch.Tensor, descending: bool = False) -> torch.Tensor:
@@ -247,42 +307,84 @@ def goss_iteration(arrays: ShardArrays, key: torch.Tensor,
                    feat_info: np.ndarray, objective: Objective,
                    cfg: GrowerConfig, learning_rate: float,
                    mesh: Optional[Mesh], k1: int, k2: int, amp: float,
-                   full_bins: Sequence[torch.Tensor]) -> List[TreeArrays]:
-    """One GOSS iteration over every device: per device the objective's
-    (grad, hess) masked by ``real``, and the device's sample
+                   full_bins: Sequence[torch.Tensor], grads=None,
+                   fused: bool = True) -> List[TreeArrays]:
+    """One GOSS iteration over every device: per device the gradients
+    (the objective's masked by ``real``, or ``grads``' ``(g, h, mask,
+    count)``) times their mask, and the device's sample
     (:func:`goss_sample`, its key ``fold_in(key, data shard)`` on a data
     mesh, so shards draw independent remainders); then per class one tree
-    grown over the mesh on the sampled rows (gh = (g·w, h·w, real)), and
-    every row's score updated (an FMA, as :func:`boost_iteration` does)
-    with the leaf its shard's binned walk of the tree (``full_bins``,
+    grown over the mesh on the sampled rows (gh = (g·w, h·w, count)), and
+    every row's score updated (as :func:`boost_iteration` does) with the
+    leaf its shard's binned walk of the tree (``full_bins``,
     :func:`shard_full_bins`) reaches.  One sample feeds all K class
     trees.  Returns the K unshrunk trees; updates ``arrays.scores``."""
     K = objective.num_model_per_iteration
     F = arrays.feature
     data = len(arrays.bins) // F
-    grads, samples = [], []
-    for k, real in enumerate(arrays.real):
-        g, h = objective.grad_hess(arrays.scores[k], arrays.labels[k],
-                                   arrays.weights[k])
-        mask = real if K == 1 else real[:, None]
+    if grads is None:
+        grads = objective_grads(arrays, arrays.real, objective)
+    masked, samples = [], []
+    for k, (g, h, m, cnt) in enumerate(grads):
+        mask = m if K == 1 else m[:, None]
         g, h = g * mask, h * mask
-        kd = key.to(real.device)
+        kd = key.to(g.device)
         if data > 1:
             kd = fold_in(kd, k // F)
         idx, w = goss_sample(g, h, kd, k1, k2, amp)
-        grads.append((g[idx], h[idx]))
-        samples.append((idx, w, real[idx]))
+        masked.append((g[idx], h[idx]))
+        samples.append((idx, w, cnt[idx]))
     bins = [b[idx] for b, (idx, _, _) in zip(arrays.bins, samples)]
     trees = []
     for c in range(K):
         gh = [torch.stack([(g if K == 1 else g[:, c]) * w,
                            (h if K == 1 else h[:, c]) * w, valid], dim=1)
-              for (g, h), (_, w, valid) in zip(grads, samples)]
+              for (g, h), (_, w, valid) in zip(masked, samples)]
         tree, _, values = grow_tree_sharded(bins, gh, feat_info, cfg, mesh)
         leaves = [leaf_index_binned(tree, b, cfg.num_leaves)
                   for b in full_bins]
         for k, value in enumerate(values):
             _add_leaf_values(arrays, k, c, value, leaves[k // F],
-                             learning_rate, K)
+                             learning_rate, K, fused)
         trees.append(tree)
     return trees
+
+
+def dart_grow(arrays: ShardArrays, grads, feat_info: np.ndarray,
+              cfg: GrowerConfig, learning_rate: float,
+              mesh: Optional[Mesh], K: int):
+    """One DART unit (the reference's ``_dart_step`` /
+    ``make_dart_step``): K trees grown from ``grads`` at the dropped-out
+    scores, each shrunk by the learning rate.  Returns the unit — the
+    shrunk trees and, per class, each device's shrunk leaf values (its
+    own slice's on a feature axis, as each device of the reference keeps
+    them) — and each device's contribution, the shrunk leaf values at its
+    rows' leaves, ``(S,)`` or ``(S, K)``."""
+    trees, vals, cols = [], [], []
+    for tree, row_leaf, values in grow_trees(arrays, grads, feat_info,
+                                             cfg, mesh, K):
+        trees.append(apply_shrinkage(tree, learning_rate))
+        shrunk = [(v * learning_rate).to(b.device)
+                  for v, b in zip(values, arrays.bins)]
+        vals.append(shrunk)
+        cols.append([v[leaf.to(v.device)] for v, leaf in zip(shrunk,
+                                                             row_leaf)])
+    b_new = [cols[0][k] if K == 1 else torch.stack([c[k] for c in cols], 1)
+             for k in range(len(arrays.bins))]
+    return (trees, vals), b_new
+
+
+def unit_margin(unit, full_bins, num_leaves: int, feature: int):
+    """A DART unit's margins on each device, ``(S,)`` or ``(S, K)`` (the
+    reference's ``_dart_iter_margin`` / ``make_tree_predict``): each data
+    shard walks the trees once over all its features, and each device
+    reads its own leaf values."""
+    trees, vals = unit
+    leaves = [[leaf_index_binned(t, b, num_leaves) for b in full_bins]
+              for t in trees]
+    out = []
+    for k in range(len(vals[0])):
+        cols = [v[k][lv[k // feature].to(v[k].device)]
+                for v, lv in zip(vals, leaves)]
+        out.append(cols[0] if len(cols) == 1 else torch.stack(cols, 1))
+    return out

@@ -1,5 +1,5 @@
-"""Boosting loop — ``boosting="gbdt"`` and ``"goss"`` training, serial or
-on a mesh, with validation and early stopping.
+"""Boosting loop — ``boosting`` "gbdt", "goss", "rf" and "dart", serial or
+on a mesh, with validation and early stopping, and lambdarank.
 
 The port's counterpart of ``mmlspark_tpu/gbdt/engine.py`` (``train`` →
 ``_train_impl`` → ``_boost_scan`` / ``_boost_scan_multi`` /
@@ -18,6 +18,23 @@ decides between the data (or voting), feature and data+feature learners.
   masked, as the reference does.  GOSS draws with the reference's
   threefry keys, ``split(PRNGKey(bagging_seed), T)``
   (:mod:`..ops.threefry`).
+* **rf** (random forest): every tree fits the gradient at the constant
+  init scores, unshrunk, on its bag; the export averages the trees
+  (:func:`_rf_average_trees`) and validation reads the running average
+  (:func:`_rf_margins`).
+* **DART** (:func:`_dart_fit`, one host loop for the serial fit and the
+  mesh): each iteration drops a random subset of the earlier iterations
+  (:func:`_dart_draw_drops`, numpy ``default_rng(drop_seed)``), grows
+  its K trees at the dropped-out scores, and renormalises — the new
+  iteration joins at 1/(k+1) and the k dropped shrink by k/(k+1); the
+  export bakes each iteration's scale into its trees.  The float steps
+  are the reference's eager ones, each rounded.
+* **Lambdarank** (``ranking_info``): the gradients come from the query
+  structure (:class:`.ranking.LambdarankGradient`); serially the rows
+  keep their order and the score update rounds the product and the sum
+  apart (the reference's host loop), on a mesh each query is packed onto
+  one data shard (:func:`.ranking.shard_queries`) and the update is one
+  FMA (the reference's compiled scan).
 * **Quantized gradients** (``quantized_grad`` "16" / "8"):
   :func:`_resolve_quantized` picks the grid, the wire dtype and the
   ring → psum downgrade as the reference does; the grower quantizes.
@@ -47,9 +64,9 @@ from ..ops.collectives import resolve_collective
 from ..ops.threefry import prng_key, split
 from .binning import BinMapper
 from .booster import Booster, host_tree_from_arrays
-from .distributed import (boost_iteration, check_parallelism,
-                          goss_iteration, prepare_arrays, shard_full_bins,
-                          sharded_cfg)
+from .distributed import (boost_iteration, check_parallelism, dart_grow,
+                          goss_iteration, objective_grads, prepare_arrays,
+                          shard_full_bins, sharded_cfg, unit_margin)
 from .grower import (GrowerConfig, apply_shrinkage, collective_schedule,
                      predict_tree_binned)
 from .objectives import Objective
@@ -88,12 +105,20 @@ class TrainParams:
     boost_from_average: bool = True
     seed: int = 42
     bagging_seed: int = 3
-    #: "gbdt" or "goss" (gradient-based one-side sampling: the top_rate
+    #: "gbdt", "goss" (gradient-based one-side sampling: the top_rate
     #: rows of largest |g·h| and an other_rate sample of the rest,
-    #: amplified by (1 − top_rate) / other_rate)
+    #: amplified by (1 − top_rate) / other_rate), "dart" (dropout
+    #: boosting) or "rf" (random forest: bagged unshrunk trees, averaged)
     boosting: str = "gbdt"
     top_rate: float = 0.2
     other_rate: float = 0.1
+    #: DART knobs (LightGBM names and defaults): the chance an earlier
+    #: iteration drops, the most dropped an iteration (<= 0: no limit),
+    #: the chance an iteration drops none, and the drops' seed
+    drop_rate: float = 0.1
+    max_drop: int = 50
+    skip_drop: float = 0.5
+    drop_seed: int = 4
     histogram_method: str = "auto"
     parallelism: str = "data"
     collective: str = "auto"
@@ -119,11 +144,13 @@ class TrainParams:
                 "valid: off, 16, 8")
 
 
-def _resolve_collective_cfg(params: TrainParams, mesh: Optional[Mesh]):
+def _resolve_collective_cfg(params: TrainParams, mesh: Optional[Mesh],
+                            ranking: bool = False):
     """``params.collective`` → ``(collective, downgrade reason)``.  ``auto``
     and ``psum`` are the shard-order sum; ``ring`` needs more than one data
-    shard (else reason ``single_data_shard``) and a mesh without a feature
-    axis (else ``feature_axis``), and otherwise keeps psum, as the
+    shard (else reason ``single_data_shard``), a mesh without a feature
+    axis (else ``feature_axis``), and a fit that is not lambdarank (else
+    ``ranking``) or DART (else ``dart``), and otherwise keeps psum, as the
     reference does.  Voting rides the ring on a data-only mesh.  There is
     no compile-probe downgrade: on the card a ring kernel that does not
     build or launch raises."""
@@ -132,7 +159,9 @@ def _resolve_collective_cfg(params: TrainParams, mesh: Optional[Mesh]):
     if params.collective != "ring":
         return collective, "none"
     reason = ("single_data_shard" if collective == "psum"
-              else "feature_axis" if mesh.feature > 1 else "none")
+              else "feature_axis" if mesh.feature > 1
+              else "ranking" if ranking
+              else "dart" if params.boosting == "dart" else "none")
     if reason != "none":
         log.info("collective='ring' needs a multi-shard data-parallel or "
                  "voting fit; this fit keeps psum (%s)", reason)
@@ -141,9 +170,10 @@ def _resolve_collective_cfg(params: TrainParams, mesh: Optional[Mesh]):
 
 
 def _resolve_quantized(params: TrainParams, n: int, data_shards: int,
-                       collective: str):
+                       collective: str, ranking: bool = False):
     """``params.quantized_grad`` → ``(bits, max_code, wire, collective,
-    downgrade)``, as the reference's ``_resolve_quantized``.
+    downgrade)``, as the reference's ``_resolve_quantized``.  DART and
+    lambdarank keep f32 gradients (downgrade ``quantized_unsupported``).
 
     ``max_code`` is ``2^(bits-1) - 1`` clamped so that ``n · max_code``
     (the largest |int32| cell: every row in one bin) fits int32.  The wire
@@ -154,6 +184,12 @@ def _resolve_quantized(params: TrainParams, n: int, data_shards: int,
     to psum, with downgrade ``quantized_unsupported``."""
     if params.quantized_grad == "off":
         return 0, 0, "none", collective, "none"
+    if ranking or params.boosting == "dart":
+        log.info("quantizedGrad=%s needs a gbdt/goss/rf fit (dart's host "
+                 "loop and lambdarank keep f32 gradients); quantization is "
+                 "off for this fit (quantized_unsupported)",
+                 params.quantized_grad)
+        return 0, 0, "none", collective, "quantized_unsupported"
     bits = int(params.quantized_grad)
     mc = min((1 << (bits - 1)) - 1, (2 ** 31 - 1) // max(n, 1))
     if data_shards <= 1:
@@ -259,13 +295,88 @@ def _truncate(trees: list, grew: List[bool], K: int, stop_iter: int,
     return trees[:(first + 1) * K], min(stop_iter, first)
 
 
+def _rf_margins(init: float, val_row: np.ndarray, tree_idx: int):
+    """rf margins after tree ``tree_idx``: init plus the running average
+    of the unshrunk trees' outputs (the scores started at init)."""
+    return init + (val_row - init) / (tree_idx + 1)
+
+
+def _rf_average_trees(trees: list, K: int) -> None:
+    """Bake rf's 1/T averaging weight into the exported trees."""
+    if not trees:
+        return
+    avg = 1.0 / (len(trees) // K)
+    for t in trees:
+        t.leaf_value = t.leaf_value * avg
+        t.internal_value = t.internal_value * avg
+        t.shrinkage = avg
+
+
+def _dart_draw_drops(dart_rng, n_units: int, params: TrainParams
+                     ) -> np.ndarray:
+    """One iteration's DART drops, drawing the reference's stream in its
+    order: ``random()`` (skip?), ``random(n_units)`` (each unit drops at
+    ``drop_rate``), then at most ``max_drop`` of them by ``choice``."""
+    if n_units and dart_rng.random() >= params.skip_drop:
+        sel = np.nonzero(dart_rng.random(n_units) < params.drop_rate)[0]
+        if params.max_drop > 0 and len(sel) > params.max_drop:
+            sel = dart_rng.choice(sel, size=params.max_drop, replace=False)
+        return sel
+    return np.zeros(0, np.int64)
+
+
+def _dart_fit(arrays, grads_at, cfg: GrowerConfig, params: TrainParams,
+              mesh: Optional[Mesh], K: int, bag_draw, fi_draw):
+    """The DART host loop (the reference's ``_dart_host_loop``, shared by
+    the serial fit and the mesh): per iteration the drops, the dropped
+    units' scaled margins subtracted from every device's scores, K trees
+    grown at those scores (``grads_at(scores per device, bag)``) and
+    shrunk, then the 1/(k+1) normalisation and the dropped units'
+    rescale.  Each step rounds as the reference's eager ``jnp`` does.
+    Returns the iteration-major trees, one scale per iteration, whether
+    each iteration split, and every device's final training scores."""
+    F = arrays.feature
+    full_bins = shard_full_bins(arrays)
+    scores = list(arrays.scores)
+    dart_rng = np.random.default_rng(params.drop_seed)
+    units, scales, grew = [], [], []
+
+    def margin(i):
+        return unit_margin(units[i], full_bins, cfg.num_leaves, F)
+
+    for it in range(params.num_iterations):
+        bag = bag_draw(it)
+        fi = fi_draw(it)
+        sel = _dart_draw_drops(dart_rng, len(units), params)
+        k = len(sel)
+        s_minus = scores
+        if k:
+            P = [scales[sel[0]] * m for m in margin(sel[0])]
+            for i in sel[1:]:
+                P = [p + scales[i] * m for p, m in zip(P, margin(i))]
+            s_minus = [s - p for s, p in zip(scores, P)]
+        unit, b_new = dart_grow(arrays, grads_at(s_minus, bag), fi, cfg,
+                                params.learning_rate, mesh, K)
+        norm = 1.0 / (k + 1)
+        scores = [s + norm * b for s, b in zip(s_minus, b_new)]
+        if k:
+            scores = [s + (k * norm) * p for s, p in zip(scores, P)]
+            for i in sel:
+                scales[i] *= k * norm
+        units.append(unit)
+        scales.append(norm)
+        grew.append(any(int(t.num_leaves) > 1 for t in unit[0]))
+    return [t for u in units for t in u[0]], scales, grew, scores
+
+
 def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
           mapper: BinMapper, objective: Objective, params: TrainParams,
           feature_names: Optional[List[str]] = None,
           device: DeviceLike = "cuda", mesh: Optional[Mesh] = None,
           val_bins=None, val_labels: Optional[np.ndarray] = None,
           val_weights: Optional[np.ndarray] = None,
-          val_metric: Optional[Callable] = None) -> Booster:
+          val_metric: Optional[Callable] = None,
+          ranking_info: Optional[Dict] = None) -> Booster:
     """Train a forest.  ``bins``: ``(n, f)`` bin codes — a tensor or a
     numpy array.  Without a mesh the fit runs on the tensor's device (an
     array moves to ``device``).  With a mesh of more than one device the
@@ -276,12 +387,28 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     ``val_bins`` (binned by the same mapper) with ``val_labels``,
     ``val_weights`` and ``val_metric(margins, labels, weights)`` (lower
     is better, numpy on the host): the validation set that
-    ``params.early_stopping_round`` stops on."""
+    ``params.early_stopping_round`` stops on (DART takes none).
+
+    ``ranking_info`` (``query_ids``, ``sigma``, ``truncation_level``):
+    lambdarank gradients from the rows' query structure replace the
+    objective's; on a mesh each query lives on one data shard."""
     check_parallelism(params.parallelism)
-    if params.boosting not in ("gbdt", "goss"):
+    if params.boosting not in ("gbdt", "goss", "dart", "rf"):
         raise NotImplementedError(
-            f"boostingType={params.boosting!r} is not ported yet; the port "
-            "trains 'gbdt' and 'goss' (ROADMAP.md)")
+            f"boostingType={params.boosting!r} is not supported; use "
+            "'gbdt', 'goss', 'dart' or 'rf'")
+    use_rf = params.boosting == "rf"
+    use_dart = params.boosting == "dart"
+    use_bag = params.bagging_freq > 0 and params.bagging_fraction < 1.0
+    if use_rf and not (use_bag and params.bagging_fraction > 0.0):
+        raise ValueError("boostingType='rf' requires bagging: set "
+                         "baggingFraction in (0,1) and baggingFreq > 0 "
+                         "(as in LightGBM)")
+    if use_dart and params.early_stopping_round > 0:
+        raise NotImplementedError(
+            "boostingType='dart' does not support early stopping "
+            "(dropped-tree rescaling is not invertible by truncation); "
+            "unset earlyStoppingRound")
     if mesh is not None:
         dev = mesh.devices[0]
     elif isinstance(bins, torch.Tensor):
@@ -297,15 +424,18 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     labels = np.asarray(labels)
     rng = np.random.default_rng(params.seed)
     bag_rng = np.random.default_rng(params.bagging_seed)
+    ranking = ranking_info is not None
 
     w = np.ones(n) if weights is None else np.asarray(weights, np.float64)
     objective.prepare(labels, w)
     init = objective.init_score(labels, w) if params.boost_from_average \
         else 0.0
     shard_mesh = mesh if use_mesh else None
-    collective, downgrade = _resolve_collective_cfg(params, shard_mesh)
+    collective, downgrade = _resolve_collective_cfg(params, shard_mesh,
+                                                    ranking)
     qbits, qmc, qwire, collective, qdown = _resolve_quantized(
-        params, n, 1 if shard_mesh is None else shard_mesh.data, collective)
+        params, n, 1 if shard_mesh is None else shard_mesh.data, collective,
+        ranking)
     cfg = GrowerConfig(
         num_leaves=params.num_leaves, max_depth=params.max_depth,
         num_bins=mapper.num_total_bins, lambda_l1=params.lambda_l1,
@@ -326,18 +456,79 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         raise ValueError("parallelism='voting' runs on a mesh without a "
                          f"feature axis; got {mesh.shape}")
     F = cfg.feature_axis_size
+    K = objective.num_model_per_iteration
+    grad_src = None
+    perm = None
+    if ranking:
+        # ranking.py holds the ranker estimator, which imports this module
+        from .ranking import LambdarankGradient, shard_queries
+    if ranking and use_mesh:
+        if F > 1 and params.boosting in ("dart", "goss"):
+            raise NotImplementedError(
+                f"boostingType={params.boosting!r} with a ranking objective "
+                "requires a data-only mesh; use parallelism='data' / "
+                "feature=1")
+        perm, _, qt = shard_queries(labels, ranking_info["query_ids"],
+                                    cfg.data_axis_size,
+                                    ranking_info["truncation_level"])
+        grad_src = LambdarankGradient.sharded(
+            qt, cfg.data_axis_size, devices, F, ranking_info["sigma"],
+            ranking_info["truncation_level"])
+    elif ranking:
+        grad_src = LambdarankGradient.serial(
+            labels, ranking_info["query_ids"], ranking_info["sigma"],
+            ranking_info["truncation_level"], dev, weights)
+    arrays = prepare_arrays(bins, labels, w, devices, init, F, K, perm)
     _record_fit_resolution(
         cfg, collective, downgrade,
-        collective_schedule(cfg, f, n_rows_local=-(-n // cfg.data_axis_size)),
+        collective_schedule(cfg, f, n_rows_local=arrays.rows_per_shard),
         dev.type, qdown)
-    K = objective.num_model_per_iteration
-    arrays = prepare_arrays(bins, labels, w, devices, init, F, K)
     # pad features (to a multiple of the feature axis) stay masked out
     fi_base = np.zeros((pad_to_multiple(f, F), 3), np.float32)
     fi_base[:f] = _feat_info_from_mapper(mapper, f)
-    use_bag = params.bagging_freq > 0 and params.bagging_fraction < 1.0
     use_ff = params.feature_fraction < 1.0
     T = params.num_iterations
+    # the serial lambdarank loop rounds the score update's product and
+    # sum apart, as the reference's eager host loop does
+    fused = not (ranking and not use_mesh)
+    bag = [torch.ones(arrays.rows_per_shard, dtype=torch.float32, device=d)
+           for d in devices]
+
+    def bag_draw(it):
+        nonlocal bag
+        if use_bag and it % params.bagging_freq == 0:
+            # exactly n randoms over the source rows, laid into the padded
+            # layout (pad rows stay 0), so the stream matches a serial
+            # fit's
+            bag = arrays.split(arrays.scatter(
+                bag_rng.random(n) < params.bagging_fraction), devices)
+        return bag
+
+    def fi_draw(_it):
+        return (_draw_feature_fraction(rng, fi_base, f,
+                                       params.feature_fraction)
+                if use_ff else fi_base)
+
+    def grads_at(scores, bag):
+        if grad_src is not None:
+            return grad_src(arrays, bag, scores)
+        return objective_grads(arrays, bag, objective, scores)
+
+    last_validation.clear()
+    if use_dart:
+        trees_dev, scales, grew, _ = _dart_fit(
+            arrays, grads_at, cfg, params, shard_mesh, K, bag_draw, fi_draw)
+        trees, stop_iter = _truncate(
+            [host_tree_from_arrays(t, mapper) for t in trees_dev], grew, K,
+            T, params.verbosity)
+        # bake each iteration's final scale into its K trees
+        for t, sc in zip(trees, np.repeat(scales, K)):
+            t.leaf_value = t.leaf_value * sc
+            t.internal_value = t.internal_value * sc
+            t.shrinkage = sc
+        return _finalize(trees, K, init, params, objective, mapper,
+                         feature_names, f, stop_iter, dev)
+
     goss = None
     if params.boosting == "goss":
         goss = _goss_sizes(params, arrays.rows_per_shard)
@@ -347,7 +538,6 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
 
     has_val = val_bins is not None and val_metric is not None \
         and len(val_bins) > 0
-    last_validation.clear()
     if has_val:
         if not isinstance(val_bins, torch.Tensor):
             val_bins = torch.as_tensor(np.asarray(val_bins),
@@ -363,39 +553,37 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
 
     trees, grew = [], []
     stop_iter = T
-    bag = [torch.ones(arrays.rows_per_shard, dtype=torch.float32, device=d)
-           for d in devices]
     for it in range(T):
-        if use_bag and it % params.bagging_freq == 0:
-            # exactly n randoms, scattered into the padded layout (pad
-            # rows stay 0), so the stream matches a serial fit's
-            row = np.zeros(arrays.n_padded, np.float32)
-            row[:n] = bag_rng.random(n) < params.bagging_fraction
-            bag = arrays.split(row, devices)
-        fi = (_draw_feature_fraction(rng, fi_base, f,
-                                     params.feature_fraction)
-              if use_ff else fi_base)
+        bag = bag_draw(it)
+        fi = fi_draw(it)
         if goss is None:
-            grown = boost_iteration(arrays, bag, fi, objective, cfg,
-                                    params.learning_rate, shard_mesh)
+            grown = boost_iteration(
+                arrays, bag, fi, objective, cfg, params.learning_rate,
+                shard_mesh, use_rf,
+                None if grad_src is None else grad_src(arrays, bag), fused)
         else:
-            grown = goss_iteration(arrays, goss_keys[it], fi, objective,
-                                   cfg, params.learning_rate, shard_mesh,
-                                   *goss, full_bins)
-        shrunk = [apply_shrinkage(t, params.learning_rate) for t in grown]
-        trees += [host_tree_from_arrays(t, mapper) for t in shrunk]
+            grown = goss_iteration(
+                arrays, goss_keys[it], fi, objective, cfg,
+                params.learning_rate, shard_mesh, *goss, full_bins,
+                None if grad_src is None else grad_src(arrays, bag), fused)
+        # rf keeps its trees unshrunk: the export averages them
+        done = grown if use_rf else [
+            apply_shrinkage(t, params.learning_rate) for t in grown]
+        trees += [host_tree_from_arrays(t, mapper) for t in done]
         grew.append(any(int(t.num_leaves) > 1 for t in grown))
         if has_val:
             t0 = time.perf_counter()
             # the trees are shrunk already: the walk adds them at lr = 1
-            for c, t in enumerate(shrunk):
+            for c, t in enumerate(done):
                 add = predict_tree_binned(t, val_bins, params.num_leaves)
                 if K == 1:
                     val_scores = val_scores + add
                 else:
                     val_scores[:, c] += add
-            metric = float(val_metric(val_scores.cpu().numpy(), val_labels,
-                                      val_weights))
+            margins = val_scores.cpu().numpy()
+            if use_rf:
+                margins = _rf_margins(init, margins, it)
+            metric = float(val_metric(margins, val_labels, val_weights))
             last_validation["metrics"].append(metric)
             last_validation["seconds"] += time.perf_counter() - t0
             if metric < best_metric - 1e-12:
@@ -417,9 +605,19 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         last_validation.update(best_iteration=best_iter,
                                best_metric=best_metric,
                                stop_iteration=stop_iter)
+    if use_rf:
+        _rf_average_trees(trees, K)
+    return _finalize(trees, K, init, params, objective, mapper,
+                     feature_names, f, stop_iter, dev)
+
+
+def _finalize(trees: list, K: int, init: float, params: TrainParams,
+              objective: Objective, mapper: BinMapper,
+              feature_names: Optional[List[str]], f: int, stop_iter: int,
+              dev: torch.device) -> Booster:
+    """The Booster of the exported trees: the init score baked into the
+    first tree of each class, as LightGBM does."""
     if trees and params.boost_from_average and init != 0.0:
-        # bake the init score into the first tree of each class, as
-        # LightGBM does
         for t in trees[:K]:
             t.leaf_value = t.leaf_value + init
             t.internal_value = t.internal_value + init

@@ -1,15 +1,22 @@
 """Training objectives: gradient/hessian functions.
 
-The port's counterpart of ``mmlspark_tpu/gbdt/objectives.py`` for
-``binary``, ``regression`` (l2), ``multiclass`` (softmax) and
-``multiclassova``.
-``init_score`` is host numpy, identical to the reference's; ``grad_hess``
-is torch on the scores' device.  Semantics track LightGBM.
+The port's counterpart of ``mmlspark_tpu/gbdt/objectives.py``: ``binary``,
+the regression family (``regression`` (l2), ``regression_l1``, ``huber``,
+``fair``, ``poisson``, ``quantile``, ``mape``, ``gamma``, ``tweedie``),
+``cross_entropy``, ``multiclass`` (softmax), ``multiclassova`` and the
+``lambdarank`` stub whose gradients come from :mod:`.ranking`.
+``init_score`` and ``train_loss`` are host numpy, identical to the
+reference's; ``grad_hess`` and ``transform_prediction`` are torch on the
+scores' device, rounded as the reference's compiled XLA CPU program
+rounds them: its exp (:func:`exp32`), and one rounding where XLA fuses a
+product into an add (:func:`fma32`: Gamma's ``1 − y·e^{−s}``, Tweedie's
+``−y·a + b`` and its hessian's first product plus the second).  Semantics
+track LightGBM.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +105,34 @@ class Objective:
                   weights: Tensor) -> Tuple[Tensor, Tensor]:
         raise NotImplementedError
 
+    def transform_prediction(self, scores: Tensor) -> Tensor:
+        """Raw margin → output space (the identity unless overridden)."""
+        return scores
+
+    def train_loss(self, scores: np.ndarray, labels: np.ndarray,
+                   weights: Optional[np.ndarray] = None
+                   ) -> Optional[float]:
+        """The host training loss (numpy) where the objective has a closed
+        form, else None."""
+        return None
+
+
+def _weighted_mean(loss: np.ndarray, weights) -> Optional[float]:
+    w = (np.ones_like(loss) if weights is None
+         else np.asarray(weights, np.float64))
+    s = float(w.sum())
+    return float((loss * w).sum() / s) if s > 0 else None
+
+
+def _mean_init(labels, weights, empty: float) -> float:
+    s = float(np.sum(weights))
+    return float(np.sum(weights * labels) / s) if s > 0 else empty
+
+
+def _f32(x: float) -> float:
+    """A host constant as the float32 XLA folds it to."""
+    return float(np.float32(x))
+
 
 class BinaryObjective(Objective):
     name = "binary"
@@ -139,17 +174,199 @@ class BinaryObjective(Objective):
         h = self.sigma * self.sigma * p * (1.0 - p) * w
         return g, h
 
+    def transform_prediction(self, scores):
+        return sigmoid(self.sigma * scores)
+
+    def train_loss(self, scores, labels, weights=None):
+        """Weighted logloss (numpy, clipped for stability)."""
+        y = (np.asarray(labels) > 0).astype(np.float64)
+        p = 1.0 / (1.0 + np.exp(-self.sigma * np.asarray(
+            scores, np.float64)))
+        p = np.clip(p, 1e-12, 1.0 - 1e-12)
+        return _weighted_mean(-(y * np.log(p) + (1.0 - y) * np.log(1.0 - p)),
+                              weights)
+
 
 class RegressionL2(Objective):
     name = "regression"
     model_str = "regression"
 
     def init_score(self, labels, weights):
-        s = float(np.sum(weights))
-        return float(np.sum(weights * labels) / s) if s > 0 else 0.0
+        return _mean_init(labels, weights, 0.0)
 
     def grad_hess(self, scores, labels, weights):
         return (scores - labels) * weights, weights
+
+    def train_loss(self, scores, labels, weights=None):
+        """Weighted mean squared error (numpy)."""
+        return _weighted_mean((np.asarray(scores, np.float64)
+                               - np.asarray(labels, np.float64)) ** 2,
+                              weights)
+
+
+class RegressionL1(Objective):
+    name = "regression_l1"
+    model_str = "regression_l1"
+
+    def init_score(self, labels, weights):
+        return float(np.median(labels))
+
+    def grad_hess(self, scores, labels, weights):
+        return torch.sign(scores - labels) * weights, weights
+
+
+class HuberObjective(Objective):
+    name = "huber"
+    model_str = "huber"
+
+    def __init__(self, alpha: float = 0.9):
+        self.alpha = float(alpha)
+
+    def init_score(self, labels, weights):
+        return _mean_init(labels, weights, 0.0)
+
+    def grad_hess(self, scores, labels, weights):
+        d = scores - labels
+        a = _f32(self.alpha)
+        g = torch.where(d.abs() <= a, d, a * torch.sign(d)) * weights
+        return g, weights
+
+
+class FairObjective(Objective):
+    name = "fair"
+    model_str = "fair"
+
+    def __init__(self, c: float = 1.0):
+        self.c = float(c)
+
+    def grad_hess(self, scores, labels, weights):
+        d = scores - labels
+        ad = d.abs() + _f32(self.c)
+        g = _f32(self.c) * d / ad * weights
+        # a tensor numerator: torch's scalar / tensor multiplies by a
+        # reciprocal, which rounds twice
+        h = torch.full_like(ad, _f32(self.c * self.c)) / (ad * ad) * weights
+        return g, h
+
+
+def _log_mean_init(labels, weights) -> float:
+    return float(np.log(max(_mean_init(labels, weights, 1.0), 1e-12)))
+
+
+class PoissonObjective(Objective):
+    name = "poisson"
+    model_str = "poisson"
+
+    def __init__(self, max_delta_step: float = 0.7):
+        self.max_delta_step = float(max_delta_step)
+
+    def init_score(self, labels, weights):
+        return _log_mean_init(labels, weights)
+
+    def grad_hess(self, scores, labels, weights):
+        mu = exp32(scores)
+        # XLA folds exp(max_delta_step) to the float32 nearest the exact
+        # value
+        h = mu * _f32(np.exp(self.max_delta_step)) * weights
+        return (mu - labels) * weights, h
+
+    def transform_prediction(self, scores):
+        return exp32(scores)
+
+
+class QuantileObjective(Objective):
+    name = "quantile"
+    model_str = "quantile"
+
+    def __init__(self, alpha: float = 0.9):
+        self.alpha = float(alpha)
+
+    def init_score(self, labels, weights):
+        return float(np.quantile(labels, self.alpha))
+
+    def grad_hess(self, scores, labels, weights):
+        g = torch.where(scores - labels >= 0, _f32(1.0 - self.alpha),
+                        _f32(-self.alpha)) * weights
+        return g, weights
+
+
+class MapeObjective(Objective):
+    name = "mape"
+    model_str = "mape"
+
+    def init_score(self, labels, weights):
+        return float(np.median(labels))
+
+    def grad_hess(self, scores, labels, weights):
+        denom = torch.clamp(labels.abs(), min=1.0)
+        return (torch.sign(scores - labels) / denom * weights,
+                weights / denom)
+
+
+class GammaObjective(Objective):
+    """Gamma deviance with log link: g = 1 − y·e^{−s}, h = y·e^{−s}."""
+
+    name = "gamma"
+    model_str = "gamma"
+
+    def init_score(self, labels, weights):
+        return _log_mean_init(labels, weights)
+
+    def grad_hess(self, scores, labels, weights):
+        e = exp32(-scores)
+        return fma32(-labels, e, 1.0) * weights, labels * e * weights
+
+    def transform_prediction(self, scores):
+        return exp32(scores)
+
+
+class TweedieObjective(Objective):
+    """Tweedie deviance, log link, variance power ρ ∈ (1, 2):
+    g = −y·e^{(1−ρ)s} + e^{(2−ρ)s}, h its score derivative."""
+
+    name = "tweedie"
+    model_str = "tweedie"
+
+    def __init__(self, rho: float = 1.5):
+        if not 1.0 < rho < 2.0:
+            raise ValueError("tweedie_variance_power must be in (1, 2), "
+                             f"got {rho}")
+        self.rho = float(rho)
+
+    def init_score(self, labels, weights):
+        return _log_mean_init(labels, weights)
+
+    def grad_hess(self, scores, labels, weights):
+        r1, r2 = _f32(1.0 - self.rho), _f32(2.0 - self.rho)
+        a = exp32(r1 * scores)
+        b = exp32(r2 * scores)
+        g = fma32(-labels, a, b) * weights
+        h = fma32(-labels * r1, a, r2 * b) * weights
+        return g, h
+
+    def transform_prediction(self, scores):
+        return exp32(scores)
+
+
+class CrossEntropyObjective(Objective):
+    """Cross-entropy on probability labels in [0, 1]: the binary gradient
+    g = σ(s) − y without hard 0/1 labels."""
+
+    name = "cross_entropy"
+    model_str = "cross_entropy"
+
+    def init_score(self, labels, weights):
+        p = _mean_init(labels, weights, 0.5)
+        p = min(max(p, 1e-12), 1.0 - 1e-12)
+        return float(np.log(p / (1.0 - p)))
+
+    def grad_hess(self, scores, labels, weights):
+        p = sigmoid(scores)
+        h = torch.clamp(p * (1.0 - p), min=_f32(1e-16)) * weights
+        return (p - labels) * weights, h
+
+    def transform_prediction(self, scores):
+        return sigmoid(scores)
 
 
 class MulticlassOvaObjective(Objective):
@@ -176,6 +393,10 @@ class MulticlassOvaObjective(Objective):
         h = self.sigma * self.sigma * p * (1.0 - p) * w
         return g, h
 
+    def transform_prediction(self, scores):
+        p = sigmoid(self.sigma * scores)
+        return p / torch.clamp(sum_last(p), min=1e-12)
+
 
 class MulticlassObjective(Objective):
     """Softmax over K per-class score columns (LightGBM ``multiclass``);
@@ -200,6 +421,17 @@ class MulticlassObjective(Objective):
         h = self.factor * p * (1.0 - p) * w
         return g, h
 
+    def transform_prediction(self, scores):
+        return softmax(scores)
+
+    def train_loss(self, scores, labels, weights=None):
+        """Weighted softmax cross-entropy (numpy, log-sum-exp)."""
+        s = np.asarray(scores, np.float64)
+        s = s - s.max(axis=-1, keepdims=True)
+        logp = s - np.log(np.exp(s).sum(axis=-1, keepdims=True))
+        y = np.asarray(labels).astype(np.int64)
+        return _weighted_mean(-logp[np.arange(len(y)), y], weights)
+
 
 def _one_hot(labels: Tensor, num_class: int, dtype) -> Tensor:
     """``jax.nn.one_hot`` of the labels truncated to int32: an id outside
@@ -209,31 +441,51 @@ def _one_hot(labels: Tensor, num_class: int, dtype) -> Tensor:
             ).to(dtype)
 
 
-#: reference objective names whose port is still to come (ROADMAP.md
-#: Queue A item 7)
-_NOT_PORTED = ("regression_l1", "l1", "mae", "huber", "fair", "poisson",
-               "quantile", "mape", "gamma", "tweedie", "cross_entropy",
-               "xentropy", "lambdarank")
+class LambdarankObjective(Objective):
+    """Metadata only: a ranker's gradients come from its query structure
+    (:mod:`.ranking`); the init score is 0."""
+
+    name = "lambdarank"
+    model_str = "lambdarank"
+
+    def grad_hess(self, scores, labels, weights):
+        raise ValueError(
+            "objective='lambdarank' needs query structure; use "
+            "LightGBMRanker (with groupCol) instead of "
+            "LightGBMClassifier/Regressor")
 
 
 def get_objective(name: str, num_class: int = 1, **kwargs) -> Objective:
     name = name.lower()
-    if name == "binary":
-        return BinaryObjective(
-            sigmoid_coef=kwargs.get("sigmoid", 1.0),
+    sig = kwargs.get("sigmoid", 1.0)
+    aliases = {
+        "binary": lambda: BinaryObjective(
+            sigmoid_coef=sig,
             is_unbalance=kwargs.get("is_unbalance", False),
-            scale_pos_weight=kwargs.get("scale_pos_weight", 1.0))
-    if name in ("regression", "regression_l2", "l2", "mean_squared_error",
-                "mse"):
-        return RegressionL2()
-    if name in ("multiclass", "softmax"):
-        return MulticlassObjective(num_class)
-    if name in ("multiclassova", "ova"):
-        return MulticlassOvaObjective(
-            num_class, sigmoid_coef=kwargs.get("sigmoid", 1.0))
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"objective {name!r} is not ported to mmlspark_tpu_torch yet "
-            "(ROADMAP.md Queue A item 7); binary, regression, multiclass "
-            "and multiclassova are")
-    raise ValueError(f"Unknown objective {name!r}")
+            scale_pos_weight=kwargs.get("scale_pos_weight", 1.0)),
+        "regression": RegressionL2, "regression_l2": RegressionL2,
+        "l2": RegressionL2, "mean_squared_error": RegressionL2,
+        "mse": RegressionL2,
+        "regression_l1": RegressionL1, "l1": RegressionL1,
+        "mae": RegressionL1,
+        "huber": lambda: HuberObjective(alpha=kwargs.get("alpha", 0.9)),
+        "fair": lambda: FairObjective(c=kwargs.get("fair_c", 1.0)),
+        "poisson": lambda: PoissonObjective(
+            max_delta_step=kwargs.get("poisson_max_delta_step", 0.7)),
+        "quantile": lambda: QuantileObjective(alpha=kwargs.get("alpha", 0.9)),
+        "mape": MapeObjective,
+        "gamma": GammaObjective,
+        "tweedie": lambda: TweedieObjective(
+            rho=kwargs.get("tweedie_variance_power", 1.5)),
+        "cross_entropy": CrossEntropyObjective,
+        "xentropy": CrossEntropyObjective,
+        "multiclass": lambda: MulticlassObjective(num_class),
+        "softmax": lambda: MulticlassObjective(num_class),
+        "multiclassova": lambda: MulticlassOvaObjective(num_class, sig),
+        "ova": lambda: MulticlassOvaObjective(num_class, sig),
+        "lambdarank": LambdarankObjective,
+    }
+    if name not in aliases:
+        raise ValueError(f"Unknown objective {name!r}; "
+                         f"supported: {sorted(aliases)}")
+    return aliases[name]()

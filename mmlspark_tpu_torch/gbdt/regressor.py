@@ -1,13 +1,16 @@
-"""LightGBMRegressor / LightGBMRegressionModel (l2 regression).
+"""LightGBMRegressor / LightGBMRegressionModel.
 
-The port's counterpart of ``mmlspark_tpu/gbdt/regressor.py``; the other
-regression objectives are not ported yet.
+The port's counterpart of ``mmlspark_tpu/gbdt/regressor.py``: the
+regression objectives l2, l1, huber, fair, poisson, quantile, mape,
+gamma, tweedie and cross_entropy, with the objective's output transform
+on ``transform``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..core.params import Param, TypeConverters
 from ..core.schema import DataTable, features_matrix
 from .base import LightGBMBase, LightGBMModelBase
 from .booster import Booster
@@ -15,6 +18,23 @@ from .booster import Booster
 
 class LightGBMRegressor(LightGBMBase):
     _default_objective = "regression"
+
+    alpha = Param("alpha", "Alpha for huber/quantile objectives", default=0.9,
+                  typeConverter=TypeConverters.toFloat)
+    fairC = Param("fairC", "C for fair objective", default=1.0,
+                  typeConverter=TypeConverters.toFloat)
+    poissonMaxDeltaStep = Param("poissonMaxDeltaStep",
+                                "Safety for poisson optimization",
+                                default=0.7,
+                                typeConverter=TypeConverters.toFloat)
+    tweedieVariancePower = Param("tweedieVariancePower",
+                                 "Tweedie variance power", default=1.5,
+                                 typeConverter=TypeConverters.toFloat)
+
+    def _objective_kwargs(self):
+        return dict(alpha=self.getAlpha(), fair_c=self.getFairC(),
+                    poisson_max_delta_step=self.getPoissonMaxDeltaStep(),
+                    tweedie_variance_power=self.getTweedieVariancePower())
 
     def _val_metric(self):
         """Validation l2: the (weighted) mean squared error."""

@@ -223,3 +223,27 @@ def test_predict_on_cuda_raises_without_a_gpu(golden_text):
     port = Booster.load_native_model_string(golden_text)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.predict_margin(np.zeros((2, 3), np.float32))
+
+
+def test_adjacent_float_values_route_apart_in_both_packages():
+    """A known fault shared with the reference (ROADMAP Queue C): a bin
+    boundary between two adjacent float32 values is their float64
+    midpoint, and the model's threshold rounds it up to float32, so a row
+    at the upper value trains in the right child but scores in the left.
+    Both packages fit the same model and predict 0 for every row."""
+    from mmlspark_tpu.gbdt import LightGBMRegressor as RefRegressor
+    from mmlspark_tpu_torch import LightGBMRegressor
+    a = np.float32(1.0)
+    b = np.nextafter(a, np.float32(2.0))
+    X = np.repeat([a, b], 60).astype(np.float64)[:, None]
+    table = {"features": X, "label": np.repeat([0.0, 1.0], 60)}
+    kw = dict(numIterations=1, learningRate=1.0, minDataInLeaf=5,
+              verbosity=0)
+    port = LightGBMRegressor(device="cpu", **kw).fit(table)
+    ref = RefRegressor(histogramMethod="segment", **kw).fit(table)
+    assert port.getNativeModel() == ref.getNativeModel()
+    # the tree split the two values: leaf outputs 0 and 1 around the
+    # threshold 1 + 2^-24, which float32 rounds up to b
+    assert sorted(port.getModel().trees[0].leaf_value) == [0.0, 1.0]
+    for model in (port, ref):
+        assert set(np.asarray(model.transform(table)["prediction"])) == {0.0}

@@ -1070,3 +1070,76 @@ def test_early_stopping_on_the_card_stops_where_the_cpu_does(cuda_device):
         metrics.append(engine.last_validation["metrics"])
     assert stops[0] == stops[1]
     np.testing.assert_allclose(metrics[0], metrics[1], rtol=1e-5)
+
+
+def _rank_table(n_queries=120, f=20, seed=5):
+    rng = np.random.default_rng(seed)
+    q = np.repeat(np.arange(n_queries), rng.integers(20, 120, n_queries))
+    X = rng.normal(size=(len(q), f)).astype(np.float32)
+    s = X[:, :5] @ rng.normal(size=5) + rng.normal(size=len(q))
+    y = np.digitize(s, np.quantile(s, [0.5, 0.82, 0.95, 0.985]))
+    return {"features": X, "label": y.astype(np.float64), "query": q}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(boostingType="dart", dropRate=0.5, skipDrop=0.0),
+    dict(boostingType="rf", baggingFraction=0.8, baggingFreq=1,
+         featureFraction=0.8),
+    dict(objective="poisson"), dict(objective="gamma"),
+    dict(objective="cross_entropy")], ids=["dart", "rf", "poisson", "gamma",
+                                           "cross_entropy"])
+def test_dart_rf_and_objectives_on_the_card_grow_the_cpu_trees(cuda_device,
+                                                               kw):
+    """DART (drops in most iterations), rf and the log-link and
+    cross-entropy objectives: the card's first tree is the CPU's, and the
+    predictions agree within 1e-4 over the iterations whose trees match
+    (f32 histograms add each cell in another order on the card)."""
+    from mmlspark_tpu_torch import LightGBMRegressor
+    table = _quant_data(20_000, 20)
+    y = table["label"]
+    if kw.get("objective") in ("poisson", "gamma"):
+        table = {**table, "label": np.exp(table["features"][:, 0] * 0.3)
+                 + y}
+    models = [LightGBMRegressor(numIterations=4, numLeaves=15, device=d,
+                                **kw).fit(table) for d in ("cuda", "cpu")]
+    trees = [m.getModel().trees for m in models]
+    _same_trees(trees[0], trees[1], 1)
+    if kw.get("boostingType") == "dart":
+        # the card and the CPU drop the same iterations: the same scales
+        assert [t.shrinkage for t in trees[0]] == \
+            [t.shrinkage for t in trees[1]]
+    X = table["features"]
+    a = models[0].getModel().predict(X, num_iteration=1).cpu().numpy()
+    b = models[1].getModel().predict(X, num_iteration=1,
+                                     device="cpu").numpy()
+    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_d", [1, 4])
+def test_ranker_on_the_card_grows_the_cpu_tree(cuda_device, mesh_d):
+    """A ranker fit (120 queries of 20–119 documents), serially and on
+    D = 4 virtual shards (each query on one shard): the lambda gradients
+    are the CPU's bit for bit, so the first tree is the CPU's, and the
+    NDCG@10 of the two fits agrees within 0.01."""
+    from mmlspark_tpu_torch import LightGBMRanker, ndcg_at_k
+    from mmlspark_tpu_torch.gbdt.ranking import LambdarankGradient
+    table = _rank_table()
+    grads = [LambdarankGradient.serial(table["label"], table["query"], 1.0,
+                                       30, d).grad_hess(
+        0, torch.full((len(table["label"]),), 0.25, device=d))
+        for d in ("cuda", "cpu")]
+    for a, b in zip(*grads):
+        assert torch.equal(a.cpu(), b)
+    models, ndcg = [], []
+    for d in ("cuda", "cpu"):
+        est = LightGBMRanker(numIterations=5, numLeaves=15, device=d)
+        if mesh_d > 1:
+            est.setMesh(build_mesh(devices=[d] * mesh_d))
+        m = est.fit(table)
+        models.append(m.getModel().trees)
+        ndcg.append(ndcg_at_k(m.transform(table)["prediction"],
+                              table["label"], table["query"], 10))
+    _same_trees(models[0], models[1], 1)
+    assert abs(ndcg[0] - ndcg[1]) < 0.01

@@ -127,14 +127,15 @@ def test_estimators_default_to_cuda():
 
 
 ASKS = [
-    dict(boostingType="dart"), dict(objective="poisson"),
     dict(enableBundle=True), dict(initModelPath="model.txt"),
-    dict(checkpointDir="ckpt"), dict(objective="huber"),
+    dict(checkpointDir="ckpt"),
 ]
 #: features a later slice ported: they fit now, on both estimators
 LIFTED = [
     dict(boostingType="goss"), dict(earlyStoppingRound=5),
     dict(quantizedGrad="16"), dict(validationIndicatorCol="val"),
+    dict(boostingType="dart"), dict(objective="poisson"),
+    dict(objective="huber"),
 ]
 
 
@@ -151,8 +152,9 @@ def test_unported_features_refuse(ask):
 @pytest.mark.parametrize("ask", LIFTED, ids=lambda a: next(iter(
     a.items()))[0] + "=" + str(next(iter(a.values()))))
 def test_lifted_features_fit(ask):
-    """boostingType="goss", quantizedGrad, validationIndicatorCol and
-    earlyStoppingRound fit on both estimators and score every row."""
+    """boostingType="goss" and "dart", quantizedGrad,
+    validationIndicatorCol, earlyStoppingRound and the poisson and huber
+    objectives fit on both estimators and score every row."""
     rng = np.random.default_rng(0)
     X = rng.normal(size=(400, 3))
     table = {"features": X, "label": (X[:, 0] > 0).astype(float),
