@@ -37,7 +37,9 @@ Phases, each printing one JSON line:
 5. cuda_vs_cpu — the same classifier at 20,000 × 50 and 5 iterations on
    the kernels and on the plain CPU path: identical first tree, AUCs
    within 0.002, margins close over the trees whose structure matches.
-6. profile — where a 5-iteration flagship fit spends its time:
+6. profile — where a 5-iteration flagship fit spends its time (each
+   profiled fit runs without a warm-up fit of its own: main_path has
+   warmed the card):
    ``torch.profiler`` device time by kernel, the device's idle share, and
    the host binning pass timed alone; the quantiles of its segment sizes
    (the smaller child of each split); then the same 5-iteration fit on
@@ -96,10 +98,10 @@ Phases, each printing one JSON line:
    timed serial fit (fit, transform and host seconds; ``hist_full`` once
    a tree and ``hist_segment`` once a split; at least one categorical
    split; train AUC ≥ 0.955 and above the same fit with the columns left
-   numeric; ``same_model_text``); a 20-iteration data-ring fit and
+   numeric; ``same_model_text``); a 10-iteration data-ring fit and
    voting fit (``topK`` 5) on four virtual shards of the card
    (``ring_allreduce`` / ``ring_allreduce_select`` once a tree and split,
-   AUC within 0.01 of the serial fit's first 20 iterations); a
+   AUC within 0.01 of the serial fit's first 10 iterations); a
    20,000-row, 5-iteration card-vs-CPU check from the
    init score 0, where the first tree's sums are exact, serially and at
    D = 4 (data ring, voting, feature 1 × 4, ``pallas_ring``, the last
@@ -176,7 +178,7 @@ Phases, each printing one JSON line:
    check.
 18. ranking_path — the slice's main path: ``LightGBMRanker`` on data of
    MSLR-WEB30K's shape (``ranking_data``: 3,000 queries of 20–230
-   documents, 136 features, grades 0–4), 50 iterations, 31 leaves, 255
+   documents, 136 features, grades 0–4), 30 iterations, 31 leaves, 255
    bins, ``maxPosition`` 30, ``sigma`` 1, a warm-up and a timed fit: fit
    and transform seconds, the lambda gradient's milliseconds an iteration
    (CUDA events), train NDCG@1/3/5/10 against the score-0 baseline
@@ -187,9 +189,44 @@ Phases, each printing one JSON line:
    20-iteration D = 4 data fit (each query on one shard); a 200-query,
    5-iteration card-vs-CPU check: the first tree identical, NDCG@10
    within 0.002.
-19. collectives_cross_card — phase 7's checks with one shard per card,
+19. efb_path — Exclusive Feature Bundling on ``flight_data`` (the Flight
+   Delay set's shape: 400,000 rows, one-hot Month, DayofMonth, DayOfWeek,
+   UniqueCarrier, Origin and Dest with Zipf carriers and airports, dense
+   DepTime and Distance, 674 features, about 19% delayed), 50 iterations,
+   31 leaves, 255 bins: a warm-up and a timed fit with ``enableBundle``
+   (G bundle columns; ``same_model_text``), the unbundled fit, bundled
+   GOSS and DART fits, and 10-iteration D = 4 data-ring fits under
+   ``auto`` and ``pallas_ring``; each with fit and transform seconds, AUC
+   and launches.  Every histogram call of a bundled fit must be at the G
+   columns (the unbundled at 674), the timed bundled fit must launch
+   ``hist_full`` once a tree and ``hist_segment`` once a split, the
+   bundled AUC must lie within 0.002 of the unbundled.  Then a
+   20,000-row, 5-iteration bundled card-vs-CPU check: the first tree
+   identical, margins within 1e-4.  (The kernels phase runs both
+   histogram kernels at the bundled and the unbundled shape.)
+20. wide_bins_path — the flagship at ``maxBin`` 1023 and 511 (B = 1,024
+   and 512, int32 codes): a warm-up and a timed serial fit each, 50
+   iterations (``hist_full`` once a tree and ``hist_segment`` once a
+   split, every call at B int32 codes, AUC >= 0.955, one model text);
+   20-iteration D = 4 data-ring fits at 1023 under ``auto`` and
+   ``pallas_ring``: above 256 bins ``fused_hist_ring`` is not launched,
+   each shard's ``hist_segment`` runs and ``ring_allreduce`` reduces
+   once per tree and split, AUC within 0.01 of the serial fit's first 20
+   iterations; a 20,000-row card-vs-CPU check at 1023.
+21. collectives_cross_card — phase 7's checks with one shard per card,
    D = min(cards, 4), where the host has at least two cards; elsewhere it
    prints ``"ran": false`` (not a failure).
+
+The kernels phase also runs the wide modes (``WIDE_KERNEL_BINS``: B =
+257, 512, 1,024 and 4,096, int32 codes from the flagship binned at
+``maxBin`` B − 1) in all three modes: ``hist_full`` at 400,000 × 50 and
+``hist_segment`` at the median segment (and at 200,000 rows at B =
+1,024), against their twins, in f32 bit for bit against the order they
+state (``histogram_segment_ordered``), with the same times and bound;
+and both 256-bin kernels at ``flight_data``'s G bundle columns and its
+674 unbundled columns (f32; the full matrix and the median segment).
+``kernels_flagship`` (run only when named) times the two 256-bin
+flagship rows alone: the phase to A/B between two checkouts.
 
 The kernels phase also runs ``hist_full`` f32 at GOSS's 120,000 sampled
 rows and at the ranking configuration's rows × 136 features on its first
@@ -200,8 +237,10 @@ features (codes of the reference configuration's grid).
 
 Then the ``{"kernels": [...]}`` line (a row per kernel, launches from the
 main path, plus a row per int32 mode, launches from ``quantized_path``,
-and the histogram kernels at the ranking shapes, launches from
-``ranking_path``), the card line, and last the ``{"ok": true, ...}``
+the histogram kernels at the ranking shapes, launches from
+``ranking_path``, at the bundled table's G columns, launches from
+``efb_path``, and their wide modes at B = 1,024 and 512, launches from
+``wide_bins_path``), the card line, and last the ``{"ok": true, ...}``
 line.  Any failed phase makes the script exit 1 without that last line.
 
     python3 chip_smoke.py --phases kernels,main_path
@@ -278,7 +317,7 @@ CAT_COLUMNS = tuple(range(40, 50))
 CAT_CARDINALITIES = (2, 3, 4, 12, 24, 64, 200, 254, 1000, 10_000)
 #: iterations of its two fits on four virtual shards (the serial fit's
 #: 50 cut, to hold the phase's time)
-CAT_MESH_ITERATIONS = 20
+CAT_MESH_ITERATIONS = 10
 #: the multiclass configuration: classes and iterations (mesh fit: 10)
 NUM_CLASSES, MULTICLASS_ITERATIONS = 5, 10
 #: the validation configuration: the flagship with this fraction of its
@@ -312,15 +351,34 @@ RF_ITERATIONS, RF_MESH_ITERATIONS, RF_TOP_K = 50, 20, 5
 #: (numpy default_rng(5)), iterations (D = 4 fit: 20), NDCG positions
 RANK_QUERIES, RANK_DOCS, RANK_FEATURES = 3000, (20, 230), 136
 RANK_CUTS = (0.50, 0.82, 0.95, 0.985)
-RANK_ITERATIONS, RANK_MESH_ITERATIONS = 50, 20
+RANK_ITERATIONS, RANK_MESH_ITERATIONS = 30, 20
 RANK_EVAL_AT = (1, 3, 5, 10)
 #: the held-out fit's learning rate (its validation NDCG turns sooner)
 RANK_ES_LR = 0.5
 #: iterations of each profiled fit (the profiler multiplies a fit's
 #: host time)
 PROFILE_ITERATIONS = 5
+#: the EFB configuration, the Flight Delay set's shape (Ke et al., NIPS
+#: 2017, Table 1; szilard/benchm-ml's one-hot airline columns): rows, the
+#: one-hot blocks (name, categories), the Zipf-distributed ones, the two
+#: dense columns' count, the positive share, iterations (D = 4 fits: 20)
+FLIGHT_ROWS = 400_000
+FLIGHT_ONEHOT = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
+                 ("UniqueCarrier", 22), ("Origin", 300), ("Dest", 300))
+FLIGHT_ZIPF = ("UniqueCarrier", "Origin", "Dest")
+FLIGHT_FEATURES = sum(k for _, k in FLIGHT_ONEHOT) + 2
+FLIGHT_POSITIVE = 0.19
+FLIGHT_ITERATIONS, FLIGHT_MESH_ITERATIONS = 50, 10
+#: wide bins: the flagship's maxBin values (B = 1,024 and 512), the D = 4
+#: fits' iterations, and the bin counts the kernels phase runs the wide
+#: modes at
+WIDE_MAX_BINS = (1023, 511)
+WIDE_MESH_ITERATIONS = 20
+WIDE_KERNEL_BINS = (257, 512, 1024, 4096)
 #: the card the kernels and the main path run on
 DEV = "cuda"
+#: phases that run only when ``--phases`` names them
+ONLY_WHEN_NAMED = ("kernels_flagship",)
 
 
 def emit(obj):
@@ -640,7 +698,7 @@ def phase_build():
                         for k, v in res.items()}}
 
 
-def kernel_inputs(n=None, f=None, rows=None):
+def kernel_inputs(n=None, f=None, rows=None, max_bin=255):
     """Binned n × f matrix and gradient triples of the main path's first
     tree (binary objective at the init score), on the card; ``rows``: only
     the first ``rows`` of them (a shard), binned on all n."""
@@ -648,7 +706,7 @@ def kernel_inputs(n=None, f=None, rows=None):
     import torch
     from mmlspark_tpu_torch.gbdt import fit_bin_mapper, get_objective
     X, y = bench_data(n or N_ROWS, f or N_FEATURES)
-    mapper = fit_bin_mapper(X, max_bin=255)
+    mapper = fit_bin_mapper(X, max_bin=max_bin)
     if rows is not None:
         X, y = X[:rows], y[:rows]
     bins = mapper.transform(X, DEV)
@@ -688,16 +746,26 @@ def quant_inputs(inputs, max_code):
     return bins, B, gh, codes[0]
 
 
-def compare(kern, plain, gh_abs_hist, accum):
+def compare(kern, plain, gh_abs_hist, accum, cell_bound=False):
+    """Kernel against twin: int32 exactly; f32 / bf16 within RTOL |p| +
+    ATOL_ULPS u sum|gh| per cell, or with ``cell_bound`` within the bound
+    that holds for any order, RTOL |p| + 2 (m - 1) u sum|gh| for a cell of
+    m rows (each side's float sum of m terms lies within (m - 1) u sum|x|
+    of the exact sum): for tables whose cells hold most of the rows, as
+    a bundle's all-default bin or a one-hot column's zero bin do, where
+    the same-signed terms' rounding adds up rather than cancelling."""
     import torch
     if accum == "int32":
         return torch.equal(kern, plain), 0.0
     err = (kern - plain).abs()
-    tol = RTOL * plain.abs() + ATOL_ULPS * 2.0 ** -24 * gh_abs_hist
+    ulps = ATOL_ULPS
+    if cell_bound:
+        ulps = torch.clamp(2 * (plain[..., 2:3] - 1), min=ATOL_ULPS)
+    tol = RTOL * plain.abs() + ulps * 2.0 ** -24 * gh_abs_hist
     return bool((err <= tol).all()), float(err.max())
 
 
-def _segment_row(inputs, row_order, cnt, accum):
+def _segment_row(inputs, row_order, cnt, accum, cell_bound=False):
     """hist_segment at ``cnt`` rows against its twin: match, times, the
     device time alone and the bound."""
     import torch
@@ -717,7 +785,7 @@ def _segment_row(inputs, row_order, cnt, accum):
                                      accum)
     torch.cuda.synchronize()
     good, err = compare(kern, plain, ch.histogram_fused_plain(
-        bins, ghv.abs().float(), row_order, off, cnt, B), accum)
+        bins, ghv.abs().float(), row_order, off, cnt, B), accum, cell_bound)
     seg = row_order[off:off + cnt].long()
     flat = (bins[seg].long() + torch.arange(f, device=DEV) * B).reshape(-1)
     rep = ghv[seg].repeat_interleave(f, 0)
@@ -741,9 +809,11 @@ def _cut(inputs, rows, features):
             gh_int[:rows].contiguous())
 
 
-def _full_row(inputs, accum):
-    """hist_full against its twin and against the order it states
-    (``histogram_ordered`` on the CPU, bit for bit), repeated calls
+def _full_row(inputs, accum, ordered=True, cell_bound=False):
+    """hist_full against its twin (``cell_bound``: :func:`compare`'s) and
+    against the order it states (``histogram_ordered`` on the CPU, bit
+    for bit; ``ordered=False`` skips it, for a matrix too large to add on
+    the host), repeated calls
     against the first (f32), with its call, alone and enqueue times, the
     twin's and one ``index_add_``'s, and the bound."""
     import torch
@@ -760,10 +830,14 @@ def _full_row(inputs, accum):
     plain = ch.histogram_plain(bins, ghm, B, accum)
     torch.cuda.synchronize()
     good, err = compare(kern, plain,
-                        ch.histogram_plain(bins, ghv.abs().float(), B), accum)
+                        ch.histogram_plain(bins, ghv.abs().float(), B), accum,
+                        cell_bound)
     geom = ch.full_launch_geometry(n, f, B, accum, bins.device)
-    ordered = torch.equal(kern.cpu(), ch.histogram_ordered(
-        bins.cpu(), ghm.cpu(), B, accum, geom))
+    if ordered:
+        ordered = torch.equal(kern.cpu(), ch.histogram_ordered(
+            bins.cpu(), ghm.cpu(), B, accum, geom))
+    else:
+        ordered = None
     repeats = None
     if accum == "float32":
         repeats = all(torch.equal(kernel(), kern) for _ in range(19))
@@ -773,7 +847,7 @@ def _full_row(inputs, accum):
     bms, by = bound_ms(n * f + n * 12 + f * B * 12, n * f * 3)
     row = {"kernel": "hist_full", "accum": accum, "rows": n, "features": f,
            "geometry": geom._asdict(),
-           "match": good and ordered and repeats is not False,
+           "match": good and ordered is not False and repeats is not False,
            "order_exact": ordered, "repeats_identical": repeats,
            "max_abs_err": err, "ms": median_ms(kernel),
            "device_ms": device_ms(kernel, "hist_full_kernel"),
@@ -823,6 +897,10 @@ def phase_kernels(state):
     for cnt in (MEDIAN_SEGMENT, rank[0].shape[0] // 2):
         rows.append({**_segment_row(rank, rank_order, cnt, "float32"),
                      "path": "ranking_path"})
+    # the wide modes (B > 256, int32 codes) at the flagship's shapes, and
+    # both kernels at the bundled EFB table's shape
+    rows += _wide_kernel_rows(row_order)
+    rows += _efb_kernel_rows()
     # the other design: hist_segment's block step over every row in order
     every = torch.arange(n, dtype=torch.int32, device=DEV)
     rows.append({**_segment_row(inputs, every, n, "float32"),
@@ -833,7 +911,7 @@ def phase_kernels(state):
         enqueue[f"hist_segment_{cnt}_rows_us"] = enqueue_us(
             lambda: ch.histogram_cuda_fused(bins, gh, row_order, off, cnt,
                                             B))
-    state["kernel_rows"] = rows
+    state["kernel_rows"] = state.get("kernel_rows", []) + rows
     ok = all(r["match"] for r in rows)
     if not ok:
         raise AssertionError("a kernel disagrees with its plain twin: "
@@ -970,14 +1048,14 @@ def phase_profile():
 
 
 def profiled_fit(est, table, kernels):
-    """One warmed fit of ``est`` under ``torch.profiler``: its wall time,
-    the device's busy time and idle share, the device time of the named
-    ``kernels`` (``<name>_kernel``), the busiest kernels, the host
-    operations with the most host time of their own, and the fit's
-    segment sizes."""
+    """One fit of ``est`` under ``torch.profiler`` (no warm-up fit of its
+    own: the phases that profile run after ``main_path`` has warmed the
+    card and built the kernels): its wall time, the device's busy time
+    and idle share, the device time of the named ``kernels``
+    (``<name>_kernel``), the busiest kernels, the host operations with
+    the most host time of their own, and the fit's segment sizes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    est.fit(table)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2624,9 +2702,396 @@ def _ranking_card_vs_cpu():
     return res
 
 
+def flight_data(n):
+    """Data of the Flight Delay set's shape (Ke et al., NIPS 2017, Table 1;
+    built as szilard/benchm-ml's one-hot airline columns), from numpy
+    ``default_rng(6)``: one-hot blocks of ``FLIGHT_ONEHOT`` (carriers and
+    airports Zipf-distributed, the calendar uniform) and the dense
+    DepTime (hhmm) and Distance (miles) columns, ``FLIGHT_FEATURES`` in
+    all, float32; a delay label of about 19% positives from additive
+    effects of every column plus logistic noise."""
+    import numpy as np
+    rng = np.random.default_rng(6)
+    X = np.zeros((n, FLIGHT_FEATURES), np.float32)
+    logit = np.zeros(n)
+    col = 0
+    for name, k in FLIGHT_ONEHOT:
+        if name in FLIGHT_ZIPF:
+            p = 1.0 / np.arange(1, k + 1) ** 1.1
+            ids = rng.choice(k, size=n, p=p / p.sum())
+        else:
+            ids = rng.integers(0, k, size=n)
+        X[np.arange(n), col + ids] = 1.0
+        logit += rng.normal(scale=0.35, size=k)[ids]
+        col += k
+    hour = rng.integers(5, 24, size=n)
+    dep = hour * 100 + rng.integers(0, 60, size=n)
+    dist = np.exp(rng.normal(6.4, 0.6, size=n))
+    X[:, col] = dep
+    X[:, col + 1] = dist
+    logit += 0.09 * (hour - 14) + 0.2 * np.log(dist / 600)
+    score = logit + rng.logistic(size=n)
+    y = (score > np.quantile(score, 1 - FLIGHT_POSITIVE)).astype("float64")
+    return X, y
+
+
+def _shape_spy():
+    """Wrap ``ops.histogram``'s two kernel wrappers so that every call
+    keeps ``(kernel, columns, bins, code dtype)`` in ``calls`` (shapes
+    only: no tensor is held); returns ``(calls, restore)``."""
+    from mmlspark_tpu_torch.ops import histogram
+    calls = []
+    saved = {name: getattr(histogram, name)
+             for name in ("histogram_cuda", "histogram_cuda_fused")}
+
+    def spy(kernel, fn):
+        def wrapped(bins, gh, *args):
+            calls.append((kernel, int(bins.shape[1]), int(args[-2])
+                          if kernel == "hist_segment" else int(args[0]),
+                          str(bins.dtype).split(".")[-1]))
+            return fn(bins, gh, *args)
+        return wrapped
+
+    histogram.histogram_cuda = spy("hist_full", saved["histogram_cuda"])
+    histogram.histogram_cuda_fused = spy("hist_segment",
+                                         saved["histogram_cuda_fused"])
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(histogram, name, fn)
+    return calls, restore
+
+
+def _spied_fit(fit):
+    """``fit()`` under :func:`_shape_spy`: ``(its result, the calls)``."""
+    calls, restore = _shape_spy()
+    try:
+        return fit(), calls
+    finally:
+        restore()
+
+
+def _card_vs_cpu(table, y, **kw):
+    """The classifier of ``kw`` at 5 iterations on the card and on the
+    CPU: the first tree identical, margins within 1e-4 over the matching
+    trees, AUCs within 0.002."""
+    import numpy as np
+    models = {d: _classifier(numIterations=5, device=d, **kw).fit(table)
+              for d in (DEV, "cpu")}
+    k = _matching(*(models[d].getModel().trees for d in (DEV, "cpu")))
+    X = table["features"]
+    mg = models[DEV].getModel().predict_margin(X, num_iteration=k)
+    mc = models["cpu"].getModel().predict_margin(X, num_iteration=k,
+                                                 device="cpu")
+    aucs = {d: auc(y, m.transform(table)["probability"][:, 1])
+            for d, m in models.items()}
+    res = {"rows": len(y), "matching_trees": k, "auc": aucs,
+           "margin_max_abs_diff": float((mg.cpu() - mc).abs().max())
+           if k else None}
+    if k < 1 or abs(aucs[DEV] - aucs["cpu"]) > 0.002 or not np.allclose(
+            mg.cpu().numpy(), mc.numpy(), rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"the card's fit differs from the cpu's: {res}")
+    return res
+
+
+def _efb_kernel_rows():
+    """hist_full and hist_segment (median segment) at ``flight_data``'s G
+    bundle columns (uint8; the plan an ``enableBundle`` fit makes) and at
+    its 674 unbundled columns, f32, tagged ``path`` efb_path /
+    efb_path_unbundled.  Most rows of a bundle (or of a one-hot column)
+    fall in one bin, so the twins are held within :func:`compare`'s
+    order-free cell bound; ``hist_full`` at the G columns is held to its
+    stated order bit for bit as well."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.gbdt import engine, fit_bin_mapper, get_objective
+    X, y = flight_data(FLIGHT_ROWS)
+    mapper = fit_bin_mapper(X, max_bin=255)
+    bins = mapper.transform(X, "cpu")
+    maps, bundled = engine._build_efb(bins.numpy(), mapper,
+                                      engine.TrainParams(verbosity=0),
+                                      X.shape[1])
+    obj = get_objective("binary")
+    w = np.ones(len(y))
+    obj.prepare(y, w)
+    yt = torch.as_tensor(y, dtype=torch.float32, device=DEV)
+    scores = torch.full_like(yt, obj.init_score(y, w))
+    g, h = obj.grad_hess(scores, yt, torch.ones_like(yt))
+    gh = torch.stack([g, h, torch.ones_like(g)], dim=1)
+    gh_int = torch.round(gh / (gh.abs().amax(0).clamp(min=1e-30) / 127)
+                         ).to(torch.int32)
+    order = torch.randperm(len(y), generator=torch.Generator().manual_seed(
+        0)).to(torch.int32).to(DEV)
+    rows = []
+    for tag, b in (("efb_path", bundled), ("efb_path_unbundled",
+                                           bins.numpy())):
+        inputs = (torch.as_tensor(b, device=DEV), mapper.num_total_bins,
+                  gh, gh_int)
+        rows.append({**_full_row(inputs, "float32", tag == "efb_path",
+                                 cell_bound=True), "path": tag})
+        rows.append({**_segment_row(inputs, order, MEDIAN_SEGMENT,
+                                    "float32", cell_bound=True),
+                     "path": tag})
+    return rows
+
+
+def phase_efb_path(state):
+    """Exclusive Feature Bundling on ``flight_data`` (400,000 × 674): a
+    warm-up and a timed bundled fit (``enableBundle``), the unbundled fit,
+    bundled GOSS and DART fits, D = 4 data-ring fits (``auto`` and
+    ``pallas_ring``), and a 20,000-row card-vs-CPU check."""
+    import numpy as np
+    from mmlspark_tpu_torch import build_mesh
+    from mmlspark_tpu_torch.gbdt import engine
+    counters = _counters()
+    t0 = time.perf_counter()
+    X, y = flight_data(FLIGHT_ROWS)
+    table = {"features": X, "label": y}
+    data_s = time.perf_counter() - t0
+    common = dict(numIterations=FLIGHT_ITERATIONS, device=DEV)
+
+    def run(name, est, warm=False):
+        if warm:
+            (warm_m, model, fit_s, launches, host_s, syncs), calls = \
+                _spied_fit(lambda: _timed_fit(est, table, counters))
+            calls = calls[len(calls) // 2:]       # the timed fit's
+        else:
+            (model, fit_s, launches), calls = _spied_fit(
+                lambda: _counted_fit(est, table, counters))
+        info = dict(engine.last_fit_info)
+        t1 = time.perf_counter()
+        prob = model.transform(table)["probability"][:, 1]
+        res = {"fit_s": fit_s, "transform_s": time.perf_counter() - t1,
+               "train_auc": auc(y, prob),
+               "trees": len(model.getModel().trees),
+               "splits": _splits(model), "launches": launches,
+               "bundles": int(info["efb_bundles"]),
+               "efb_gate": info["efb_gate"],
+               "histogram_columns": sorted({c for _, c, _, _ in calls})}
+        if warm:
+            res["same_model_text"] = same_model_text(warm_m, model)
+            res["host_s"] = host_s
+        if not np.isfinite(prob).all():
+            raise AssertionError(f"{name}: probabilities not finite: {res}")
+        return res, calls
+
+    fits = {}
+    fits["bundled"], calls = run(
+        "bundled", _classifier(enableBundle=True, **common), warm=True)
+    G = fits["bundled"]["bundles"]
+    fits["unbundled"], _ = run("unbundled", _classifier(**common))
+    fits["goss"], _ = run("goss", _classifier(
+        enableBundle=True, boostingType="goss", **common))
+    fits["dart"], _ = run("dart", _classifier(
+        enableBundle=True, boostingType="dart", **common))
+    mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
+    for method in ("auto", "pallas_ring"):
+        fits[f"ring_{method}"], _ = run(method, _classifier(
+            enableBundle=True, numIterations=FLIGHT_MESH_ITERATIONS,
+            device=DEV, collective="ring",
+            histogramMethod=method).setMesh(mesh))
+    b = fits["bundled"]
+    res = {"rows": FLIGHT_ROWS, "features": FLIGHT_FEATURES,
+           "bundles": G, "data_s": data_s, "fits": fits,
+           "auc_gap": b["train_auc"] - fits["unbundled"]["train_auc"]}
+    state["efb_launches"] = {k: b["launches"][k]
+                             for k in ("hist_full", "hist_segment")}
+    rows_g = [r["features"] for r in state.get("kernel_rows", [])
+              if r.get("path") == "efb_path"]
+    if rows_g and set(rows_g) != {G}:
+        raise AssertionError(f"the kernels phase's EFB rows are at {rows_g} "
+                             f"columns, the fits' plan at {G}")
+    res["card_vs_cpu"] = _card_vs_cpu(
+        {"features": X[:20_000], "label": y[:20_000]}, y[:20_000],
+        enableBundle=True)
+    bad = [name for name, r in fits.items() if name != "unbundled" and (
+        r["efb_gate"] != "none" or r["histogram_columns"] != [G])]
+    if not 1 < G < FLIGHT_FEATURES or bad or \
+            fits["unbundled"]["histogram_columns"] != [FLIGHT_FEATURES]:
+        raise AssertionError(f"bundled fits {bad} launched histograms at "
+                             f"other than the {G} bundle columns: {res}")
+    if len(calls) != b["launches"]["hist_full"] + b["launches"][
+            "hist_segment"] or b["launches"]["hist_full"] != b["trees"] \
+            or b["launches"]["hist_segment"] != b["splits"]:
+        raise AssertionError(f"the timed bundled fit's launches do not "
+                             f"match its trees and splits: {res}")
+    r = fits["ring_pallas_ring"]
+    if r["launches"]["fused_segment_hist_ring"] != r["splits"]:
+        raise AssertionError(f"pallas_ring: fused_hist_ring not once a "
+                             f"split: {res}")
+    if abs(res["auc_gap"]) > 0.002:
+        raise AssertionError(f"the bundled AUC is not within 0.002 of the "
+                             f"unbundled: {res}")
+    if not b["same_model_text"]:
+        raise AssertionError(f"the bundled warm-up and timed fits wrote "
+                             f"different model text: {res}")
+    return res
+
+
+def phase_wide_bins_path(state):
+    """The flagship at ``maxBin`` 1023 (B = 1,024) and 511 (B = 512):
+    warm-up and timed serial fits, D = 4 data-ring fits (``auto`` and
+    ``pallas_ring``) at 1023, and a 20,000-row card-vs-CPU check."""
+    import numpy as np
+    from mmlspark_tpu_torch import build_mesh
+    counters = _counters()
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    table = {"features": X, "label": y}
+    fits = {}
+    for max_bin in WIDE_MAX_BINS:
+        (warm, model, fit_s, launches, host_s, syncs), calls = _spied_fit(
+            lambda: _timed_fit(_classifier(numIterations=50, device=DEV,
+                                           maxBin=max_bin),
+                               table, counters))
+        calls = calls[len(calls) // 2:]
+        prob = model.transform(table)["probability"][:, 1]
+        r = {"bins": max_bin + 1, "fit_s": fit_s, "train_auc": auc(y, prob),
+             "trees": len(model.getModel().trees), "splits": _splits(model),
+             "launches": launches, "host_s": host_s, "host_syncs": syncs,
+             "same_model_text": same_model_text(warm, model),
+             "histogram_calls": sorted({c[2:] for c in calls})}
+        fits[f"serial_{max_bin}"] = r
+        if r["launches"]["hist_full"] != r["trees"] or \
+                r["launches"]["hist_segment"] != r["splits"] or \
+                r["histogram_calls"] != [(max_bin + 1, "int32")]:
+            raise AssertionError(f"maxBin {max_bin}: launches or shapes: {r}")
+        if not (r["train_auc"] >= 0.955 and r["same_model_text"]
+                and np.isfinite(prob).all()):
+            raise AssertionError(f"maxBin {max_bin}: AUC or model text: {r}")
+        if max_bin == WIDE_MAX_BINS[0]:
+            # the serial fit's first iterations, as many as the D = 4 fits
+            serial_auc = auc(y, model.getModel().predict_margin(
+                X, num_iteration=WIDE_MESH_ITERATIONS).cpu().numpy())
+    mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
+    for method in ("auto", "pallas_ring"):
+        model, fit_s, launches = _counted_fit(
+            _classifier(numIterations=WIDE_MESH_ITERATIONS, device=DEV,
+                        maxBin=WIDE_MAX_BINS[0], collective="ring",
+                        histogramMethod=method).setMesh(mesh),
+            table, counters)
+        r = {"fit_s": fit_s, "trees": len(model.getModel().trees),
+             "splits": _splits(model), "launches": launches,
+             "train_auc": auc(y, model.transform(table)["probability"][:, 1]),
+             "serial_auc_at_same_iterations": serial_auc}
+        fits[f"ring_{method}"] = r
+        want = {"fused_segment_hist_ring": 0,
+                "ring_allreduce": r["trees"] + r["splits"],
+                "hist_full": MESH_SHARDS * r["trees"],
+                "hist_segment": MESH_SHARDS * r["splits"]}
+        if {k: launches[k] for k in want} != want or \
+                abs(r["train_auc"] - serial_auc) > 0.01:
+            raise AssertionError(f"D = {MESH_SHARDS} {method}: above 256 "
+                                 f"bins each shard's hist_segment runs and "
+                                 f"the ring reduces: want {want}: {r}")
+    state["wide_launches"] = {
+        mb: {k: fits[f"serial_{mb}"]["launches"][k]
+             for k in ("hist_full", "hist_segment")} for mb in WIDE_MAX_BINS}
+    return {"rows": N_ROWS, "features": N_FEATURES, "fits": fits,
+            "card_vs_cpu": _card_vs_cpu(
+                {"features": X[:20_000], "label": y[:20_000]}, y[:20_000],
+                maxBin=WIDE_MAX_BINS[0])}
+
+
+def _wide_row(inputs, accum, row_order=None, cnt=None):
+    """A wide mode (int32 codes, B > 256) against its twin, at the full
+    matrix (``row_order`` None: ``hist_full``) or at ``cnt`` rows of
+    ``row_order`` (``hist_segment``): match, the order it states
+    (``histogram_segment_ordered`` on the CPU, bit for bit, f32) and 5
+    calls the same bits, its call, alone and enqueue times, the twin's
+    and one ``index_add_``'s, and the bound."""
+    import torch
+    from mmlspark_tpu_torch.ops import cuda_histogram as ch
+    bins, B, gh, gh_int = inputs
+    n, f = bins.shape
+    ghm = gh_int if accum == "int32" else gh
+    ghv = ch._gh_values(ghm, accum)
+    full = row_order is None
+    cnt = n if full else cnt
+    off = 0 if full else (n - cnt) // 3
+    order = (torch.arange(n, dtype=torch.int32, device=DEV) if full
+             else row_order)
+
+    def kernel():
+        if full:
+            return ch.histogram_cuda(bins, ghm, B, accum)
+        return ch.histogram_cuda_fused(bins, ghm, row_order, off, cnt, B,
+                                       accum)
+
+    kern = kernel()
+    plain = ch.histogram_fused_plain(bins, ghm, order, off, cnt, B, accum)
+    torch.cuda.synchronize()
+    good, err = compare(kern, plain, ch.histogram_fused_plain(
+        bins, ghv.abs().float(), order, off, cnt, B), accum)
+    variant = ch.FULL_WIDE if full else ch.SEG_WIDE
+    geom = ch.segment_launch_geometry(cnt, f, B, accum, bins.device, variant)
+    ordered = repeats = None
+    if accum == "float32":
+        ordered = torch.equal(kern.cpu(), ch.histogram_segment_ordered(
+            bins.cpu(), ghm.cpu(), None if full else row_order.cpu(), off,
+            cnt, B, accum, geom))
+        repeats = all(torch.equal(kernel(), kern) for _ in range(4))
+    seg = order[off:off + cnt].long()
+    flat = (bins[seg].long() + torch.arange(f, device=DEV) * B).reshape(-1)
+    rep = ghv[seg].repeat_interleave(f, 0)
+    lib_out = torch.zeros(f * B, 3, dtype=kern.dtype, device=DEV)
+    bms, by = bound_ms(cnt * (4 * f + 12 + (0 if full else 4))
+                       + f * B * 12, cnt * f * 3)
+    return {"kernel": "hist_full" if full else "hist_segment",
+            "accum": accum, "bins": B, "rows": cnt, "features": f,
+            "path": "wide_bins_path", "geometry": geom._asdict(),
+            "match": good and ordered is not False and repeats is not False,
+            "order_exact": ordered, "repeats_identical": repeats,
+            "max_abs_err": err, "ms": median_ms(kernel),
+            "device_ms": device_ms(kernel, "hist_full_wide_kernel" if full
+                                   else "hist_segment_kernel"),
+            "enqueue_us": enqueue_us(kernel, 200),
+            "plain_ms": median_ms(lambda: ch.histogram_fused_plain(
+                bins, ghm, order, off, cnt, B, accum), reps=5),
+            "library_ms": median_ms(lambda: lib_out.index_add_(0, flat, rep),
+                                    reps=5),
+            "bound_ms": bms, "bound_by": by}
+
+
+def _wide_kernel_rows(row_order):
+    """The wide modes at B = ``WIDE_KERNEL_BINS`` in each accumulation
+    mode: ``hist_full`` at the flagship's 400,000 × 50 and ``hist_segment``
+    at its median segment, on the flagship binned at ``maxBin`` B − 1;
+    and at B = 1,024 the 200,000-row segment (several clusters)."""
+    rows = []
+    for B in WIDE_KERNEL_BINS:
+        inputs = kernel_inputs(max_bin=B - 1)
+        if inputs[1] != B or inputs[0].dtype != __import__("torch").int32:
+            raise AssertionError(f"maxBin {B - 1} binned to {inputs[1]} "
+                                 f"bins of {inputs[0].dtype}")
+        for accum in ("float32", "bfloat16", "int32"):
+            rows.append(_wide_row(inputs, accum))
+            rows.append(_wide_row(inputs, accum, row_order, MEDIAN_SEGMENT))
+        if B == 1024:
+            rows.append(_wide_row(inputs, "float32", row_order,
+                                  max(SEGMENT_COUNTS)))
+    return rows
+
+
+def phase_kernels_flagship(state):
+    """The two 256-bin flagship rows alone (``hist_full`` f32 at 400,000 ×
+    50, ``hist_segment`` f32 at the median segment): the phase to A/B
+    between two checkouts in one chip call."""
+    import torch
+    inputs = kernel_inputs()
+    g = torch.Generator(device="cpu").manual_seed(0)
+    row_order = torch.randperm(N_ROWS, generator=g).to(torch.int32).to(DEV)
+    rows = [_full_row(inputs, "float32"),
+            _segment_row(inputs, row_order, MEDIAN_SEGMENT, "float32")]
+    if not all(r["match"] for r in rows):
+        raise AssertionError(f"a kernel disagrees with its twin: {rows}")
+    return {"rows": [{k: r[k] for k in ("kernel", "rows", "features", "ms",
+                                        "device_ms", "bound_ms")}
+                     for r in rows]}
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
-            if r["accum"] == "float32"
+            if r["accum"] == "float32" and "path" not in r
             and r.get("features", N_FEATURES) == N_FEATURES
             and r["rows"] in (N_ROWS, max(SEGMENT_COUNTS))}
     main_shape = {"ring_allreduce": list(RING_SHAPES[0]),
@@ -2656,6 +3121,23 @@ def kernels_line(state):
         if r.get("path") == "ranking_path" and (
                 r["kernel"] == "hist_full" or r["rows"] == MEDIAN_SEGMENT):
             rank[r["kernel"]] = r
+    # the histogram kernels at the bundled table's G columns (launches
+    # from efb_path's timed bundled fit) and their wide modes at B =
+    # 1,024 and 512 (launches from wide_bins_path's timed serial fits):
+    # hist_full at the full matrix, hist_segment at the median segment
+    extra = []
+    for k in ("hist_full", "hist_segment"):
+        for r in state.get("kernel_rows", []):
+            if r["kernel"] != k or r["accum"] != "float32" or (
+                    k == "hist_segment" and r["rows"] != MEDIAN_SEGMENT):
+                continue
+            if r.get("path") == "efb_path":
+                extra.append((k, r, state.get("efb_launches", {}).get(k, 0),
+                              "efb"))
+            elif r.get("path") == "wide_bins_path" and r["bins"] in (
+                    b + 1 for b in WIDE_MAX_BINS):
+                extra.append((k, r, state.get("wide_launches", {}).get(
+                    r["bins"] - 1, {}).get(k, 0), f"wide_{r['bins']}"))
     out = []
     for name, r, n_launch, mode in (
             [(k, rows.get(k, {}), launches.get(k, 0), "float32")
@@ -2664,9 +3146,10 @@ def kernels_line(state):
                for k in ("hist_full", "hist_segment",
                          "fused_segment_hist_ring")]
             + [(k, rank.get(k, {}), state.get("rank_launches", {}).get(k, 0),
-                "ranking") for k in ("hist_full", "hist_segment")]):
+                "ranking") for k in ("hist_full", "hist_segment")]
+            + extra):
         out.append({"name": name if mode == "float32" else f"{name}_{mode}",
-                    "mode": "float32" if mode == "ranking" else mode,
+                    "mode": "int32" if mode == "int32" else "float32",
                     "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name], "launches": n_launch,
                     "max_abs_err": r.get("max_abs_err"),
@@ -2675,7 +3158,9 @@ def kernels_line(state):
                     "bound_by": r.get("bound_by"),
                     "library_ms": r.get("library_ms"),
                     "device_ms": r.get("device_ms"),
-                    "rows": r.get("rows"), "shards": r.get("shards", 1)})
+                    "rows": r.get("rows"), "features": r.get("features"),
+                    "bins": r.get("bins", 256),
+                    "shards": r.get("shards", 1)})
     return {"kernels": out}
 
 
@@ -2718,7 +3203,10 @@ def main(argv) -> int:
               ("dart_path", lambda: phase_dart_path(state)),
               ("rf_path", lambda: phase_rf_path(state)),
               ("ranking_path", lambda: phase_ranking_path(state)),
-              ("collectives_cross_card", phase_collectives_cross_card)]
+              ("efb_path", lambda: phase_efb_path(state)),
+              ("wide_bins_path", lambda: phase_wide_bins_path(state)),
+              ("collectives_cross_card", phase_collectives_cross_card),
+              ("kernels_flagship", lambda: phase_kernels_flagship(state))]
     if only is not None:
         unknown = only - {name for name, _ in phases}
         if unknown:
@@ -2727,6 +3215,9 @@ def main(argv) -> int:
             return 2
         phases = [(name, fn) for name, fn in phases
                   if name in only | {"environment", "build"}]
+    else:
+        phases = [(name, fn) for name, fn in phases
+                  if name not in ONLY_WHEN_NAMED]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

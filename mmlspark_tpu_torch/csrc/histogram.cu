@@ -77,6 +77,27 @@
 // features; hist_segment by the instructions of its add step and the
 // latency of its row gathers, and at a small segment by its launch.
 //
+// Wide bins (more than 256 bins: int32 codes, as the binning pass writes
+// them there).  Both kernels keep their 256-bin code paths and add a
+// second instantiation for wide codes.  hist_segment's (seg_hist.cuh,
+// kWide) stages four bytes a code and settles equal bins by
+// __match_any_sync rounds in lane order instead of tag rows, whose bytes
+// grow with B times the warps.  hist_full's layout holds (B + 1) x 3 x 32
+// words of histogram a block at least, which passes the 227 KB at about
+// 540 bins, so its wide mode, hist_full_wide_kernel, runs the segment
+// block step over the identity row range (rows 0 .. n-1 in order, no row
+// ids read): one feature takes (3 B + 1) words, so a block holds 17
+// features at B = 1,024 and 4 at 4,096, and the widest B is (227 KB - 4
+// KB of staging) / 12, about 19,000 (ops/cuda_histogram.py wide_max_bins).
+// Both wide modes add every cell in an order that the launch's geometry
+// fixes (cuda_histogram.histogram_segment_ordered), with no atomic in the
+// float modes, and merge clusters and partials as hist_segment does.  A
+// wide call of the full histogram reads each row once per feature group
+// (3 groups at 50 features and B = 1,024); its bound at 400,000 x 50,
+// B = 1,024 is the 80 MB of codes, 4.8 MB of gh and 0.6 MB out, 25.5 us.
+// The wide modes are correct, not tuned: 16-bit codes and a layout of
+// their own for the full histogram are later work.
+//
 // accum modes (hist_block.cuh): 0 = float32; 1 = bfloat16; 2 = int32
 // (integer codes, exact).
 //
@@ -256,9 +277,9 @@ hist_full_kernel(const __grid_constant__ FullArgs<kMode> a) {
 
 template <int kMode>
 struct SegArgs {
-  const uint8_t* bins;
+  const void* bins;  // uint8 codes, or int32 in the wide modes
   const typename Accum<kMode>::T* gh;
-  const int32_t* row_order;
+  const int32_t* row_order;  // null in hist_full's wide mode: rows in order
   int64_t off, cnt;
   int f, num_bins;
   int group;     // features per block (blockIdx.y: the group)
@@ -271,13 +292,11 @@ struct SegArgs {
 
 // Grid (clusters * cs, groups), clusters of cs blocks along x.  Block x of
 // group y adds rows [x * rows, (x + 1) * rows) of the segment.
-template <int kMode>
-__global__ void __launch_bounds__(kSegThreads, 1)
-hist_segment_kernel(const __grid_constant__ SegArgs<kMode> a) {
+template <int kMode, bool kWide>
+__device__ __forceinline__ void segment_body(const SegArgs<kMode>& a, unsigned char* smem_raw,
+                                             int& last) {
   using T = typename Accum<kMode>::T;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int last;
-  const seg::Smem<T> sm = seg::carve<T>(smem_raw, a.group, a.num_bins);
+  const seg::Smem<T> sm = seg::carve<T, kWide>(smem_raw, a.group, a.num_bins);
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int cr = static_cast<int>(cluster.block_rank());
@@ -289,8 +308,9 @@ hist_segment_kernel(const __grid_constant__ SegArgs<kMode> a) {
   const int64_t i0 = min(a.cnt, blockIdx.x * rows);
   const int64_t i1 = min(a.cnt, i0 + rows);
   seg::zero_hist(sm.hist, a.replicas * fg * stride);
-  seg::accumulate_rows<kMode>(a.bins, a.gh, a.row_order, a.off, i0, i1, a.f, f0, fg,
-                              a.num_bins, a.replicas, sm);
+  seg::accumulate_rows<kMode, kWide>(static_cast<const seg::Code<kWide>*>(a.bins), a.gh,
+                                     a.row_order, a.off, i0, i1, a.f, f0, fg, a.num_bins,
+                                     a.replicas, sm);
   cluster.sync();
 
   // block cr sums slice cr of the cluster's histograms, its own first,
@@ -337,6 +357,24 @@ hist_segment_kernel(const __grid_constant__ SegArgs<kMode> a) {
   }
 }
 
+template <int kMode, bool kWide>
+__global__ void __launch_bounds__(kSegThreads, 1)
+hist_segment_kernel(const __grid_constant__ SegArgs<kMode> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  segment_body<kMode, kWide>(a, smem_raw, last);
+}
+
+// hist_full's wide mode: the segment block step over rows 0 .. n-1 in
+// order (a.row_order null, a.off 0, a.cnt n).
+template <int kMode>
+__global__ void __launch_bounds__(kSegThreads, 1)
+hist_full_wide_kernel(const __grid_constant__ SegArgs<kMode> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  segment_body<kMode, true>(a, smem_raw, last);
+}
+
 const void* full_kernel(int mode) {
   switch (mode) {
     case 0: return reinterpret_cast<const void*>(hist_full_kernel<0>);
@@ -346,11 +384,20 @@ const void* full_kernel(int mode) {
   }
 }
 
-const void* segment_kernel(int mode) {
-  switch (mode) {
-    case 0: return reinterpret_cast<const void*>(hist_segment_kernel<0>);
-    case 1: return reinterpret_cast<const void*>(hist_segment_kernel<1>);
-    case 2: return reinterpret_cast<const void*>(hist_segment_kernel<2>);
+// The segment block step's kernels by `mode + 3 * variant`: variant 0,
+// hist_segment; 1, hist_segment on wide codes; 2, hist_full's wide mode.
+constexpr int kSegVariants = 3;
+const void* segment_kernel(int kind) {
+  switch (kind) {
+    case 0: return reinterpret_cast<const void*>(hist_segment_kernel<0, false>);
+    case 1: return reinterpret_cast<const void*>(hist_segment_kernel<1, false>);
+    case 2: return reinterpret_cast<const void*>(hist_segment_kernel<2, false>);
+    case 3: return reinterpret_cast<const void*>(hist_segment_kernel<0, true>);
+    case 4: return reinterpret_cast<const void*>(hist_segment_kernel<1, true>);
+    case 5: return reinterpret_cast<const void*>(hist_segment_kernel<2, true>);
+    case 6: return reinterpret_cast<const void*>(hist_full_wide_kernel<0>);
+    case 7: return reinterpret_cast<const void*>(hist_full_wide_kernel<1>);
+    case 8: return reinterpret_cast<const void*>(hist_full_wide_kernel<2>);
     default: return nullptr;
   }
 }
@@ -371,13 +418,15 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int threads, int cs, size_t smem,
   return cfg;
 }
 
+// variant: as segment_kernel's.
 template <int kMode>
-int launch_segment(const void* bins, const void* gh, const void* row_order, int64_t off,
-                   int64_t cnt, int f, int num_bins, int group, int replicas, int clusters,
-                   int cs, void* out, void* partial, void* tickets, cudaStream_t stream) {
+int launch_segment(int variant, const void* bins, const void* gh, const void* row_order,
+                   int64_t off, int64_t cnt, int f, int num_bins, int group, int replicas,
+                   int clusters, int cs, void* out, void* partial, void* tickets,
+                   cudaStream_t stream) {
   using T = typename Accum<kMode>::T;
   SegArgs<kMode> a;
-  a.bins = static_cast<const uint8_t*>(bins);
+  a.bins = bins;
   a.gh = static_cast<const T*>(gh);
   a.row_order = static_cast<const int32_t*>(row_order);
   a.off = off;
@@ -390,11 +439,14 @@ int launch_segment(const void* bins, const void* gh, const void* row_order, int6
   a.out = static_cast<T*>(out);
   a.partial = static_cast<T*>(partial);
   a.tickets = static_cast<unsigned*>(tickets);
-  const size_t smem = seg::smem_bytes(group, replicas, num_bins, kSegThreads / 32);
+  const size_t smem = seg::smem_bytes(group, replicas, num_bins, kSegThreads / 32, variant > 0);
   cudaLaunchAttribute attr;
   const dim3 grid(clusters * cs, (f + group - 1) / group);
   const cudaLaunchConfig_t cfg = cluster_config(grid, kSegThreads, cs, smem, stream, &attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, hist_segment_kernel<kMode>, a);
+  const cudaError_t e =
+      variant == 0   ? cudaLaunchKernelEx(&cfg, hist_segment_kernel<kMode, false>, a)
+      : variant == 1 ? cudaLaunchKernelEx(&cfg, hist_segment_kernel<kMode, true>, a)
+                     : cudaLaunchKernelEx(&cfg, hist_full_wide_kernel<kMode>, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -425,24 +477,24 @@ int launch_full(const void* bins, const void* gh, int64_t n, int f, int num_bins
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dynamic shared memory the kernels of `kernel(mode)`, mode 0 .. 2, may
-// use on the current device, made their limit; or minus a cudaError.
-int setup_kernels(const void* (*kernel)(int)) {
+// The dynamic shared memory the kernels of `kernel(k)`, k = 0 .. count - 1,
+// may use on the current device, made their limit; or minus a cudaError.
+int setup_kernels(const void* (*kernel)(int), int count) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int budget = optin;
-  for (int mode = 0; mode < 3; ++mode) {
+  for (int k = 0; k < count; ++k) {
     cudaFuncAttributes attr;
-    e = cudaFuncGetAttributes(&attr, kernel(mode));
+    e = cudaFuncGetAttributes(&attr, kernel(k));
     if (e != cudaSuccess) return -static_cast<int>(e);
     const int dyn = optin - static_cast<int>(attr.sharedSizeBytes);
     budget = dyn < budget ? dyn : budget;
   }
-  for (int mode = 0; mode < 3; ++mode) {
-    e = cudaFuncSetAttribute(kernel(mode), cudaFuncAttributeMaxDynamicSharedMemorySize, budget);
+  for (int k = 0; k < count; ++k) {
+    e = cudaFuncSetAttribute(kernel(k), cudaFuncAttributeMaxDynamicSharedMemorySize, budget);
     if (e != cudaSuccess) return -static_cast<int>(e);
   }
   return budget;
@@ -475,11 +527,17 @@ int64_t hist_segment_smem(int group, int replicas, int num_bins) {
   return static_cast<int64_t>(seg::smem_bytes(group, replicas, num_bins, kSegThreads / 32));
 }
 
+// The same in the wide modes (int32 codes, no tag rows).
+int64_t hist_segment_wide_smem(int group, int replicas, int num_bins) {
+  return static_cast<int64_t>(
+      seg::smem_bytes(group, replicas, num_bins, kSegThreads / 32, true));
+}
+
 // Lets hist_full use the opt-in shared memory of the current device; call
 // once per device before any hist_full_capacity or launch.  Returns the
 // dynamic shared-memory bytes a block may use, or minus a cudaError.
 int hist_full_setup() {
-  const int budget = setup_kernels(full_kernel);
+  const int budget = setup_kernels(full_kernel, 3);
   for (int mode = 0; budget > 0 && mode < 3; ++mode) {
     const cudaError_t e =
         cudaFuncSetAttribute(full_kernel(mode), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -535,17 +593,18 @@ int hist_full(const void* bins, const void* gh, int64_t n, int f, int num_bins, 
   }
 }
 
-// Lets hist_segment use the opt-in shared memory of the current device;
-// call once per device before any hist_segment_capacity or launch.
-// Returns the dynamic shared-memory bytes a block may use, or minus a
-// cudaError.
-int hist_segment_setup() { return setup_kernels(segment_kernel); }
+// Lets hist_segment and the wide modes of both histograms use the opt-in
+// shared memory of the current device; call once per device before any
+// hist_segment_capacity or launch.  Returns the dynamic shared-memory
+// bytes a block may use, or minus a cudaError.
+int hist_segment_setup() { return setup_kernels(segment_kernel, 3 * kSegVariants); }
 
-// What the current device holds at once of hist_segment blocks with `smem`
-// bytes of shared memory: *blocks of them, and *clusters clusters of
-// kCluster of them.  Returns a cudaError.
-int hist_segment_capacity(int mode, int smem, int* blocks, int* clusters) {
-  const void* kernel = segment_kernel(mode);
+// What the current device holds at once of blocks with `smem` bytes of
+// shared memory of the kernel `kind` (segment_kernel's mode + 3 x
+// variant): *blocks of them, and *clusters clusters of kCluster of them.
+// Returns a cudaError.
+int hist_segment_capacity(int kind, int smem, int* blocks, int* clusters) {
+  const void* kernel = segment_kernel(kind);
   if (!kernel || smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -576,9 +635,30 @@ int hist_segment(const void* bins, const void* gh, const void* row_order, int64_
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: return launch_segment<0>(bins, gh, row_order, off, cnt, f, num_bins, group, replicas, clusters, cs, out, partial, tickets, s);
-    case 1: return launch_segment<1>(bins, gh, row_order, off, cnt, f, num_bins, group, replicas, clusters, cs, out, partial, tickets, s);
-    case 2: return launch_segment<2>(bins, gh, row_order, off, cnt, f, num_bins, group, replicas, clusters, cs, out, partial, tickets, s);
+    case 0: return launch_segment<0>(0, bins, gh, row_order, off, cnt, f, num_bins, group, replicas, clusters, cs, out, partial, tickets, s);
+    case 1: return launch_segment<1>(0, bins, gh, row_order, off, cnt, f, num_bins, group, replicas, clusters, cs, out, partial, tickets, s);
+    case 2: return launch_segment<2>(0, bins, gh, row_order, off, cnt, f, num_bins, group, replicas, clusters, cs, out, partial, tickets, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The wide modes, on (n, f) int32 codes and any num_bins >= 1 whose block
+// fits: with row_order, the segment's histogram as hist_segment computes
+// it (variant 1); without (null), hist_full's wide mode over the rows
+// off .. off + cnt - 1 (variant 2).  Arguments as hist_segment's.
+int hist_wide(const void* bins, const void* gh, const void* row_order, int64_t off,
+              int64_t cnt, int f, int num_bins, int mode, int group, int replicas,
+              int clusters, int cs, void* out, void* partial, void* tickets, void* stream) {
+  if (cnt < 1 || f < 1 || num_bins < 1 || group < 1 || group > seg::kMaxGroup ||
+      replicas < 1 || clusters < 1 || cs < 1 || cs > kCluster ||
+      (clusters > 1 && (!partial || !tickets)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int variant = row_order ? 1 : 2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: return launch_segment<0>(variant, bins, gh, row_order, off, cnt, f, num_bins, group, replicas, clusters, cs, out, partial, tickets, s);
+    case 1: return launch_segment<1>(variant, bins, gh, row_order, off, cnt, f, num_bins, group, replicas, clusters, cs, out, partial, tickets, s);
+    case 2: return launch_segment<2>(variant, bins, gh, row_order, off, cnt, f, num_bins, group, replicas, clusters, cs, out, partial, tickets, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -169,10 +169,19 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
         "narrowest wire dtype the row count admits.  Gains still "
         "evaluate in f32", default="off",
         typeConverter=TypeConverters.toString)
+    enableBundle = Param(
+        "enableBundle",
+        "Exclusive Feature Bundling (LightGBM enable_bundle): merge "
+        "mutually-exclusive sparse features (one-hot blocks) into single "
+        "bundle columns so histogram work scales with bundles, not "
+        "features.  Off by default; serial gbdt/rf/multiclass only",
+        default=False, typeConverter=TypeConverters.toBool)
+    maxConflictRate = Param(
+        "maxConflictRate",
+        "EFB conflict budget (LightGBM max_conflict_rate): fraction of "
+        "rows allowed to violate exclusivity inside one bundle",
+        default=0.0, typeConverter=TypeConverters.toFloat)
     # -- params of features the port has not reached yet (ROADMAP.md) ------
-    enableBundle = Param("enableBundle", "Exclusive Feature Bundling is not "
-                         "ported yet", default=False,
-                         typeConverter=TypeConverters.toBool)
     initModelPath = Param("initModelPath", "Continued training is not "
                           "ported yet", default="",
                           typeConverter=TypeConverters.toString)
@@ -181,7 +190,6 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
 
     def _refuse_unported(self) -> None:
         asks = {
-            "enableBundle": self.getEnableBundle(),
             "initModelPath": bool(self.getInitModelPath()),
             "checkpointDir": bool(self.getCheckpointDir()),
         }
@@ -218,6 +226,8 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
             skip_drop=self.getSkipDrop(),
             drop_seed=self.getDropSeed(),
             quantized_grad=self.getQuantizedGrad(),
+            enable_bundle=self.getEnableBundle(),
+            max_conflict_rate=self.getMaxConflictRate(),
             histogram_method=self.getHistogramMethod(),
             parallelism=self.getParallelism(),
             collective=self.getCollective(),

@@ -25,6 +25,12 @@ host loop:
   train the iteration's trees, and every row's score moves by a binned
   walk of each tree.
 
+Under Exclusive Feature Bundling the engine hands :func:`prepare_arrays`
+the bundled matrix and its maps: each shard holds its rows' G bundle
+columns and its device's :class:`.grower.EFBArrays` (``ShardArrays.efb``),
+which the grower expands histograms with and the GOSS and DART walks
+decode the bundled rows with.
+
 ``parallelism`` maps onto the learner as in the reference: ``data`` and
 ``voting`` shard rows (voting keeps histograms local and reduces only the
 voted columns, ``GrowerConfig.voting_k``), ``feature`` shards features,
@@ -42,7 +48,7 @@ import torch
 
 from ..core.mesh import Mesh, build_mesh, pad_to_multiple
 from ..ops.threefry import fold_in, uniform
-from .grower import (GrowerConfig, TreeArrays, apply_shrinkage,
+from .grower import (EFBArrays, GrowerConfig, TreeArrays, apply_shrinkage,
                      grow_tree_sharded, leaf_index_binned)
 from .objectives import Objective, fma32, sum_last
 
@@ -91,7 +97,9 @@ class ShardArrays:
     Every device of a data shard holds that shard's rows, labels and
     weights, and its own scores.  ``perm`` (a ranking fit's query-packed
     layout, :func:`.ranking.shard_queries`) maps each padded slot to its
-    source row, −1 on a pad; without it the ``n`` real rows come first."""
+    source row, −1 on a pad; without it the ``n`` real rows come first.
+    ``efb``: under Exclusive Feature Bundling, each device's EFB maps
+    (``bins`` then holds bundle columns); None otherwise."""
     bins: List[torch.Tensor]
     labels: List[torch.Tensor]
     weights: List[torch.Tensor]
@@ -101,6 +109,7 @@ class ShardArrays:
     n: int                      # real rows
     feature: int = 1            # size of the feature axis
     perm: Optional[np.ndarray] = None
+    efb: Optional[List[EFBArrays]] = None
 
     @property
     def n_padded(self) -> int:
@@ -130,7 +139,8 @@ def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
                    weights: np.ndarray, devices: Sequence[torch.device],
                    init: float, feature: int = 1,
                    num_class: int = 1,
-                   perm: Optional[np.ndarray] = None) -> ShardArrays:
+                   perm: Optional[np.ndarray] = None,
+                   efb_maps=None) -> ShardArrays:
     """Lay the rows and features out over ``devices``, a ``(D, feature)``
     grid in row-major order: rows padded to a multiple of D and cut into
     D shards, features padded to a multiple of ``feature`` and cut into
@@ -139,7 +149,9 @@ def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
     through the bag mask); pad features are constant bin 0.  Scores are
     ``(S,)``, or ``(S, num_class)`` for a multiclass objective.  With
     ``perm`` (``(D·S,)``, source row or −1) the rows take that packed
-    layout instead."""
+    layout instead.  ``efb_maps`` (``efb.expansion_arrays``' maps, with
+    ``bins`` the bundled matrix): each device gets its
+    :class:`.grower.EFBArrays`, built once per device."""
     D = len(devices) // feature
     n, f = bins.shape
     fp = pad_to_multiple(f, feature) - f
@@ -179,6 +191,12 @@ def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
         arrays.scores.append(torch.full(
             (S,) if num_class == 1 else (S, num_class), init,
             dtype=torch.float32, device=dev))
+    if efb_maps is not None:
+        built = {}
+        for d in map(torch.device, devices):
+            if d not in built:
+                built[d] = EFBArrays.from_maps(efb_maps, d)
+        arrays.efb = [built[torch.device(d)] for d in devices]
     return arrays
 
 
@@ -208,7 +226,8 @@ def grow_trees(arrays: ShardArrays, grads, feat_info: np.ndarray,
         gh = [torch.stack([(g if K == 1 else g[:, c]) * m,
                            (h if K == 1 else h[:, c]) * m, cnt], dim=1)
               for g, h, m, cnt in grads]
-        out.append(grow_tree_sharded(arrays.bins, gh, feat_info, cfg, mesh))
+        out.append(grow_tree_sharded(arrays.bins, gh, feat_info, cfg, mesh,
+                                     arrays.efb))
     return out
 
 
@@ -291,6 +310,12 @@ def goss_sample(g: torch.Tensor, h: torch.Tensor, key: torch.Tensor,
     return idx, w
 
 
+def _walk_maps(arrays: ShardArrays, d: int) -> Optional[EFBArrays]:
+    """The EFB maps of data shard d's walk matrix (the bundled training
+    rows; a feature axis never bundles), or None."""
+    return None if arrays.efb is None else arrays.efb[d * arrays.feature]
+
+
 def shard_full_bins(arrays: ShardArrays) -> List[torch.Tensor]:
     """Each data shard's bins over every feature, on the shard's first
     device (its feature slices side by side; the slices themselves under
@@ -317,8 +342,8 @@ def goss_iteration(arrays: ShardArrays, key: torch.Tensor,
     grown over the mesh on the sampled rows (gh = (g·w, h·w, count)), and
     every row's score updated (as :func:`boost_iteration` does) with the
     leaf its shard's binned walk of the tree (``full_bins``,
-    :func:`shard_full_bins`) reaches.  One sample feeds all K class
-    trees.  Returns the K unshrunk trees; updates ``arrays.scores``."""
+    :func:`shard_full_bins`; under EFB the bundled rows, decoded through
+    ``arrays.efb``) reaches.  One sample feeds all K class trees.  Returns the K unshrunk trees; updates ``arrays.scores``."""
     K = objective.num_model_per_iteration
     F = arrays.feature
     data = len(arrays.bins) // F
@@ -340,9 +365,11 @@ def goss_iteration(arrays: ShardArrays, key: torch.Tensor,
         gh = [torch.stack([(g if K == 1 else g[:, c]) * w,
                            (h if K == 1 else h[:, c]) * w, valid], dim=1)
               for (g, h), (_, w, valid) in zip(masked, samples)]
-        tree, _, values = grow_tree_sharded(bins, gh, feat_info, cfg, mesh)
-        leaves = [leaf_index_binned(tree, b, cfg.num_leaves)
-                  for b in full_bins]
+        tree, _, values = grow_tree_sharded(bins, gh, feat_info, cfg, mesh,
+                                            arrays.efb)
+        leaves = [leaf_index_binned(tree, b, cfg.num_leaves,
+                                    _walk_maps(arrays, d), cfg.num_bins)
+                  for d, b in enumerate(full_bins)]
         for k, value in enumerate(values):
             _add_leaf_values(arrays, k, c, value, leaves[k // F],
                              learning_rate, K, fused)
@@ -374,14 +401,20 @@ def dart_grow(arrays: ShardArrays, grads, feat_info: np.ndarray,
     return (trees, vals), b_new
 
 
-def unit_margin(unit, full_bins, num_leaves: int, feature: int):
+def unit_margin(unit, full_bins, num_leaves: int, feature: int,
+                efb: Optional[Sequence[EFBArrays]] = None,
+                num_bins: int = 256):
     """A DART unit's margins on each device, ``(S,)`` or ``(S, K)`` (the
     reference's ``_dart_iter_margin`` / ``make_tree_predict``): each data
     shard walks the trees once over all its features, and each device
-    reads its own leaf values."""
+    reads its own leaf values.  ``efb`` (``ShardArrays.efb``): the walk
+    matrices are bundled, and each level decodes them (the maps must
+    match the matrix walked)."""
     trees, vals = unit
-    leaves = [[leaf_index_binned(t, b, num_leaves) for b in full_bins]
-              for t in trees]
+    maps = [None if efb is None else efb[d * feature]
+            for d in range(len(full_bins))]
+    leaves = [[leaf_index_binned(t, b, num_leaves, m, num_bins)
+               for b, m in zip(full_bins, maps)] for t in trees]
     out = []
     for k in range(len(vals[0])):
         cols = [v[k][lv[k // feature].to(v[k].device)]

@@ -38,6 +38,14 @@ decides between the data (or voting), feature and data+feature learners.
 * **Quantized gradients** (``quantized_grad`` "16" / "8"):
   :func:`_resolve_quantized` picks the grid, the wire dtype and the
   ring → psum downgrade as the reference does; the grower quantizes.
+* **Exclusive Feature Bundling** (``enable_bundle``, :func:`_build_efb`,
+  :func:`_efb_gate`): the reference's gates, as written — serially no
+  categorical feature, at most 256 bins and no lambdarank; on a mesh also
+  no feature axis, no voting, no GOSS and no DART — and a plan that
+  bundles something; else the fit runs unbundled.  The training matrix
+  becomes G bundle columns (the validation matrix never does), and the
+  grower, GOSS's score walk and DART's dropped-tree margins read it
+  through the maps.
 * **Validation.**  The validation scores start at the training scores'
   init and add each iteration's shrunk trees (a binned walk at lr = 1, in
   f32, on the first device); the metric runs on the host, one sync an
@@ -67,6 +75,7 @@ from .booster import Booster, host_tree_from_arrays
 from .distributed import (boost_iteration, check_parallelism, dart_grow,
                           goss_iteration, objective_grads, prepare_arrays,
                           shard_full_bins, sharded_cfg, unit_margin)
+from .efb import bundle_matrix, expansion_arrays, find_bundles
 from .grower import (GrowerConfig, apply_shrinkage, collective_schedule,
                      predict_tree_binned)
 from .objectives import Objective
@@ -132,6 +141,13 @@ class TrainParams:
     #: quantized-gradient training: "off", or "16" / "8" bits ("", "0",
     #: "false" and "none" mean "off")
     quantized_grad: str = "off"
+    #: Exclusive Feature Bundling (LightGBM enable_bundle): merge
+    #: mutually exclusive sparse features into bundle columns, behind the
+    #: reference's gates (:func:`_efb_gate`); trees and the model name
+    #: the original features.  ``max_conflict_rate``: the share of the
+    #: bundling sample's rows allowed to break exclusivity in a bundle
+    enable_bundle: bool = False
+    max_conflict_rate: float = 0.0
     verbosity: int = 1
 
     def __post_init__(self):
@@ -235,6 +251,56 @@ def _record_fit_resolution(cfg: GrowerConfig, collective: str,
             sched["quantized_scale_bytes"])
 
 
+def _efb_gate(params: TrainParams, mapper: BinMapper, ranking: bool,
+              mesh: Optional[Mesh], n: int) -> str:
+    """Why EFB stays off for this fit of ``n`` rows ("off" when not
+    asked), or "none" when it may bundle: the reference's serial gate (no
+    categorical feature, at most 256 bins, no lambdarank) and, on a mesh,
+    its mesh gate as well (no feature axis, no voting, no GOSS that
+    samples — a GOSS sample covering a whole shard trains as gbdt and
+    bundles; a mesh DART fit runs the reference's dart scan, which never
+    bundles)."""
+    if not params.enable_bundle:
+        return "off"
+    reason = ("categorical" if mapper.has_categorical
+              else "wide_bins" if mapper.num_total_bins > 256
+              else "ranking" if ranking else "none")
+    if reason == "none" and mesh is not None:
+        reason = ("feature_axis" if mesh.feature > 1
+                  else "voting" if params.parallelism == "voting"
+                  else "goss" if params.boosting == "goss"
+                  and not _goss_covers(params, pad_to_multiple(
+                      n, mesh.data) // mesh.data)
+                  else "dart" if params.boosting == "dart" else "none")
+    if reason != "none" and params.verbosity > 0:
+        log.info("enableBundle: this fit runs unbundled (%s), as the "
+                 "reference's gate does", reason)
+    return reason
+
+
+def _build_efb(bins: np.ndarray, mapper: BinMapper, params: TrainParams,
+               f: int):
+    """The reference's ``_build_efb``: plan bundles over the host binned
+    matrix (``efb.find_bundles``, the conflict budget
+    ``max_conflict_rate``, bundles as wide as the mapper's bins, sampled
+    with ``params.seed``), then the expansion maps and the bundled
+    matrix.  Returns ``(maps, bundled)``, or ``(None, None)`` when no
+    bundle holds two features."""
+    nb_list = [mapper.feature_num_bins(j) for j in range(f)]
+    spec = find_bundles(bins, nb_list, mapper.missing_bin,
+                        params.max_conflict_rate,
+                        max_bundle_bins=mapper.num_total_bins,
+                        seed=params.seed)
+    if spec.is_trivial:
+        return None, None
+    maps = expansion_arrays(spec, mapper.num_total_bins, mapper.missing_bin)
+    bundled = bundle_matrix(bins, spec, mapper.missing_bin)
+    if params.verbosity > 0:
+        log.info("EFB: %d features -> %d bundle columns", f,
+                 spec.num_bundles)
+    return maps, bundled
+
+
 def _feat_info_from_mapper(mapper: BinMapper, f: int) -> np.ndarray:
     """``(f, 3)`` [mask, is_cat, n_value_bins] from the fitted mapper."""
     fi = np.zeros((f, 3), np.float32)
@@ -256,6 +322,17 @@ def _draw_feature_fraction(rng, fi_base: np.ndarray, f: int,
     return fi_it
 
 
+def _goss_k(params: TrainParams, rows: int):
+    """GOSS's top and other sample sizes over ``rows`` rows."""
+    return (max(1, int(np.ceil(rows * params.top_rate))),
+            max(1, int(np.ceil(rows * params.other_rate))))
+
+
+def _goss_covers(params: TrainParams, rows: int) -> bool:
+    """Whether GOSS's sample covers all ``rows`` rows (the fit is gbdt)."""
+    return sum(_goss_k(params, rows)) >= rows
+
+
 def _goss_sizes(params: TrainParams, rows: int):
     """GOSS's checks and its sample over ``rows`` rows (a shard's on a
     mesh): ``(k1, k2, amp)``, or None when the sample covers every row
@@ -269,9 +346,8 @@ def _goss_sizes(params: TrainParams, rows: int):
         raise ValueError("GOSS needs 0 < topRate < 1, 0 < otherRate < 1 "
                          "and topRate + otherRate < 1, got "
                          f"{params.top_rate}/{params.other_rate}")
-    k1 = max(1, int(np.ceil(rows * params.top_rate)))
-    k2 = max(1, int(np.ceil(rows * params.other_rate)))
-    if k1 + k2 >= rows:
+    k1, k2 = _goss_k(params, rows)
+    if _goss_covers(params, rows):
         if params.verbosity > 0:
             log.info("GOSS sample covers every row (%d a shard); training "
                      "falls back to plain gbdt", rows)
@@ -342,7 +418,8 @@ def _dart_fit(arrays, grads_at, cfg: GrowerConfig, params: TrainParams,
     units, scales, grew = [], [], []
 
     def margin(i):
-        return unit_margin(units[i], full_bins, cfg.num_leaves, F)
+        return unit_margin(units[i], full_bins, cfg.num_leaves, F,
+                           arrays.efb, cfg.num_bins)
 
     for it in range(params.num_iterations):
         bag = bag_draw(it)
@@ -478,11 +555,24 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         grad_src = LambdarankGradient.serial(
             labels, ranking_info["query_ids"], ranking_info["sigma"],
             ranking_info["truncation_level"], dev, weights)
-    arrays = prepare_arrays(bins, labels, w, devices, init, F, K, perm)
+    efb_gate = _efb_gate(params, mapper, ranking, shard_mesh, n)
+    efb_maps = None
+    if efb_gate == "none":
+        efb_maps, bundled = _build_efb(bins.cpu().numpy(), mapper, params,
+                                       f)
+        if efb_maps is None:
+            efb_gate = "trivial"
+        else:
+            bins = torch.as_tensor(bundled, device=dev)
+    arrays = prepare_arrays(bins, labels, w, devices, init, F, K, perm,
+                            efb_maps)
     _record_fit_resolution(
         cfg, collective, downgrade,
         collective_schedule(cfg, f, n_rows_local=arrays.rows_per_shard),
         dev.type, qdown)
+    last_fit_info.update(
+        efb_bundles=str(0 if efb_maps is None else bins.shape[1]),
+        efb_gate=efb_gate)
     # pad features (to a multiple of the feature axis) stay masked out
     fi_base = np.zeros((pad_to_multiple(f, F), 3), np.float32)
     fi_base[:f] = _feat_info_from_mapper(mapper, f)

@@ -55,6 +55,15 @@ and the leaf histograms stay on the devices:
   in integers, cross-shard sums ride the psum at the wire width or the
   rings as f32 lanes, and the totals and each histogram are dequantized
   (codes · scale) before the split search.
+* **Exclusive Feature Bundling** (``efb``, :class:`EFBArrays`; the
+  engine's gates as the reference's: serial or a data-only mesh).  The
+  binned matrix holds G bundle columns (:mod:`.efb`); each device's
+  histogram of them expands to the f original features
+  (:func:`efb_expand`) before the cross-shard reduction, or after the
+  fused ring, which has reduced already; a split column is decoded from
+  its bundle (:func:`efb_feature_column`), and a walk over the bundled
+  matrix decodes each level (:func:`leaf_index_binned`).  Trees name
+  original features.
 * **Host syncs.**  Two per split: the partition counts of all shards in
   one fetch (launch sizing needs them) and the children's best splits,
   bitsets included, as one int64 tensor (the next leaf choice needs
@@ -80,6 +89,7 @@ import torch
 from ..ops.collectives import (fused_segment_hist_ring, gather_cand,
                                psum_plain, ring_allreduce,
                                ring_allreduce_select)
+from ..ops.cuda_ring import FUSED_MAX_BINS
 from ..ops.histogram import accum_mode, compute_histogram, segment_histogram
 from ..ops.threefry import float_bits, fold_in, prng_key, uniform
 from .objectives import fma32
@@ -145,6 +155,72 @@ class GrowerConfig:
     def cat_words(self) -> int:
         """32-bit words of a node's bin bitset (stored in int64)."""
         return max(1, (self.num_bins + 31) // 32)
+
+
+class EFBArrays(NamedTuple):
+    """One device's EFB maps (``efb.expansion_arrays``): the binned matrix
+    holds G bundle columns; histograms and split columns come back per
+    original feature through these.  The per-feature scalars are also kept
+    on the host (``host``), so a split column is decoded without a host
+    sync."""
+    gather_idx: torch.Tensor   # (f, B) i64 flat (bundle*B + bundle_bin)
+    valid: torch.Tensor        # (f, B) bool bins feature j actually uses
+    bundle_of: torch.Tensor    # (f,) i64
+    off_of: torch.Tensor       # (f,) i64
+    nb_of: torch.Tensor        # (f,) i64
+    default_of: torch.Tensor   # (f,) i64
+    host: tuple                # (bundle_of, off_of, nb_of, default_of) numpy
+
+    @classmethod
+    def from_maps(cls, maps, device) -> "EFBArrays":
+        """From ``efb.expansion_arrays``' six numpy maps, on ``device``."""
+        gather_idx, valid, *per = maps
+        t = [torch.as_tensor(np.asarray(a, np.int64), device=device)
+             for a in (gather_idx, *per)]
+        return cls(t[0], torch.as_tensor(np.asarray(valid, bool),
+                                         device=device), *t[1:],
+                   host=tuple(np.asarray(a, np.int64) for a in per))
+
+    @property
+    def num_features(self) -> int:
+        return self.gather_idx.shape[0]
+
+
+def efb_expand(hist_b: torch.Tensor, efb: EFBArrays) -> torch.Tensor:
+    """``(G, B, 3)`` bundle histogram → the ``(f, B, 3)`` histogram of the
+    original features (the reference's ``_efb_expand``), f32 or int32:
+    each feature's bins gathered from its bundle and masked to the bins it
+    uses, then its default bin given the leaf total (bundle 0's bins
+    partition every row) less its explicit bins.  Both sums add over the
+    bins in XLA's CPU order (:func:`sum_bins`)."""
+    f, B = efb.gather_idx.shape
+    C = hist_b.shape[-1]
+    hist = hist_b.reshape(-1, C)[efb.gather_idx.reshape(-1)].reshape(f, B, C)
+    hist = hist * efb.valid[:, :, None]
+    deficit = sum_bins(hist_b[0])[None, :] - sum_bins(hist)
+    rows = torch.arange(f, device=hist.device)
+    hist[rows, efb.default_of] = hist[rows, efb.default_of] + deficit
+    return hist
+
+
+def _efb_decode(bcol: torch.Tensor, off, nb, default, num_bins: int
+                ) -> torch.Tensor:
+    """A bundle column's values back to the member feature's bins (the
+    last member slot is the missing bin, out-of-range values the default
+    bin); ``off``, ``nb`` and ``default`` scalars or per-row tensors."""
+    raw = bcol.to(torch.int64) - off
+    inr = (raw >= 0) & (raw <= nb)
+    return torch.where(inr, torch.where(raw == nb, num_bins - 1, raw),
+                       default)
+
+
+def efb_feature_column(bins: torch.Tensor, feat: int, efb: EFBArrays,
+                       num_bins: int) -> torch.Tensor:
+    """Original feature ``feat``'s bin column from its bundle column of
+    the ``(n, G)`` bundled matrix (the reference's
+    ``efb_feature_column``), int64."""
+    g, off, nb, default = (int(a[feat]) for a in efb.host)
+    return _efb_decode(bins[:, g], off, nb, default, num_bins)
 
 
 class TreeArrays(NamedTuple):
@@ -698,19 +774,23 @@ def collective_schedule(cfg: GrowerConfig, f: int, *,
 
 
 def grow_tree(bins: torch.Tensor, gh: torch.Tensor, feat_info,
-              cfg: GrowerConfig) -> Tuple[TreeArrays, torch.Tensor]:
-    """Grow one tree on ``bins``' device.  ``bins``: ``(n, f)`` bin codes;
+              cfg: GrowerConfig, efb: Optional[EFBArrays] = None
+              ) -> Tuple[TreeArrays, torch.Tensor]:
+    """Grow one tree on ``bins``' device.  ``bins``: ``(n, f)`` bin codes
+    (``(n, G)`` bundle columns with ``efb``, the maps on its device);
     ``gh``: ``(n, 3)`` masked (grad, hess, count); ``feat_info``: ``(f,
     3)`` [mask, is_cat, n_value_bins].  Returns
     the tree (host tensors) and the ``(n,)`` leaf of every row (on the
     device)."""
-    tree, row_leaf, _ = grow_tree_sharded([bins], [gh], feat_info, cfg)
+    tree, row_leaf, _ = grow_tree_sharded(
+        [bins], [gh], feat_info, cfg, efb=None if efb is None else [efb])
     return tree, row_leaf[0]
 
 
 def grow_tree_sharded(bins: Sequence[torch.Tensor],
                       gh: Sequence[torch.Tensor], feat_info,
-                      cfg: GrowerConfig, mesh=None
+                      cfg: GrowerConfig, mesh=None,
+                      efb: Optional[Sequence[EFBArrays]] = None
                       ) -> Tuple[TreeArrays, List[torch.Tensor],
                                  List[torch.Tensor]]:
     """Grow one tree over the devices of ``mesh`` (one device and no mesh
@@ -718,6 +798,10 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     slice ``j = k % F``, with ``F = cfg.feature_axis_size``) holds
     ``bins[k]``, its shard's rows of its slice's ``f_local`` features, and
     ``gh[k]``; ``feat_info`` covers all ``F · f_local`` features.
+
+    With ``efb`` (``efb[k]``: device k's :class:`EFBArrays`; no feature
+    axis and no voting, the engine's gates) ``bins[k]`` holds G bundle
+    columns and ``feat_info`` the f original features.
 
     Returns the tree (host tensors; features are global indices), the leaf
     of every row on each device, and the ``(L,)`` leaf values each device
@@ -736,9 +820,12 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     if voting and F > 1:
         raise ValueError("voting parallelism runs on a mesh without a "
                          "feature axis")
+    if efb is not None and (F > 1 or voting):
+        raise ValueError("EFB runs serially or on a data-only mesh without "
+                         "voting")
     devs = [b.device for b in bins]
     dev = devs[0]
-    f_loc = bins[0].shape[1]
+    f_loc = bins[0].shape[1] if efb is None else efb[0].num_features
     n = np.asarray([bins[d * F].shape[0] for d in range(Dd)], np.int64)
     L, B = cfg.num_leaves, cfg.num_bins
     fi_all = torch.as_tensor(feat_info, dtype=torch.float32)
@@ -831,8 +918,12 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         return (fh[:-m].reshape(V, m, 3), fh[-m:], ints[:m],
                 ints[m:2 * m], ints[2 * m:3 * m], ints[3 * m:].reshape(m, W))
 
-    hist0 = holders([compute_histogram(b, g, B, cfg.hist_method)
-                     for b, g in zip(bins, gh)])
+    def expand(k, h):
+        """Device k's histogram of its bins, per original feature."""
+        return h if efb is None else efb_expand(h, efb[k])
+
+    hist0 = holders([expand(k, compute_histogram(b, g, B, cfg.hist_method))
+                     for k, (b, g) in enumerate(zip(bins, gh))])
     tot0 = totals(hist0)
     res = fetch(tot0, *best_splits(hist0, tot0, 0))
 
@@ -885,7 +976,10 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         n_l = []
         for k in range(K):
             d = k // F
-            col = bins[d * F + owner][:, lidx].to(devs[k])
+            if efb is None:
+                col = bins[d * F + owner][:, lidx].to(devs[k])
+            else:
+                col = efb_feature_column(bins[k], feat, efb[k], B)
             n_l.append(_partition_left(row_order[k], col, thr, int(off[d]),
                                        int(cnt[d]), bits.get(devs[k])))
         cnt_l = _fetch(torch.cat([c.to(dev) for c in n_l[::F]])
@@ -894,7 +988,7 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         use_right = cnt_r.sum() <= cnt_l.sum()
         small = _segment_hists(
             bins, gh, row_order, off + cnt_l if use_right else off,
-            cnt_r if use_right else cnt_l, cfg, mesh, holders)
+            cnt_r if use_right else cnt_l, cfg, mesh, holders, expand)
         hist_r = [s if use_right else store[l] - s
                   for s, store in zip(small, leaf_hist)]
         hist_l = [store[l] - r for r, store in zip(hist_r, leaf_hist)]
@@ -963,25 +1057,29 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
 
 
 def _segment_hists(bins, gh, row_order, offs, cnts, cfg: GrowerConfig,
-                   mesh, holders) -> List[torch.Tensor]:
+                   mesh, holders, expand) -> List[torch.Tensor]:
     """Each histogram holder's histogram of the segments
     ``row_order[k][offs[d]:offs[d] + cnts[d]]`` (``d = k //
-    cfg.feature_axis_size``).  On a data-only mesh under
-    ``hist_method="pallas_ring"`` with the ring collective (and no voting),
-    one ``fused_segment_hist_ring`` kernel gathers, histograms and reduces
-    (the reduction happens in-kernel); otherwise each device's segment
-    histogram goes to ``holders`` (reduced over the data axis, or kept
-    local under voting)."""
+    cfg.feature_axis_size``), per original feature (``expand(k, h)``:
+    device k's histogram of its bins expanded, the identity without EFB).
+    On a data-only mesh under ``hist_method="pallas_ring"`` with the ring
+    collective, no voting and at most ``FUSED_MAX_BINS`` bins, one
+    ``fused_segment_hist_ring`` kernel gathers, histograms and reduces
+    (the reduction happens in-kernel; the reduced histogram is expanded
+    after it); otherwise each device's segment histogram is expanded and
+    goes to ``holders`` (reduced over the data axis, or kept local under
+    voting)."""
     B, F = cfg.num_bins, cfg.feature_axis_size
     if (len(bins) > 1 and F == 1 and cfg.collective == "ring"
-            and cfg.hist_method == "pallas_ring" and not _is_voting(cfg)):
-        return [fused_segment_hist_ring(
+            and cfg.hist_method == "pallas_ring" and not _is_voting(cfg)
+            and B <= FUSED_MAX_BINS):
+        return [expand(0, fused_segment_hist_ring(
             [(b, g, o, int(off), int(cnt)) for b, g, o, off, cnt
              in zip(bins, gh, row_order, offs, cnts)], B, mesh,
-            accum_mode(cfg.hist_method, gh[0]))[0]]
+            accum_mode(cfg.hist_method, gh[0]))[0])]
     return holders([
-        segment_histogram(b, g, o, int(offs[k // F]), int(cnts[k // F]), B,
-                          cfg.hist_method)
+        expand(k, segment_histogram(b, g, o, int(offs[k // F]),
+                                    int(cnts[k // F]), B, cfg.hist_method))
         for k, (b, g, o) in enumerate(zip(bins, gh, row_order))])
 
 
@@ -1009,11 +1107,13 @@ def apply_shrinkage(tree: TreeArrays, learning_rate: float) -> TreeArrays:
 
 
 def predict_tree_binned(tree: TreeArrays, bins: torch.Tensor,
-                        max_steps: int) -> torch.Tensor:
+                        max_steps: int, efb: Optional[EFBArrays] = None,
+                        num_bins: int = 256) -> torch.Tensor:
     """Leaf value of every row of ``bins`` through one tree
-    (:func:`leaf_index_binned`)."""
+    (:func:`leaf_index_binned`; ``efb``: the maps of the bundled matrix
+    ``bins``, the reference's ``predict_tree_binned_any``)."""
     return tree.leaf_value.to(bins.device)[
-        leaf_index_binned(tree, bins, max_steps)]
+        leaf_index_binned(tree, bins, max_steps, efb, num_bins)]
 
 
 def tree_depth(tree: TreeArrays) -> int:
@@ -1031,11 +1131,16 @@ def tree_depth(tree: TreeArrays) -> int:
 
 
 def leaf_index_binned(tree: TreeArrays, bins: torch.Tensor,
-                      max_steps: int) -> torch.Tensor:
+                      max_steps: int, efb: Optional[EFBArrays] = None,
+                      num_bins: int = 256) -> torch.Tensor:
     """Leaf of every row of ``bins`` through one tree, walked with binned
     thresholds (``bin <= node_bin`` goes left; at a categorical node, a
     bin set in the node's bitset): as many steps as the tree is deep (at
-    most ``max_steps``), with no host sync."""
+    most ``max_steps``), with no host sync.  ``efb``: ``bins`` is the
+    bundled matrix these maps describe, and each level decodes the row's
+    bundle column back to the node's feature (the reference's
+    ``predict_tree_binned_efb``; pass it only with the matrix it
+    describes — a validation matrix is never bundled)."""
     dev = bins.device
     n = bins.shape[0]
     feat = tree.node_feat.to(dev, torch.int64)
@@ -1051,7 +1156,13 @@ def leaf_index_binned(tree: TreeArrays, bins: torch.Tensor,
     for _ in range(min(max_steps, tree_depth(tree))):
         inner = node >= 0
         safe = node.clamp(min=0)
-        val = bins[rows, feat[safe]].to(torch.int64)
+        f_node = feat[safe]
+        if efb is None:
+            val = bins[rows, f_node].to(torch.int64)
+        else:
+            val = _efb_decode(bins[rows, efb.bundle_of[f_node]],
+                              efb.off_of[f_node], efb.nb_of[f_node],
+                              efb.default_of[f_node], num_bins)
         go_left = val <= thr[safe]
         if has_cat:
             word = cat_bits[safe].gather(1, (val >> 5)[:, None])[:, 0]

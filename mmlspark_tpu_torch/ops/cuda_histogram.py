@@ -19,6 +19,15 @@ kernel launches and nothing else.
 ``accum``: ``"float32"``; ``"bfloat16"`` (gh rounded to bf16, summed in
 f32, as the TPU kernel does); ``"int32"`` (integer gh codes, exact).
 
+Bin codes are ``uint8`` up to 256 bins and ``int32`` above (wide bins,
+as :class:`..gbdt.binning.BinMapper` writes them); a wrapper never
+narrows a code.  Above 256 bins both wrappers launch their kernel's wide
+mode, the segment block step of ``csrc/seg_hist.cuh`` on int32 codes
+(for the full histogram over the identity row range), up to
+:func:`wide_max_bins` bins, the most one feature's histogram holds in a
+block's shared memory.  The wide modes add in an order their geometry
+fixes, stated by :func:`histogram_segment_ordered`.
+
 Both kernels' geometry is plain Python (:func:`full_slots`,
 :func:`full_grid`, :func:`full_smem`; :func:`seg_widest`,
 :func:`seg_grid`, :func:`seg_smem`), so the CPU tests hold it; per card
@@ -39,8 +48,12 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 ACCUM_MODES = {"float32": 0, "bfloat16": 1, "int32": 2}
-#: largest bin count the kernels accept (the reference's ``BMAX``)
-BMAX = 256
+#: most bins of one-byte codes; above, the codes are int32 (wide bins)
+NARROW_BINS = 256
+#: the segment block step's kernels, by ``mode + 3 * variant``
+#: (``csrc/histogram.cu`` segment_kernel): hist_segment, its wide mode,
+#: and hist_full's wide mode
+SEG_NARROW, SEG_WIDE, FULL_WIDE = 0, 1, 2
 #: hist_full (csrc/full_hist.cuh): threads a block, the multiple its
 #: feature slots come in (two threads each, at most FULL_THREADS / 2), the
 #: staged tiles and their bytes, the multiple a block's rows come in, the
@@ -236,41 +249,54 @@ def seg_words(num_bins: int) -> int:
 
 
 def seg_smem(group: int, replicas: int, num_bins: int,
-             warps: int = SEG_THREADS // 32) -> int:
+             warps: int = SEG_THREADS // 32, wide: bool = False) -> int:
     """Shared-memory bytes of a segment block of ``warps`` warps
-    (``seg_hist.cuh``): the staging tile (gh, and each row's bin bytes
-    padded to an odd number of words), two tag rows of ``num_bins`` bytes
-    per warp, then ``replicas`` copies of the group's histogram."""
-    row_bytes = 4 * (-(-group // 4) | 1)
-    return (SEG_WARP_ROWS * warps * (12 + row_bytes)
-            + warps * 2 * (-(-num_bins // 4) * 4)
+    (``seg_hist.cuh``): the staging tile (gh, and each row's codes, a
+    byte each or four when ``wide``, padded to an odd number of words),
+    two tag rows of ``num_bins`` bytes per warp (none when ``wide``), then
+    ``replicas`` copies of the group's histogram."""
+    row_bytes = 4 * (-(-group * (4 if wide else 1) // 4) | 1)
+    tags = 0 if wide else warps * 2 * (-(-num_bins // 4) * 4)
+    return (SEG_WARP_ROWS * warps * (12 + row_bytes) + tags
             + replicas * group * seg_words(num_bins) * 4)
+
+
+def wide_max_bins(smem_budget: int = SMEM_BUDGET,
+                  warps: int = SEG_THREADS // 32) -> int:
+    """The most bins the wide modes take: one feature's histogram beside
+    the staging tile in ``smem_budget`` bytes (19,028 in the H100's
+    232,444)."""
+    head = seg_smem(1, 0, 0, warps, wide=True)
+    return (smem_budget - head - SEG_PAD * 4) // 12
 
 
 def seg_widest(limit: int, num_bins: int,
                smem_budget: int = SMEM_BUDGET,
-               warps: int = SEG_THREADS // 32) -> int:
+               warps: int = SEG_THREADS // 32, wide: bool = False) -> int:
     """The most features (at most ``limit`` and ``SEG_MAX_GROUP``) whose
-    block of ``warps`` warps fits ``smem_budget`` bytes; raises when not
-    one does."""
+    block of ``warps`` warps fits ``smem_budget`` bytes; raises, naming
+    the widest bin count that fits, when not one does."""
     widest = min(limit, SEG_MAX_GROUP)
     while widest >= 1 and seg_smem(widest, 1, num_bins,
-                                   warps) > smem_budget:
+                                   warps, wide) > smem_budget:
         widest -= 1
     if widest < 1:
+        most = wide_max_bins(smem_budget, warps) if wide else NARROW_BINS
         raise ValueError(f"one feature of {num_bins} bins needs "
-                         f"{seg_smem(1, 1, num_bins, warps)} bytes of "
-                         f"shared memory; the card gives {smem_budget}")
+                         f"{seg_smem(1, 1, num_bins, warps, wide)} bytes of "
+                         f"shared memory; the card gives {smem_budget}, "
+                         f"which holds at most {most} bins")
     return widest
 
 
 def seg_replicas(group: int, num_bins: int, warps: int,
-                 smem_budget: int = SMEM_BUDGET) -> int:
+                 smem_budget: int = SMEM_BUDGET, wide: bool = False) -> int:
     """Histogram copies of a segment block: one per warp beyond the
     group's features (each warp owns whole (copy, feature) units), as far
     as the shared memory holds them."""
     reps = max(1, warps // group)
-    while reps > 1 and seg_smem(group, reps, num_bins, warps) > smem_budget:
+    while reps > 1 and seg_smem(group, reps, num_bins, warps,
+                                wide) > smem_budget:
         reps -= 1
     return reps
 
@@ -302,6 +328,75 @@ def seg_grid(cnt: int, f: int, widest: int, resident: int, clusters: int
                                                   clusters // groups))
 
 
+class SegGeometry(NamedTuple):
+    """A launch of the segment block step: ``groups`` groups of ``group``
+    features (grid y), each of ``clusters`` clusters of ``cs`` blocks,
+    each block with ``replicas`` histogram copies."""
+    group: int
+    groups: int
+    cs: int
+    clusters: int
+    replicas: int
+
+
+def histogram_segment_ordered(bins: torch.Tensor, gh: torch.Tensor,
+                              row_order, off: int, cnt: int, num_bins: int,
+                              accum: str, geom: SegGeometry) -> torch.Tensor:
+    """:func:`histogram_fused_plain` added in the order of the wide modes
+    (``seg_hist.cuh`` with int32 codes) under the launch ``geom``;
+    ``row_order`` None: the rows ``off, off + 1, ...`` (``hist_full``'s
+    wide mode).  Block ``x`` of a group takes the segment's positions
+    ``[x * rows, (x + 1) * rows)`` (``rows = ceil(cnt / (cs *
+    clusters))``) in tiles of ``SEG_WARP_ROWS * SEG_THREADS / 32``;
+    copy ``q`` of a feature adds the tile's 32-row chunks ``q, q +
+    replicas, ...`` in row order.  Then in each cluster, flat cell ``i``
+    of the group's ``(fg, B, 3)`` cells lies in slice ``r`` (``fg * B *
+    3 * r // cs <= i``), and its sum is block ``r``'s copies in order,
+    then those of blocks ``r + 1, r + 2, ...`` (mod ``cs``); with several
+    clusters, zero plus the clusters' sums in cluster order.  Computed on
+    the CPU, where ``index_add_`` adds in index order; the kernel's
+    result is this one, bit for bit."""
+    bins, gh = bins.cpu(), gh.cpu()
+    n, f = bins.shape
+    rows_all = (torch.arange(off, off + cnt) if row_order is None
+                else row_order.cpu()[off:off + cnt].to(torch.int64))
+    group, groups, cs, clusters, reps = geom
+    blocks = cs * clusters
+    per = -(-cnt // blocks)
+    tile = SEG_WARP_ROWS * SEG_THREADS // 32
+    out = torch.empty(f, num_bins, 3, dtype=_out_dtype(accum))
+    for g in range(groups):
+        f0 = g * group
+        fg = min(group, f - f0)
+        cells = fg * num_bins * 3
+        # the slice of flat cell i: the largest r with cells*r//cs <= i
+        rank = torch.searchsorted(
+            torch.tensor([cells * r // cs for r in range(cs)]),
+            torch.arange(cells), right=True) - 1
+        sums = []
+        for x in range(blocks):
+            pos = torch.arange(min(cnt, x * per), min(cnt, (x + 1) * per))
+            chunk = ((pos - x * per) % tile) // 32 % reps
+            sums.append([histogram_plain(
+                bins[rows_all[pos[chunk == q]], f0:f0 + fg],
+                gh[rows_all[pos[chunk == q]]], num_bins,
+                accum).reshape(-1) for q in range(reps)])
+        total = None
+        for c in range(clusters):
+            v = torch.empty(cells, dtype=out.dtype)
+            for r in range(cs):
+                m = rank == r
+                acc = None
+                for p in range(cs):
+                    for part in sums[c * cs + (r + p) % cs]:
+                        acc = part[m] if acc is None else acc + part[m]
+                v[m] = acc
+            total = v if clusters == 1 else (
+                (torch.zeros_like(v) if total is None else total) + v)
+        out[f0:f0 + fg] = total.view(fg, num_bins, 3)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from ._build import load
@@ -317,9 +412,12 @@ def _lib() -> ctypes.CDLL:
     lib.hist_full_capacity.restype = i32
     lib.hist_segment.argtypes = [p, p, p, i64, i64, i32, i32, i32, i32, i32,
                                  i32, i32, p, p, p, p]
-    lib.hist_segment_smem.argtypes = [i32, i32, i32]
-    lib.hist_segment_smem.restype = i64
     lib.hist_segment.restype = i32
+    lib.hist_wide.argtypes = lib.hist_segment.argtypes
+    lib.hist_wide.restype = i32
+    for name in ("hist_segment_smem", "hist_segment_wide_smem"):
+        getattr(lib, name).argtypes = [i32, i32, i32]
+        getattr(lib, name).restype = i64
     lib.hist_segment_capacity.argtypes = [i32, i32, ip, ip]
     lib.hist_segment_capacity.restype = i32
     for name in ("hist_full_setup", "hist_full_threads",
@@ -347,7 +445,10 @@ def _lib() -> ctypes.CDLL:
                                             SEG_CLUSTER, SEG_WARP_ROWS,
                                             SEG_THREADS) or any(
             lib.hist_segment_smem(g, r, b) != seg_smem(g, r, b)
-            for g, r, b in ((50, 1, 256), (13, 2, 17), (1, 32, 2))):
+            or lib.hist_segment_wide_smem(g, r, b) != seg_smem(
+                g, r, b, wide=True)
+            for g, r, b in ((50, 1, 256), (13, 2, 17), (1, 32, 2),
+                            (17, 1, 1024), (4, 2, 4096))):
         raise RuntimeError("csrc/seg_hist.cuh and ops/cuda_histogram.py "
                            "disagree on the segment kernel's geometry")
     return lib
@@ -472,17 +573,20 @@ class _SegCard:
         self.copies = {}
         self.workspace = {}
 
-    def geom(self, f, num_bins, mode):
-        """``(widest group, resident blocks, resident clusters)``."""
-        key = (f, num_bins, mode)
+    def geom(self, f, num_bins, kind):
+        """``(widest group, resident blocks, resident clusters)`` of the
+        kernel ``kind`` (``mode + 3 * variant``: :data:`SEG_NARROW`,
+        :data:`SEG_WIDE` or :data:`FULL_WIDE`)."""
+        key = (f, num_bins, kind)
         g = self.capacity.get(key)
         if g is None:
-            widest = seg_widest(f, num_bins, self.budget)
-            smem = seg_smem(widest, self.replicas(widest, num_bins),
-                            num_bins)
+            wide = kind >= 3
+            widest = seg_widest(f, num_bins, self.budget, wide=wide)
+            smem = seg_smem(widest, self.replicas(widest, num_bins, wide),
+                            num_bins, wide=wide)
             blocks, clusters = ctypes.c_int(), ctypes.c_int()
             with torch.cuda.device(self.dev):
-                rc = _lib().hist_segment_capacity(mode, smem,
+                rc = _lib().hist_segment_capacity(kind, smem,
                                                   ctypes.byref(blocks),
                                                   ctypes.byref(clusters))
             _raise_if_failed(rc, "hist_segment_capacity")
@@ -492,14 +596,21 @@ class _SegCard:
             g = self.capacity[key] = (widest, blocks.value, clusters.value)
         return g
 
-    def replicas(self, group, num_bins):
-        key = (group, num_bins)
+    def replicas(self, group, num_bins, wide=False):
+        key = (group, num_bins, wide)
         r = self.copies.get(key)
         if r is None:
             r = self.copies[key] = seg_replicas(group, num_bins,
                                                 SEG_THREADS // 32,
-                                                self.budget)
+                                                self.budget, wide)
         return r
+
+    def launch_geometry(self, cnt, f, num_bins, kind) -> SegGeometry:
+        widest, resident, most = self.geom(f, num_bins, kind)
+        group, groups, cs, clusters = seg_grid(cnt, f, widest, resident,
+                                               most)
+        return SegGeometry(group, groups, cs, clusters,
+                           self.replicas(group, num_bins, kind >= 3))
 
     def merge_space(self, stream, f, num_bins, dtype, clusters, groups):
         """Partials (``clusters`` planes of ``(f, B, 3)``) and zeroed
@@ -531,8 +642,12 @@ def _seg_card(dev: torch.device) -> _SegCard:
 
 
 def _check_inputs(bins, gh, num_bins, accum):
-    if num_bins > BMAX or num_bins < 1:
-        raise ValueError(f"the CUDA histogram kernels take 1..{BMAX} bins, "
+    """The inputs as the kernels read them, and whether the call is wide
+    (``num_bins`` > 256): the codes must be uint8 up to 256 bins and int32
+    above (no code is ever narrowed), with at most the card's
+    :func:`wide_max_bins` bins (checked by the caller)."""
+    if num_bins < 1:
+        raise ValueError(f"the CUDA histogram kernels take at least 1 bin, "
                          f"got {num_bins}")
     if bins.dim() != 2 or gh.dim() != 2 or gh.shape[1] != 3 \
             or gh.shape[0] != bins.shape[0]:
@@ -540,12 +655,16 @@ def _check_inputs(bins, gh, num_bins, accum):
                          f"{tuple(bins.shape)} and {tuple(gh.shape)}")
     if gh.device != bins.device:
         raise ValueError("bins and gh must lie on the same device")
+    wide = num_bins > NARROW_BINS
+    code = torch.int32 if wide else torch.uint8
+    if bins.dtype != code:
+        raise ValueError(f"the CUDA histogram kernels read {code} bin codes "
+                         f"at {num_bins} bins (uint8 up to {NARROW_BINS}, "
+                         f"int32 above), got {bins.dtype}")
     out_dtype = _out_dtype(accum)
-    if bins.dtype != torch.uint8:
-        bins = bins.to(torch.uint8)
     if gh.dtype != out_dtype:   # int32 codes, or f32 (rounded in-kernel)
         gh = gh.to(out_dtype)
-    return bins.contiguous(), gh.contiguous(), out_dtype
+    return bins.contiguous(), gh.contiguous(), out_dtype, wide
 
 
 def _raise_if_failed(rc: int, name: str) -> None:
@@ -553,21 +672,77 @@ def _raise_if_failed(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with cudaError {rc}")
 
 
-def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
-                   accum: str = "float32") -> torch.Tensor:
-    """``(n, f)`` bins (< ``num_bins`` ≤ 256), ``(n, 3)`` pre-masked gh →
-    ``(f, num_bins, 3)`` histogram (int32 when ``accum="int32"``).  On a
-    CUDA tensor this launches the ``hist_full`` kernel, which writes every
-    cell (no fill) in the order of :func:`histogram_ordered`; on a CPU
-    tensor it runs :func:`histogram_plain`."""
-    if not bins.is_cuda:
-        return histogram_plain(bins, gh, num_bins, accum)
-    bins, gh, out_dtype = _check_inputs(bins, gh, num_bins, accum)
+def _wide(bins, gh, row_order, off, cnt, num_bins, accum, out_dtype,
+          variant):
+    """A wide-mode launch (``variant`` :data:`SEG_WIDE` or
+    :data:`FULL_WIDE`, the latter with ``row_order`` None) of ``cnt >= 1``
+    rows; returns the histogram."""
     dev = bins.device
     n, f = bins.shape
+    card = _seg_card(dev)
+    most = wide_max_bins(card.budget)
+    if num_bins > most:
+        raise ValueError(f"the CUDA histogram kernels take 1..{most} bins "
+                         f"on {dev} ({card.budget} bytes of shared memory "
+                         f"a block), got {num_bins}")
+    mode = ACCUM_MODES[accum]
+    group, groups, cs, clusters, reps = card.launch_geometry(
+        cnt, f, num_bins, mode + 3 * variant)
+    out = torch.empty(f, num_bins, 3, dtype=out_dtype, device=dev)
+    stream = _stream(dev)
+    partial = tickets = None
+    if clusters > 1:
+        partial, tickets = card.merge_space(stream, f, num_bins, out_dtype,
+                                            clusters, groups)
+        partial, tickets = partial.data_ptr(), tickets.data_ptr()
+    rc = _on_card(dev, _lib().hist_wide, bins.data_ptr(), gh.data_ptr(),
+                  None if row_order is None else row_order.data_ptr(), off,
+                  cnt, f, num_bins, mode, group, reps, clusters, cs,
+                  out.data_ptr(), partial, tickets, stream)
+    _raise_if_failed(rc, "hist_full" if row_order is None
+                     else "hist_segment")
+    return out
+
+
+def segment_launch_geometry(cnt: int, f: int, num_bins: int, accum: str,
+                            dev: torch.device,
+                            variant: int = SEG_WIDE) -> SegGeometry:
+    """The geometry the segment block step launches with on the card
+    ``dev`` for ``cnt`` rows of ``f`` features: ``variant``
+    :data:`SEG_WIDE` for :func:`histogram_cuda_fused` above 256 bins,
+    :data:`FULL_WIDE` for :func:`histogram_cuda` there, :data:`SEG_NARROW`
+    for :func:`histogram_cuda_fused` up to 256."""
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return _seg_card(dev).launch_geometry(cnt, f, num_bins,
+                                          ACCUM_MODES[accum] + 3 * variant)
+
+
+def histogram_cuda(bins: torch.Tensor, gh: torch.Tensor, num_bins: int,
+                   accum: str = "float32") -> torch.Tensor:
+    """``(n, f)`` bins (< ``num_bins``; uint8 up to 256 bins, int32
+    above), ``(n, 3)`` pre-masked gh → ``(f, num_bins, 3)`` histogram
+    (int32 when ``accum="int32"``).  On a CUDA tensor this launches the
+    ``hist_full`` kernel, which writes every cell (no fill) in the order
+    of :func:`histogram_ordered`, or above 256 bins its wide mode, in the
+    order of :func:`histogram_segment_ordered`; on a CPU tensor it runs
+    :func:`histogram_plain`."""
+    if not bins.is_cuda:
+        return histogram_plain(bins, gh, num_bins, accum)
+    bins, gh, out_dtype, wide = _check_inputs(bins, gh, num_bins, accum)
+    dev = bins.device
+    n, f = bins.shape
+    if wide and n > 0 and f > 0:
+        out = _wide(bins, gh, None, 0, n, num_bins, accum, out_dtype,
+                    FULL_WIDE)
+        histogram_cuda.launches += 1
+        return out
     out = torch.empty(f, num_bins, 3, dtype=out_dtype, device=dev)
     if f == 0:
         return out
+    if n == 0 and wide:
+        return out.zero_()
     card = _full_card(dev)
     mode = ACCUM_MODES[accum]
     slots, groups, cs, clusters, rows = card.geometry(n, f, num_bins, mode)
@@ -599,7 +774,7 @@ def histogram_cuda_fused(bins: torch.Tensor, gh: torch.Tensor,
     if not bins.is_cuda:
         return histogram_fused_plain(bins, gh, row_order, off, cnt,
                                      num_bins, accum)
-    bins, gh, out_dtype = _check_inputs(bins, gh, num_bins, accum)
+    bins, gh, out_dtype, wide = _check_inputs(bins, gh, num_bins, accum)
     if row_order.dtype != torch.int32 or row_order.device != bins.device:
         raise ValueError("row_order must be an int32 tensor on the device "
                          "of bins")
@@ -611,6 +786,11 @@ def histogram_cuda_fused(bins: torch.Tensor, gh: torch.Tensor,
     n, f = bins.shape
     if cnt == 0:
         return torch.zeros(f, num_bins, 3, dtype=out_dtype, device=dev)
+    if wide:
+        out = _wide(bins, gh, row_order, off, cnt, num_bins, accum,
+                    out_dtype, SEG_WIDE)
+        histogram_cuda_fused.launches += 1
+        return out
     card = _seg_card(dev)
     mode = ACCUM_MODES[accum]
     widest, resident, most = card.geom(f, num_bins, mode)

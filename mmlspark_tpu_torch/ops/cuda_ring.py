@@ -56,9 +56,14 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from .cuda_histogram import (SMEM_BUDGET, _on_card, _out_dtype,
+from .cuda_histogram import (NARROW_BINS, SMEM_BUDGET, _on_card, _out_dtype,
                              _raise_if_failed, _stream, seg_replicas,
                              seg_smem, seg_widest)
+
+#: most bins the fused kernel takes: it reads one-byte codes (a wider
+#: pallas_ring fit reduces each shard's hist_segment apart, as the
+#: reference gates its fused kernel)
+FUSED_MAX_BINS = NARROW_BINS
 
 _MODES = {"float32": 0, "int32": 2}
 _SEQ_MAX = 0xFFFFFFFF
@@ -487,8 +492,9 @@ def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,
     if accum not in _MODES:
         raise ValueError(f"fused_segment_hist_ring accumulates in "
                          f"{sorted(_MODES)}, got {accum!r}")
-    if not 1 <= num_bins <= 256:
-        raise ValueError(f"the ring histogram kernel takes 1..256 bins, got "
+    if not 1 <= num_bins <= FUSED_MAX_BINS:
+        raise ValueError(f"the ring histogram kernel takes "
+                         f"1..{FUSED_MAX_BINS} bins, got "
                          f"{num_bins}")
     if len(shards) != len(mesh):
         raise ValueError(f"{len(shards)} bins for a mesh of {len(mesh)}")

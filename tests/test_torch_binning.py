@@ -51,12 +51,14 @@ def _same_mapper(X, max_bin, **kw):
         np.testing.assert_array_equal(a, b)
     assert port.feature_infos() == ref.feature_infos()
     got = port.transform(X, "cpu")
-    assert got.dtype == torch.uint8
+    # one-byte codes up to 256 bins, int32 above (wide bins)
+    assert got.dtype == (torch.uint8 if port.num_total_bins <= 256
+                         else torch.int32)
     np.testing.assert_array_equal(got.numpy(), ref.transform(X))
     np.testing.assert_array_equal(got.numpy(), ref.transform_packed(X))
 
 
-@pytest.mark.parametrize("max_bin", [15, 63, 255])
+@pytest.mark.parametrize("max_bin", [15, 63, 255, 511, 1023])
 @pytest.mark.parametrize("kind", ["normal_f32", "with_nan", "few_distinct"])
 def test_bins_match_reference_on_random_data(kind, max_bin):
     _same_mapper(_random(kind), max_bin)

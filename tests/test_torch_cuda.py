@@ -12,6 +12,8 @@ add each cell's rows in another order, with atomics); int32 is exact.
 The segment kernel's sweep (up to 200,000 rows) states its tolerance per
 cell as chip_smoke.py does: |k - p| <= 1e-5 |p| + 256 * 2^-24 * sum|gh|
 (a sum of m terms in another order is off by about sqrt(m) u sum|gh|).
+The wide modes (more than 256 bins, int32 codes) are also held to the
+order they state (``histogram_segment_ordered``) bit for bit in f32.
 """
 
 import functools
@@ -1143,3 +1145,133 @@ def test_ranker_on_the_card_grows_the_cpu_tree(cuda_device, mesh_d):
                               table["label"], table["query"], 10))
     _same_trees(models[0], models[1], 1)
     assert abs(ndcg[0] - ndcg[1]) < 0.01
+
+
+# -- wide bins (more than 256: int32 codes) ----------------------------------
+
+WIDE_BINS = (257, 512, 1024, 4096)
+WIDE_ROWS = (1, 777, 6522)
+
+
+@functools.lru_cache(maxsize=8)
+def _wide_inputs(n, f, B, seed=11):
+    """n rows of f int32 codes in [0, B + 8) (the codes >= B are dropped),
+    a float and an integer gh, and a row order; on the CPU."""
+    rng = np.random.default_rng(seed + B)
+    bins = torch.from_numpy(rng.integers(0, B + 8, size=(n, f),
+                                         dtype=np.int32))
+    gh = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    gh_int = torch.from_numpy(rng.integers(-300, 300, size=(n, 3),
+                                           dtype=np.int32))
+    order = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    return bins, gh, gh_int, order
+
+
+def _check_wide(got, bins, ghm, order, off, cnt, B, accum, variant):
+    """A wide kernel's result against its twin (int32 exactly, f32 and
+    bf16 within the per-cell tolerance) and against the order it states
+    (``histogram_segment_ordered``), bit for bit."""
+    torch.cuda.synchronize()
+    want = ch.histogram_fused_plain(bins, ghm, order, off, cnt, B, accum)
+    gh_abs = ch._gh_values(ghm, accum).abs().float()
+    _check_tol(got.cpu(), want, ch.histogram_fused_plain(
+        bins, gh_abs, order, off, cnt, B), accum)
+    geom = ch.segment_launch_geometry(cnt, bins.shape[1], B, accum,
+                                      got.device, variant)
+    ordered = ch.histogram_segment_ordered(
+        bins, ghm, None if variant == ch.FULL_WIDE else order, off, cnt, B,
+        accum, geom)
+    assert torch.equal(got.cpu(), ordered), geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("B", WIDE_BINS)
+@pytest.mark.parametrize("n", WIDE_ROWS)
+def test_wide_hist_full_matches_twin_and_order(cuda_device, n, B, accum):
+    bins, gh, gh_int, _ = _wide_inputs(n, 50, B)
+    ghm = gh_int if accum == "int32" else gh
+    before = ch.histogram_cuda.launches
+    got = ch.histogram_cuda(bins.cuda(), ghm.cuda(), B, accum)
+    assert ch.histogram_cuda.launches == before + 1
+    assert got.shape == (50, B, 3)
+    _check_wide(got, bins, ghm, torch.arange(n, dtype=torch.int32), 0, n,
+                B, accum, ch.FULL_WIDE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ACCUMS)
+@pytest.mark.parametrize("B", WIDE_BINS)
+@pytest.mark.parametrize("cnt", WIDE_ROWS)
+def test_wide_hist_segment_matches_twin_and_order(cuda_device, cnt, B,
+                                                  accum):
+    bins, gh, gh_int, order = _wide_inputs(20_000, 50, B)
+    ghm = gh_int if accum == "int32" else gh
+    off = 1234
+    before = ch.histogram_cuda_fused.launches
+    got = ch.histogram_cuda_fused(bins.cuda(), ghm.cuda(), order.cuda(),
+                                  off, cnt, B, accum)
+    assert ch.histogram_cuda_fused.launches == before + 1
+    _check_wide(got, bins, ghm, order, off, cnt, B, accum, ch.SEG_WIDE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accum", ACCUMS)
+def test_wide_kernels_at_the_flagship_shape(cuda_device, accum):
+    """400,000 x 50 at 1,024 bins (several clusters a group, merged
+    through the workspace): the full histogram and a 200,000-row segment
+    against their twins and their stated orders, and 5 calls the same
+    bits."""
+    B = 1024
+    bins, gh, gh_int, order = _wide_inputs(400_000, 50, B)
+    ghm = gh_int if accum == "int32" else gh
+    b, g, o = bins.cuda(), ghm.cuda(), order.cuda()
+    full = ch.histogram_cuda(b, g, B, accum)
+    _check_wide(full, bins, ghm, torch.arange(400_000, dtype=torch.int32),
+                0, 400_000, B, accum, ch.FULL_WIDE)
+    seg = ch.histogram_cuda_fused(b, g, o, 100, 200_000, B, accum)
+    _check_wide(seg, bins, ghm, order, 100, 200_000, B, accum, ch.SEG_WIDE)
+    for _ in range(4):
+        assert torch.equal(ch.histogram_cuda(b, g, B, accum), full)
+        assert torch.equal(ch.histogram_cuda_fused(b, g, o, 100, 200_000, B,
+                                                   accum), seg)
+
+
+@pytest.mark.cuda
+def test_wide_limit_is_the_shared_memory(cuda_device):
+    """The wide modes take up to ``wide_max_bins`` of the card's budget;
+    one more raises a ValueError that names the limit."""
+    card = ch._seg_card(torch.device("cuda", torch.cuda.current_device()))
+    most = ch.wide_max_bins(card.budget)
+    assert most >= 4096
+    bins, gh, _, order = _wide_inputs(777, 1, most)
+    b, g, o = bins.cuda(), gh.cuda(), order.cuda()
+    for got in (ch.histogram_cuda(b, g, most),
+                ch.histogram_cuda_fused(b, g, o, 0, 777, most)):
+        _check_tol(got.cpu(), ch.histogram_fused_plain(bins, gh, order, 0,
+                                                       777, most),
+                   ch.histogram_fused_plain(bins, gh.abs(), order, 0, 777,
+                                            most), "float32")
+    with pytest.raises(ValueError, match=f"1..{most} bins"):
+        ch.histogram_cuda(b, g, most + 1)
+    with pytest.raises(ValueError, match=f"1..{most} bins"):
+        ch.histogram_cuda_fused(b, g, o, 0, 777, most + 1)
+
+
+@pytest.mark.cuda
+def test_no_code_is_narrowed(cuda_device):
+    """Codes are uint8 up to 256 bins and int32 above, nothing else: an
+    int32 code of 300 lands in bin 300 at 512 bins (as a byte it would be
+    44), and int32 codes at 256 bins or uint8 codes at 512 raise."""
+    bins = torch.full((100, 2), 300, dtype=torch.int32, device=cuda_device)
+    gh = torch.ones(100, 3, device=cuda_device)
+    got = ch.histogram_cuda(bins, gh, 512)
+    assert float(got[:, 300, 2].sum()) == 200.0
+    assert float(got.sum()) == 600.0
+    order = torch.arange(100, dtype=torch.int32, device=cuda_device)
+    got = ch.histogram_cuda_fused(bins, gh, order, 0, 100, 512)
+    assert float(got[:, 300, 2].sum()) == 200.0
+    with pytest.raises(ValueError, match="uint8"):
+        ch.histogram_cuda(bins, gh, 256)
+    with pytest.raises(ValueError, match="int32"):
+        ch.histogram_cuda(bins.to(torch.uint8), gh, 512)

@@ -126,16 +126,13 @@ def test_estimators_default_to_cuda():
             {"features": X, "label": (X[:, 0] > 0).astype(float)})
 
 
-ASKS = [
-    dict(enableBundle=True), dict(initModelPath="model.txt"),
-    dict(checkpointDir="ckpt"),
-]
+ASKS = [dict(initModelPath="model.txt"), dict(checkpointDir="ckpt")]
 #: features a later slice ported: they fit now, on both estimators
 LIFTED = [
     dict(boostingType="goss"), dict(earlyStoppingRound=5),
     dict(quantizedGrad="16"), dict(validationIndicatorCol="val"),
     dict(boostingType="dart"), dict(objective="poisson"),
-    dict(objective="huber"),
+    dict(objective="huber"), dict(enableBundle=True),
 ]
 
 
@@ -153,8 +150,9 @@ def test_unported_features_refuse(ask):
     a.items()))[0] + "=" + str(next(iter(a.values()))))
 def test_lifted_features_fit(ask):
     """boostingType="goss" and "dart", quantizedGrad,
-    validationIndicatorCol, earlyStoppingRound and the poisson and huber
-    objectives fit on both estimators and score every row."""
+    validationIndicatorCol, earlyStoppingRound, the poisson and huber
+    objectives and enableBundle fit on both estimators and score every
+    row."""
     rng = np.random.default_rng(0)
     X = rng.normal(size=(400, 3))
     table = {"features": X, "label": (X[:, 0] > 0).astype(float),

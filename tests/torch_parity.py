@@ -71,17 +71,18 @@ def _metrics(objective):
 
 
 def fit_pair(X, y, objective, d=1, feature=1, val=None, categorical=(),
-             method="segment", **kw):
+             method="segment", max_bin=63, **kw):
     """The reference's and the port's boosters of one fit: training rows
-    ``~val`` (all when ``val`` is None), validation rows ``val``."""
+    ``~val`` (all when ``val`` is None), validation rows ``val``; bins of
+    at most ``max_bin`` values."""
     train_rows = np.ones(len(y), bool) if val is None else ~val
     Xt, yt = X[train_rows], y[train_rows]
     cats = list(categorical) or None
     num_class = K if objective.startswith("multiclass") else 1
-    params = dict(max_bin=63, verbosity=0, **kw)
+    params = dict(max_bin=max_bin, verbosity=0, **kw)
     ref_metric, port_metric = _metrics(objective)
-    rmap = ref_fit(Xt, max_bin=63, categorical_features=cats)
-    pmap = fit_bin_mapper(Xt, max_bin=63, categorical_features=cats)
+    rmap = ref_fit(Xt, max_bin=max_bin, categorical_features=cats)
+    pmap = fit_bin_mapper(Xt, max_bin=max_bin, categorical_features=cats)
     rval, pval = {}, {}
     if val is not None:
         rval = dict(val_bins=rmap.transform_packed(X[val]),
