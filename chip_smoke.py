@@ -34,14 +34,42 @@ Phases, each printing one JSON line:
    reach 0.955; the warm-up and timed fits must write the same model text
    (``same_model_text``): card fits are the same run to run.  ``host_s``
    splits the timed fit's host clock (:class:`host_split`).
+4b. continued_path — continued training, the Booster's serving surface
+   and stage persistence on the flagship (400,000 × 50, 31 leaves, 255
+   bins): a 25-iteration base fit saved as LightGBM text and its
+   25-iteration ``initModelPath`` continuation (``hist_full`` 25 times
+   and ``hist_segment`` once a split; the merged text's first 25 tree
+   blocks equal the base's byte for byte and it records 50 iterations;
+   train AUC ≥ 0.955 and within 0.002 of main_path's straight
+   50-iteration fit; both fits' seconds and the largest margin gap to
+   the straight fit); a 25-iteration ``initScoreCol`` fit at the base
+   model's margins, whose tree blocks equal the continuation's last 25;
+   5-iteration D = 4 continuations with the ring under ``auto``
+   (``ring_allreduce`` once a tree and split) and ``pallas_ring``
+   (``fused_hist_ring`` once a split; fitted twice, ``same_model_text``
+   reported), AUC within 0.01 of the serial continuation's first 5;
+   ``predictor()`` margins ``torch.equal`` to ``predict_margin`` at 1,
+   64, 4,096 and 400,000 rows with the median ms of both (20 calls after
+   warm-up), tree-range partials (0, 25) + (25, 50) without the init
+   score summing to the margins (rtol and atol 1e-5), and a stale
+   predictor raising after ``invalidate_cache()``; ``predict_leaf_index``
+   on 400,000 rows, whose leaf values summed in tree order give the
+   margins (rtol 1e-6); TreeSHAP on 100 rows on the host (local accuracy
+   within 1e-5, its seconds); ``save`` / ``load`` of the model and of a
+   ``PipelineModel`` on the card, transforms equal bit for bit; a
+   5-iteration fit with ``profileTraceDir`` whose Chrome trace names
+   ``hist_full`` 5 times; and a 20,000-row base 5 + continuation 5
+   card-vs-CPU check: the continuation's first tree identical, the
+   margins allclose 1e-4 over the matching trees.
 5. cuda_vs_cpu — the same classifier at 20,000 × 50 and 5 iterations on
    the kernels and on the plain CPU path: identical first tree, AUCs
    within 0.002, margins close over the trees whose structure matches.
 6. profile — where a 5-iteration flagship fit spends its time (each
    profiled fit runs without a warm-up fit of its own: main_path has
    warmed the card):
-   ``torch.profiler`` device time by kernel, the device's idle share, and
-   the host binning pass timed alone; the quantiles of its segment sizes
+   ``torch.profiler`` device time by kernel (the profiler records the
+   device alone) and the device's idle share, and the host binning pass
+   timed alone; the quantiles of its segment sizes
    (the smaller child of each split); then the same 5-iteration fit on
    four virtual shards under ``histogramMethod="pallas_ring"``, for the
    device time of ``fused_hist_ring`` per fit, and under ``"auto"``; and
@@ -69,7 +97,10 @@ Phases, each printing one JSON line:
 8. mesh_path — the flagship classifier data-parallel over
    ``build_mesh(data=4, devices=["cuda:0"] * 4)`` with
    ``collective="ring"``, under ``histogramMethod="auto"`` and
-   ``"pallas_ring"``, each a warm-up fit and a timed fit: train AUC must
+   ``"pallas_ring"``, each a warm-up fit (cut, as in every phase after
+   main_path but DART's, to ``WARM_ITERATIONS``; its trees must equal the
+   timed fit's first trees byte for byte, which ``same_model_text``
+   reports) and a timed fit: train AUC must
    reach 0.955, and the timed fit must launch ``ring_allreduce`` once per
    tree and split (auto) or once per tree with ``fused_segment_hist_ring``
    once per split (pallas_ring); ``host_s`` and ``same_model_text`` as
@@ -105,16 +136,16 @@ Phases, each printing one JSON line:
    20,000-row, 5-iteration card-vs-CPU check from the
    init score 0, where the first tree's sums are exact, serially and at
    D = 4 (data ring, voting, feature 1 × 4, ``pallas_ring``, the last
-   fitted twice on the card for ``same_model_text``, reported): first
-   tree identical, AUCs within 0.002.
+   fitted twice on the card for ``same_model_text``, reported), 3
+   iterations: first tree identical, AUCs within 0.002.
 11. multiclass_path — the flagship's features with five classes
-   (``multiclass_data``), ``multiclass`` and ``multiclassova``, 10
-   iterations (cut from 20 to hold the script's time): a warm-up and a
-   timed serial fit each (50 trees and 50 ``hist_full`` launches, train
-   accuracy, multi-logloss of the first and the last iteration, which
-   must fall, ``same_model_text``); a
-   10-iteration data-ring fit on four virtual shards; a 20,000-row,
-   5-iteration card-vs-CPU check: the first K trees identical and the
+   (``multiclass_data``), ``multiclass`` and ``multiclassova``, 5
+   iterations (cut from 20, then 10, to hold the script's time): a
+   warm-up and a timed serial fit each (25 trees and 25 ``hist_full``
+   launches, train accuracy, multi-logloss of the first and the last
+   iteration, which must fall, ``same_model_text``); a
+   5-iteration data-ring fit on four virtual shards; a 20,000-row,
+   3-iteration card-vs-CPU check: the first K trees identical and the
    probabilities allclose 1e-4 over the matching iterations.
 12. validation_path — the flagship with 20% of its rows flagged by
    ``validationIndicatorCol`` (numpy ``default_rng(3)``),
@@ -129,13 +160,14 @@ Phases, each printing one JSON line:
    0.2, ``otherRate`` 0.1, 50 iterations): a warm-up and a timed serial
    fit (``hist_full`` 50 times on the 120,000 sampled rows, train AUC ≥
    0.955, one model text), the device time of one iteration's sampling, a
-   20-iteration D = 4 data-ring fit (20,000 + 10,000 rows a shard), and a
+   10-iteration D = 4 data-ring fit (20,000 + 10,000 rows a shard), and a
    20,000-row, 5-iteration card-vs-CPU check: the first tree identical and
    iteration 0's sampled rows equal (``torch.equal``).
 14. quantized_path — ``quantizedGrad`` "16" (max_code 5,368) and "8"
-   (127) on the flagship, a warm-up and a timed serial fit each (the
-   int32 ``hist_full`` once a tree and ``hist_segment`` once a split, AUC
-   within 0.005 of the same call's f32 fit, one model text); the
+   (127) on the flagship, 25 iterations, a warm-up and a timed serial
+   fit each (the int32 ``hist_full`` once a tree and ``hist_segment``
+   once a split, AUC within 0.005 of main_path's f32 fit at 25
+   iterations, one model text); the
    flagship on D = 4 with the ring, which the reference's gate turns to
    psum (``quantized_unsupported``); the reference's quantized
    configuration (``artifacts/bench_quant_r17.json``: max_code 3, int16
@@ -148,13 +180,13 @@ Phases, each printing one JSON line:
    (both printed), AUCs within 0.002 where they do not.
 15. objectives_path — the flagship's features with a label for each
    regression family (``objective_data``), each of ``OBJECTIVES`` fitted
-   20 iterations (31 leaves, 255 bins) after one warm-up fit: fit seconds,
-   the objective's LightGBM metric (``objective_loss``) at iterations 0
-   and 19, which must fall, ``transform`` equal to the objective's
-   ``transform_prediction`` of ``predict_margin``, ``hist_full`` once a
-   tree and ``hist_segment`` once a split; a 20,000-row, 5-iteration
-   card-vs-CPU check of each: the first tree identical, the predictions
-   close over the matching iterations.
+   5 iterations (31 leaves, 255 bins) after one warm-up fit: fit seconds,
+   the objective's LightGBM metric (``objective_loss``) at the first and
+   the last iteration, which must fall, ``transform`` equal to the
+   objective's ``transform_prediction`` of ``predict_margin``,
+   ``hist_full`` once a tree and ``hist_segment`` once a split; a
+   20,000-row, 3-iteration card-vs-CPU check of each: the first tree
+   identical, the predictions close over the matching iterations.
 16. dart_path — the flagship under ``boostingType="dart"`` (LightGBM's
    defaults: ``dropRate`` 0.1, ``maxDrop`` 50, ``skipDrop`` 0.5,
    ``dropSeed`` 4), 50 iterations, a warm-up and a timed fit: fit and
@@ -163,22 +195,22 @@ Phases, each printing one JSON line:
    training scores equal to the exported model's margins walked over the
    bins within 1e-5 of their largest magnitude (the baked scales; the
    rows where the float thresholds route a row apart from its bin are
-   counted, ``rows_where_thresholds_route_apart``); a 20-iteration D = 4
+   counted, ``rows_where_thresholds_route_apart``); a 10-iteration D = 4
    fit asking for the ring, which keeps psum with the downgrade
    ``"dart"``; a 20,000-row,
    5-iteration card-vs-CPU check with drops in every iteration: the
    first tree identical, the same drops and scales, AUCs within 0.002.
 17. rf_path — the flagship under ``boostingType="rf"`` (``baggingFraction``
    0.8, ``baggingFreq`` 1, ``featureFraction`` 0.8), 50 iterations: fit
-   seconds and AUC; then 20-iteration D = 4 fits under the data ring
+   seconds and AUC; then 10-iteration D = 4 fits under the data ring
    (``ring_allreduce`` once per tree and split), ``pallas_ring``
    (``fused_hist_ring`` once per split) and voting with the ring (``topK``
    5, ``ring_allreduce_select`` once per tree and split), each AUC within
-   0.01 of the serial fit's first 20 iterations; a 20,000-row card-vs-CPU
+   0.01 of the serial fit's first 10 iterations; a 20,000-row card-vs-CPU
    check.
 18. ranking_path — the slice's main path: ``LightGBMRanker`` on data of
    MSLR-WEB30K's shape (``ranking_data``: 3,000 queries of 20–230
-   documents, 136 features, grades 0–4), 30 iterations, 31 leaves, 255
+   documents, 136 features, grades 0–4), 15 iterations, 31 leaves, 255
    bins, ``maxPosition`` 30, ``sigma`` 1, a warm-up and a timed fit: fit
    and transform seconds, the lambda gradient's milliseconds an iteration
    (CUDA events), train NDCG@1/3/5/10 against the score-0 baseline
@@ -186,16 +218,16 @@ Phases, each printing one JSON line:
    and ``hist_segment`` once a split; a fit with 20% of the queries held
    out and ``earlyStoppingRound`` 10 on the negative NDCG@10 (learning
    rate 0.5; the stop rule must hold whether or not it fires); a
-   20-iteration D = 4 data fit (each query on one shard); a 200-query,
+   10-iteration D = 4 data fit (each query on one shard); a 200-query,
    5-iteration card-vs-CPU check: the first tree identical, NDCG@10
    within 0.002.
 19. efb_path — Exclusive Feature Bundling on ``flight_data`` (the Flight
-   Delay set's shape: 400,000 rows, one-hot Month, DayofMonth, DayOfWeek,
+   Delay set's shape: 100,000 rows, one-hot Month, DayofMonth, DayOfWeek,
    UniqueCarrier, Origin and Dest with Zipf carriers and airports, dense
    DepTime and Distance, 674 features, about 19% delayed), 50 iterations,
    31 leaves, 255 bins: a warm-up and a timed fit with ``enableBundle``
-   (G bundle columns; ``same_model_text``), the unbundled fit, bundled
-   GOSS and DART fits, and 10-iteration D = 4 data-ring fits under
+   (G bundle columns; ``same_model_text``), the unbundled fit, and
+   10-iteration bundled GOSS and DART fits and D = 4 data-ring fits under
    ``auto`` and ``pallas_ring``; each with fit and transform seconds, AUC
    and launches.  Every histogram call of a bundled fit must be at the G
    columns (the unbundled at 674), the timed bundled fit must launch
@@ -208,10 +240,10 @@ Phases, each printing one JSON line:
    and 512, int32 codes): a warm-up and a timed serial fit each, 50
    iterations (``hist_full`` once a tree and ``hist_segment`` once a
    split, every call at B int32 codes, AUC >= 0.955, one model text);
-   20-iteration D = 4 data-ring fits at 1023 under ``auto`` and
+   10-iteration D = 4 data-ring fits at 1023 under ``auto`` and
    ``pallas_ring``: above 256 bins ``fused_hist_ring`` is not launched,
    each shard's ``hist_segment`` runs and ``ring_allreduce`` reduces
-   once per tree and split, AUC within 0.01 of the serial fit's first 20
+   once per tree and split, AUC within 0.01 of the serial fit's first 10
    iterations; a 20,000-row card-vs-CPU check at 1023.
 21. collectives_cross_card — phase 7's checks with one shard per card,
    D = min(cards, 4), where the host has at least two cards; elsewhere it
@@ -239,8 +271,10 @@ Then the ``{"kernels": [...]}`` line (a row per kernel, launches from the
 main path, plus a row per int32 mode, launches from ``quantized_path``,
 the histogram kernels at the ranking shapes, launches from
 ``ranking_path``, at the bundled table's G columns, launches from
-``efb_path``, and their wide modes at B = 1,024 and 512, launches from
-``wide_bins_path``), the card line, and last the ``{"ok": true, ...}``
+``efb_path``, their wide modes at B = 1,024 and 512, launches from
+``wide_bins_path``, and the flagship rows again with the launches of
+``continued_path``'s serial and D = 4 continuations, mode
+``continued``), the card line, and last the ``{"ok": true, ...}``
 line.  Any failed phase makes the script exit 1 without that last line.
 
     python3 chip_smoke.py --phases kernels,main_path
@@ -318,40 +352,42 @@ CAT_CARDINALITIES = (2, 3, 4, 12, 24, 64, 200, 254, 1000, 10_000)
 #: iterations of its two fits on four virtual shards (the serial fit's
 #: 50 cut, to hold the phase's time)
 CAT_MESH_ITERATIONS = 10
-#: the multiclass configuration: classes and iterations (mesh fit: 10)
-NUM_CLASSES, MULTICLASS_ITERATIONS = 5, 10
+#: the multiclass configuration: classes and iterations (the mesh fit's
+#: too; cut from 20 and then 10 to hold the script's time)
+NUM_CLASSES, MULTICLASS_ITERATIONS = 5, 5
 #: the validation configuration: the flagship with this fraction of its
 #: rows flagged (numpy default_rng(VAL_SEED)), a learning rate at which
 #: the validation logloss turns within the iterations asked, and the
 #: early-stopping round
 VAL_FRACTION, VAL_SEED = 0.2, 3
 VAL_ITERATIONS, VAL_LR, VAL_ESR = 300, 0.5, 10
-#: GOSS on the flagship: rates, iterations (D = 4 fit: 20)
+#: GOSS on the flagship: rates, iterations (D = 4 fit: 10)
 GOSS_TOP_RATE, GOSS_OTHER_RATE = 0.2, 0.1
-GOSS_ITERATIONS, GOSS_MESH_ITERATIONS = 50, 20
-#: quantized flagship iterations
-QUANT_ITERATIONS = 50
+GOSS_ITERATIONS, GOSS_MESH_ITERATIONS = 50, 10
+#: quantized flagship iterations (cut from 50 to hold the script's time;
+#: the AUC is held against main_path's fit at as many iterations)
+QUANT_ITERATIONS = 25
 #: the objectives configuration: the flagship's features, one label per
 #: family (numpy default_rng(4)), each objective fitted this many
 #: iterations
 OBJECTIVES = ("regression_l1", "huber", "fair", "poisson", "quantile",
               "mape", "gamma", "tweedie", "cross_entropy")
-OBJ_ITERATIONS = 20
+OBJ_ITERATIONS = 5
 #: DART with LightGBM's default drops, rf with its bagging; iterations of
 #: the serial fits and of the D = 4 fits
-DART_ITERATIONS, DART_MESH_ITERATIONS = 50, 20
+DART_ITERATIONS, DART_MESH_ITERATIONS = 50, 10
 #: DART's train AUC floor on the flagship: each new iteration joins at
 #: 1/(k+1) and the dropped ones shrink, so at learning rate 0.1 the
 #: 50-iteration fit reaches 0.9448 (PR 9, chip call 1), below gbdt's
 #: 0.955 floor; the CPU fits equal the reference's byte for byte
 DART_MIN_AUC = 0.94
-RF_ITERATIONS, RF_MESH_ITERATIONS, RF_TOP_K = 50, 20, 5
+RF_ITERATIONS, RF_MESH_ITERATIONS, RF_TOP_K = 50, 10, 5
 #: the ranking configuration, MSLR-WEB30K's shape: queries, documents a
 #: query (uniform), features, the quantiles the grades 0-4 are cut at
-#: (numpy default_rng(5)), iterations (D = 4 fit: 20), NDCG positions
+#: (numpy default_rng(5)), iterations (D = 4 fit: 10), NDCG positions
 RANK_QUERIES, RANK_DOCS, RANK_FEATURES = 3000, (20, 230), 136
 RANK_CUTS = (0.50, 0.82, 0.95, 0.985)
-RANK_ITERATIONS, RANK_MESH_ITERATIONS = 30, 20
+RANK_ITERATIONS, RANK_MESH_ITERATIONS = 15, 10
 RANK_EVAL_AT = (1, 3, 5, 10)
 #: the held-out fit's learning rate (its validation NDCG turns sooner)
 RANK_ES_LR = 0.5
@@ -361,8 +397,11 @@ PROFILE_ITERATIONS = 5
 #: the EFB configuration, the Flight Delay set's shape (Ke et al., NIPS
 #: 2017, Table 1; szilard/benchm-ml's one-hot airline columns): rows, the
 #: one-hot blocks (name, categories), the Zipf-distributed ones, the two
-#: dense columns' count, the positive share, iterations (D = 4 fits: 20)
-FLIGHT_ROWS = 400_000
+#: dense columns' count, the positive share, iterations (the bundled
+#: GOSS and DART fits and the D = 4 fits: 10).  Rows cut from 400,000 to
+#: hold the script's time: each fit bins and bundles the 674 columns on
+#: the host, ~9 s a fit at 400,000 rows on an H100's host
+FLIGHT_ROWS = 100_000
 FLIGHT_ONEHOT = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
                  ("UniqueCarrier", 22), ("Origin", 300), ("Dest", 300))
 FLIGHT_ZIPF = ("UniqueCarrier", "Origin", "Dest")
@@ -373,8 +412,20 @@ FLIGHT_ITERATIONS, FLIGHT_MESH_ITERATIONS = 50, 10
 #: fits' iterations, and the bin counts the kernels phase runs the wide
 #: modes at
 WIDE_MAX_BINS = (1023, 511)
-WIDE_MESH_ITERATIONS = 20
+WIDE_MESH_ITERATIONS = 10
 WIDE_KERNEL_BINS = (257, 512, 1024, 4096)
+#: continued training on the flagship: the base and the continuation's
+#: iterations, the D = 4 continuations' iterations, the row counts the
+#: predictor is timed at, the TreeSHAP rows, and the card-vs-CPU check's
+#: rows and iterations (base and continuation each)
+CONT_ITERATIONS, CONT_MESH_ITERATIONS = 25, 5
+PREDICT_ROWS = (1, 64, 4096, N_ROWS)
+SHAP_ROWS = 100
+CONT_CPU_ROWS, CONT_CPU_ITERATIONS = 20_000, 5
+#: iterations of the warm-up fit before a timed fit, where it is cut
+#: (every phase but main_path and dart_path): it warms the card and its
+#: trees must equal the timed fit's first ones byte for byte
+WARM_ITERATIONS = 5
 #: the card the kernels and the main path run on
 DEV = "cuda"
 #: phases that run only when ``--phases`` names them
@@ -385,15 +436,22 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+_LOGITS = {}
+
+
 def bench_logits(n, f):
     """bench.py's synthetic task (numpy default_rng(0)): the features and
-    the logits whose sign is its binary label."""
+    the logits whose sign is its binary label (made once a run for each
+    shape; each call gets its own copies)."""
     import numpy as np
-    rng = np.random.default_rng(0)
-    X = rng.normal(size=(n, f)).astype(np.float32)
-    logits = (X[:, 0] * 1.5 + X[:, 1] * X[:, 2] + np.sin(X[:, 3] * 2)
-              + rng.normal(size=n) * 0.5)
-    return X, logits
+    if (n, f) not in _LOGITS:
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(n, f)).astype(np.float32)
+        logits = (X[:, 0] * 1.5 + X[:, 1] * X[:, 2] + np.sin(X[:, 3] * 2)
+                  + rng.normal(size=n) * 0.5)
+        _LOGITS[n, f] = (X, logits)
+    X, logits = _LOGITS[n, f]
+    return X.copy(), logits.copy()
 
 
 def bench_data(n, f):
@@ -588,9 +646,23 @@ def device_ms(fn, kernel, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) or 0
-             for e in prof.key_averages() if kernel in e.key)
-    return us / 1e3 / reps
+    return sum(ms for name, (ms, _) in device_events(prof).items()
+               if kernel in name) / reps
+
+
+def device_events(prof):
+    """``{name: (ms, count)}`` of the events a finished ``torch.profiler``
+    run recorded on the card, summed by name, read from the profiler's
+    raw results: ``key_averages()`` builds torch's event tree first,
+    which costs seconds for each thousand launches."""
+    import torch
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ms, count = out.get(e.name(), (0.0, 0))
+            out[e.name()] = (ms + (e.end_ns() - e.start_ns()) / 1e6,
+                             count + 1)
+    return out
 
 
 def enqueue_us(fn, calls=None):
@@ -934,8 +1006,8 @@ def phase_main_path(state):
     X, y = bench_data(N_ROWS, N_FEATURES)
     table = {"features": X, "label": y}
     est = _classifier(numIterations=50, device=DEV, parallelism="serial")
-    warm, model, fit_s, counts, host_s, syncs = _timed_fit(est, table,
-                                                           _counters())
+    warm, model, fit_s, counts, host_s, syncs = _timed_fit(
+        est, table, _counters(), warm_iterations=None)
     launches = {k: counts[k] for k in ("hist_full", "hist_segment")}
     t0 = time.perf_counter()
     out = model.transform(table)
@@ -946,6 +1018,7 @@ def phase_main_path(state):
     train_auc = auc(y, prob)
     state["launches"] = launches
     state["main_auc"] = train_auc
+    state["main_model"] = model
     same = same_model_text(warm, model)
     res = {"rows": N_ROWS, "features": N_FEATURES, "iterations": 50,
            "fit_s": fit_s, "transform_s": transform_s,
@@ -969,10 +1042,288 @@ def phase_main_path(state):
 
 
 def same_model_text(a, b):
-    """Whether two fitted models write the same LightGBM text, byte for
-    byte: the card fit's result is the same run to run."""
-    return (a.getModel().save_native_model_string()
-            == b.getModel().save_native_model_string())
+    """Whether two card fits of one configuration write the same model:
+    the same LightGBM text byte for byte, or, where ``a`` is a warm-up
+    fit cut to fewer iterations (:func:`_timed_fit`), tree blocks equal
+    to ``b``'s first ones byte for byte: the card fit's result is the
+    same run to run."""
+    ta = a.getModel().save_native_model_string()
+    tb = b.getModel().save_native_model_string()
+    na, nb = len(a.getModel().trees), len(b.getModel().trees)
+    if na >= nb:
+        return ta == tb
+    return na > 0 and _tree_blocks(ta) == _tree_blocks(tb)[:na]
+
+
+def _tree_blocks(text):
+    """The tree blocks of a model text without their ``Tree=i`` lines."""
+    body = text.split("end of trees")[0]
+    return [b.partition("\n")[2] for b in body.split("Tree=")[1:]]
+
+
+def _trace_kernel_count(out_dir, name):
+    """Kernel events of the one Chrome trace under ``out_dir`` whose name
+    holds ``name``."""
+    import glob
+    import os
+    paths = glob.glob(os.path.join(out_dir, "*.trace.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"{len(paths)} traces under {out_dir}")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and name in str(e.get("name", "")))
+
+
+def phase_continued_path(state):
+    """Continued training, the Booster's serving surface and stage
+    persistence on the flagship (``bench_data``, 400,000 × 50, 31 leaves,
+    255 bins)."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch import LightGBMClassificationModel, build_mesh
+    from mmlspark_tpu_torch.core import PipelineModel
+    counters = _counters()
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    table = {"features": X, "label": y}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_continued_")
+    res = {"rows": N_ROWS, "features": N_FEATURES,
+           "iterations": [CONT_ITERATIONS, CONT_ITERATIONS]}
+    try:
+        # -- the base model and its continuation ----------------------
+        base, base_s, _ = _counted_fit(
+            _classifier(numIterations=CONT_ITERATIONS, device=DEV,
+                        parallelism="serial"), table, counters)
+        path = os.path.join(tmp, "base.txt")
+        base.saveNativeModel(path)
+        cont, cont_s, launches = _counted_fit(
+            _classifier(numIterations=CONT_ITERATIONS, device=DEV,
+                        parallelism="serial", initModelPath=path),
+            table, counters)
+        booster = cont.getModel()
+        new = booster.trees[CONT_ITERATIONS:]
+        splits = sum(t.num_leaves - 1 for t in new)
+        text = cont.getNativeModel()
+        prob = cont.transform(table)["probability"][:, 1]
+        cont_auc = auc(y, prob)
+        straight = state.get("main_model")
+        if straight is None:
+            straight = _classifier(numIterations=2 * CONT_ITERATIONS,
+                                   device=DEV,
+                                   parallelism="serial").fit(table)
+        main_auc = auc(y, straight.transform(table)["probability"][:, 1])
+        Xd = torch.as_tensor(X, dtype=torch.float32, device=DEV)
+        full = booster.predict_margin(Xd)
+        gap = float((full - straight.getModel().predict_margin(Xd))
+                    .abs().max())
+        base_same = (_tree_blocks(text)[:CONT_ITERATIONS]
+                     == _tree_blocks(base.getNativeModel()))
+        res.update(base_fit_s=base_s, continuation_fit_s=cont_s,
+                   trees=len(booster.trees), splits=splits,
+                   launches={k: launches[k] for k in ("hist_full",
+                                                      "hist_segment")},
+                   train_auc=cont_auc, straight_auc=main_auc,
+                   max_margin_gap_to_straight=gap,
+                   base_blocks_equal=base_same)
+        if launches["hist_full"] != CONT_ITERATIONS or \
+                launches["hist_segment"] != splits:
+            raise AssertionError(f"continuation launches {launches} do not "
+                                 f"match {CONT_ITERATIONS} trees / {splits} "
+                                 f"splits: {res}")
+        if not base_same or "[num_iterations: 50]" not in text:
+            raise AssertionError(f"the merged text does not start with the "
+                                 f"base's trees or record 50 iterations: "
+                                 f"{res}")
+        if not (cont_auc >= 0.955 and abs(cont_auc - main_auc) <= 0.002):
+            raise AssertionError(f"continuation AUC {cont_auc} below 0.955 "
+                                 f"or off the straight fit's {main_auc}: "
+                                 f"{res}")
+        # -- initScoreCol at the base model's margins ------------------
+        offs = base.getModel().predict_margin(Xd).cpu().numpy()
+        iscore, iscore_s, ilaunch = _counted_fit(
+            _classifier(numIterations=CONT_ITERATIONS, device=DEV,
+                        parallelism="serial", initScoreCol="offset"),
+            {**table, "offset": offs.astype(np.float64)}, counters)
+        same = (_tree_blocks(iscore.getNativeModel())
+                == _tree_blocks(text)[CONT_ITERATIONS:])
+        res["init_score_col"] = {"fit_s": iscore_s,
+                                 "hist_full": ilaunch["hist_full"],
+                                 "blocks_equal_continuation": same}
+        if not same:
+            raise AssertionError(f"the initScoreCol fit's trees differ from "
+                                 f"the continuation's: {res}")
+        # -- D = 4 virtual shards ---------------------------------------
+        serial_auc = auc(y, booster.predict(
+            Xd, num_iteration=CONT_ITERATIONS + CONT_MESH_ITERATIONS)
+            .cpu().numpy())
+        mesh = build_mesh(data=MESH_SHARDS,
+                          devices=[f"{DEV}:0"] * MESH_SHARDS)
+        fits, cont_launches = {}, {k: launches[k] for k in ("hist_full",
+                                                            "hist_segment")}
+        for method in ("auto", "pallas_ring", "pallas_ring"):
+            est = _classifier(numIterations=CONT_MESH_ITERATIONS,
+                              device=DEV, collective="ring",
+                              histogramMethod=method,
+                              initModelPath=path).setMesh(mesh)
+            m, fit_s, ml = _counted_fit(est, table, counters)
+            mt = m.getModel().trees[CONT_ITERATIONS:]
+            msplits = sum(t.num_leaves - 1 for t in mt)
+            a = auc(y, m.transform(table)["probability"][:, 1])
+            r = {"fit_s": fit_s, "train_auc": a, "splits": msplits,
+                 "launches": {k: ml[k] for k in (
+                     "hist_full", "ring_allreduce",
+                     "fused_segment_hist_ring")},
+                 "text": m.getNativeModel()}
+            if method in fits:
+                fits[method]["same_model_text"] = \
+                    fits[method].pop("text") == r["text"]
+                continue
+            fits[method] = r
+            want = ({"ring_allreduce": len(mt) + msplits}
+                    if method == "auto" else
+                    {"ring_allreduce": len(mt),
+                     "fused_segment_hist_ring": msplits})
+            if any(ml[k] != v for k, v in want.items()) or \
+                    abs(a - serial_auc) > 0.01:
+                raise AssertionError(f"{method}: launches {ml} against "
+                                     f"{want}, or AUC {a} off the serial "
+                                     f"continuation's {serial_auc}")
+            k = ("ring_allreduce" if method == "auto"
+                 else "fused_segment_hist_ring")
+            cont_launches[k] = ml[k]
+        fits["auto"].pop("text")
+        res["mesh"] = {"shards": MESH_SHARDS,
+                       "iterations": CONT_MESH_ITERATIONS,
+                       "serial_auc": serial_auc, "fits": fits}
+        state["cont_launches"] = cont_launches
+        # -- the predictor --------------------------------------------
+        pred = booster.predictor()
+        timing = {}
+        for rows in PREDICT_ROWS:
+            sub = Xd[:rows]
+            if not torch.equal(pred(sub), booster.predict_margin(sub)):
+                raise AssertionError(f"predictor() differs from "
+                                     f"predict_margin at {rows} rows")
+            timing[rows] = {
+                "predictor_ms": median_ms(lambda: pred(sub)),
+                "predict_margin_ms": median_ms(
+                    lambda: booster.predict_margin(sub))}
+        lo = booster.predictor(tree_range=(0, CONT_ITERATIONS))(Xd)
+        hi = booster.predictor(tree_range=(CONT_ITERATIONS,
+                                           2 * CONT_ITERATIONS),
+                               include_init_score=False)(Xd)
+        parts_ok = torch.allclose(lo + hi, full, rtol=1e-5, atol=1e-5)
+        booster.invalidate_cache()
+        try:
+            pred(Xd[:1])
+            stale = False
+        except RuntimeError:
+            stale = True
+        res["predictor"] = {"mode": pred.mode, "median_ms": timing,
+                            "tree_range_parts_sum": parts_ok,
+                            "stale_raises": stale}
+        if not (parts_ok and stale):
+            raise AssertionError(f"tree-range partials or the stale check "
+                                 f"failed: {res}")
+        # -- leaf indices ---------------------------------------------
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = booster.predict_leaf_index(Xd)
+        torch.cuda.synchronize()
+        leaf_s = time.perf_counter() - t0
+        L = max(t.num_leaves for t in booster.trees)
+        values = torch.zeros(len(booster.trees), L, device=DEV)
+        for i, t in enumerate(booster.trees):
+            values[i, :t.num_leaves] = torch.as_tensor(
+                t.leaf_value.astype(np.float32))
+        summed = torch.zeros(N_ROWS, device=DEV)
+        for i in range(len(booster.trees)):
+            summed += values[i].gather(0, leaves[:, i].long())
+        res["leaf_index"] = {
+            "shape": list(leaves.shape), "seconds": leaf_s,
+            "max_abs_diff": float((summed - full).abs().max()),
+            "bit_equal": bool(torch.equal(summed, full))}
+        if not torch.allclose(summed, full, rtol=1e-6, atol=0.0):
+            raise AssertionError(f"leaf values summed differ from the "
+                                 f"margins: {res['leaf_index']}")
+        # -- TreeSHAP on the host -------------------------------------
+        t0 = time.perf_counter()
+        contrib = booster.predict_contrib(X[:SHAP_ROWS])
+        shap_s = time.perf_counter() - t0
+        err = float(np.abs(contrib.sum(1) - full[:SHAP_ROWS].cpu().numpy())
+                    .max())
+        res["shap"] = {"rows": SHAP_ROWS, "seconds": shap_s,
+                       "local_accuracy_max_abs": err}
+        if not np.allclose(contrib.sum(1), full[:SHAP_ROWS].cpu().numpy(),
+                           rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"TreeSHAP local accuracy: {res['shap']}")
+        # -- persistence ----------------------------------------------
+        want = cont.transform(table)
+        cont.save(os.path.join(tmp, "model"))
+        loaded = LightGBMClassificationModel.load(os.path.join(tmp,
+                                                               "model"))
+        PipelineModel([cont]).save(os.path.join(tmp, "pipeline"))
+        piped = PipelineModel.load(os.path.join(tmp, "pipeline"))
+        same = {name: all(np.array_equal(np.asarray(m.transform(table)[c]),
+                                         np.asarray(want[c]))
+                          for c in ("rawPrediction", "probability",
+                                    "prediction"))
+                for name, m in (("model", loaded), ("pipeline", piped))}
+        res["persistence"] = {"device": loaded.getDevice(), **same}
+        if not all(same.values()):
+            raise AssertionError(f"a loaded stage scores differently: "
+                                 f"{res['persistence']}")
+        # -- profileTraceDir ------------------------------------------
+        trace_dir = os.path.join(tmp, "trace")
+        _classifier(numIterations=PROFILE_ITERATIONS, device=DEV,
+                    parallelism="serial",
+                    profileTraceDir=trace_dir).fit(table)
+        n_full = _trace_kernel_count(trace_dir, "hist_full_kernel")
+        res["profile_trace"] = {"hist_full_kernels": n_full}
+        if n_full != PROFILE_ITERATIONS:
+            raise AssertionError(f"the trace names hist_full {n_full} "
+                                 f"times, not {PROFILE_ITERATIONS}")
+        res["card_vs_cpu"] = _continued_card_vs_cpu(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def _continued_card_vs_cpu(tmp):
+    """A base fit on the card at ``CONT_CPU_ROWS`` × 50, continued on the
+    card and on the CPU from the same file: the continuation's first
+    tree identical, the margins close over the trees whose structure
+    matches."""
+    import os
+    import numpy as np
+    X, y = bench_data(CONT_CPU_ROWS, N_FEATURES)
+    table = {"features": X, "label": y}
+    path = os.path.join(tmp, "small_base.txt")
+    _classifier(numIterations=CONT_CPU_ITERATIONS, device=DEV) \
+        .fit(table).saveNativeModel(path)
+    models = {dev: _classifier(numIterations=CONT_CPU_ITERATIONS,
+                               device=dev, initModelPath=path)
+              .fit(table).getModel() for dev in (DEV, "cpu")}
+    tg, tc = models[DEV].trees, models["cpu"].trees
+    k = CONT_CPU_ITERATIONS
+    while k < min(len(tg), len(tc)) and _same_tree(tg[k], tc[k]):
+        k += 1
+    mg = models[DEV].predict_margin(X, num_iteration=k).cpu().numpy()
+    mc = models["cpu"].predict_margin(X, num_iteration=k,
+                                      device="cpu").numpy()
+    res = {"rows": CONT_CPU_ROWS, "matching_trees": k,
+           "trees": [len(tg), len(tc)],
+           "margin_max_abs_diff": float(np.abs(mg - mc).max())}
+    if k <= CONT_CPU_ITERATIONS:
+        raise AssertionError(f"the continuation's first tree differs "
+                             f"between the card and the CPU: {res}")
+    if not np.allclose(mg, mc, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"margins over {k} matching trees differ: "
+                             f"{res}")
+    return res
 
 
 def phase_cuda_vs_cpu():
@@ -1048,31 +1399,21 @@ def phase_profile():
 
 
 def profiled_fit(est, table, kernels):
-    """One fit of ``est`` under ``torch.profiler`` (no warm-up fit of its
-    own: the phases that profile run after ``main_path`` has warmed the
-    card and built the kernels): its wall time, the device's busy time
-    and idle share, the device time of the named ``kernels``
-    (``<name>_kernel``), the busiest kernels, the host operations with
-    the most host time of their own, and the fit's segment sizes."""
+    """One fit of ``est`` under ``torch.profiler``, recording the device
+    only (no warm-up fit of its own: the phases that profile run after
+    ``main_path`` has warmed the card and built the kernels): its wall
+    time, the device's busy time and idle share, the device time of the
+    named ``kernels`` (``<name>_kernel``), the busiest kernels, and the
+    fit's segment sizes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         model = est.fit(table)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    dev, host = {}, {}
-    for e in prof.key_averages():
-        own = getattr(e, "self_cpu_time_total", 0) or 0
-        if own > 0:
-            host[e.key] = (own / 1e3, e.count)
-        t = getattr(e, "self_device_time_total", 0) or 0
-        if t > 0 and getattr(e, "device_type", None) == \
-                torch.autograd.DeviceType.CUDA:
-            dev[e.key] = (dev.get(e.key, (0.0, 0))[0] + t / 1e3,
-                          dev.get(e.key, (0.0, 0))[1] + e.count)
+    dev = device_events(prof)
     busy = sum(v[0] for v in dev.values())
     ours = {k: sum(v[0] for n, v in dev.items() if f"{k}_kernel" in n)
             for k in kernels}
@@ -1083,9 +1424,6 @@ def profiled_fit(est, table, kernels):
             "kernels_ms": ours,
             "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]}
                             for k, v in top],
-            "top_host": [{"name": k[:60], "ms": v[0], "count": v[1]}
-                         for k, v in sorted(host.items(),
-                                            key=lambda kv: -kv[1][0])[:10]],
             "segments": segment_sizes(model)}
 
 
@@ -1538,13 +1876,21 @@ def _voting_card_vs_cpu():
     return res
 
 
-def _timed_fit(est, table, counters):
-    """A warm-up fit of ``est``, then a timed fit with every kernel's
+def _timed_fit(est, table, counters, warm_iterations=WARM_ITERATIONS,
+               after_warm=None):
+    """A warm-up fit of ``est`` cut to ``warm_iterations`` (``None``: the
+    whole fit), ``after_warm()``, then a timed fit with every kernel's
     launch count and the grower's host syncs set to 0 just before it:
     ``(warm-up model, model, fit_s, launches, host_s, host_syncs)``."""
     import torch
     from mmlspark_tpu_torch.gbdt.grower import grow_tree
-    warm = est.fit(table)
+    if warm_iterations is not None and \
+            warm_iterations < est.getOrDefault("numIterations"):
+        warm = est.copy({"numIterations": warm_iterations}).fit(table)
+    else:
+        warm = est.fit(table)
+    if after_warm is not None:
+        after_warm()
     for fn in counters.values():
         fn.launches = 0
     grow_tree.host_syncs = 0
@@ -1669,7 +2015,7 @@ def _same_tree(a, b):
 
 
 def _categorical_card_vs_cpu():
-    """The categorical configuration at 20,000 rows and 5 iterations on
+    """The categorical configuration at 20,000 rows and 3 iterations on
     the card and on the CPU, from the init score 0 (``boostFromAverage``
     off): serially and on D = 4 (data ring, voting, feature 1 × 4, and
     ``pallas_ring``, fitted twice on the card for ``same_model_text``).
@@ -1701,7 +2047,7 @@ def _categorical_card_vs_cpu():
     }
 
     def fit(dev, shape, kw):
-        est = _classifier(numIterations=5, device=dev.split(":")[0],
+        est = _classifier(numIterations=3, device=dev.split(":")[0],
                           categoricalSlotIndexes=list(CAT_COLUMNS), **kw)
         if shape is not None:
             est.setMesh(build_mesh(*shape, devices=[dev] * D))
@@ -1742,8 +2088,8 @@ def phase_multiclass_path(state):
     (``multiclass_data``): for ``multiclass`` and ``multiclassova`` a
     warm-up and a timed serial fit of ``MULTICLASS_ITERATIONS``
     iterations (K trees an iteration, K root histograms); then one
-    10-iteration multiclass data-ring fit on four virtual shards of the
-    card, and a 20,000-row card-vs-CPU check."""
+    multiclass data-ring fit of as many iterations on four virtual
+    shards of the card, and a 20,000-row card-vs-CPU check."""
     import numpy as np
     from mmlspark_tpu_torch import build_mesh
     counters = _counters()
@@ -1787,16 +2133,17 @@ def phase_multiclass_path(state):
                                  f"wrote different model text: {f}")
     mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
     m, mesh_s, counts = _counted_fit(
-        _classifier(numIterations=10, device=DEV, objective="multiclass",
+        _classifier(numIterations=MULTICLASS_ITERATIONS, device=DEV,
+                    objective="multiclass",
                     collective="ring").setMesh(mesh), table, counters)
     mt = m.getModel().trees
-    mesh_fit = {"iterations": 10, "fit_s": mesh_s, "launches": counts,
+    mesh_fit = {"iterations": T, "fit_s": mesh_s, "launches": counts,
                 "trees": len(mt),
                 "splits": sum(t.num_leaves - 1 for t in mt),
                 "train_accuracy": float(
                     (m.transform(table)["prediction"] == y).mean())}
     if counts["ring_allreduce"] != mesh_fit["trees"] + mesh_fit["splits"] \
-            or mesh_fit["trees"] != 10 * K:
+            or mesh_fit["trees"] != T * K:
         raise AssertionError(f"multiclass D = {MESH_SHARDS}: launches do "
                              f"not match the trees and splits: {mesh_fit}")
     return {"rows": N_ROWS, "features": N_FEATURES, "classes": K,
@@ -1805,7 +2152,7 @@ def phase_multiclass_path(state):
 
 
 def _multiclass_card_vs_cpu():
-    """Both multiclass objectives at 20,000 × 50 and 5 iterations on the
+    """Both multiclass objectives at 20,000 × 50 and 3 iterations on the
     card and on the CPU: the first K trees identical, and
     ``Booster.predict`` allclose 1e-4 over the iterations whose K trees
     all match."""
@@ -1815,7 +2162,7 @@ def _multiclass_card_vs_cpu():
     K = NUM_CLASSES
     res = {}
     for objective in ("multiclass", "multiclassova"):
-        card, cpu = (_classifier(numIterations=5, device=dev,
+        card, cpu = (_classifier(numIterations=3, device=dev,
                                  objective=objective).fit(table).getModel()
                      for dev in (DEV, "cpu"))
         it = 0
@@ -2019,11 +2366,10 @@ def phase_goss_path(state):
     rec, restore = _recorder((histogram, "histogram_cuda"))
     try:
         warm, model, fit_s, launches, host_s, syncs = _timed_fit(
-            est, table, counters)
+            est, table, counters, after_warm=rec.calls.clear)
     finally:
         restore()
-    calls = _hist_full_calls(rec)
-    timed_rows = sorted({r for r, _ in calls[len(calls) // 2:]})
+    timed_rows = sorted({r for r, _ in _hist_full_calls(rec)})
     state["goss_launches"] = launches["hist_full"]
     prob = model.transform(table)["probability"][:, 1]
     trees = model.getModel().trees
@@ -2130,10 +2476,10 @@ def phase_quantized_path(state):
     """Quantized-gradient training: the flagship serially with
     ``quantizedGrad`` "16" (max_code 5,368) and "8" (127), a warm-up and
     a timed fit each (``hist_full`` in its int32 mode once a tree,
-    ``hist_segment``'s int32 mode once a split, AUC within 0.005 of the
-    same call's f32 flagship fit, one model text); the flagship on D = 4
-    with the ring (the reference's gate turns it to psum:
-    ``quantized_unsupported``); the reference's quantized configuration
+    ``hist_segment``'s int32 mode once a split, AUC within 0.005 of
+    main_path's f32 flagship fit at as many iterations, one model text);
+    the flagship on D = 4 with the ring (the reference's gate turns it to
+    psum: ``quantized_unsupported``); the reference's quantized configuration
     (``artifacts/bench_quant_r17.json``: max_code 3, int16 wire) on the
     wide data under the data ring, data ``pallas_ring`` (the int32
     ``fused_hist_ring``, fitted twice: one model text), voting and
@@ -2143,11 +2489,12 @@ def phase_quantized_path(state):
     counters = _counters()
     X, y = bench_data(N_ROWS, N_FEATURES)
     table = {"features": X, "label": y}
-    f32_auc = state.get("main_auc")
-    if f32_auc is None:
-        m = _classifier(numIterations=QUANT_ITERATIONS, device=DEV,
-                        parallelism="serial").fit(table)
-        f32_auc = auc(y, m.transform(table)["probability"][:, 1])
+    f32 = state.get("main_model")
+    if f32 is None:
+        f32 = _classifier(numIterations=QUANT_ITERATIONS, device=DEV,
+                          parallelism="serial").fit(table)
+    f32_auc = auc(y, f32.getModel().predict_margin(
+        X, num_iteration=QUANT_ITERATIONS).cpu().numpy())
     fits = {}
     for bits in ("16", "8"):
         mc = max_code(int(bits), N_ROWS)
@@ -2309,16 +2656,17 @@ def _splits(model):
 def phase_objectives_path(state):
     """Each of ``OBJECTIVES`` on the flagship's features with its
     family's label (``objective_data``), ``OBJ_ITERATIONS`` iterations
-    after one warm-up fit: fit seconds, the LightGBM metric at iterations
-    0 and 19 (it must fall), ``transform`` equal to the objective's
-    ``transform_prediction`` of ``predict_margin``, ``hist_full`` once a
-    tree and ``hist_segment`` once a split; then the card-vs-CPU check."""
+    after one warm-up fit: fit seconds, the LightGBM metric at the first
+    and the last iteration (it must fall), ``transform`` equal to the
+    objective's ``transform_prediction`` of ``predict_margin``,
+    ``hist_full`` once a tree and ``hist_segment`` once a split; then the
+    card-vs-CPU check."""
     import numpy as np
     import torch
     from mmlspark_tpu_torch.gbdt import get_objective
     counters = _counters()
     X, y = objective_data("huber")
-    _regressor(objective="huber", numIterations=OBJ_ITERATIONS,
+    _regressor(objective="huber", numIterations=WARM_ITERATIONS,
                device=DEV).fit({"features": X, "label": y})
     res = {"rows": N_ROWS, "iterations": OBJ_ITERATIONS, "fits": {}}
     for name in OBJECTIVES:
@@ -2328,8 +2676,8 @@ def phase_objectives_path(state):
             _regressor(objective=name, numIterations=OBJ_ITERATIONS,
                        device=DEV), table, counters)
         booster = model.getModel()
-        m0, m19 = (booster.predict_margin(X, num_iteration=k).cpu().numpy()
-                   for k in (1, OBJ_ITERATIONS))
+        m0, mT = (booster.predict_margin(X, num_iteration=k).cpu().numpy()
+                  for k in (1, OBJ_ITERATIONS))
         t0 = time.perf_counter()
         pred = model.transform(table)["prediction"]
         transform_s = time.perf_counter() - t0
@@ -2338,13 +2686,13 @@ def phase_objectives_path(state):
         row = res["fits"][name] = {
             "fit_s": fit_s, "transform_s": transform_s,
             "loss_iteration_0": objective_loss(name, y, m0),
-            "loss_iteration_19": objective_loss(name, y, m19),
+            "loss_last_iteration": objective_loss(name, y, mT),
             "trees": len(booster.trees), "splits": _splits(model),
             "launches": {k: counts[k] for k in ("hist_full",
                                                 "hist_segment")},
             "transform_is_the_objective_s": bool(np.array_equal(pred,
                                                                 want))}
-        if not row["loss_iteration_19"] < row["loss_iteration_0"]:
+        if not row["loss_last_iteration"] < row["loss_iteration_0"]:
             raise AssertionError(f"{name}: the loss did not fall: {row}")
         if not row["transform_is_the_objective_s"] or \
                 not np.isfinite(pred).all():
@@ -2370,7 +2718,7 @@ def _matching(ta, tb):
 
 
 def _objectives_card_vs_cpu():
-    """20,000 rows, 5 iterations of each objective on the card and on the
+    """20,000 rows, 3 iterations of each objective on the card and on the
     CPU: the first tree identical, the predictions within 1e-4 over the
     matching iterations (the f32 histograms add each cell in another
     order on the card, so a near-tie may part a later tree)."""
@@ -2379,7 +2727,7 @@ def _objectives_card_vs_cpu():
     for name in OBJECTIVES:
         X, y = objective_data(name, 20_000)
         table = {"features": X, "label": y}
-        models = {d: _regressor(objective=name, numIterations=5,
+        models = {d: _regressor(objective=name, numIterations=3,
                                 device=d).fit(table) for d in (DEV, "cpu")}
         k = _matching(*(models[d].getModel().trees for d in (DEV, "cpu")))
         pa = models[DEV].getModel().predict(X, num_iteration=k)
@@ -2414,8 +2762,10 @@ def phase_dart_path(state):
     drops, restore_d = _recorder((engine, "_dart_draw_drops"))
     fits, restore_f = _recorder((engine, "_dart_fit"))
     try:
+        # a whole warm-up fit: DART rescales the trees it drops, so a
+        # shorter fit's trees are not the first trees of this one
         warm, model, fit_s, launches, host_s, syncs = _timed_fit(
-            est, table, counters)
+            est, table, counters, warm_iterations=None)
     finally:
         restore_d()
         restore_f()
@@ -2522,13 +2872,13 @@ def phase_rf_path(state):
         _classifier(numIterations=RF_ITERATIONS, device=DEV,
                     parallelism="serial", **kw), table, counters)
     booster = model.getModel()
-    serial20 = auc(y, booster.predict_margin(
+    serial_t = auc(y, booster.predict_margin(
         X, num_iteration=RF_MESH_ITERATIONS).cpu().numpy())
     res = {"rows": N_ROWS, "iterations": RF_ITERATIONS, **kw,
            "fit_s": fit_s, "launches": launches,
            "trees": len(booster.trees), "splits": _splits(model),
            "train_auc": auc(y, model.transform(table)["probability"][:, 1]),
-           "train_auc_first_20": serial20, "mesh": {}}
+           "train_auc_at_mesh_iterations": serial_t, "mesh": {}}
     if launches["hist_full"] != len(booster.trees) or \
             launches["hist_segment"] != res["splits"]:
         raise AssertionError(f"launches do not match: {res}")
@@ -2550,7 +2900,7 @@ def phase_rf_path(state):
                 "pallas_ring": ("fused_segment_hist_ring", S),
                 "voting_ring": ("ring_allreduce_select", T + S)}[name]
         if counts[want[0]] != want[1] or \
-                abs(row["train_auc"] - serial20) > 0.01:
+                abs(row["train_auc"] - serial_t) > 0.01:
             raise AssertionError(f"D = {MESH_SHARDS} rf {name}: {row}")
     state["rf_launches"] = {k: sum(r["launches"][k]
                                    for r in res["mesh"].values())
@@ -2836,7 +3186,7 @@ def _efb_kernel_rows():
 
 
 def phase_efb_path(state):
-    """Exclusive Feature Bundling on ``flight_data`` (400,000 × 674): a
+    """Exclusive Feature Bundling on ``flight_data`` (100,000 × 674): a
     warm-up and a timed bundled fit (``enableBundle``), the unbundled fit,
     bundled GOSS and DART fits, D = 4 data-ring fits (``auto`` and
     ``pallas_ring``), and a 20,000-row card-vs-CPU check."""
@@ -2852,9 +3202,12 @@ def phase_efb_path(state):
 
     def run(name, est, warm=False):
         if warm:
-            (warm_m, model, fit_s, launches, host_s, syncs), calls = \
-                _spied_fit(lambda: _timed_fit(est, table, counters))
-            calls = calls[len(calls) // 2:]       # the timed fit's
+            calls, restore = _shape_spy()
+            try:
+                warm_m, model, fit_s, launches, host_s, syncs = _timed_fit(
+                    est, table, counters, after_warm=calls.clear)
+            finally:
+                restore()
         else:
             (model, fit_s, launches), calls = _spied_fit(
                 lambda: _counted_fit(est, table, counters))
@@ -2880,10 +3233,11 @@ def phase_efb_path(state):
         "bundled", _classifier(enableBundle=True, **common), warm=True)
     G = fits["bundled"]["bundles"]
     fits["unbundled"], _ = run("unbundled", _classifier(**common))
+    short = {**common, "numIterations": FLIGHT_MESH_ITERATIONS}
     fits["goss"], _ = run("goss", _classifier(
-        enableBundle=True, boostingType="goss", **common))
+        enableBundle=True, boostingType="goss", **short))
     fits["dart"], _ = run("dart", _classifier(
-        enableBundle=True, boostingType="dart", **common))
+        enableBundle=True, boostingType="dart", **short))
     mesh = build_mesh(data=MESH_SHARDS, devices=[f"{DEV}:0"] * MESH_SHARDS)
     for method in ("auto", "pallas_ring"):
         fits[f"ring_{method}"], _ = run(method, _classifier(
@@ -2939,11 +3293,13 @@ def phase_wide_bins_path(state):
     table = {"features": X, "label": y}
     fits = {}
     for max_bin in WIDE_MAX_BINS:
-        (warm, model, fit_s, launches, host_s, syncs), calls = _spied_fit(
-            lambda: _timed_fit(_classifier(numIterations=50, device=DEV,
-                                           maxBin=max_bin),
-                               table, counters))
-        calls = calls[len(calls) // 2:]
+        calls, restore = _shape_spy()
+        try:
+            warm, model, fit_s, launches, host_s, syncs = _timed_fit(
+                _classifier(numIterations=50, device=DEV, maxBin=max_bin),
+                table, counters, after_warm=calls.clear)
+        finally:
+            restore()
         prob = model.transform(table)["probability"][:, 1]
         r = {"bins": max_bin + 1, "fit_s": fit_s, "train_auc": auc(y, prob),
              "trees": len(model.getModel().trees), "splits": _splits(model),
@@ -3147,7 +3503,11 @@ def kernels_line(state):
                          "fused_segment_hist_ring")]
             + [(k, rank.get(k, {}), state.get("rank_launches", {}).get(k, 0),
                 "ranking") for k in ("hist_full", "hist_segment")]
-            + extra):
+            + extra
+            + [(k, rows.get(k, {}), state.get("cont_launches", {}).get(k, 0),
+                "continued") for k in ("hist_full", "hist_segment",
+                                       "ring_allreduce",
+                                       "fused_segment_hist_ring")]):
         out.append({"name": name if mode == "float32" else f"{name}_{mode}",
                     "mode": "int32" if mode == "int32" else "float32",
                     "route": "cuda", "source": SOURCES[name],
@@ -3189,6 +3549,7 @@ def main(argv) -> int:
               ("build", phase_build),
               ("kernels", lambda: phase_kernels(state)),
               ("main_path", lambda: phase_main_path(state)),
+              ("continued_path", lambda: phase_continued_path(state)),
               ("cuda_vs_cpu", phase_cuda_vs_cpu),
               ("profile", phase_profile),
               ("collectives", lambda: phase_collectives(state)),

@@ -6,14 +6,21 @@ run the boosting loop (:func:`.engine.train`) on ``device`` — serially, or
 over a mesh pinned with :meth:`setMesh` or, on a host with more than one
 card, built over all of them (as ``parallelism`` lays them out) for a fit
 of at least ``autoMeshMinRows`` rows.  Param names mirror the reference's
-(and so the reference's public API); the port adds ``device``.  Params
-whose feature is not ported yet are declared so that asking for one
-raises ``NotImplementedError`` instead of training something else.
+(and so the reference's public API); the port adds ``device``.
+``initModelPath`` continues a saved model (its margins seed the scores and
+its trees come first in the fitted forest), ``initScoreCol`` seeds the
+scores with per-row offsets, and ``profileTraceDir`` records a
+``torch.profiler`` trace of the fit.  Cluster-shaped params
+(``useBarrierExecutionMode``, ``numTasks``, ``numThreads``) are accepted
+and recorded but do not change the fit, as in the reference.  Params whose
+feature is not ported yet are declared so that asking for one raises
+``NotImplementedError`` instead of training something else.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -22,6 +29,7 @@ from ..core.params import (Param, Params, TypeConverters, HasFeaturesCol,
                            HasLabelCol, HasPredictionCol, HasWeightCol,
                            HasValidationIndicatorCol)
 from ..core.pipeline import Estimator, Model
+from ..core.profiling import maybe_trace
 from ..core.schema import DataTable, features_matrix
 from ..device import resolve_device
 from .binning import fit_bin_mapper
@@ -37,8 +45,14 @@ class HasDevice(Params):
                    default="cuda", typeConverter=TypeConverters.toString)
 
 
-class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
-                     HasPredictionCol, HasWeightCol,
+class HasFeaturesShapCol(Params):
+    featuresShapCol = Param("featuresShapCol",
+                            "Output column for SHAP values (empty disables)",
+                            default="", typeConverter=TypeConverters.toString)
+
+
+class LightGBMParams(HasFeaturesCol, HasDevice, HasFeaturesShapCol,
+                     HasLabelCol, HasPredictionCol, HasWeightCol,
                      HasValidationIndicatorCol):
     """Shared LightGBM params — names track the reference's."""
 
@@ -181,16 +195,40 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
         "EFB conflict budget (LightGBM max_conflict_rate): fraction of "
         "rows allowed to violate exclusivity inside one bundle",
         default=0.0, typeConverter=TypeConverters.toFloat)
+    useBarrierExecutionMode = Param(
+        "useBarrierExecutionMode",
+        "Accepted for API parity; the mesh's devices are always driven "
+        "together", default=False, typeConverter=TypeConverters.toBool)
+    numTasks = Param("numTasks",
+                     "Accepted for API parity; the mesh shape decides "
+                     "task layout", default=0,
+                     typeConverter=TypeConverters.toInt)
+    numThreads = Param("numThreads", "Accepted for API parity", default=0,
+                       typeConverter=TypeConverters.toInt)
+    initScoreCol = Param("initScoreCol", "Column with per-row initial scores",
+                         default=None, typeConverter=TypeConverters.toString)
+    initModelPath = Param(
+        "initModelPath",
+        "Path to a saved native (LightGBM-text) model to CONTINUE "
+        "training from: its margins seed the boosting scores and its "
+        "trees prepend the fitted forest (LightGBM's init_model / "
+        "keep_training_booster)", default="",
+        typeConverter=TypeConverters.toString)
+    passThroughArgs = Param("passThroughArgs",
+                            "Raw 'key=value key=value' LightGBM param string "
+                            "recorded into the model file",
+                            default="", typeConverter=TypeConverters.toString)
+    profileTraceDir = Param(
+        "profileTraceDir",
+        "Directory for a torch.profiler trace of the whole fit, host and "
+        "card (empty disables); a Chrome trace, readable in Perfetto",
+        default="", typeConverter=TypeConverters.toString)
     # -- params of features the port has not reached yet (ROADMAP.md) ------
-    initModelPath = Param("initModelPath", "Continued training is not "
-                          "ported yet", default="",
-                          typeConverter=TypeConverters.toString)
     checkpointDir = Param("checkpointDir", "Checkpoints are not ported yet",
                           default="", typeConverter=TypeConverters.toString)
 
     def _refuse_unported(self) -> None:
         asks = {
-            "initModelPath": bool(self.getInitModelPath()),
             "checkpointDir": bool(self.getCheckpointDir()),
         }
         asked = [k for k, v in asks.items() if v]
@@ -200,6 +238,11 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
                 "(ROADMAP.md lists what the port still refuses)")
 
     def _train_params(self) -> TrainParams:
+        pass_through = {}
+        for tok in self.getPassThroughArgs().split():
+            if "=" in tok:
+                k, _, v = tok.partition("=")
+                pass_through[k] = v
         return TrainParams(
             num_iterations=self.getNumIterations(),
             learning_rate=self.getLearningRate(),
@@ -237,12 +280,15 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasLabelCol,
             max_cat_threshold=self.getMaxCatThreshold(),
             max_cat_to_onehot=self.getMaxCatToOnehot(),
             verbosity=self.getVerbosity(),
+            pass_through=pass_through,
         )
 
 
 class LightGBMBase(Estimator, LightGBMParams):
     """Shared fit() orchestration for the classifier, the regressor and
     the ranker."""
+
+    __abstractstage__ = True
 
     _default_objective = "regression"
     _mesh = None
@@ -327,6 +373,31 @@ class LightGBMBase(Estimator, LightGBMParams):
         """A ranker's query structure for the engine; None otherwise."""
         return None
 
+    def _init_model(self, params: TrainParams, objective, X: np.ndarray,
+                    device) -> Optional[Booster]:
+        """The model ``initModelPath`` continues, loaded on ``device``, or
+        None; the reference's checks, on the resolved boosting type (a
+        ``passThroughArgs`` boosting key must not get past them)."""
+        path = self.getInitModelPath()
+        if not path:
+            return None
+        if params.boosting in ("dart", "rf"):
+            raise ValueError(
+                "initModelPath requires boostingType gbdt or goss: dart "
+                "re-weights (and rf averages) the WHOLE ensemble, which is "
+                "not additive over a frozen prefix")
+        booster = Booster.load_native_model(path, device)
+        if booster.num_class != objective.num_model_per_iteration:
+            raise ValueError(
+                f"initModelPath model has num_class={booster.num_class}, "
+                f"this fit trains {objective.num_model_per_iteration}")
+        if booster.max_feature_idx != X.shape[1] - 1:
+            raise ValueError(
+                f"initModelPath model was trained on "
+                f"{booster.max_feature_idx + 1} features, this table has "
+                f"{X.shape[1]}")
+        return booster
+
     def _fit(self, table: DataTable) -> "LightGBMModelBase":
         self._refuse_unported()
         X = features_matrix(table, self.getFeaturesCol())
@@ -343,6 +414,7 @@ class LightGBMBase(Estimator, LightGBMParams):
             train_rows = ~val
             X_train, y_train = X[~val], y[~val]
             w_train = w[~val] if w is not None else None
+        has_val = val is not None and val.any()
         objective = self._resolve_objective(y)
         feature_names = list(
             getattr(table[self.getFeaturesCol()], "columns", [])) or None
@@ -353,17 +425,39 @@ class LightGBMBase(Estimator, LightGBMParams):
                                 seed=self.getSeed(),
                                 categorical_features=cat_idx or None)
         device = self.getDevice() if mesh is None else mesh.devices[0]
+        params = self._train_params()
+        iscol = self.getInitScoreCol()
+        init_scores = (np.asarray(table[iscol], np.float64)[train_rows]
+                       if iscol else None)
+        # continued training (LightGBM init_model): boost from the saved
+        # model's margins, computed on the fit's device; its trees come
+        # first in the fitted forest
+        init_booster = self._init_model(params, objective, X, device)
         val_kwargs = {}
-        if val is not None and val.any():
-            val_kwargs = dict(
+        if init_booster is not None:
+            margins = init_booster.predict_margin(
+                X_train, device=device).cpu().numpy().astype(np.float64)
+            init_scores = (margins if init_scores is None
+                           else init_scores + margins)
+            if has_val:
+                # the validation margins seed the validation scores, so
+                # early stopping follows the merged model
+                val_kwargs["val_init_scores"] = init_booster.predict_margin(
+                    X[val], device=device).cpu().numpy().astype(np.float64)
+        if has_val:
+            val_kwargs.update(
                 val_bins=mapper.transform(X[val], device),
                 val_labels=y[val],
                 val_weights=w[val] if w is not None else None,
                 val_metric=self._val_metric_fn(table, val))
-        booster = train(mapper.transform(X_train, device), y_train, w_train,
-                        mapper, objective, self._train_params(),
-                        feature_names=feature_names, mesh=mesh,
-                        ranking_info=ranking_info, **val_kwargs)
+        with maybe_trace(self.getProfileTraceDir()):
+            booster = train(mapper.transform(X_train, device), y_train,
+                            w_train, mapper, objective, params,
+                            feature_names=feature_names, mesh=mesh,
+                            ranking_info=ranking_info,
+                            init_scores=init_scores, **val_kwargs)
+        if init_booster is not None:
+            booster = init_booster.extended(booster)
         model = self._make_model(booster)
         model.setParams(**{k: v for k, v in self._iterSetParams()
                            if model.hasParam(k)})
@@ -371,8 +465,13 @@ class LightGBMBase(Estimator, LightGBMParams):
 
 
 class LightGBMModelBase(Model, HasFeaturesCol, HasDevice,
-                        HasPredictionCol):
-    """Shared scoring transformer; holds a :class:`Booster`."""
+                        HasFeaturesShapCol, HasPredictionCol):
+    """Shared scoring transformer; holds a :class:`Booster`.  ``save`` /
+    ``load`` keep the booster as ``model.lgb.txt`` in the stage directory
+    (the reference's layout: either package loads the other's), loaded on
+    the model's ``device``."""
+
+    __abstractstage__ = True
 
     def __init__(self, booster: Booster = None, **kwargs):
         super().__init__(**kwargs)
@@ -387,7 +486,6 @@ class LightGBMModelBase(Model, HasFeaturesCol, HasDevice,
     def saveNativeModel(self, path: str, overwrite: bool = True) -> None:
         """Save in LightGBM text format; ``overwrite=False`` refuses to
         clobber an existing file."""
-        import os
         if not overwrite and os.path.exists(path):
             raise FileExistsError(f"{path} exists and overwrite=False")
         self._booster.save_native_model(path)
@@ -399,14 +497,40 @@ class LightGBMModelBase(Model, HasFeaturesCol, HasDevice,
                    device=device)
 
     @classmethod
+    def loadNativeModelFromFile(cls, path: str, device: str = "cuda"
+                                ) -> "LightGBMModelBase":
+        """The reference's alias of :meth:`loadNativeModel`."""
+        return cls.loadNativeModel(path, device)
+
+    @classmethod
     def loadNativeModelFromString(cls, model_str: str, device: str = "cuda"
                                   ) -> "LightGBMModelBase":
         return cls(booster=Booster.load_native_model_string(model_str,
                                                             device),
                    device=device)
 
+    def _with_shap(self, table: DataTable, X) -> DataTable:
+        """``table`` with the ``featuresShapCol`` column (each row's
+        TreeSHAP contributions) when the param is set."""
+        col = self.getFeaturesShapCol()
+        if not col:
+            return table
+        contribs = self._booster.predict_contrib(X)
+        arr = np.empty(len(contribs), dtype=object)
+        for i, row in enumerate(contribs):
+            arr[i] = row
+        return table.withColumn(col, arr)
+
     def getFeatureImportances(self, importance_type: str = "split"):
         return list(self._booster.feature_importances(importance_type))
+
+    def _save_extra(self, path: str) -> None:
+        with open(os.path.join(path, "model.lgb.txt"), "w") as f:
+            f.write(self._booster.save_native_model_string())
+
+    def _load_extra(self, path: str) -> None:
+        self._booster = Booster.load_native_model(
+            os.path.join(path, "model.lgb.txt"), self.getDevice())
 
     def _margins(self, X: np.ndarray) -> np.ndarray:
         return self._booster.predict_margin(

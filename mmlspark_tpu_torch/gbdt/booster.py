@@ -11,7 +11,13 @@ frontier advances one level per step for ``depth`` steps, with the
 reference's float32 compares (thresholds rounded up to float32, NaN goes
 right on numeric nodes) and its categorical bitset rule.  Tree outputs are
 added in tree order in float32, then the init score, as the reference's
-walkers add them, so margins agree bit for bit.
+walkers add them, so margins agree bit for bit.  The same walk gives the
+leaf indices (:meth:`Booster.predict_leaf_index`), and
+:class:`CompiledPredictor` (:meth:`Booster.predictor`) resolves it once
+for a serving loop: the forest sliced to an iteration count or a tree
+range on the booster's device.  TreeSHAP contributions
+(:meth:`Booster.predict_contrib`, :mod:`.shap`) run on the host, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ import hashlib
 import io
 import re
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -204,8 +210,67 @@ class Booster:
         self.params = params or {}
         self.device = device
         self._stacked: Dict[torch.device, dict] = {}
+        # bumped whenever the stacked forests are dropped: a
+        # CompiledPredictor keeps the token it was built with and refuses
+        # to score a forest that changed under it
+        self._cache_token = 0
+
+    def extended(self, continuation: "Booster") -> "Booster":
+        """The merged model of continued training (LightGBM's
+        ``init_model``): this booster's trees, then the ``continuation``
+        forest trained with this booster's margins as init scores, so the
+        merged margins are the sum of both.  The merged model records the
+        iterations of both and keeps this booster's device."""
+        if continuation.num_class != self.num_class:
+            raise ValueError(
+                f"cannot extend a {self.num_class}-class model with a "
+                f"{continuation.num_class}-class continuation")
+        if continuation.max_feature_idx != self.max_feature_idx:
+            raise ValueError(
+                f"feature count mismatch: base model uses "
+                f"{self.max_feature_idx + 1} features, continuation "
+                f"{continuation.max_feature_idx + 1}")
+        params = dict(continuation.params)
+        old_it = len(self.trees) // max(self.num_class, 1)
+        new_it = len(continuation.trees) // max(self.num_class, 1)
+        params["num_iterations"] = str(old_it + new_it)
+        return Booster(
+            list(self.trees) + list(continuation.trees),
+            num_class=self.num_class,
+            objective_str=continuation.objective_str,
+            init_score=self.init_score,
+            feature_names=continuation.feature_names,
+            feature_infos=continuation.feature_infos,
+            max_feature_idx=self.max_feature_idx,
+            params=params, device=self.device)
 
     # -- prediction ----------------------------------------------------------
+
+    def invalidate_cache(self) -> None:
+        """Drop the stacked forests.  Call after changing ``trees`` in
+        place: a :class:`CompiledPredictor` built before raises on its
+        next call instead of scoring the old forest."""
+        self._stacked.clear()
+        self._cache_token += 1
+
+    def predictor(self, num_iteration: Optional[int] = None,
+                  backend: str = "auto",
+                  tree_range: Optional[Tuple[int, int]] = None,
+                  include_init_score: bool = True
+                  ) -> "CompiledPredictor":
+        """A margin scorer with the per-call work of
+        :meth:`predict_margin` (stacking, slicing, the backend choice)
+        done once, on this booster's device.  ``backend``: "auto" or
+        "jit" (the device walk); "native" names the reference's CPU
+        scorer, which the port does not have yet, and raises.
+
+        ``tree_range=(lo, hi)`` scores trees ``lo .. hi-1`` only, bounds
+        aligned to ``num_class``; with ``include_init_score=False`` the
+        partial carries no init score, so the partials of a split forest
+        sum to the full margins."""
+        return CompiledPredictor(self, num_iteration, backend,
+                                 tree_range=tree_range,
+                                 include_init_score=include_init_score)
 
     def _stack(self, dev: torch.device) -> dict:
         """The forest as padded ``(T, ...)`` tensors on ``dev``."""
@@ -245,11 +310,10 @@ class Booster:
         self._stacked[dev] = s
         return s
 
-    def predict_margin(self, X, num_iteration: Optional[int] = None,
-                       device: Optional[DeviceLike] = None) -> torch.Tensor:
-        """Raw margins on the device: ``(n,)`` float32 for single-class,
-        ``(n, K)`` for multiclass.  ``X`` is a tensor (its device is used)
-        or an array (moved to ``device``, default the booster's)."""
+    def _device_input(self, X, device: Optional[DeviceLike]
+                      ) -> torch.Tensor:
+        """``X`` as float32 on its own device (a tensor) or on ``device``
+        (default the booster's), after the feature-count check."""
         if isinstance(X, torch.Tensor):
             dev = resolve_device(X.device)
         else:
@@ -260,19 +324,43 @@ class Booster:
                 f"Model uses feature index {self.max_feature_idx} but input "
                 f"has shape {tuple(X.shape)}; expected (n, >= "
                 f"{self.max_feature_idx + 1})")
-        X = torch.as_tensor(X, device=dev).to(torch.float32)
-        n = X.shape[0]
+        return torch.as_tensor(X, device=dev).to(torch.float32)
+
+    def predict_margin(self, X, num_iteration: Optional[int] = None,
+                       device: Optional[DeviceLike] = None) -> torch.Tensor:
+        """Raw margins on the device: ``(n,)`` float32 for single-class,
+        ``(n, K)`` for multiclass.  ``X`` is a tensor (its device is used)
+        or an array (moved to ``device``, default the booster's)."""
+        X = self._device_input(X, device)
         K = self.num_class
-        out = torch.zeros(n, K, dtype=torch.float32, device=dev)
+        forest = None
         if self.trees:
             T = len(self.trees)
             use_t = T if num_iteration is None \
                 else min(num_iteration * K, T)
-            vals = _walk(self._stack(dev), X, use_t)
-            for t in range(use_t):
-                out[:, t % K] += vals[t]
-        out += np.float32(self.init_score).item()
-        return out[:, 0] if K == 1 else out
+            forest = _slice_forest(self._stack(X.device), slice(0, use_t))
+        return _margins(forest, X, K, self.init_score)
+
+    def predict_leaf_index(self, X, device: Optional[DeviceLike] = None
+                           ) -> torch.Tensor:
+        """``(n, T)`` int32: the leaf each row reaches in each tree, the
+        walk of :meth:`predict_margin` (``X`` as there)."""
+        X = self._device_input(X, device)
+        if not self.trees:
+            return torch.zeros((X.shape[0], 0), dtype=torch.int32,
+                               device=X.device)
+        forest = _slice_forest(self._stack(X.device),
+                               slice(0, len(self.trees)))
+        return _leaves(forest, X).T.to(torch.int32)
+
+    def predict_contrib(self, X) -> np.ndarray:
+        """Per-row TreeSHAP contributions in LightGBM's ``pred_contrib``
+        layout, ``(n, num_class · (num_features + 1))`` with each class's
+        expected value in its last slot (:mod:`.shap`, on the host)."""
+        from .shap import predict_contrib
+        if isinstance(X, torch.Tensor):
+            X = X.cpu().numpy()
+        return predict_contrib(self, X)
 
     def predict(self, X, raw_score: bool = False,
                 num_iteration: Optional[int] = None,
@@ -421,16 +509,119 @@ class Booster:
         return cls.load_native_model_string(text, device=device)
 
 
-def _walk(s: dict, X: torch.Tensor, use_t: int) -> torch.Tensor:
-    """``(use_t, n)`` output of each of the first ``use_t`` trees for the
-    rows of ``X``: every tree's frontier advances one level per step."""
+class CompiledPredictor:
+    """Margin scorer with the prediction path resolved once.
+
+    :meth:`Booster.predict_margin` stacks (once per device), slices and
+    checks on every call; this does it at construction: the forest sliced
+    to ``num_iteration`` or ``tree_range`` on the booster's device, the
+    class count and the init score.  Its margins are those of
+    ``predict_margin`` bit for bit (the same walk and the same adds).
+
+    A predictor is bound to the forest it was built from:
+    :meth:`Booster.invalidate_cache` (needed after changing ``trees`` in
+    place) bumps a token, and a stale predictor raises ``RuntimeError`` on
+    its next call.  :meth:`Booster.extended` and model loads return new
+    boosters, so a base model's predictors stay valid.
+    """
+
+    def __init__(self, booster: Booster,
+                 num_iteration: Optional[int] = None,
+                 backend: str = "auto",
+                 tree_range: Optional[Tuple[int, int]] = None,
+                 include_init_score: bool = True):
+        if backend not in ("auto", "native", "jit"):
+            raise ValueError(f"backend must be auto|native|jit, "
+                             f"got {backend!r}")
+        if backend == "native":
+            raise RuntimeError(
+                "backend='native' requested but the native forest scorer "
+                "(the reference's native/fastforest.cc) is not ported to "
+                "mmlspark_tpu_torch yet; use backend='auto' or 'jit', the "
+                "device walk")
+        self._booster = booster
+        self._token = booster._cache_token
+        self._num_trees = len(booster.trees)
+        self._K = booster.num_class
+        self._init_score = booster.init_score if include_init_score \
+            else 0.0
+        self._device = resolve_device(booster.device)
+        self.num_features = booster.max_feature_idx + 1
+        self.num_iteration = num_iteration
+        self.tree_range = tree_range
+        self._forest = None
+        self._mode = "empty"
+        T = len(booster.trees)
+        if tree_range is not None:
+            # both walkers assign class = tree index % K, so bounds off a
+            # num_class boundary would rotate the classes
+            if num_iteration is not None:
+                raise ValueError(
+                    "pass num_iteration OR tree_range, not both")
+            lo, hi = int(tree_range[0]), int(tree_range[1])
+            if not 0 <= lo <= hi <= T:
+                raise ValueError(
+                    f"tree_range {tree_range} outside [0, {T}]")
+            if lo % self._K or (hi % self._K and hi != T):
+                raise ValueError(
+                    f"tree_range {tree_range} must align to "
+                    f"num_class={self._K} boundaries")
+            sl = slice(lo, hi)
+        else:
+            use_t = T if num_iteration is None \
+                else min(num_iteration * self._K, T)
+            sl = slice(0, use_t)
+        if sl.stop > sl.start:
+            self._forest = _slice_forest(booster._stack(self._device), sl)
+            self._mode = "jit"
+
+    @property
+    def mode(self) -> str:
+        """The resolved backend: 'jit' (the device walk) or 'empty'."""
+        return self._mode
+
+    def _check_fresh(self) -> None:
+        b = self._booster
+        if b._cache_token != self._token \
+                or len(b.trees) != self._num_trees:
+            raise RuntimeError(
+                "stale CompiledPredictor: the bound Booster's forest "
+                "changed after this predictor was built (invalidate_"
+                "cache() was called or trees were added); rebuild with "
+                "booster.predictor()")
+
+    def __call__(self, X) -> torch.Tensor:
+        """Raw margins on the booster's device, those of
+        ``predict_margin`` bit for bit: ``(n,)`` float32 for
+        single-class, ``(n, K)`` for multiclass."""
+        self._check_fresh()
+        shape = tuple(X.shape) if hasattr(X, "shape") else np.shape(X)
+        if len(shape) != 2 or shape[1] < self.num_features:
+            raise ValueError(
+                f"Model uses feature index {self.num_features - 1} but "
+                f"input has shape {shape}; expected (n, >= "
+                f"{self.num_features})")
+        X = torch.as_tensor(X, device=self._device).to(torch.float32)
+        return _margins(self._forest, X, self._K, self._init_score)
+
+
+def _slice_forest(s: dict, sl: slice) -> dict:
+    """Trees ``sl`` of a stacked forest (:meth:`Booster._stack`)."""
+    out = {k: v[sl] for k, v in s.items() if isinstance(v, torch.Tensor)}
+    out.update(depth=s["depth"], has_cat=s["has_cat"])
+    return out
+
+
+def _leaves(s: dict, X: torch.Tensor) -> torch.Tensor:
+    """``(T, n)`` leaf index of every row in every tree of the sliced
+    forest ``s``: every tree's frontier advances one level per step."""
     n = X.shape[0]
+    T = s["feat"].shape[0]
     Xt = X.T.contiguous()
-    feat, thr = s["feat"][:use_t], s["thr"][:use_t]
-    left, right = s["left"][:use_t], s["right"][:use_t]
-    node = torch.where(s["single"][:use_t, None],
-                       torch.full((use_t, n), -1, device=X.device),
-                       torch.zeros((use_t, n), dtype=torch.int64,
+    feat, thr, left, right = s["feat"], s["thr"], s["left"], s["right"]
+    node = torch.where(s["single"][:, None],
+                       torch.full((T, n), -1, device=X.device),
+                       torch.zeros((T, n), dtype=torch.int64,
                                    device=X.device))
     for _ in range(s["depth"]):
         safe = node.clamp(min=0)
@@ -439,15 +630,29 @@ def _walk(s: dict, X: torch.Tensor, use_t: int) -> torch.Tensor:
         go_left = x <= t
         if s["has_cat"]:
             go_left = torch.where(
-                s["is_cat"][:use_t].gather(1, safe),
+                s["is_cat"].gather(1, safe),
                 _cat_go_left(x, t.to(torch.int32).to(torch.int64),
-                             s["dleft"][:use_t].gather(1, safe),
-                             s["cat_bnd"][:use_t], s["cat_words"][:use_t]),
+                             s["dleft"].gather(1, safe), s["cat_bnd"],
+                             s["cat_words"]),
                 go_left)
         nxt = torch.where(go_left, left.gather(1, safe),
                           right.gather(1, safe))
         node = torch.where(node < 0, node, nxt)
-    return s["leaf"][:use_t].gather(1, ~node)
+    return ~node
+
+
+def _margins(s: Optional[dict], X: torch.Tensor, K: int,
+             init_score: float) -> torch.Tensor:
+    """Margins of the sliced forest ``s`` (None: no trees): each tree's
+    leaf values added in tree order into its class (tree index % K) in
+    float32, then the init score; ``(n,)`` when K is 1."""
+    out = torch.zeros(X.shape[0], K, dtype=torch.float32, device=X.device)
+    if s is not None:
+        vals = s["leaf"].gather(1, _leaves(s, X))
+        for t in range(vals.shape[0]):
+            out[:, t % K] += vals[t]
+    out += np.float32(init_score).item()
+    return out[:, 0] if K == 1 else out
 
 
 def _cat_go_left(x, j, dleft, cat_bnd, cat_words):

@@ -3,7 +3,8 @@
 The port's counterpart of ``mmlspark_tpu/gbdt/classifier.py``: binary and
 multiclass (``multiclass`` / ``multiclassova``, or more than two label
 classes, which promote to ``multiclass``), with the same output columns,
-rawPrediction (margin vector), probability and prediction.
+rawPrediction (margin vector), probability and prediction, and the
+SHAP column when ``featuresShapCol`` is set.
 """
 
 from __future__ import annotations
@@ -102,8 +103,8 @@ class LightGBMClassifier(LightGBMBase, _ClassifierParams):
 class LightGBMClassificationModel(LightGBMModelBase, _ClassifierParams):
 
     def _transform(self, table: DataTable) -> DataTable:
-        margins = self._margins(features_matrix(table,
-                                                self.getFeaturesCol()))
+        X = features_matrix(table, self.getFeaturesCol())
+        margins = self._margins(X)
         if margins.ndim == 1:
             raw = np.stack([-margins, margins], axis=1)
             p1 = 1.0 / (1.0 + np.exp(-self.getSigmoid() * margins))
@@ -116,7 +117,7 @@ class LightGBMClassificationModel(LightGBMModelBase, _ClassifierParams):
             pred = np.argmax(prob / np.asarray(thresholds)[None, :], axis=1)
         else:
             pred = np.argmax(prob, axis=1)
-        out = table
+        out = self._with_shap(table, X)
         if self.getRawPredictionCol():
             out = out.withColumn(self.getRawPredictionCol(), raw)
         if self.getProbabilityCol():

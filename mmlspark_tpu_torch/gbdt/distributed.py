@@ -140,7 +140,8 @@ def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
                    init: float, feature: int = 1,
                    num_class: int = 1,
                    perm: Optional[np.ndarray] = None,
-                   efb_maps=None) -> ShardArrays:
+                   efb_maps=None,
+                   init_scores: Optional[np.ndarray] = None) -> ShardArrays:
     """Lay the rows and features out over ``devices``, a ``(D, feature)``
     grid in row-major order: rows padded to a multiple of D and cut into
     D shards, features padded to a multiple of ``feature`` and cut into
@@ -151,7 +152,10 @@ def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
     ``perm`` (``(D·S,)``, source row or −1) the rows take that packed
     layout instead.  ``efb_maps`` (``efb.expansion_arrays``' maps, with
     ``bins`` the bundled matrix): each device gets its
-    :class:`.grower.EFBArrays`, built once per device."""
+    :class:`.grower.EFBArrays`, built once per device.  ``init_scores``
+    (``(n,)`` or ``(n, num_class)``, the source rows' offsets; not with
+    ``perm``): each shard's scores start at ``init`` plus its rows'
+    offsets in float32, pad rows at the plain ``init``."""
     D = len(devices) // feature
     n, f = bins.shape
     fp = pad_to_multiple(f, feature) - f
@@ -178,6 +182,15 @@ def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
     f_loc = (f + fp) // feature
     if fp:
         bins = torch.cat([bins, bins.new_zeros((rows, fp))], dim=1)
+    scores0 = None
+    if init_scores is not None:
+        iscores = np.asarray(init_scores, np.float32)
+        pad_init = np.concatenate(
+            [iscores, np.zeros((rows - n,) + iscores.shape[1:], np.float32)])
+        scores0 = np.full((rows,) if num_class == 1 else (rows, num_class),
+                          init, np.float32)
+        scores0 = scores0 + (pad_init if scores0.ndim == pad_init.ndim
+                             else pad_init[:, None])
     arrays = ShardArrays(bins=[], labels=[], weights=[], real=[], scores=[],
                          rows_per_shard=S, n=n, feature=feature, perm=perm)
     for k, dev in enumerate(devices):
@@ -188,9 +201,10 @@ def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
         for name, host in (("labels", lab), ("weights", w), ("real", real)):
             getattr(arrays, name).append(torch.as_tensor(
                 host[sl], dtype=torch.float32, device=dev))
-        arrays.scores.append(torch.full(
-            (S,) if num_class == 1 else (S, num_class), init,
-            dtype=torch.float32, device=dev))
+        arrays.scores.append(
+            torch.full((S,) if num_class == 1 else (S, num_class), init,
+                       dtype=torch.float32, device=dev)
+            if scores0 is None else torch.tensor(scores0[sl], device=dev))
     if efb_maps is not None:
         built = {}
         for d in map(torch.device, devices):

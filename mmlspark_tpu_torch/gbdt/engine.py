@@ -46,6 +46,12 @@ decides between the data (or voting), feature and data+feature learners.
   becomes G bundle columns (the validation matrix never does), and the
   grower, GOSS's score walk and DART's dropped-tree margins read it
   through the maps.
+* **Init scores** (``init_scores``, LightGBM's per-row init score, and
+  the margins of a model continued by ``initModelPath`` /
+  :func:`train_incremental`): the scores start at ``init + init_scores``
+  in float32 with ``init`` 0 (a per-row offset replaces boost-from-average
+  and is not baked into the model); pad rows of a mesh keep the plain
+  init.  ``val_init_scores`` offsets the validation scores alike.
 * **Validation.**  The validation scores start at the training scores'
   init and add each iteration's shrunk trees (a binned walk at lr = 1, in
   f32, on the first device); the metric runs on the host, one sync an
@@ -60,7 +66,7 @@ from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -90,6 +96,40 @@ last_fit_info: Dict[str, str] = {}
 #: iteration and metric, the iteration count kept, and the host seconds
 #: the validation walks and metrics took (empty without a validation set).
 last_validation: Dict[str, object] = {}
+
+#: TrainParams fields of the reference that the port's lacks, with their
+#: defaults.  A ``pass_through`` key naming one is an engine key in the
+#: reference, so the model text does not record it either.  The packed
+#: gather layout and the checkpoint cadence do not change a forest;
+#: checkpoints and fault-tolerant retries are not ported yet and refuse
+#: anything but their default.
+REFERENCE_ONLY_PARAMS = {"packed_gather": False,
+                         "fault_tolerant_retries": 0,
+                         "checkpoint_dir": "", "checkpoint_chunk": 32}
+_UNPORTED_PARAMS = ("fault_tolerant_retries", "checkpoint_dir")
+
+
+def _coerce(key: str, value, like):
+    """``value`` (a pass-through string) as the type of ``like``, as the
+    reference's ``TrainParams.__post_init__`` coerces it."""
+    s = str(value).strip()
+    try:
+        if isinstance(like, bool):
+            low = s.lower()
+            if low in ("1", "true", "yes", "on"):
+                return True
+            if low in ("0", "false", "no", "off"):
+                return False
+            raise ValueError(f"not a boolean: {s!r}")
+        if isinstance(like, int):
+            return int(s)
+        if isinstance(like, float):
+            return float(s)
+        return s
+    except ValueError as e:
+        raise ValueError(
+            f"passThroughArgs {key}={value!r} cannot be coerced to "
+            f"{type(like).__name__}: {e}") from None
 
 
 @dataclass
@@ -149,8 +189,26 @@ class TrainParams:
     enable_bundle: bool = False
     max_conflict_rate: float = 0.0
     verbosity: int = 1
+    #: raw pass-through params (``passThroughArgs``), recorded in the model
+    #: text.  A key naming a field is applied onto it (coerced from its
+    #: string) after the constructor, as in the reference, and is not
+    #: recorded; :data:`REFERENCE_ONLY_PARAMS` are engine keys too
+    pass_through: Dict[str, str] = field(default_factory=dict)
 
     def __post_init__(self):
+        for k, v in self.pass_through.items():
+            if k == "pass_through":
+                continue
+            if k in REFERENCE_ONLY_PARAMS:
+                val = _coerce(k, v, REFERENCE_ONLY_PARAMS[k])
+                if k in _UNPORTED_PARAMS and val != REFERENCE_ONLY_PARAMS[k]:
+                    raise NotImplementedError(
+                        f"passThroughArgs {k}={v!r}: checkpoints and "
+                        "fault-tolerant retries are not ported to "
+                        "mmlspark_tpu_torch yet (ROADMAP.md)")
+                continue
+            if hasattr(self, k):
+                setattr(self, k, _coerce(k, v, getattr(self, k)))
         qg = str(self.quantized_grad).strip().lower()
         self.quantized_grad = {"": "off", "0": "off", "false": "off",
                                "none": "off"}.get(qg, qg)
@@ -453,7 +511,9 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
           val_bins=None, val_labels: Optional[np.ndarray] = None,
           val_weights: Optional[np.ndarray] = None,
           val_metric: Optional[Callable] = None,
-          ranking_info: Optional[Dict] = None) -> Booster:
+          ranking_info: Optional[Dict] = None,
+          init_scores: Optional[np.ndarray] = None,
+          val_init_scores: Optional[np.ndarray] = None) -> Booster:
     """Train a forest.  ``bins``: ``(n, f)`` bin codes — a tensor or a
     numpy array.  Without a mesh the fit runs on the tensor's device (an
     array moves to ``device``).  With a mesh of more than one device the
@@ -468,7 +528,12 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
 
     ``ranking_info`` (``query_ids``, ``sigma``, ``truncation_level``):
     lambdarank gradients from the rows' query structure replace the
-    objective's; on a mesh each query lives on one data shard."""
+    objective's; on a mesh each query lives on one data shard.
+
+    ``init_scores`` (``(n,)`` or ``(n, K)``): per-row margin offsets the
+    scores start from (LightGBM's init score; the margins of the model a
+    continuation extends), in place of boost-from-average;
+    ``val_init_scores`` offsets the validation rows alike."""
     check_parallelism(params.parallelism)
     if params.boosting not in ("gbdt", "goss", "dart", "rf"):
         raise NotImplementedError(
@@ -505,8 +570,10 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
 
     w = np.ones(n) if weights is None else np.asarray(weights, np.float64)
     objective.prepare(labels, w)
-    init = objective.init_score(labels, w) if params.boost_from_average \
-        else 0.0
+    # per-row init scores replace boost_from_average, as in LightGBM: a
+    # training-time offset, not baked into the model
+    init = objective.init_score(labels, w) \
+        if params.boost_from_average and init_scores is None else 0.0
     shard_mesh = mesh if use_mesh else None
     collective, downgrade = _resolve_collective_cfg(params, shard_mesh,
                                                     ranking)
@@ -540,6 +607,13 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         # ranking.py holds the ranker estimator, which imports this module
         from .ranking import LambdarankGradient, shard_queries
     if ranking and use_mesh:
+        if init_scores is not None:
+            raise NotImplementedError(
+                "per-row init scores (initScoreCol, or the margins of an "
+                "initModelPath continuation) are not supported with a "
+                "mesh ranking objective (the packed-query layout boots from "
+                "zero, as LightGBM's lambdarank does); continue a ranker "
+                "serially, or train fresh under the mesh")
         if F > 1 and params.boosting in ("dart", "goss"):
             raise NotImplementedError(
                 f"boostingType={params.boosting!r} with a ranking objective "
@@ -565,7 +639,7 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         else:
             bins = torch.as_tensor(bundled, device=dev)
     arrays = prepare_arrays(bins, labels, w, devices, init, F, K, perm,
-                            efb_maps)
+                            efb_maps, init_scores)
     _record_fit_resolution(
         cfg, collective, downgrade,
         collective_schedule(cfg, f, n_rows_local=arrays.rows_per_shard),
@@ -634,8 +708,11 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                                        dtype=mapper.bin_dtype)
         val_bins = val_bins.to(dev).contiguous()
         nv = val_bins.shape[0]
-        val_scores = torch.full((nv,) if K == 1 else (nv, K), init,
-                                dtype=torch.float32, device=dev)
+        vs0 = np.full((nv,) if K == 1 else (nv, K), init, np.float32)
+        if val_init_scores is not None:
+            vsc = np.asarray(val_init_scores, np.float32)
+            vs0 = vs0 + (vsc if vs0.ndim == vsc.ndim else vsc[:, None])
+        val_scores = torch.as_tensor(vs0, device=dev)
         val_labels = np.asarray(val_labels)
         last_validation.update(metrics=[], seconds=0.0)
     best_metric, best_iter = np.inf, -1
@@ -711,6 +788,11 @@ def _finalize(trees: list, K: int, init: float, params: TrainParams,
         for t in trees[:K]:
             t.leaf_value = t.leaf_value + init
             t.internal_value = t.internal_value + init
+    # pass-through keys naming engine params were applied by
+    # TrainParams.__post_init__ (num_iterations records the stop); only
+    # the engine-unknown ones are recorded as given
+    extra = {k: v for k, v in params.pass_through.items()
+             if not hasattr(params, k) and k not in REFERENCE_ONLY_PARAMS}
     engine_params = {
         "boosting": params.boosting,
         "objective": objective.model_str,
@@ -719,8 +801,77 @@ def _finalize(trees: list, K: int, init: float, params: TrainParams,
         "num_leaves": str(params.num_leaves),
         "max_depth": str(params.max_depth),
         "max_bin": str(params.max_bin),
+        **extra,
     }
     return Booster(trees, num_class=K, objective_str=objective.model_str,
                    init_score=0.0, feature_names=feature_names,
                    feature_infos=mapper.feature_infos(),
                    max_feature_idx=f - 1, params=engine_params, device=dev)
+
+
+def _bin_representatives(mapper: BinMapper) -> List[np.ndarray]:
+    """Per feature, the lookup ``bin code -> a raw value in the bin``:
+    tree thresholds are bin upper bounds, so a row of representatives
+    reaches exactly the leaves its raw row would (the missing bin is NaN,
+    which the walk routes by the default direction; a categorical bin is
+    its raw category value)."""
+    reps: List[np.ndarray] = []
+    for j in range(mapper.num_features):
+        rep = np.full(mapper.num_total_bins, np.nan, np.float64)
+        if mapper.is_categorical(j):
+            vals = mapper.cat_values[j]
+            rep[:len(vals)] = vals.astype(np.float64)
+        else:
+            ub = mapper.upper_bounds[j]
+            if len(ub):
+                rep[:len(ub)] = ub
+                rep[len(ub)] = ub[-1] + max(1.0, abs(float(ub[-1])))
+            else:
+                rep[0] = 0.0
+        reps.append(rep)
+    return reps
+
+
+def train_incremental(bins, labels: np.ndarray, mapper: BinMapper, *,
+                      init_booster: Booster, objective: Objective,
+                      params: TrainParams,
+                      weights: Optional[np.ndarray] = None,
+                      feature_names: Optional[List[str]] = None,
+                      device: DeviceLike = "cuda") -> Booster:
+    """Continued training from rows already binned by ``mapper``: the
+    init margins come from walking ``init_booster`` over each bin's
+    representative value (:func:`_bin_representatives`), which reach the
+    leaves the raw rows would, so they equal the margins of the raw rows.
+    The new trees boost from them on ``device``, and the result is
+    ``init_booster.extended(new)``, the forest ``initModelPath`` gives.
+
+    The reference also captures a drift-monitoring profile of the merged
+    model here; that belongs to the serving plane, which the port has
+    not reached yet (ROADMAP.md, Queue A item 11)."""
+    if params.boosting not in ("gbdt", "goss"):
+        raise ValueError(
+            "incremental training requires boosting gbdt or goss: "
+            f"got {params.boosting!r}")
+    if init_booster.num_class != objective.num_model_per_iteration:
+        raise ValueError(
+            f"init model has num_class={init_booster.num_class}, this "
+            f"fit trains {objective.num_model_per_iteration}")
+    if init_booster.max_feature_idx != mapper.num_features - 1:
+        raise ValueError(
+            f"init model was trained on "
+            f"{init_booster.max_feature_idx + 1} features, the binned "
+            f"matrix has {mapper.num_features}")
+    host = (bins.cpu().numpy() if isinstance(bins, torch.Tensor)
+            else np.ascontiguousarray(bins))
+    if host.ndim != 2 or host.shape[1] != mapper.num_features:
+        raise ValueError(
+            f"bins shape {host.shape} does not match the mapper's "
+            f"{mapper.num_features} features")
+    Xr = np.empty(host.shape, np.float64)
+    for j, rep in enumerate(_bin_representatives(mapper)):
+        Xr[:, j] = rep[host[:, j].astype(np.int64)]
+    margins = init_booster.predict_margin(Xr, device=device)
+    booster = train(bins, labels, weights, mapper, objective, params,
+                    feature_names, device=device,
+                    init_scores=margins.cpu().numpy().astype(np.float64))
+    return init_booster.extended(booster)

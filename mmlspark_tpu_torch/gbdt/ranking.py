@@ -349,9 +349,13 @@ def ndcg_at_k(scores: np.ndarray, labels: np.ndarray, query_ids: np.ndarray,
               k: int = 10) -> float:
     """Mean NDCG@k across queries (evaluation helper, numpy)."""
     out, cnt = 0.0, 0
-    for q in np.unique(query_ids):
-        m = query_ids == q
-        s, lab = scores[m], labels[m]
+    # group the rows by query once (stable: each query's rows keep their
+    # order), then walk the queries in ascending id
+    order = np.argsort(query_ids, kind="stable")
+    _, starts = np.unique(np.asarray(query_ids)[order], return_index=True)
+    scores, labels = np.asarray(scores)[order], np.asarray(labels)[order]
+    for st, en in zip(starts, np.append(starts[1:], len(order))):
+        s, lab = scores[st:en], labels[st:en]
         if len(lab) < 2 or lab.max() == lab.min():
             continue
         order = np.argsort(-s)
@@ -410,5 +414,6 @@ class LightGBMRankerModel(LightGBMModelBase):
 
     def _transform(self, table: DataTable) -> DataTable:
         X = features_matrix(table, self.getFeaturesCol())
-        return table.withColumn(self.getPredictionCol(),
-                                self._margins(X).astype(np.float64))
+        out = self._with_shap(table, X)
+        return out.withColumn(self.getPredictionCol(),
+                              self._margins(X).astype(np.float64))

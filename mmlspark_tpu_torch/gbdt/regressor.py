@@ -54,5 +54,6 @@ class LightGBMRegressionModel(LightGBMModelBase):
     def _transform(self, table: DataTable) -> DataTable:
         X = features_matrix(table, self.getFeaturesCol())
         pred = self._booster.predict(X, device=self.getDevice())
-        return table.withColumn(self.getPredictionCol(),
-                                pred.cpu().numpy().astype(np.float64))
+        out = self._with_shap(table, X)
+        return out.withColumn(self.getPredictionCol(),
+                              pred.cpu().numpy().astype(np.float64))

@@ -1275,3 +1275,37 @@ def test_no_code_is_narrowed(cuda_device):
         ch.histogram_cuda(bins, gh, 256)
     with pytest.raises(ValueError, match="int32"):
         ch.histogram_cuda(bins.to(torch.uint8), gh, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["binary", "multiclass"])
+def test_compiled_predictor_equals_predict_margin(cuda_device, objective):
+    """A continued fit on the card: ``predictor()`` margins equal
+    ``predict_margin`` bit for bit, tree-range partials sum to them, and
+    the leaf indices equal the CPU walk's."""
+    import tempfile
+
+    from mmlspark_tpu_torch import LightGBMClassifier
+    rng = np.random.default_rng(9)
+    X = rng.normal(size=(4000, 10))
+    s = X[:, 0] + X[:, 1] * X[:, 2] + rng.normal(size=4000)
+    y = ((s > 0).astype(float) if objective == "binary"
+         else np.digitize(s, [-0.7, 0.7]).astype(float))
+    table = {"features": X, "label": y}
+    kw = dict(numIterations=4, numLeaves=15, verbosity=0, device="cuda",
+              objective=objective)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/base.txt"
+        LightGBMClassifier(**kw).fit(table).saveNativeModel(path)
+        booster = LightGBMClassifier(initModelPath=path, **kw).fit(
+            table).getModel()
+    K = booster.num_class
+    Xd = torch.as_tensor(X, device=cuda_device)
+    full = booster.predictor()(Xd)
+    assert full.is_cuda and torch.equal(full, booster.predict_margin(Xd))
+    lo = booster.predictor(tree_range=(0, 4 * K))(Xd)
+    hi = booster.predictor(tree_range=(4 * K, 8 * K),
+                           include_init_score=False)(Xd)
+    torch.testing.assert_close(lo + hi, full, rtol=1e-5, atol=1e-5)
+    assert torch.equal(booster.predict_leaf_index(Xd).cpu(),
+                       booster.predict_leaf_index(X, device="cpu"))

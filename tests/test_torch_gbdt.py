@@ -126,7 +126,10 @@ def test_estimators_default_to_cuda():
             {"features": X, "label": (X[:, 0] > 0).astype(float)})
 
 
-ASKS = [dict(initModelPath="model.txt"), dict(checkpointDir="ckpt")]
+#: features not ported yet (continued training, initModelPath, was ported
+#: later and is tested in tests/test_torch_continued.py)
+ASKS = [dict(passThroughArgs="checkpoint_dir=ckpt"),
+        dict(checkpointDir="ckpt")]
 #: features a later slice ported: they fit now, on both estimators
 LIFTED = [
     dict(boostingType="goss"), dict(earlyStoppingRound=5),
