@@ -6,10 +6,12 @@
 Phases, each printing one JSON line:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions; exits non-zero without a CUDA device.
+   CUDA versions, the host CPU's model and threads; exits non-zero
+   without a CUDA device.
 2. build — compiles every ``mmlspark_tpu_torch/csrc/*.cu`` with nvcc (one
    process per source, all started together) and prints the seconds and
-   each kernel's registers.
+   each kernel's registers; beside them the native host sources
+   (``mmlspark_tpu_torch/native/*.cc``) with g++.
 3. kernels — each CUDA kernel, in each accumulation mode, at the main-path
    shapes (B = 256; ``hist_full`` at every shape the fits launch it at:
    the flagship's 400,000 × 50 rows × features, its D = 4 shard of
@@ -33,7 +35,14 @@ Phases, each printing one JSON line:
    histograms) and the splits made (segment histograms); train AUC must
    reach 0.955; the warm-up and timed fits must write the same model text
    (``same_model_text``): card fits are the same run to run.  ``host_s``
-   splits the timed fit's host clock (:class:`host_split`).
+   splits the timed fit's host clock (:class:`host_split`; ``binning_s``
+   is the estimator's native host binning and the copy of the codes).
+   ``memory``: ``torch.cuda.max_memory_allocated()`` of the timed fit
+   (the peak reset just before it) beside the fit budget's estimate
+   (``gbdt/budget.py``), which must be at least the fit's own peak (the
+   peak less what was allocated at the reset); efb_path's bundled,
+   ranking_path's and wide_bins_path's timed fits report and check the
+   same.
 4b. continued_path — continued training, the Booster's serving surface
    and stage persistence on the flagship (400,000 × 50, 31 leaves, 255
    bins): a 25-iteration base fit saved as LightGBM text and its
@@ -68,7 +77,8 @@ Phases, each printing one JSON line:
    profiled fit runs without a warm-up fit of its own: main_path has
    warmed the card):
    ``torch.profiler`` device time by kernel (the profiler records the
-   device alone) and the device's idle share, and the host binning pass
+   device alone) and the device's idle share, and the fit's binning pass
+   (the mapper's fit, the native host binning and the copy of the codes)
    timed alone; the quantiles of its segment sizes
    (the smaller child of each split); then the same 5-iteration fit on
    four virtual shards under ``histogramMethod="pallas_ring"``, for the
@@ -245,7 +255,23 @@ Phases, each printing one JSON line:
    each shard's ``hist_segment`` runs and ``ring_allreduce`` reduces
    once per tree and split, AUC within 0.01 of the serial fit's first 10
    iterations; a 20,000-row card-vs-CPU check at 1023.
-21. collectives_cross_card — phase 7's checks with one shard per card,
+21. native_path — the reference's native host paths
+   (``mmlspark_tpu_torch/native``): the codes of ``transform_packed``
+   (fastbin) equal ``transform(X, "cuda")`` at the flagship's 400,000 ×
+   50 and ``flight_data``'s 100,000 × 674 (``torch.equal``), with the
+   seconds of the host binning, the copy of its codes to the card and the
+   device transform; main_path's model (standalone, the phase fits the
+   flagship itself) loaded onto the CPU, whose native
+   margins (fastforest) equal the CPU walk's and the card predictor's bit
+   for bit, with the median host ms of 20 calls of the native scorer and
+   of the card predictor (host rows in, host margins out) at 1, 64, 4,096
+   and 400,000 rows and the host's thread count; a 20,000 × 50,
+   5-iteration CPU fit under ``auto`` (fasthist, its native call counts)
+   and under ``segment``, each with its seconds, the ``auto`` fit's first
+   tree identical to the card fit's; and a flagship fit with
+   ``MMLSPARK_TPU_HBM_BYTES`` at half main_path's estimate, which must
+   raise ``MemoryError`` before any kernel launches.
+22. collectives_cross_card — phase 7's checks with one shard per card,
    D = min(cards, 4), where the host has at least two cards; elsewhere it
    prints ``"ran": false`` (not a failure).
 
@@ -286,6 +312,7 @@ needs.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -682,18 +709,23 @@ def enqueue_us(fn, calls=None):
 
 
 class host_split:
-    """Host clocks inside one timed fit: ``fetch_s``, the grower's device →
+    """Host clocks inside one timed fit: ``binning_s``, the estimator's
+    binning of its rows (``base.fit_codes``: the native host binning and
+    the copy of the codes to the card, or above 256 bins the device
+    transform), ``fetch_s``, the grower's device →
     host fetches (its host syncs: the wait for the queued kernels plus the
     copy), ``hist_segment_s`` / ``fused_hist_ring_s``, the histogram
     wrappers' calls (their host enqueue), and ``ring_allreduce_s``, the
     dense ring's; what is left of the fit is the rest of the host loop."""
 
     def __enter__(self):
-        from mmlspark_tpu_torch.gbdt import grower
+        from mmlspark_tpu_torch.gbdt import base, grower
         from mmlspark_tpu_torch.ops import histogram
-        self.spans = {"fetch_s": 0.0, "hist_segment_s": 0.0,
-                      "fused_hist_ring_s": 0.0, "ring_allreduce_s": 0.0}
-        self.patched = [(grower, "_fetch", "fetch_s"),
+        self.spans = {"binning_s": 0.0, "fetch_s": 0.0,
+                      "hist_segment_s": 0.0, "fused_hist_ring_s": 0.0,
+                      "ring_allreduce_s": 0.0}
+        self.patched = [(base, "fit_codes", "binning_s"),
+                        (grower, "_fetch", "fetch_s"),
                         (histogram, "histogram_cuda_fused", "hist_segment_s"),
                         (grower, "fused_segment_hist_ring",
                          "fused_hist_ring_s"),
@@ -744,6 +776,19 @@ def bound_ms(n_bytes, n_ops, wire_bytes=0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def host_cpu():
+    """The host CPU's model name (``lscpu``'s, from ``/proc/cpuinfo``):
+    the native host paths' times are host numbers."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return None
+
+
 def phase_environment():
     import torch
     smi = subprocess.run(
@@ -753,21 +798,29 @@ def phase_environment():
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else f"nvidia-smi failed: {smi.stderr.strip()}"
     return {"nvidia_smi": card, "device": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
+            "count": torch.cuda.device_count(), "host_cpu": host_cpu(),
+            "host_threads": os.cpu_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0]}
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+    from mmlspark_tpu_torch import native
     from mmlspark_tpu_torch.ops._build import CSRC, build_all
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    res = build_all(names)
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.build_all)
+        res = build_all(names)
+        host_res = host.result()
     return {"seconds": time.perf_counter() - t0,
             "sources": {k: {"seconds": v[1],
                             "ptxas": [ln.strip() for ln in v[2].splitlines()
                                       if "registers" in ln]}
-                        for k, v in res.items()}}
+                        for k, v in res.items()},
+            "native_sources": {k: {"seconds": v[1]}
+                               for k, v in host_res.items()}}
 
 
 def kernel_inputs(n=None, f=None, rows=None, max_bin=255):
@@ -1020,12 +1073,14 @@ def phase_main_path(state):
     state["main_auc"] = train_auc
     state["main_model"] = model
     same = same_model_text(warm, model)
+    state["main_memory"] = _timed_fit.memory
     res = {"rows": N_ROWS, "features": N_FEATURES, "iterations": 50,
            "fit_s": fit_s, "transform_s": transform_s,
            "train_auc": train_auc, "trees": len(trees), "splits": splits,
            "launches": launches, "host_syncs": syncs,
-           "same_model_text": same,
-           "host_s": host_s, "segments": segment_sizes(model)}
+           "same_model_text": same, "binning_s": host_s["binning_s"],
+           "host_s": host_s, "segments": segment_sizes(model),
+           "memory": _memory("main_path")}
     if prob.shape != (N_ROWS,) or not np.isfinite(prob).all():
         raise AssertionError(f"probabilities not finite of shape "
                              f"({N_ROWS},): {res}")
@@ -1367,11 +1422,11 @@ def phase_profile():
     serially and on four virtual shards, and the ranking configuration),
     device time summed by kernel."""
     import torch
-    from mmlspark_tpu_torch.gbdt import fit_bin_mapper
+    from mmlspark_tpu_torch.gbdt import base, fit_bin_mapper
     X, y = bench_data(N_ROWS, N_FEATURES)
     table = {"features": X, "label": y}
     t0 = time.perf_counter()
-    fit_bin_mapper(X, max_bin=255).transform(X, DEV)
+    base.fit_codes(fit_bin_mapper(X, max_bin=255), X, DEV)
     torch.cuda.synchronize()
     binning_s = time.perf_counter() - t0
     from mmlspark_tpu_torch import build_mesh
@@ -1895,14 +1950,44 @@ def _timed_fit(est, table, counters, warm_iterations=WARM_ITERATIONS,
         fn.launches = 0
     grow_tree.host_syncs = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     with host_split() as host:
         t0 = time.perf_counter()
         model = est.fit(table)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
+    _timed_fit.memory = _memory_reading(resident)
     return (warm, model, fit_s,
             {k: fn.launches for k, fn in counters.items()}, host.spans,
             grow_tree.host_syncs)
+
+
+def _memory_reading(resident):
+    """The last fit's device memory: ``torch.cuda.max_memory_allocated()``
+    since the reset just before it (``peak_bytes``), what was allocated
+    at the reset (``resident_bytes``: earlier phases' cached kernel
+    workspaces and models), the fit's own peak (the difference), and the
+    fit budget's estimate (``engine.last_fit_budget``) with its terms."""
+    import torch
+    from mmlspark_tpu_torch.gbdt import engine
+    peak = torch.cuda.max_memory_allocated()
+    budget = dict(engine.last_fit_budget)
+    est = budget.pop("total")
+    return {"peak_bytes": peak, "resident_bytes": resident,
+            "fit_peak_bytes": peak - resident, "estimate_bytes": est,
+            "estimate_over_fit_peak": est / max(1, peak - resident),
+            "estimate_terms": budget}
+
+
+def _memory(name):
+    """The last timed fit's memory reading; raises when the fit budget's
+    estimate lies below the fit's own peak."""
+    m = dict(_timed_fit.memory)
+    if m["estimate_bytes"] < m["fit_peak_bytes"]:
+        raise AssertionError(f"{name}: the fit budget's estimate lies below "
+                             f"the fit's device-memory peak: {m}")
+    return m
 
 
 def _counted_fit(est, table, counters):
@@ -2975,7 +3060,8 @@ def phase_ranking_path(state):
            "host_syncs": syncs, "lambda_gradient_ms_per_iteration": lam_ms,
            "trees": len(trees), "splits": splits, "launches": launches,
            "train_ndcg": got, "baseline_ndcg": base,
-           "same_model_text": same_model_text(warm, model)}
+           "same_model_text": same_model_text(warm, model),
+           "memory": _memory("ranking_path")}
     if pred.shape != (len(y),) or not np.isfinite(pred).all():
         raise AssertionError(f"predictions not finite: {res}")
     if got["ndcg@10"] < base["ndcg@10"] + 0.1:
@@ -3224,6 +3310,8 @@ def phase_efb_path(state):
         if warm:
             res["same_model_text"] = same_model_text(warm_m, model)
             res["host_s"] = host_s
+            res["binning_s"] = host_s["binning_s"]
+            res["memory"] = _memory(f"efb_path {name}")
         if not np.isfinite(prob).all():
             raise AssertionError(f"{name}: probabilities not finite: {res}")
         return res, calls
@@ -3305,7 +3393,8 @@ def phase_wide_bins_path(state):
              "trees": len(model.getModel().trees), "splits": _splits(model),
              "launches": launches, "host_s": host_s, "host_syncs": syncs,
              "same_model_text": same_model_text(warm, model),
-             "histogram_calls": sorted({c[2:] for c in calls})}
+             "histogram_calls": sorted({c[2:] for c in calls}),
+             "memory": _memory(f"wide_bins_path {max_bin}")}
         fits[f"serial_{max_bin}"] = r
         if r["launches"]["hist_full"] != r["trees"] or \
                 r["launches"]["hist_segment"] != r["splits"] or \
@@ -3445,6 +3534,158 @@ def phase_kernels_flagship(state):
                      for r in rows]}
 
 
+def host_median_ms(fn, reps=20, warm=3):
+    """Median host wall-clock ms of ``reps`` calls of ``fn`` after
+    ``warm`` calls (``fn`` returns only when its result is on the host)."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _native_calls():
+    from mmlspark_tpu_torch import native
+    return {k: fn.calls for k, fn in native.COUNTED.items()}
+
+
+def _zero_native_calls():
+    from mmlspark_tpu_torch import native
+    for fn in native.COUNTED.values():
+        fn.calls = 0
+
+
+def phase_native_path(state):
+    """The reference's native host paths (``mmlspark_tpu_torch/native``)
+    beside the card: fastbin's codes against the device transform, the
+    fastforest scorer against the CPU walk and the card predictor,
+    fasthist CPU fits against the plain twin and the card, and the fit
+    budget's refusal."""
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.gbdt import Booster, engine, fit_bin_mapper
+    res = {"host_cpu": host_cpu(), "host_threads": os.cpu_count()}
+
+    # -- fastbin: host codes against the device transform -----------------
+    binning = {}
+    for name, (X, _) in (("flagship", bench_data(N_ROWS, N_FEATURES)),
+                         ("flight", flight_data(FLIGHT_ROWS))):
+        mapper = fit_bin_mapper(X, max_bin=255)
+        t0 = time.perf_counter()
+        host = mapper.transform_packed(X)
+        packed_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = host.to(DEV)
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dev = mapper.transform(X, DEV)
+        torch.cuda.synchronize()
+        device_s = time.perf_counter() - t0
+        binning[name] = {"rows": X.shape[0], "features": X.shape[1],
+                         "dtype": str(X.dtype), "transform_packed_s": packed_s,
+                         "copy_to_card_s": copy_s,
+                         "device_transform_s": device_s,
+                         "equal": bool(torch.equal(card, dev))}
+        del card, dev
+    res["binning"] = binning
+
+    # -- fastforest: main_path's model on the CPU --------------------------
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    table = {"features": X, "label": y}
+    model = state.get("main_model")
+    if model is None:
+        model = _classifier(numIterations=50, device=DEV).fit(table)
+    # the flagship fit's budget estimate (main_path's, or this fit's)
+    estimate = (state["main_memory"]["estimate_bytes"]
+                if "main_memory" in state
+                else engine.last_fit_budget["total"])
+    card_b = model.getModel()
+    cpu_b = Booster.load_native_model_string(
+        card_b.save_native_model_string(), device="cpu")
+    nat = cpu_b.predictor()
+    walk = cpu_b.predictor(backend="jit")
+    card = card_b.predictor()
+    m_nat = nat(X)
+    same = {"cpu_walk": bool(torch.equal(m_nat, walk(X))),
+            "card_predictor": bool(torch.equal(m_nat, card(X).cpu()))}
+    timing = {}
+    for rows in PREDICT_ROWS:
+        sub = X[:rows]
+        timing[rows] = {
+            "native_ms": host_median_ms(lambda: nat(sub)),
+            "card_predictor_ms": host_median_ms(lambda: card(sub).cpu())}
+    res["forest"] = {"trees": len(cpu_b.trees), "modes": [nat.mode,
+                                                          card.mode],
+                     "bitwise_equal": same, "median_ms": timing,
+                     "threads": os.cpu_count()}
+
+    # -- fasthist: CPU fits, native against the plain twin and the card ----
+    Xs, ys = bench_data(20_000, N_FEATURES)
+    small = {"features": Xs, "label": ys}
+    fits = {}
+    models = {}
+    for method in ("auto", "segment"):
+        _zero_native_calls()
+        t0 = time.perf_counter()
+        models[method] = _classifier(numIterations=5, device="cpu",
+                                     histogramMethod=method).fit(small)
+        fits[method] = {"fit_s": time.perf_counter() - t0,
+                        "native_calls": _native_calls()}
+    models[DEV] = _classifier(numIterations=5, device=DEV).fit(small)
+    first = [models[k].getModel().trees[0] for k in ("auto", DEV)]
+    first_same = all(np.array_equal(getattr(first[0], k),
+                                    getattr(first[1], k))
+                     for k in ("split_feature", "threshold", "left_child",
+                               "right_child"))
+    res["cpu_fits"] = {
+        "rows": 20_000, "iterations": 5, "fits": fits,
+        "first_tree_equals_card": first_same,
+        "auto_equals_segment_model_text":
+            models["auto"].getNativeModel()
+            == models["segment"].getNativeModel()}
+
+    # -- the fit budget refuses before the first kernel --------------------
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    os.environ["MMLSPARK_TPU_HBM_BYTES"] = str(estimate // 2)
+    try:
+        _classifier(numIterations=50, device=DEV).fit(table)
+        refused = None
+    except MemoryError as e:
+        refused = str(e)
+    finally:
+        del os.environ["MMLSPARK_TPU_HBM_BYTES"]
+    launched = {k: fn.launches for k, fn in counters.items()}
+    res["budget"] = {"capacity_bytes": estimate // 2,
+                     "estimate_bytes": estimate,
+                     "refused": refused, "launches_before": launched}
+
+    bad = [k for k, r in binning.items() if not r["equal"]]
+    if bad:
+        raise AssertionError(f"transform_packed differs from the device "
+                             f"transform on {bad}: {res}")
+    if nat.mode != "native" or not all(same.values()):
+        raise AssertionError(f"the native scorer's margins differ: {res}")
+    if fits["auto"]["native_calls"]["split"] < 1 or any(
+            v for k, v in fits["segment"]["native_calls"].items()
+            if k != "bin_columns"):
+        raise AssertionError(f"the CPU auto fit did not take the native "
+                             f"kernels, or the segment fit did: {res}")
+    if not first_same:
+        raise AssertionError(f"the native CPU fit's first tree differs from "
+                             f"the card's: {res}")
+    if refused is None or any(launched.values()):
+        raise AssertionError(f"the fit budget did not refuse the flagship "
+                             f"before its first kernel: {res}")
+    return res
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r["accum"] == "float32" and "path" not in r
@@ -3566,6 +3807,7 @@ def main(argv) -> int:
               ("ranking_path", lambda: phase_ranking_path(state)),
               ("efb_path", lambda: phase_efb_path(state)),
               ("wide_bins_path", lambda: phase_wide_bins_path(state)),
+              ("native_path", lambda: phase_native_path(state)),
               ("collectives_cross_card", phase_collectives_cross_card),
               ("kernels_flagship", lambda: phase_kernels_flagship(state))]
     if only is not None:

@@ -32,7 +32,7 @@ from ..core.pipeline import Estimator, Model
 from ..core.profiling import maybe_trace
 from ..core.schema import DataTable, features_matrix
 from ..device import resolve_device
-from .binning import fit_bin_mapper
+from .binning import BinMapper, fit_bin_mapper
 from .booster import Booster
 from .distributed import resolve_mesh
 from .engine import TrainParams, train
@@ -446,12 +446,12 @@ class LightGBMBase(Estimator, LightGBMParams):
                     X[val], device=device).cpu().numpy().astype(np.float64)
         if has_val:
             val_kwargs.update(
-                val_bins=mapper.transform(X[val], device),
+                val_bins=fit_codes(mapper, X[val], device),
                 val_labels=y[val],
                 val_weights=w[val] if w is not None else None,
                 val_metric=self._val_metric_fn(table, val))
         with maybe_trace(self.getProfileTraceDir()):
-            booster = train(mapper.transform(X_train, device), y_train,
+            booster = train(fit_codes(mapper, X_train, device), y_train,
                             w_train, mapper, objective, params,
                             feature_names=feature_names, mesh=mesh,
                             ranking_info=ranking_info,
@@ -462,6 +462,17 @@ class LightGBMBase(Estimator, LightGBMParams):
         model.setParams(**{k: v for k, v in self._iterSetParams()
                            if model.hasParam(k)})
         return model
+
+
+def fit_codes(mapper: BinMapper, X: np.ndarray, device) -> torch.Tensor:
+    """The bin codes a fit trains on, on ``device``: binned on the host by
+    the native kernel (:meth:`BinMapper.transform_packed`) and copied to
+    the device as one byte a cell, as the reference's fit ships them; above
+    256 bins (int32 codes) binned on the device
+    (:meth:`BinMapper.transform`)."""
+    if mapper.bin_dtype == torch.uint8:
+        return mapper.transform_packed(X).to(device)
+    return mapper.transform(X, device)
 
 
 class LightGBMModelBase(Model, HasFeaturesCol, HasDevice,

@@ -2,8 +2,11 @@
 
 The port's copy of ``mmlspark_tpu/gbdt/binning.py``.  Bounds and
 category lists are learned on host numpy exactly as the reference learns
-them; the transform runs on the requested device with the semantics of
-the reference's ``BinMapper.transform``: a numeric column is a float64
+them.  :meth:`BinMapper.transform_packed`, what a fit of at most 256
+bins bins its rows with, runs the reference's native ``fastbin`` kernel
+on the host (:mod:`..native`); :meth:`BinMapper.transform` runs on the
+requested device with the semantics of the reference's
+``BinMapper.transform``: a numeric column is a float64
 ``torch.searchsorted`` (``side="left"`` against float64 upper bounds); a
 categorical column maps each category to its bin by identity (the value
 truncated to an integer); NaN, and a category that has no bin, go to the
@@ -58,6 +61,102 @@ class BinMapper:
     def bin_dtype(self) -> torch.dtype:
         """Narrowest integer dtype that holds every bin index."""
         return torch.uint8 if self.num_total_bins <= 256 else torch.int32
+
+    def _fast_state(self, is64: bool):
+        """The arrays :func:`..native.bin_columns` reads (the reference's
+        ``_fast_state``), made once per mapper and input precision.
+
+        For float32 inputs the float64 bounds are adjusted DOWN to the
+        largest float32 ``c <= b``; then for every float32 value ``v``,
+        ``c < v  ⇔  b < v`` (if ``c < v`` then ``v`` is a float32 above
+        the largest float32 ≤ b, hence ``v > b``; conversely ``b < v``
+        implies ``c ≤ b < v``), so uint8 bins from float32 comparisons
+        match the float64 reference bit-exactly.  float64 inputs use the
+        raw float64 bounds.  A uniform ``C``-cell grid per feature
+        provides a starting hint; the kernel probes locally in both
+        directions, so the hint only affects speed, never the result.
+        Features whose bounds pack > 32 deep into one cell (degenerate
+        hint) use plain binary search instead."""
+        key = "_fs64" if is64 else "_fs32"
+        cached = getattr(self, key, None)
+        if cached is not None:
+            return cached
+        f = self.num_features
+        C = 2048
+        nb = np.asarray([len(ub) for ub in self.upper_bounds], np.int32)
+        m = max(int(nb.max()), 1) if f else 1
+        dt = np.float64 if is64 else np.float32
+        bext = np.full((f, m), np.inf, dt)
+        lo = np.zeros(f, np.float32)
+        scale = np.zeros(f, np.float32)
+        base = np.zeros((f, C), np.int32)
+        use_table = np.zeros(f, np.uint8)
+        for j, ub in enumerate(self.upper_bounds):
+            if len(ub) == 0 or self.is_categorical(j):
+                continue
+            if is64:
+                c = ub
+            else:
+                c = ub.astype(np.float32)
+                over = c.astype(np.float64) > ub
+                c[over] = np.nextafter(c[over], np.float32(-np.inf))
+            bext[j, :len(c)] = c
+            span = float(c[-1]) - float(c[0])
+            if len(c) >= 8 and span > 0 and np.isfinite(span):
+                lo[j] = np.float32(c[0])
+                with np.errstate(over="ignore"):
+                    scale_j = np.float32(C / (span * (1 + 1e-6)))
+                if not np.isfinite(scale_j):   # span below ~f32 tiny
+                    continue
+                scale[j] = scale_j
+                edges = (float(lo[j])
+                         + np.arange(C, dtype=np.float64) / float(scale[j]))
+                b0 = np.searchsorted(c, edges.astype(c.dtype), side="left")
+                top = np.searchsorted(
+                    c, np.nextafter((edges + 1.0 / float(scale[j])
+                                     ).astype(c.dtype), np.inf), side="left")
+                if int((top - b0).max()) <= 32:
+                    base[j] = b0
+                    use_table[j] = 1
+        state = (bext, nb, base, lo, scale, use_table)
+        object.__setattr__(self, key, state)
+        return state
+
+    def transform_packed(self, X: np.ndarray) -> torch.Tensor:
+        """:meth:`transform` on the host into a CPU tensor of the
+        narrowest dtype, through the native ``fastbin`` kernel
+        (:func:`..native.bin_columns`, the reference's
+        ``transform_packed``): what a fit bins its rows with before it
+        copies the one-byte codes to its device, in place of a float64
+        copy of ``X`` on the device.  Categorical columns go through
+        :meth:`_transform_cat`.
+
+        Exactness: the same codes as :meth:`transform` (float64
+        semantics) for float32 and float64 inputs (see
+        :meth:`_fast_state`).  Above 256 total bins, or for an ``X`` that
+        is neither float32 nor float64, this is :meth:`transform` on the
+        CPU, as the reference hands those to its torch path."""
+        from .. import native
+        X = np.asarray(X)
+        n, f = X.shape
+        if f != self.num_features:
+            raise ValueError(
+                f"Expected {self.num_features} features, got {f}")
+        if self.bin_dtype != torch.uint8 or \
+                X.dtype not in (np.float32, np.float64):
+            return self.transform(X, "cpu")
+        is64 = X.dtype == np.float64
+        bext, nb, base, lo, scale, use_table = self._fast_state(is64)
+        Xc = np.ascontiguousarray(X)
+        out = np.empty(X.shape, np.uint8)
+        native.bin_columns(Xc, bext, nb, base, lo, scale, use_table,
+                           self.missing_bin, out)
+        codes = torch.from_numpy(out)
+        if self.has_categorical:
+            for j in np.nonzero(self.categorical)[0]:
+                codes[:, j] = self._transform_cat(
+                    torch.from_numpy(X[:, j].astype(np.float64)), int(j))
+        return codes
 
     def transform(self, X: np.ndarray, device: DeviceLike = "cuda"
                   ) -> torch.Tensor:

@@ -6,18 +6,22 @@ trip as LightGBM v3 *text* (``save_native_model_string`` /
 same content-digest header on files), so a model saved by either package
 loads in the other and in stock LightGBM.
 
-Prediction walks every tree at once on the device: a ``(T, n)`` node
+On a CUDA device prediction walks every tree at once: a ``(T, n)`` node
 frontier advances one level per step for ``depth`` steps, with the
 reference's float32 compares (thresholds rounded up to float32, NaN goes
-right on numeric nodes) and its categorical bitset rule.  Tree outputs are
-added in tree order in float32, then the init score, as the reference's
-walkers add them, so margins agree bit for bit.  The same walk gives the
-leaf indices (:meth:`Booster.predict_leaf_index`), and
-:class:`CompiledPredictor` (:meth:`Booster.predictor`) resolves it once
-for a serving loop: the forest sliced to an iteration count or a tree
-range on the booster's device.  TreeSHAP contributions
-(:meth:`Booster.predict_contrib`, :mod:`.shap`) run on the host, as in the
-reference.
+right on numeric nodes) and its categorical bitset rule.  On the CPU the
+reference's native scorer (``native/fastforest.cc``,
+:func:`..native.predict_forest`) walks each row down each tree to its
+leaf with the same compares, over host arrays stacked once per booster
+(:meth:`Booster._host_stack`).  Both add the tree outputs in tree order in
+float32, then the init score, as the reference's walkers add them, so
+margins agree bit for bit.  The device walk gives the leaf indices
+(:meth:`Booster.predict_leaf_index`), and :class:`CompiledPredictor`
+(:meth:`Booster.predictor`) resolves the scorer once for a serving loop:
+the forest sliced to an iteration count or a tree range, the native
+scorer for a CPU booster and the device walk for a CUDA one.  TreeSHAP
+contributions (:meth:`Booster.predict_contrib`, :mod:`.shap`) run on the
+host, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import DeviceLike, resolve_device
 from .binning import BinMapper
 from .objectives import exp32, sigmoid, softmax, sum_last
@@ -210,6 +215,7 @@ class Booster:
         self.params = params or {}
         self.device = device
         self._stacked: Dict[torch.device, dict] = {}
+        self._stacked_host: Optional[dict] = None
         # bumped whenever the stacked forests are dropped: a
         # CompiledPredictor keeps the token it was built with and refuses
         # to score a forest that changed under it
@@ -251,6 +257,7 @@ class Booster:
         place: a :class:`CompiledPredictor` built before raises on its
         next call instead of scoring the old forest."""
         self._stacked.clear()
+        self._stacked_host = None
         self._cache_token += 1
 
     def predictor(self, num_iteration: Optional[int] = None,
@@ -260,9 +267,9 @@ class Booster:
                   ) -> "CompiledPredictor":
         """A margin scorer with the per-call work of
         :meth:`predict_margin` (stacking, slicing, the backend choice)
-        done once, on this booster's device.  ``backend``: "auto" or
-        "jit" (the device walk); "native" names the reference's CPU
-        scorer, which the port does not have yet, and raises.
+        done once, on this booster's device.  ``backend``: "auto" (the
+        native scorer on a CPU booster, the device walk on a CUDA one),
+        "native" (a CPU booster only) or "jit" (the device walk).
 
         ``tree_range=(lo, hi)`` scores trees ``lo .. hi-1`` only, bounds
         aligned to ``num_class``; with ``include_init_score=False`` the
@@ -272,10 +279,13 @@ class Booster:
                                  tree_range=tree_range,
                                  include_init_score=include_init_score)
 
-    def _stack(self, dev: torch.device) -> dict:
-        """The forest as padded ``(T, ...)`` tensors on ``dev``."""
-        if dev in self._stacked:
-            return self._stacked[dev]
+    def _host_stack(self) -> dict:
+        """The forest as padded ``(T, ...)`` numpy arrays in the dtypes of
+        :data:`..native.FOREST_ARRAYS` (the reference's stacked arrays),
+        made once per booster: what the native scorer reads, and what
+        :meth:`_stack` moves to a device."""
+        if self._stacked_host is not None:
+            return self._stacked_host
         T = len(self.trees)
         m = max(max(len(t.split_feature) for t in self.trees), 1)
         L = max(max(t.num_leaves for t in self.trees), 1)
@@ -284,29 +294,46 @@ class Booster:
             out = np.zeros((T, width), dtype=dtype)
             for i, a in enumerate(arrs):
                 out[i, :len(a)] = a
-            return torch.as_tensor(out, device=dev)
+            return out
 
         ncat = max(max(t.num_cat for t in self.trees), 1)
         words = max(max(len(t.cat_threshold) for t in self.trees), 1)
-        s = {
-            "feat": pad([t.split_feature for t in self.trees], m, np.int64),
+        self._stacked_host = {
+            "feat": pad([t.split_feature for t in self.trees], m, np.int32),
             "thr": pad([_thr32(t) for t in self.trees], m, np.float32),
-            "left": pad([t.left_child for t in self.trees], m, np.int64),
-            "right": pad([t.right_child for t in self.trees], m, np.int64),
+            "left": pad([t.left_child for t in self.trees], m, np.int32),
+            "right": pad([t.right_child for t in self.trees], m, np.int32),
             "leaf": pad([t.leaf_value for t in self.trees], L, np.float32),
-            "single": torch.as_tensor(
-                [t.num_leaves <= 1 for t in self.trees], device=dev),
+            "single": np.asarray([t.num_leaves <= 1 for t in self.trees],
+                                 np.uint8),
             "is_cat": pad([t.decision_type & 1 for t in self.trees], m,
-                          np.bool_),
+                          np.int32),
             "dleft": pad([(t.decision_type & 2) >> 1 for t in self.trees],
-                         m, np.bool_),
+                         m, np.int32),
             "cat_bnd": pad([t.cat_boundaries for t in self.trees],
-                           ncat + 1, np.int64),
+                           ncat + 1, np.int32),
             "cat_words": pad([t.cat_threshold for t in self.trees], words,
-                             np.int64),
+                             np.uint32),
             "depth": max(max(t.max_depth() for t in self.trees), 1),
             "has_cat": any(t.num_cat > 0 for t in self.trees),
         }
+        return self._stacked_host
+
+    def _stack(self, dev: torch.device) -> dict:
+        """The forest as padded ``(T, ...)`` tensors on ``dev`` for the
+        device walk (:meth:`_host_stack` widened to its index dtypes)."""
+        if dev in self._stacked:
+            return self._stacked[dev]
+        h = self._host_stack()
+        dtypes = {"feat": torch.int64, "thr": torch.float32,
+                  "left": torch.int64, "right": torch.int64,
+                  "leaf": torch.float32, "single": torch.bool,
+                  "is_cat": torch.bool, "dleft": torch.bool,
+                  "cat_bnd": torch.int64, "cat_words": torch.int64}
+        s = {k: torch.as_tensor(h[k].astype(np.int64) if k == "cat_words"
+                                else h[k], device=dev).to(dt)
+             for k, dt in dtypes.items()}
+        s.update(depth=h["depth"], has_cat=h["has_cat"])
         self._stacked[dev] = s
         return s
 
@@ -328,18 +355,23 @@ class Booster:
 
     def predict_margin(self, X, num_iteration: Optional[int] = None,
                        device: Optional[DeviceLike] = None) -> torch.Tensor:
-        """Raw margins on the device: ``(n,)`` float32 for single-class,
-        ``(n, K)`` for multiclass.  ``X`` is a tensor (its device is used)
-        or an array (moved to ``device``, default the booster's)."""
+        """Raw margins: ``(n,)`` float32 for single-class, ``(n, K)`` for
+        multiclass.  ``X`` is a tensor (its device is used) or an array
+        (moved to ``device``, default the booster's).  On the CPU the
+        native scorer walks the rows, on a CUDA device the device walk;
+        their margins are the same bits."""
         X = self._device_input(X, device)
         K = self.num_class
-        forest = None
-        if self.trees:
-            T = len(self.trees)
-            use_t = T if num_iteration is None \
-                else min(num_iteration * K, T)
-            forest = _slice_forest(self._stack(X.device), slice(0, use_t))
-        return _margins(forest, X, K, self.init_score)
+        if not self.trees:
+            return _margins(None, X, K, self.init_score)
+        T = len(self.trees)
+        sl = slice(0, T if num_iteration is None
+                   else min(num_iteration * K, T))
+        if X.device.type == "cpu":
+            return _native_margins(_slice_host(self._host_stack(), sl), X,
+                                   K, self.init_score)
+        return _margins(_slice_forest(self._stack(X.device), sl), X, K,
+                        self.init_score)
 
     def predict_leaf_index(self, X, device: Optional[DeviceLike] = None
                            ) -> torch.Tensor:
@@ -513,10 +545,11 @@ class CompiledPredictor:
     """Margin scorer with the prediction path resolved once.
 
     :meth:`Booster.predict_margin` stacks (once per device), slices and
-    checks on every call; this does it at construction: the forest sliced
-    to ``num_iteration`` or ``tree_range`` on the booster's device, the
-    class count and the init score.  Its margins are those of
-    ``predict_margin`` bit for bit (the same walk and the same adds).
+    checks on every call; this does it at construction: the backend (the
+    native scorer on a CPU booster, the device walk on a CUDA one), the
+    forest sliced to ``num_iteration`` or ``tree_range``, the class count
+    and the init score.  Its margins are those of ``predict_margin`` bit
+    for bit (the same walks and the same adds).
 
     A predictor is bound to the forest it was built from:
     :meth:`Booster.invalidate_cache` (needed after changing ``trees`` in
@@ -533,12 +566,6 @@ class CompiledPredictor:
         if backend not in ("auto", "native", "jit"):
             raise ValueError(f"backend must be auto|native|jit, "
                              f"got {backend!r}")
-        if backend == "native":
-            raise RuntimeError(
-                "backend='native' requested but the native forest scorer "
-                "(the reference's native/fastforest.cc) is not ported to "
-                "mmlspark_tpu_torch yet; use backend='auto' or 'jit', the "
-                "device walk")
         self._booster = booster
         self._token = booster._cache_token
         self._num_trees = len(booster.trees)
@@ -571,13 +598,25 @@ class CompiledPredictor:
             use_t = T if num_iteration is None \
                 else min(num_iteration * self._K, T)
             sl = slice(0, use_t)
+        on_cpu = self._device.type == "cpu"
+        if backend == "native" and not on_cpu:
+            raise RuntimeError(
+                "backend='native' requested but the native forest scorer "
+                f"runs on the CPU and this booster is on {self._device}; "
+                "use backend='auto' or 'jit', the device walk")
         if sl.stop > sl.start:
-            self._forest = _slice_forest(booster._stack(self._device), sl)
-            self._mode = "jit"
+            if on_cpu and backend != "jit":
+                self._forest = _slice_host(booster._host_stack(), sl)
+                self._mode = "native"
+            else:
+                self._forest = _slice_forest(booster._stack(self._device),
+                                             sl)
+                self._mode = "jit"
 
     @property
     def mode(self) -> str:
-        """The resolved backend: 'jit' (the device walk) or 'empty'."""
+        """The resolved backend: 'native' (the host scorer), 'jit' (the
+        device walk) or 'empty'."""
         return self._mode
 
     def _check_fresh(self) -> None:
@@ -602,6 +641,9 @@ class CompiledPredictor:
                 f"input has shape {shape}; expected (n, >= "
                 f"{self.num_features})")
         X = torch.as_tensor(X, device=self._device).to(torch.float32)
+        if self._mode == "native":
+            return _native_margins(self._forest, X, self._K,
+                                   self._init_score)
         return _margins(self._forest, X, self._K, self._init_score)
 
 
@@ -610,6 +652,27 @@ def _slice_forest(s: dict, sl: slice) -> dict:
     out = {k: v[sl] for k, v in s.items() if isinstance(v, torch.Tensor)}
     out.update(depth=s["depth"], has_cat=s["has_cat"])
     return out
+
+
+def _slice_host(h: dict, sl: slice) -> dict:
+    """Trees ``sl`` of the host stack (:meth:`Booster._host_stack`)."""
+    out = {k: h[k][sl] for k, _ in native.FOREST_ARRAYS}
+    out["has_cat"] = h["has_cat"]
+    return out
+
+
+def _native_margins(h: dict, X: torch.Tensor, K: int,
+                    init_score: float) -> torch.Tensor:
+    """Margins of the sliced host forest ``h`` over the CPU rows ``X``
+    through the native scorer: tree outputs added in tree order into
+    their class in float32, then the init score, as :func:`_margins`
+    adds them."""
+    Xh = np.ascontiguousarray(X.numpy(), np.float32)
+    out = np.zeros((Xh.shape[0], K), np.float32)
+    native.predict_forest(Xh, h, K, h["has_cat"], out)
+    out += np.float32(init_score)
+    t = torch.from_numpy(out)
+    return t[:, 0] if K == 1 else t
 
 
 def _leaves(s: dict, X: torch.Tensor) -> torch.Tensor:

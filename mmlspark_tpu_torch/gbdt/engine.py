@@ -52,6 +52,11 @@ decides between the data (or voting), feature and data+feature learners.
   in float32 with ``init`` 0 (a per-row offset replaces boost-from-average
   and is not baked into the model); pad rows of a mesh keep the plain
   init.  ``val_init_scores`` offsets the validation scores alike.
+* **Memory budget** (:mod:`.budget`): before the binned rows are laid
+  out over the devices, the fit's bytes on its busiest device are
+  estimated term by term and held against the device's memory; a fit
+  that cannot fit raises ``MemoryError`` with the breakdown before its
+  first histogram (``last_fit_budget`` records the estimate).
 * **Validation.**  The validation scores start at the training scores'
   init and add each iteration's shrunk trees (a binned walk at lr = 1, in
   f32, on the first device); the metric runs on the host, one sync an
@@ -66,6 +71,7 @@ from __future__ import annotations
 
 import logging
 import time
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -78,6 +84,8 @@ from ..ops.collectives import resolve_collective
 from ..ops.threefry import prng_key, split
 from .binning import BinMapper
 from .booster import Booster, host_tree_from_arrays
+from .budget import (check_fit_budget, estimate_fit_bytes,
+                     kernel_workspace_bytes)
 from .distributed import (boost_iteration, check_parallelism, dart_grow,
                           goss_iteration, objective_grads, prepare_arrays,
                           shard_full_bins, sharded_cfg, unit_margin)
@@ -92,6 +100,9 @@ log = logging.getLogger("mmlspark_tpu_torch.gbdt")
 #: collective and why a ring request was downgraded, the devices' type,
 #: the quantized grid and wire, and the per-tree collective schedule.
 last_fit_info: Dict[str, str] = {}
+#: The last fit's memory budget: the estimate of its bytes on its busiest
+#: device by term, and the total (:func:`.budget.estimate_fit_bytes`).
+last_fit_budget: Dict[str, int] = {}
 #: The last fit's validation: the metric of every iteration, the best
 #: iteration and metric, the iteration count kept, and the host seconds
 #: the validation walks and metrics took (empty without a validation set).
@@ -307,6 +318,33 @@ def _record_fit_resolution(cfg: GrowerConfig, collective: str,
     if sched["quantized_scale_bytes"]:
         last_fit_info["quantized_scale_bytes_per_tree"] = str(
             sched["quantized_scale_bytes"])
+
+
+def _fit_budget(cfg: GrowerConfig, params: TrainParams, bins: torch.Tensor,
+                f: int, K: int, devices, bundles: int, n_val: int,
+                ranking_info: Optional[Dict]) -> dict:
+    """:func:`.budget.estimate_fit_bytes` of this fit on its busiest
+    device: ``bins`` the (bundled) codes on the first device, ``devices``
+    the mesh's (one device serially)."""
+    D, F = cfg.data_axis_size, cfg.feature_axis_size
+    devs = [torch.device(d) for d in devices]
+    H = D if cfg.voting_k > 0 and D > 1 else F
+    S = -(-bins.shape[0] // D)
+    cols = bundles or -(-f // F)
+    slots = pairs = 0
+    if ranking_info is not None:
+        from .ranking import CHUNK_PAIRS
+        docs = np.unique(ranking_info["query_ids"], return_counts=True)[1]
+        G = int(docs.max())
+        chunk = max(1, min(len(docs), CHUNK_PAIRS // (G * G)))
+        slots, pairs = (-(-len(docs) // chunk) * chunk * G, chunk * G * G)
+    return estimate_fit_bytes(
+        bins.shape[0], f, cfg.num_bins, cfg.num_leaves, K,
+        bins.element_size(), D, F, max(Counter(devs).values()),
+        max(Counter(devs[:H]).values()), bundles, cfg.quantized_bits > 0,
+        params.boosting in ("goss", "dart"), n_val,
+        kernel_workspace_bytes(S, cols, cfg.num_bins, cfg.quantized_bits > 0,
+                               devs[0]), slots, pairs)
 
 
 def _efb_gate(params: TrainParams, mapper: BinMapper, ranking: bool,
@@ -638,6 +676,12 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
             efb_gate = "trivial"
         else:
             bins = torch.as_tensor(bundled, device=dev)
+    # the memory guard, before anything of the fit's own is on the device
+    budget = check_fit_budget(
+        _fit_budget(cfg, params, bins, f, K, devices,
+                    0 if efb_maps is None else bins.shape[1],
+                    0 if val_bins is None else len(val_bins), ranking_info),
+        dev, cfg.data_axis_size, params.verbosity)
     arrays = prepare_arrays(bins, labels, w, devices, init, F, K, perm,
                             efb_maps, init_scores)
     _record_fit_resolution(
@@ -647,6 +691,8 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     last_fit_info.update(
         efb_bundles=str(0 if efb_maps is None else bins.shape[1]),
         efb_gate=efb_gate)
+    last_fit_budget.clear()
+    last_fit_budget.update(budget)
     # pad features (to a multiple of the feature axis) stay masked out
     fi_base = np.zeros((pad_to_multiple(f, F), 3), np.float32)
     fi_base[:f] = _feat_info_from_mapper(mapper, f)

@@ -64,6 +64,12 @@ and the leaf histograms stay on the devices:
   its bundle (:func:`efb_feature_column`), and a walk over the bundled
   matrix decodes each level (:func:`leaf_index_binned`).  Trees name
   original features.
+* **The CPU's native path** (``hist_method`` "auto" or "native" on a CPU
+  device with at most 256 bins, the reference's gates): the histograms,
+  the partition and, on a serial fit without categorical features, the
+  split scan run the reference's C++ host kernels (:mod:`..native`
+  through :mod:`..ops.histogram`); the scan contributes the winner and
+  its gain is recomputed in :func:`prefix_sum_bins`' order.
 * **Host syncs.**  Two per split: the partition counts of all shards in
   one fetch (launch sizing needs them) and the children's best splits,
   bitsets included, as one int64 tensor (the next leaf choice needs
@@ -90,7 +96,9 @@ from ..ops.collectives import (fused_segment_hist_ring, gather_cand,
                                psum_plain, ring_allreduce,
                                ring_allreduce_select)
 from ..ops.cuda_ring import FUSED_MAX_BINS
-from ..ops.histogram import accum_mode, compute_histogram, segment_histogram
+from ..ops.histogram import (accum_mode, compute_histogram, native_applies,
+                             native_find_split, native_gh, native_partition,
+                             segment_histogram)
 from ..ops.threefry import float_bits, fold_in, prng_key, uniform
 from .objectives import fma32
 
@@ -843,6 +851,16 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     if is_quantized(cfg):
         gh, scales = quantize_gh(gh, cfg)
         scale = scales[:H]
+    # the native host kernels (a CPU device under "auto" / "native", at
+    # most 256 bins) read f32 or int16 codes: converted once a tree
+    native = [native_applies(cfg.hist_method, B, d) for d in devs]
+    gh = [native_gh(g) if nat else g for g, nat in zip(gh, native)]
+    # the native split scan: a serial fit without categorical features,
+    # and not the degenerate min_sum_hessian = lambda_l2 = 0, whose
+    # empty-side gains go NaN (the reference's gate)
+    native_split = (native[0] and K == 1 and not cfg.use_categorical
+                    and (cfg.min_sum_hessian_in_leaf > 0
+                         or cfg.lambda_l2 > 0))
 
     def depth_ok(d):
         return cfg.max_depth <= 0 or d < cfg.max_depth
@@ -862,7 +880,9 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     def left_totals(parent, hists_r, tots_r):
         """``parent − right`` of each value learner; quantized outside
         voting, the reference's compiled form of ``parent − codes ·
-        scale``, one fused multiply-add."""
+        scale``: one fused multiply-add, except where the native split
+        scan reads the totals (the reference's custom call takes them from
+        a fusion that rounds the product first)."""
         out = []
         for v, (t, s) in enumerate(zip(tots_r, scale)):
             p = torch.as_tensor(parent[v], device=t.device)
@@ -870,7 +890,8 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
                 out.append(p - t)
             else:
                 codes = sum_bins(hists_r[v][..., 0, :, :]).to(torch.float32)
-                out.append(fma32(-codes, s, p))
+                out.append(p - codes * s if native_split
+                           else fma32(-codes, s, p))
         return out
 
     def best_splits(hists, tots, depth):
@@ -880,6 +901,9 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         if voting:
             return find_best_split_voting(hists, tots[0], fi, ok, cfg, mesh,
                                           scale)
+        if native_split:
+            return _native_best_split(dequantize(hists[0], scale[0]),
+                                      tots[0], fi[0], ok, cfg)
         per = [_best_split(dequantize(h, s), t[..., 0], t[..., 1],
                            t[..., 2], fi[j], ok, cfg)
                for j, (h, t, s) in enumerate(zip(hists, tots, scale))]
@@ -922,7 +946,8 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         """Device k's histogram of its bins, per original feature."""
         return h if efb is None else efb_expand(h, efb[k])
 
-    hist0 = holders([expand(k, compute_histogram(b, g, B, cfg.hist_method))
+    hist0 = holders([expand(k, compute_histogram(b, g, B, cfg.hist_method,
+                                                 cfg.quantized_max_code))
                      for k, (b, g) in enumerate(zip(bins, gh))])
     tot0 = totals(hist0)
     res = fetch(tot0, *best_splits(hist0, tot0, 0))
@@ -980,8 +1005,14 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
                 col = bins[d * F + owner][:, lidx].to(devs[k])
             else:
                 col = efb_feature_column(bins[k], feat, efb[k], B)
-            n_l.append(_partition_left(row_order[k], col, thr, int(off[d]),
-                                       int(cnt[d]), bits.get(devs[k])))
+            if native[k]:
+                n_l.append(native_partition(
+                    row_order[k], col, int(off[d]), int(cnt[d]), thr,
+                    best_bits[l] if best_is_cat[l] else None, W))
+            else:
+                n_l.append(_partition_left(row_order[k], col, thr,
+                                           int(off[d]), int(cnt[d]),
+                                           bits.get(devs[k])))
         cnt_l = _fetch(torch.cat([c.to(dev) for c in n_l[::F]])
                        ).astype(np.int64)
         cnt_r = cnt - cnt_l
@@ -1079,8 +1110,31 @@ def _segment_hists(bins, gh, row_order, offs, cnts, cfg: GrowerConfig,
             accum_mode(cfg.hist_method, gh[0]))[0])]
     return holders([
         expand(k, segment_histogram(b, g, o, int(offs[k // F]),
-                                    int(cnts[k // F]), B, cfg.hist_method))
+                                    int(cnts[k // F]), B, cfg.hist_method,
+                                    cfg.quantized_max_code))
         for k, (b, g, o) in enumerate(zip(bins, gh, row_order))])
+
+
+def _native_best_split(hist: torch.Tensor, tot: torch.Tensor,
+                       feat_info: torch.Tensor, depth_ok: bool,
+                       cfg: GrowerConfig):
+    """:func:`find_best_split` of a serial fit through the native split
+    scan (:func:`..ops.histogram.native_find_split`) over each of the
+    ``(..., f, B, 3)`` CPU histograms against its ``(..., 3)`` totals:
+    ``(gain, feature, bin, is_cat, bits)`` with no categorical split."""
+    flat_h = hist.reshape((-1,) + tuple(hist.shape[-3:]))
+    flat_t = tot.reshape(-1, 3).tolist()
+    res = [native_find_split(h, *t, feat_info[:, 0], depth_ok,
+                             cfg.min_data_in_leaf,
+                             cfg.min_sum_hessian_in_leaf, cfg.lambda_l1,
+                             cfg.lambda_l2,
+                             max(cfg.min_gain_to_split, EPS_GAIN))
+           for h, t in zip(flat_h, flat_t)]
+    shape = hist.shape[:-3]
+    gain = torch.stack([r[0] for r in res]).reshape(shape)
+    feat, b = (torch.tensor([r[i] for r in res]).reshape(shape)
+               for i in (1, 2))
+    return _no_cat(gain, feat, b, cfg)
 
 
 def _row_leaf(row_order: torch.Tensor, start: np.ndarray,

@@ -19,6 +19,9 @@ from mmlspark_tpu.gbdt.objectives import get_objective as ref_objective
 from mmlspark_tpu_torch.convert import (bin_mapper_from_arrays,
                                         booster_from_arrays)
 from mmlspark_tpu_torch.gbdt.booster import Booster, ModelDigestError
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "lightgbm_v3_golden.txt")

@@ -50,6 +50,9 @@ from mmlspark_tpu_torch.gbdt import grower as port
 from mmlspark_tpu_torch.gbdt.binning import BinMapper
 from mmlspark_tpu_torch.gbdt.engine import TrainParams, train
 from test_categorical import _interleaved_cat_data
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # -- binning -------------------------------------------------------------------
 

@@ -42,6 +42,9 @@ from mmlspark_tpu.ops.pallas_collectives import (fused_segment_hist_ring
 from mmlspark_tpu_torch.core.mesh import build_mesh
 from mmlspark_tpu_torch.ops import collectives as co
 from mmlspark_tpu_torch.ops import cuda_ring as cr
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SHAPES = [(11, 64, 3), (3,), (7, 5), (1, 129), (13, 17, 3)]
 

@@ -35,7 +35,9 @@ from mmlspark_tpu_torch import (LightGBMClassifier, LightGBMRanker,
 from mmlspark_tpu_torch.gbdt import (Booster, fit_bin_mapper, get_objective,
                                      train_incremental)
 from mmlspark_tpu_torch.gbdt.engine import TrainParams
-from torch_parity import data
+from torch_parity import data, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N, F = 2000, 8
 KW = dict(numIterations=5, learningRate=0.3, numLeaves=7, minDataInLeaf=10,

@@ -26,7 +26,10 @@ import pytest
 
 from mmlspark_tpu.gbdt import engine as ref_engine
 from mmlspark_tpu_torch.gbdt import engine
-from torch_parity import LEARNERS, data, fit_pair
+from torch_parity import (LEARNERS, data, fit_pair,
+                          one_torch_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL = dict(num_iterations=5, num_leaves=7, min_data_in_leaf=10)
 DEFAULT_DROPS = dict(boosting="dart")

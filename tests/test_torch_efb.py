@@ -21,7 +21,13 @@ the CPU.
 * The reference's own EFB tests (``tests/test_efb.py``) run on the port,
   each fit also held to the reference's model text.
 
-The reference pins ``histogram_method="segment"``.
+The reference pins ``histogram_method="segment"``, and so does the port
+in ``fit_pair`` and ``_fit_both`` (its CPU default, the native split
+scan, can part a near-tie; ``tests/test_torch_native_hist.py`` holds
+``_fit_both``'s fits on ``"auto"`` in both packages).  The fits several
+cases share are made once a module (:func:`mesh_bundled_12`: the D = 4
+bundled classifier of the two mesh-against-serial cases), and the module
+runs on one torch thread (``torch_parity.one_torch_thread``).
 """
 
 import jax
@@ -37,7 +43,9 @@ from mmlspark_tpu.gbdt import grower as ref_grower
 from mmlspark_tpu_torch import LightGBMClassifier, build_mesh
 from mmlspark_tpu_torch.gbdt import efb, engine, fit_bin_mapper, grower
 
-from torch_parity import fit_pair
+from torch_parity import fit_pair, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _sparse_table(rng, n=4000, groups=3, group_size=8, dense=2,
@@ -303,9 +311,10 @@ def test_max_conflict_rate_reaches_the_plan(monkeypatch):
 # -- the reference's own EFB tests (tests/test_efb.py), on the port ----------
 
 def _fit_both(table, **kw):
-    """The port's and the reference's (pinned to "segment") classifiers of
-    one fit; their model texts must agree byte for byte."""
-    port = LightGBMClassifier(device="cpu", **kw).fit(table)
+    """The port's and the reference's classifiers of one fit, both pinned
+    to "segment"; their model texts must agree byte for byte."""
+    port = LightGBMClassifier(device="cpu", histogramMethod="segment",
+                              **kw).fit(table)
     ref = RefClassifier(histogramMethod="segment", **kw).fit(table)
     assert port.getNativeModel() == ref.getNativeModel()
     return port
@@ -437,22 +446,28 @@ def _mesh_fit(table, d, feature=1, **kw):
     return port
 
 
-def test_port_mesh_matches_serial_with_bundling():
-    X, y = _sparse_table(np.random.default_rng(0), n=2000)
-    t = {"features": X, "label": y}
-    kw = dict(numIterations=12, numLeaves=15, verbosity=0, minDataInLeaf=5,
-              enableBundle=True)
-    p_serial = _prob(_fit_both(t, **kw), t)[:, 1]
-    p_mesh = _prob(_mesh_fit(t, 4, **kw), t)[:, 1]
-    _parity(p_mesh, p_serial)
+#: the 12-iteration fits of the two mesh-against-serial cases
+MESH_12 = dict(numIterations=12, numLeaves=15, verbosity=0, minDataInLeaf=5)
 
 
-def test_port_mesh_bundle_matches_mesh_plain():
+@pytest.fixture(scope="module")
+def mesh_bundled_12():
+    """``(table, the D = 4 bundled classifier of MESH_12)``, held to the
+    reference's model text once for both cases that compare with it."""
     X, y = _sparse_table(np.random.default_rng(0), n=2000)
     t = {"features": X, "label": y}
-    kw = dict(numIterations=12, numLeaves=15, verbosity=0, minDataInLeaf=5)
-    _parity(_prob(_mesh_fit(t, 4, enableBundle=True, **kw), t)[:, 1],
-            _prob(_mesh_fit(t, 4, **kw), t)[:, 1])
+    return t, _mesh_fit(t, 4, enableBundle=True, **MESH_12)
+
+
+def test_port_mesh_matches_serial_with_bundling(mesh_bundled_12):
+    t, mesh = mesh_bundled_12
+    p_serial = _prob(_fit_both(t, enableBundle=True, **MESH_12), t)[:, 1]
+    _parity(_prob(mesh, t)[:, 1], p_serial)
+
+
+def test_port_mesh_bundle_matches_mesh_plain(mesh_bundled_12):
+    t, mesh = mesh_bundled_12
+    _parity(_prob(mesh, t)[:, 1], _prob(_mesh_fit(t, 4, **MESH_12), t)[:, 1])
 
 
 def test_port_mesh_multiclass_bundled():

@@ -21,6 +21,9 @@ from mmlspark_tpu_torch.core.fuzzing import fuzzing_objects
 from mmlspark_tpu_torch.core.pipeline import (Estimator, Model,
                                               STAGE_REGISTRY)
 from mmlspark_tpu_torch.core.schema import DataTable
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 for _m in pkgutil.walk_packages(mmlspark_tpu_torch.__path__,
                                 "mmlspark_tpu_torch."):

@@ -29,6 +29,9 @@ from mmlspark_tpu.gbdt.objectives import get_objective as ref_objective
 from mmlspark_tpu_torch import LightGBMClassifier, LightGBMRegressor
 from mmlspark_tpu_torch.gbdt import fit_bin_mapper, get_objective
 from mmlspark_tpu_torch.gbdt.engine import TrainParams, train
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA_DIR = os.path.join(REPO, "tests", "benchmarks", "data")
@@ -61,7 +64,8 @@ def test_breast_cancer_classifier_matches_reference():
               minDataInLeaf=10, verbosity=0, seed=42)
     train_t = {"features": X[tr], "label": y[tr]}
     ref = RefClassifier(histogramMethod="segment", **kw).fit(train_t)
-    port = LightGBMClassifier(device="cpu", **kw).fit(train_t)
+    port = LightGBMClassifier(device="cpu", histogramMethod="segment",
+                              **kw).fit(train_t)
     _same_structure(ref.getModel().trees, port.getModel().trees)
     test_t = {"features": X[te]}
     ref_auc = roc_auc_score(

@@ -29,7 +29,10 @@ from mmlspark_tpu.gbdt import LightGBMClassifier as RefClassifier
 from mmlspark_tpu_torch import LightGBMClassifier
 from mmlspark_tpu_torch.gbdt.distributed import goss_sample, stable_order
 from mmlspark_tpu_torch.ops.threefry import prng_key, split
-from torch_parity import LEARNERS, data, fit_pair
+from torch_parity import (LEARNERS, data, fit_pair,
+                          one_torch_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GOSS = dict(boosting="goss", num_iterations=5, num_leaves=7,
             min_data_in_leaf=10)

@@ -20,6 +20,9 @@ from mmlspark_tpu.gbdt import grower as ref
 from mmlspark_tpu_torch.convert import tree_arrays_from_numpy
 from mmlspark_tpu_torch.gbdt import grower as port
 from mmlspark_tpu_torch.ops.cuda_histogram import histogram_plain
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 _ref_split = jax.jit(ref.find_best_split, static_argnames=("cfg",))
 

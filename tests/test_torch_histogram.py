@@ -22,6 +22,9 @@ from mmlspark_tpu.ops.pallas_histogram import (histogram_pallas,
 from mmlspark_tpu_torch.ops import cuda_histogram as ch
 from mmlspark_tpu_torch.ops.histogram import (compute_histogram,
                                               segment_histogram)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ACCUMS = ("float32", "bfloat16", "int32")
 F_MAX = 13

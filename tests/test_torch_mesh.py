@@ -42,6 +42,9 @@ from mmlspark_tpu_torch.gbdt import base, distributed, engine
 from mmlspark_tpu_torch.gbdt import fit_bin_mapper, get_objective
 from mmlspark_tpu_torch.gbdt.classifier import LightGBMClassificationModel
 from mmlspark_tpu_torch.gbdt.engine import TrainParams, train
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA_DIR = os.path.join(REPO, "tests", "benchmarks", "data")

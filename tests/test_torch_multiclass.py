@@ -34,6 +34,9 @@ from mmlspark_tpu_torch.core.mesh import build_mesh
 from mmlspark_tpu_torch.gbdt import engine, fit_bin_mapper, get_objective
 from mmlspark_tpu_torch.gbdt.engine import TrainParams, train
 from mmlspark_tpu_torch.gbdt.objectives import softmax
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 K = 3
 OBJECTIVES = ["multiclass", "multiclassova"]

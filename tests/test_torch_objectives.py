@@ -21,7 +21,9 @@ from mmlspark_tpu.gbdt import LightGBMRegressor as RefRegressor
 from mmlspark_tpu.gbdt.objectives import get_objective as ref_get
 from mmlspark_tpu_torch import LightGBMRegressor
 from mmlspark_tpu_torch.gbdt.objectives import get_objective
-from torch_parity import data, fit_pair
+from torch_parity import data, fit_pair, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CASES = [("binary", {}),
          ("binary", {"sigmoid": 0.7}),

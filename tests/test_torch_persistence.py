@@ -35,7 +35,9 @@ from mmlspark_tpu_torch import (LightGBMClassificationModel,
                                 LightGBMRegressor)
 from mmlspark_tpu_torch.core import Pipeline, PipelineModel
 from mmlspark_tpu_torch.gbdt.engine import REFERENCE_ONLY_PARAMS, TrainParams
-from torch_parity import data
+from torch_parity import data, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 KW = dict(numIterations=5, learningRate=0.3, numLeaves=7, minDataInLeaf=10,
           maxBin=63, verbosity=0)

@@ -7,24 +7,29 @@ fitted by the port (1,000 rows, 6 features, 5 iterations) and loaded into
 the reference from its model text.  The rows scored carry NaNs and, in the
 categorical columns, unseen and negative categories.
 
-* ``predictor()`` margins equal the reference's
-  ``predictor(backend="jit")`` and the port's own ``predict_margin`` bit
-  for bit, for the whole forest, an iteration count and tree ranges with
-  and without the init score; the partials of a split forest sum to the
-  full margins within rtol 1e-5 and atol 1e-5 (the reference's bound).
+* ``predictor()`` margins (on these CPU boosters the native scorer,
+  ``mode == "native"``) equal the reference's ``predictor(backend="jit")``,
+  the port's ``predictor(backend="jit")`` and its own ``predict_margin``
+  bit for bit, for the whole forest, an iteration count and tree ranges
+  with and without the init score; the partials of a split forest sum to
+  the full margins within rtol 1e-5 and atol 1e-5 (the reference's bound).
 * ``predict_leaf_index`` equals the reference's bit for bit.
 * The contract's errors: tree ranges off the class boundaries or outside
   the forest, ``num_iteration`` with a range, a stale predictor, and
-  ``backend="native"``, which names the scorer the port lacks.
+  ``backend="native"`` on a booster whose device is a card (the native
+  scorer runs on the CPU).
 """
 
 import numpy as np
 import pytest
+import torch
 
 from mmlspark_tpu.gbdt import Booster as RefBooster
 from mmlspark_tpu_torch import LightGBMClassifier
 from mmlspark_tpu_torch.gbdt import CompiledPredictor
-from torch_parity import data
+from torch_parity import data, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 KW = dict(numIterations=5, learningRate=0.3, numLeaves=7, minDataInLeaf=10,
           maxBin=63, verbosity=0, device="cpu")
@@ -61,10 +66,12 @@ def forest(request):
 def test_predictor_equals_reference_and_predict_margin(forest):
     booster, ref, X, K = forest
     pred = booster.predictor()
-    assert isinstance(pred, CompiledPredictor) and pred.mode == "jit"
+    assert isinstance(pred, CompiledPredictor) and pred.mode == "native"
     got = pred(X).numpy()
     assert np.array_equal(got, booster.predict_margin(X).numpy())
     assert np.array_equal(got, np.asarray(ref.predictor(backend="jit")(X)))
+    walk = booster.predictor(backend="jit")
+    assert walk.mode == "jit" and np.array_equal(walk(X).numpy(), got)
     got3 = booster.predictor(num_iteration=3, backend="jit")(X).numpy()
     assert np.array_equal(got3, booster.predict_margin(X, 3).numpy())
     assert np.array_equal(got3, np.asarray(
@@ -104,7 +111,7 @@ def test_leaf_indices_equal_reference(forest):
     assert np.array_equal(got, want)
 
 
-def test_predictor_contract_errors(forest):
+def test_predictor_contract_errors(forest, monkeypatch):
     booster, _, X, K = forest
     T = len(booster.trees)
     bad = [dict(tree_range=(0, T + K)),
@@ -116,8 +123,13 @@ def test_predictor_contract_errors(forest):
             booster.predictor(**kw)
     with pytest.raises(ValueError, match="backend"):
         booster.predictor(backend="xla")
-    with pytest.raises(RuntimeError, match="fastforest"):
+    # a booster on a card: the device resolves as it would there
+    from mmlspark_tpu_torch.gbdt import booster as booster_mod
+    monkeypatch.setattr(booster_mod, "resolve_device", torch.device)
+    monkeypatch.setattr(booster, "device", "cuda:0")
+    with pytest.raises(RuntimeError, match="runs on the CPU"):
         booster.predictor(backend="native")
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="feature index"):
         booster.predictor()(X[:, :3])
 

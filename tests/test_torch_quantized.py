@@ -41,7 +41,10 @@ from mmlspark_tpu_torch.gbdt.engine import TrainParams
 from mmlspark_tpu_torch.ops.collectives import (ring_allreduce,
                                                 ring_allreduce_plain,
                                                 ring_allreduce_select)
-from torch_parity import LEARNERS, data, fit_pair
+from torch_parity import (LEARNERS, data, fit_pair,
+                          one_torch_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 Q16 = dict(quantized_grad="16", num_iterations=5, num_leaves=7,
            min_data_in_leaf=10)
@@ -229,6 +232,7 @@ def test_quantized_estimator_equals_reference():
               quantizedGrad="8")
     table = {"features": X, "label": y}
     want = RefClassifier(histogramMethod="segment", **kw).fit(table)
-    got = LightGBMClassifier(device="cpu", **kw).fit(table)
+    got = LightGBMClassifier(device="cpu", histogramMethod="segment",
+                             **kw).fit(table)
     assert got.getNativeModel() == want.getNativeModel()
     assert engine.last_fit_info["quantized_max_code"] == "127"

@@ -29,6 +29,9 @@ from mmlspark_tpu.gbdt import LightGBMRanker as RefRanker
 from mmlspark_tpu.gbdt import ranking as ref_ranking
 from mmlspark_tpu_torch import LightGBMRanker, build_mesh, ndcg_at_k
 from mmlspark_tpu_torch.gbdt import engine, ranking
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_discount_equals_compiled_reference_at_every_rank():

@@ -23,7 +23,9 @@ from mmlspark_tpu_torch import (LightGBMClassificationModel,
                                 LightGBMRankerModel, LightGBMRegressionModel,
                                 LightGBMRegressor)
 from mmlspark_tpu_torch.gbdt import Booster
-from torch_parity import data
+from torch_parity import data, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 KW = dict(numIterations=5, learningRate=0.3, numLeaves=7, minDataInLeaf=10,
           maxBin=63, verbosity=0, device="cpu")

@@ -16,6 +16,9 @@ import pytest
 import torch
 
 from mmlspark_tpu_torch.ops import threefry
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SEEDS = [0, 42, 2 ** 31 - 1]
 SHAPES = [(1,), (7,), (65_537,), (1_000, 2)]

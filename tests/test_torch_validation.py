@@ -29,7 +29,10 @@ from mmlspark_tpu.gbdt import LightGBMClassifier as RefClassifier
 from mmlspark_tpu.gbdt import LightGBMRegressor as RefRegressor
 from mmlspark_tpu_torch import LightGBMClassifier, LightGBMRegressor
 from mmlspark_tpu_torch.gbdt import engine
-from torch_parity import LEARNERS, data, fit_pair
+from torch_parity import (LEARNERS, data, fit_pair,
+                          one_torch_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ES = dict(num_iterations=40, learning_rate=0.4, num_leaves=7,
           min_data_in_leaf=10, early_stopping_round=3)

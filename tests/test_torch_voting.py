@@ -43,6 +43,9 @@ from mmlspark_tpu_torch.core.mesh import build_mesh
 from mmlspark_tpu_torch.gbdt import engine, fit_bin_mapper, get_objective
 from mmlspark_tpu_torch.gbdt import grower as port
 from mmlspark_tpu_torch.gbdt.engine import TrainParams, train
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(num_iterations=3, num_leaves=7, min_data_in_leaf=5, max_bin=63,

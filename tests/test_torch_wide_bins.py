@@ -28,7 +28,9 @@ from mmlspark_tpu_torch.gbdt import engine, fit_bin_mapper, grower
 from mmlspark_tpu_torch.ops import cuda_histogram as ch
 from mmlspark_tpu_torch.ops.histogram import _hist_onehot
 
-from torch_parity import data, fit_pair
+from torch_parity import data, fit_pair, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("max_bin", [511, 1023, 4095])

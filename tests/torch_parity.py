@@ -2,16 +2,29 @@
 for the parity tests of validation, GOSS and quantized training.
 
 :func:`fit_pair` bins the training rows with each package's mapper, runs
-each package's ``engine.train`` (the reference pinned to
-``histogram_method="segment"`` unless asked otherwise) serially or on a
+each package's ``engine.train`` (both on ``histogram_method="segment"``
+unless asked otherwise) serially or on a
 ``data × feature`` mesh of CPU devices (the reference's over the forced
 8-device host platform of ``tests/conftest.py``), with an optional
 validation set scored by each package's own estimator metric, and returns
 both boosters.
+
+:func:`reference_native` waits until the reference's native kernels load
+(it builds them at first use, and a worker that reads a library another
+worker is still writing caches the failure).
+
+:func:`one_torch_thread` runs a module's tests with one torch thread: the
+port's CPU fits are chains of small torch operations, and with several
+test workers on the machine's cores each operation that torch splits over
+its threads waits for threads the other workers keep busy.
 """
+
+import time
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from mmlspark_tpu.core.mesh import build_mesh as ref_build_mesh
 from mmlspark_tpu.gbdt import LightGBMClassifier as RefClassifier
@@ -103,3 +116,37 @@ def fit_pair(X, y, objective, d=1, feature=1, val=None, categorical=(),
                  TrainParams(histogram_method=method, **params),
                  device="cpu", mesh=pmesh, **pval)
     return ref, port
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch thread for the module's tests, the previous count
+    restored after them."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def reference_native():
+    """The reference's native binning, forest scorer and FFI histogram
+    kernels, loaded: where a load failed (its library was being written by
+    another test worker), the failure is forgotten and the load retried,
+    for up to a minute."""
+    from mmlspark_tpu import native as ref_native
+    from mmlspark_tpu.ops import histogram as ref_hist
+    for _ in range(60):
+        if (ref_native.bin_columns_available()
+                and ref_native.predict_forest_available()
+                and ref_hist._native_available()):
+            return
+        for stem in ("_fastbin", "_fastforest"):
+            if ref_native._mods.get(stem, 0) is None:
+                del ref_native._mods[stem]
+        if ref_native._FFI_LIB is False:
+            ref_native._FFI_LIB = None
+        if ref_hist._NATIVE_OK is False:
+            ref_hist._NATIVE_OK = None
+        time.sleep(1)
+    raise RuntimeError("the reference's native kernels did not load")
