@@ -271,7 +271,26 @@ Phases, each printing one JSON line:
    tree identical to the card fit's; and a flagship fit with
    ``MMLSPARK_TPU_HBM_BYTES`` at half main_path's estimate, which must
    raise ``MemoryError`` before any kernel launches.
-22. collectives_cross_card — phase 7's checks with one shard per card,
+22. fault_tolerance_path — chunk-boundary checkpoints, kill and resume,
+   and chunk replay through ``engine.train`` on the flagship (400,000 ×
+   50, the main path's settings, bagging every 3rd iteration at 0.8,
+   feature fraction 0.8, 20 iterations, boundaries every 5): after a
+   5-iteration warm-up, the fit without and with ``checkpoint_dir`` in
+   turns (plain, checkpointed, checkpointed, plain: seconds, the saves'
+   seconds, the snapshot's bytes on disk after each boundary, one model
+   text); the same fit in a subprocess (``chip_smoke.py
+   --fault-tolerance-worker DIR``) that exits in its callback at
+   iteration 10, after boundary 10 is durable, resumed here
+   (``ckpt_resumed`` = 1, the directory cleared); the fit with
+   ``fault_tolerant_retries=1`` whose chunk 2 fails once after
+   ``ChaosBoostStep`` drops its device arrays (``chunks_replayed`` = 1);
+   a D = 4 one-card mesh fit with the last 40,000 rows as its
+   validation set and psum, replayed and resumed alike; and that mesh fit
+   on the ring (``collective="ring"``, ``ring_allreduce`` once a tree and
+   split), replayed.  Every recovered fit must write the uninterrupted
+   fit's model text byte for byte, and the phase's fits must launch both
+   histogram kernels and the ring.
+23. collectives_cross_card — phase 7's checks with one shard per card,
    D = min(cards, 4), where the host has at least two cards; elsewhere it
    prints ``"ran": false`` (not a failure).
 
@@ -300,7 +319,8 @@ the histogram kernels at the ranking shapes, launches from
 ``efb_path``, their wide modes at B = 1,024 and 512, launches from
 ``wide_bins_path``, and the flagship rows again with the launches of
 ``continued_path``'s serial and D = 4 continuations, mode
-``continued``), the card line, and last the ``{"ok": true, ...}``
+``continued``, and with the launches of ``fault_tolerance_path``'s fits,
+mode ``fault_tolerance``), the card line, and last the ``{"ok": true, ...}``
 line.  Any failed phase makes the script exit 1 without that last line.
 
     python3 chip_smoke.py --phases kernels,main_path
@@ -3686,6 +3706,249 @@ def phase_native_path(state):
     return res
 
 
+#: fault_tolerance_path: the flagship fit's iterations, the checkpoint
+#: cadence, the iteration after whose chunk the worker dies (boundary
+#: FT_KILL_AT is durable then), the worker's exit code, the D = 4 mesh
+#: fit's validation rows (the flagship's last rows) and the chaos seed
+FT_ITERATIONS, FT_CHUNK, FT_KILL_AT, FT_KILL_CODE = 20, 5, 10, 37
+FT_VAL_ROWS = 40_000
+FT_SEED = 14
+_FT = {}
+
+
+def _ft_inputs():
+    """The flagship rows binned on the host once (``fit_codes``), on the
+    card, with their labels and mapper."""
+    if not _FT:
+        from mmlspark_tpu_torch.gbdt import fit_bin_mapper
+        from mmlspark_tpu_torch.gbdt.base import fit_codes
+        X, y = bench_data(N_ROWS, N_FEATURES)
+        mapper = fit_bin_mapper(X, max_bin=255)
+        _FT.update(y=y, mapper=mapper, bins=fit_codes(mapper, X, DEV))
+    return _FT
+
+
+def _logloss(margins, labels, weights):
+    import numpy as np
+    p = np.clip(1.0 / (1.0 + np.exp(-margins)), 1e-15, 1 - 1e-15)
+    return float(-np.mean(labels * np.log(p) + (1 - labels) * np.log(1 - p)))
+
+
+def _ft_fit(callbacks=None, mesh=None, **kw):
+    """fault_tolerance_path's fit through ``engine.train``: the flagship
+    at the main path's settings with bagging every 3rd iteration and
+    feature fraction, FT_ITERATIONS iterations, boundaries every FT_CHUNK;
+    on ``mesh`` the last FT_VAL_ROWS rows are its validation set."""
+    from mmlspark_tpu_torch.gbdt import engine, get_objective
+    d = _ft_inputs()
+    bins, y = d["bins"], d["y"]
+    extra = {}
+    if mesh is not None:
+        cut = N_ROWS - FT_VAL_ROWS
+        extra = dict(val_bins=bins[cut:], val_labels=y[cut:],
+                     val_metric=_logloss)
+        bins, y = bins[:cut], y[:cut]
+    params = engine.TrainParams(**{**dict(
+        num_iterations=FT_ITERATIONS, learning_rate=0.1, num_leaves=31,
+        max_bin=255, min_data_in_leaf=20, verbosity=0,
+        bagging_fraction=0.8, bagging_freq=3, feature_fraction=0.8,
+        checkpoint_chunk=FT_CHUNK), **kw})
+    return engine.train(bins, y, None, d["mapper"],
+                        get_objective("binary"), params, device=DEV,
+                        mesh=mesh, callbacks=callbacks, **extra)
+
+
+def fault_tolerance_worker(ckpt_dir):
+    """The killed fit of fault_tolerance_path, run as
+    ``chip_smoke.py --fault-tolerance-worker DIR``: fault_tolerance_path's
+    serial fit checkpointing into DIR, which exits with FT_KILL_CODE
+    (``os._exit``: no cleanup) in its callback at iteration FT_KILL_AT,
+    after the boundary FT_KILL_AT is durable."""
+    def die(it, trees):
+        if it >= FT_KILL_AT:
+            os._exit(FT_KILL_CODE)
+
+    _ft_fit([die], checkpoint_dir=ckpt_dir)
+    print("chip_smoke: the worker's fit was not killed", file=sys.stderr)
+    return 1
+
+
+def _ft_timed(**kw):
+    """One fault_tolerance_path fit: ``(model text, seconds)``."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    booster = _ft_fit(**kw)
+    torch.cuda.synchronize()
+    return booster.save_native_model_string(), time.perf_counter() - t0
+
+
+def _ft_counters():
+    from mmlspark_tpu_torch.gbdt import engine
+    return dict(engine.train_stats.snapshot()["counters"])
+
+
+def _ft_replayed(tmp, name, **kw):
+    """The fit with one retry, chunk 2's first attempt failing after
+    the fit's device arrays are dropped: ``(text, seconds,
+    chunks_replayed)``."""
+    from mmlspark_tpu_torch.gbdt import engine
+    from mmlspark_tpu_torch.io.chaos import ChaosBoostStep, ChaosPlan
+    inner = engine._boost_chunk
+    engine._boost_chunk = step = ChaosBoostStep(
+        inner, ChaosPlan(FT_SEED), fail_on_calls={2}, drop_device=True)
+    before = _ft_counters()
+    try:
+        text, sec = _ft_timed(checkpoint_dir=os.path.join(tmp, name),
+                              fault_tolerant_retries=1, **kw)
+    finally:
+        engine._boost_chunk = inner
+    if step.failures != 1:
+        raise AssertionError(f"{name}: the injector failed "
+                             f"{step.failures} chunks, not 1")
+    return text, sec, _ft_counters()["chunks_replayed"] - \
+        before["chunks_replayed"]
+
+
+def phase_fault_tolerance_path(state):
+    """Chunk-boundary checkpoints, kill and resume, and chunk replay on
+    the card (``engine.train`` with ``checkpoint_dir`` and
+    ``fault_tolerant_retries``): (a) the flagship fit with and without
+    checkpoints, the saves' seconds and bytes; (b) the same fit killed in
+    a subprocess after boundary FT_KILL_AT and resumed here; (c) replayed
+    after an injected failure of chunk 2 that also drops the fit's
+    device arrays; (d) a D = 4 one-card mesh fit with validation and
+    psum, replayed and resumed alike, and on the ring, replayed.  Every
+    recovered fit must write its uninterrupted fit's model text."""
+    import shutil
+    import tempfile
+    from mmlspark_tpu_torch.core.mesh import build_mesh
+    from mmlspark_tpu_torch.gbdt import engine
+    from mmlspark_tpu_torch.io.chaos import read_ckpt_boundary
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    try:
+        _ft_fit(num_iterations=WARM_ITERATIONS)          # warms the card
+        # plain, checkpointed, checkpointed, plain: in turns
+        fits, saved = {"plain": [], "ckpt": []}, []
+        for i, kind in enumerate(("plain", "ckpt", "ckpt", "plain")):
+            kw = ({} if kind == "plain"
+                  else dict(checkpoint_dir=os.path.join(tmp, f"a{i}")))
+            fits[kind].append(_ft_timed(**kw))
+            if kind == "ckpt":
+                saved.append(dict(engine.last_checkpoint))
+        plain = fits["plain"][0][0]
+        res = {"rows": N_ROWS, "features": N_FEATURES,
+               "iterations": FT_ITERATIONS, "checkpoint_chunk": FT_CHUNK,
+               "reference_fit": {
+                   "plain_fit_s": [s for _, s in fits["plain"]],
+                   "checkpointed_fit_s": [s for _, s in fits["ckpt"]],
+                   "saves": [c["saves"] for c in saved],
+                   "save_s": [c["save_seconds"] for c in saved],
+                   "bytes_on_disk_per_boundary": saved[0]["bytes"],
+                   "same_model_text": all(
+                       t == plain for t, _ in fits["plain"] + fits["ckpt"])}}
+
+        # (b) killed in a subprocess, resumed here
+        ck = os.path.join(tmp, "b")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--fault-tolerance-worker", ck],
+                           capture_output=True, text=True, timeout=600)
+        worker_s = time.perf_counter() - t0
+        boundary = read_ckpt_boundary(ck)
+        before = _ft_counters()
+        resumed, resume_s = _ft_timed(checkpoint_dir=ck)
+        res["kill_and_resume"] = {
+            "worker_rc": r.returncode, "worker_s": worker_s,
+            "worker_stderr_tail": r.stderr[-500:],
+            "boundary": boundary,
+            "resumed_from": engine.last_checkpoint["resumed_from"],
+            "ckpt_resumed": _ft_counters()["ckpt_resumed"]
+            - before["ckpt_resumed"],
+            "resume_fit_s": resume_s, "same_model_text": resumed == plain,
+            "directory_cleared": os.listdir(ck) == []}
+
+        # (c) replay on one card
+        replayed, replay_s, n_replayed = _ft_replayed(tmp, "c")
+        res["replay"] = {"fit_s": replay_s, "chunks_replayed": n_replayed,
+                         "same_model_text": replayed == plain}
+
+        # (d) the D = 4 one-card mesh with validation and psum
+        mesh = build_mesh(MESH_SHARDS, devices=[DEV] * MESH_SHARDS)
+        mkw = dict(mesh=mesh, collective="psum", early_stopping_round=10)
+        mplain, mplain_s = _ft_timed(**mkw)
+        mreplayed, mreplay_s, mn = _ft_replayed(tmp, "d", **mkw)
+
+        class Interrupt(Exception):
+            pass
+
+        def interrupt(it, trees):
+            if it >= FT_KILL_AT:
+                raise Interrupt
+
+        mck = os.path.join(tmp, "e")
+        try:
+            _ft_fit([interrupt], checkpoint_dir=mck, **mkw)
+        except Interrupt:
+            pass
+        mboundary = read_ckpt_boundary(mck)
+        before = _ft_counters()
+        mresumed, mresume_s = _ft_timed(checkpoint_dir=mck, **mkw)
+        res["mesh"] = {
+            "shards": MESH_SHARDS, "collective": "psum",
+            "validation_rows": FT_VAL_ROWS, "plain_fit_s": mplain_s,
+            "replay_fit_s": mreplay_s, "chunks_replayed": mn,
+            "replay_same_model_text": mreplayed == mplain,
+            "boundary": mboundary,
+            "ckpt_resumed": _ft_counters()["ckpt_resumed"]
+            - before["ckpt_resumed"],
+            "resume_fit_s": mresume_s,
+            "resume_same_model_text": mresumed == mplain,
+            "stop_iteration": engine.last_validation.get("stop_iteration")}
+        # the same mesh fit on the ring kernel (deterministic), replayed
+        rkw = dict(mkw, collective="ring")
+        rplain, rplain_s = _ft_timed(**rkw)
+        rreplayed, rreplay_s, rn = _ft_replayed(tmp, "f", **rkw)
+        res["mesh_ring"] = {"plain_fit_s": rplain_s,
+                            "replay_fit_s": rreplay_s, "chunks_replayed": rn,
+                            "replay_same_model_text": rreplayed == rplain}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    state["ft_launches"] = launches
+    res["launches"] = launches
+    res["counters"] = _ft_counters()
+    kr, mres = res["kill_and_resume"], res["mesh"]
+    bad = []
+    if not res["reference_fit"]["same_model_text"] or any(
+            c["saves"] != (FT_ITERATIONS - 1) // FT_CHUNK for c in saved):
+        bad.append("the checkpointed fit")
+    if kr["worker_rc"] != FT_KILL_CODE or kr["boundary"] != FT_KILL_AT \
+            or kr["resumed_from"] != FT_KILL_AT or kr["ckpt_resumed"] != 1 \
+            or not kr["same_model_text"] or not kr["directory_cleared"]:
+        bad.append("kill and resume")
+    if res["replay"]["chunks_replayed"] != 1 or \
+            not res["replay"]["same_model_text"]:
+        bad.append("the serial replay")
+    if mres["chunks_replayed"] != 1 or not mres["replay_same_model_text"] \
+            or mres["boundary"] != FT_KILL_AT or mres["ckpt_resumed"] != 1 \
+            or not mres["resume_same_model_text"]:
+        bad.append("the mesh replay or resume")
+    if res["mesh_ring"]["chunks_replayed"] != 1 or \
+            not res["mesh_ring"]["replay_same_model_text"]:
+        bad.append("the mesh ring replay")
+    if not all(launches[k] for k in ("hist_full", "hist_segment",
+                                     "ring_allreduce")):
+        bad.append("the kernels' launches")
+    if bad:
+        raise AssertionError(f"fault_tolerance_path: {', '.join(bad)} "
+                             f"failed: {res}")
+    return res
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r["accum"] == "float32" and "path" not in r
@@ -3748,7 +4011,10 @@ def kernels_line(state):
             + [(k, rows.get(k, {}), state.get("cont_launches", {}).get(k, 0),
                 "continued") for k in ("hist_full", "hist_segment",
                                        "ring_allreduce",
-                                       "fused_segment_hist_ring")]):
+                                       "fused_segment_hist_ring")]
+            + [(k, rows.get(k, {}), state.get("ft_launches", {}).get(k, 0),
+                "fault_tolerance") for k in ("hist_full", "hist_segment",
+                                             "ring_allreduce")]):
         out.append({"name": name if mode == "float32" else f"{name}_{mode}",
                     "mode": "int32" if mode == "int32" else "float32",
                     "route": "cuda", "source": SOURCES[name],
@@ -3767,6 +4033,8 @@ def kernels_line(state):
 
 def main(argv) -> int:
     import torch
+    if argv[:1] == ["--fault-tolerance-worker"] and len(argv) == 2:
+        return fault_tolerance_worker(argv[1])
     only = None
     if argv:
         if len(argv) != 2 or argv[0] != "--phases":
@@ -3808,6 +4076,8 @@ def main(argv) -> int:
               ("efb_path", lambda: phase_efb_path(state)),
               ("wide_bins_path", lambda: phase_wide_bins_path(state)),
               ("native_path", lambda: phase_native_path(state)),
+              ("fault_tolerance_path",
+               lambda: phase_fault_tolerance_path(state)),
               ("collectives_cross_card", phase_collectives_cross_card),
               ("kernels_flagship", lambda: phase_kernels_flagship(state))]
     if only is not None:

@@ -12,9 +12,9 @@ its trees come first in the fitted forest), ``initScoreCol`` seeds the
 scores with per-row offsets, and ``profileTraceDir`` records a
 ``torch.profiler`` trace of the fit.  Cluster-shaped params
 (``useBarrierExecutionMode``, ``numTasks``, ``numThreads``) are accepted
-and recorded but do not change the fit, as in the reference.  Params whose
-feature is not ported yet are declared so that asking for one raises
-``NotImplementedError`` instead of training something else.
+and recorded but do not change the fit, as in the reference.
+``checkpointDir`` and ``faultTolerantRetries`` reach the engine's
+chunk-boundary checkpoints and chunk replay.
 """
 
 from __future__ import annotations
@@ -223,19 +223,18 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasFeaturesShapCol,
         "Directory for a torch.profiler trace of the whole fit, host and "
         "card (empty disables); a Chrome trace, readable in Perfetto",
         default="", typeConverter=TypeConverters.toString)
-    # -- params of features the port has not reached yet (ROADMAP.md) ------
-    checkpointDir = Param("checkpointDir", "Checkpoints are not ported yet",
-                          default="", typeConverter=TypeConverters.toString)
-
-    def _refuse_unported(self) -> None:
-        asks = {
-            "checkpointDir": bool(self.getCheckpointDir()),
-        }
-        asked = [k for k, v in asks.items() if v]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: not ported to mmlspark_tpu_torch yet "
-                "(ROADMAP.md lists what the port still refuses)")
+    checkpointDir = Param(
+        "checkpointDir",
+        "Directory for chunk-boundary training checkpoints: a killed "
+        "fit re-run with the same settings resumes from the last "
+        "completed chunk, bit-identically (empty disables)", default="",
+        typeConverter=TypeConverters.toString)
+    faultTolerantRetries = Param(
+        "faultTolerantRetries",
+        "Chunk-level training failure recovery: snapshot boosting state "
+        "at chunk boundaries and replay a failed chunk up to this many "
+        "times (0 disables)", default=0,
+        typeConverter=TypeConverters.toInt)
 
     def _train_params(self) -> TrainParams:
         pass_through = {}
@@ -280,6 +279,8 @@ class LightGBMParams(HasFeaturesCol, HasDevice, HasFeaturesShapCol,
             max_cat_threshold=self.getMaxCatThreshold(),
             max_cat_to_onehot=self.getMaxCatToOnehot(),
             verbosity=self.getVerbosity(),
+            fault_tolerant_retries=self.getFaultTolerantRetries(),
+            checkpoint_dir=self.getCheckpointDir(),
             pass_through=pass_through,
         )
 
@@ -399,7 +400,6 @@ class LightGBMBase(Estimator, LightGBMParams):
         return booster
 
     def _fit(self, table: DataTable) -> "LightGBMModelBase":
-        self._refuse_unported()
         X = features_matrix(table, self.getFeaturesCol())
         y = self._prepare_labels(table[self.getLabelCol()])
         wcol = self.getWeightCol()

@@ -65,15 +65,40 @@ decides between the data (or voting), feature and data+feature learners.
   ``best_iter + 1`` iterations.  As in the reference, an iteration in
   which no class's tree split then cuts the forest after it and records
   it as the stop.
+* **Chunks, checkpoints and replay** (the reference's ``_boost_scan``
+  chunks): the gbdt / goss / rf loop runs in chunks of iterations
+  (:func:`_chunk_size`, the reference's bounds, so both packages save at
+  the same boundaries), each one call of :func:`_boost_chunk`.  With
+  ``checkpoint_dir`` every boundary is saved (:mod:`.checkpoint`): the
+  trees, the scores per data shard, the validation scores, the carried
+  bag row, both numpy streams and the early-stopping bests, which is
+  every piece of state the loop carries (GOSS's keys are drawn for all
+  iterations up front, the quantizer's key folds in each tree's peak
+  gradient, the EFB plan rebuilds from the bins and the lambdarank
+  gradient source holds only its query structure); a re-run of the same
+  fit resumes from the last boundary and writes the same forest.  With
+  ``fault_tolerant_retries`` > 0 the scores and validation scores are
+  copied to the host before each chunk, and a chunk that raises is
+  replayed: every device input is uploaded again from host copies and
+  rebound (:meth:`_BoostFit.upload`).  A sticky CUDA error (an illegal
+  address, a launch failure) leaves the process's CUDA context unusable,
+  so every in-process replay fails alike and the error is re-raised once
+  the retries are spent; a checkpoint then resumes the fit in a new
+  process.  As in the reference, DART and lambdarank do not checkpoint
+  (a warning says so), and DART does not replay.  ``callbacks`` are
+  called as ``cb(it, trees)`` after each chunk for its iterations, in
+  order.
 """
 
 from __future__ import annotations
 
+import glob
 import logging
+import os
 import time
 from collections import Counter
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -86,9 +111,15 @@ from .binning import BinMapper
 from .booster import Booster, host_tree_from_arrays
 from .budget import (check_fit_budget, estimate_fit_bytes,
                      kernel_workspace_bytes)
-from .distributed import (boost_iteration, check_parallelism, dart_grow,
-                          goss_iteration, objective_grads, prepare_arrays,
-                          shard_full_bins, sharded_cfg, unit_margin)
+from .checkpoint import (TreeChunk, _ckpt_clear, _ckpt_event,
+                         _ckpt_fingerprint, _ckpt_fingerprint_mesh,
+                         _ckpt_load, _ckpt_load_mesh, _ckpt_save,
+                         _ckpt_save_mesh, _host,
+                         train_stats)  # noqa: F401 - engine.train_stats
+from .distributed import (ShardArrays, boost_iteration, check_parallelism,
+                          dart_grow, goss_iteration, objective_grads,
+                          prepare_arrays, shard_full_bins, sharded_cfg,
+                          unit_margin)
 from .efb import bundle_matrix, expansion_arrays, find_bundles
 from .grower import (GrowerConfig, apply_shrinkage, collective_schedule,
                      predict_tree_binned)
@@ -108,16 +139,17 @@ last_fit_budget: Dict[str, int] = {}
 #: the validation walks and metrics took (empty without a validation set).
 last_validation: Dict[str, object] = {}
 
+#: The last fit's checkpoints: the boundaries saved, the seconds the
+#: saves took, the snapshot files' bytes on disk after each save, and the
+#: boundary the fit resumed from (None: it started fresh; empty without
+#: ``checkpoint_dir``).
+last_checkpoint: Dict[str, object] = {}
+
 #: TrainParams fields of the reference that the port's lacks, with their
 #: defaults.  A ``pass_through`` key naming one is an engine key in the
 #: reference, so the model text does not record it either.  The packed
-#: gather layout and the checkpoint cadence do not change a forest;
-#: checkpoints and fault-tolerant retries are not ported yet and refuse
-#: anything but their default.
-REFERENCE_ONLY_PARAMS = {"packed_gather": False,
-                         "fault_tolerant_retries": 0,
-                         "checkpoint_dir": "", "checkpoint_chunk": 32}
-_UNPORTED_PARAMS = ("fault_tolerant_retries", "checkpoint_dir")
+#: gather layout does not change a forest.
+REFERENCE_ONLY_PARAMS = {"packed_gather": False}
 
 
 def _coerce(key: str, value, like):
@@ -200,6 +232,21 @@ class TrainParams:
     enable_bundle: bool = False
     max_conflict_rate: float = 0.0
     verbosity: int = 1
+    #: chunk-level failure recovery: > 0 copies the scores to the host
+    #: before each chunk and replays a chunk that raises up to this many
+    #: times, every device input uploaded again (:func:`train`)
+    fault_tolerant_retries: int = 0
+    #: a directory where every chunk boundary is saved; a killed fit
+    #: re-run with the same inputs and params resumes from the last
+    #: boundary and writes the same forest.  The snapshot is
+    #: fingerprinted (shapes, params, data, topology), discarded with a
+    #: warning on a mismatch, and deleted when the fit completes
+    #: (:mod:`.checkpoint`).  Inert, with a warning, for DART and
+    #: lambdarank
+    checkpoint_dir: str = ""
+    #: the most iterations between two boundaries when checkpointing;
+    #: chunking never changes the forest, and the fingerprint leaves it out
+    checkpoint_chunk: int = 32
     #: raw pass-through params (``passThroughArgs``), recorded in the model
     #: text.  A key naming a field is applied onto it (coerced from its
     #: string) after the constructor, as in the reference, and is not
@@ -211,12 +258,7 @@ class TrainParams:
             if k == "pass_through":
                 continue
             if k in REFERENCE_ONLY_PARAMS:
-                val = _coerce(k, v, REFERENCE_ONLY_PARAMS[k])
-                if k in _UNPORTED_PARAMS and val != REFERENCE_ONLY_PARAMS[k]:
-                    raise NotImplementedError(
-                        f"passThroughArgs {k}={v!r}: checkpoints and "
-                        "fault-tolerant retries are not ported to "
-                        "mmlspark_tpu_torch yet (ROADMAP.md)")
+                _coerce(k, v, REFERENCE_ONLY_PARAMS[k])
                 continue
             if hasattr(self, k):
                 setattr(self, k, _coerce(k, v, getattr(self, k)))
@@ -498,20 +540,24 @@ def _dart_draw_drops(dart_rng, n_units: int, params: TrainParams
 
 
 def _dart_fit(arrays, grads_at, cfg: GrowerConfig, params: TrainParams,
-              mesh: Optional[Mesh], K: int, bag_draw, fi_draw):
+              mesh: Optional[Mesh], K: int, bag_draw, fi_draw,
+              callbacks: Sequence[Callable] = (), to_host=None):
     """The DART host loop (the reference's ``_dart_host_loop``, shared by
     the serial fit and the mesh): per iteration the drops, the dropped
     units' scaled margins subtracted from every device's scores, K trees
     grown at those scores (``grads_at(scores per device, bag)``) and
     shrunk, then the 1/(k+1) normalisation and the dropped units'
     rescale.  Each step rounds as the reference's eager ``jnp`` does.
-    Returns the iteration-major trees, one scale per iteration, whether
-    each iteration split, and every device's final training scores."""
+    After each iteration every callback is called as ``cb(it, trees)``
+    with the host trees so far (``to_host`` converts one), before DART's
+    rescale.  Returns the iteration-major trees, one scale per iteration,
+    whether each iteration split, and every device's final training
+    scores."""
     F = arrays.feature
     full_bins = shard_full_bins(arrays)
     scores = list(arrays.scores)
     dart_rng = np.random.default_rng(params.drop_seed)
-    units, scales, grew = [], [], []
+    units, scales, grew, host = [], [], [], []
 
     def margin(i):
         return unit_margin(units[i], full_bins, cfg.num_leaves, F,
@@ -539,7 +585,215 @@ def _dart_fit(arrays, grads_at, cfg: GrowerConfig, params: TrainParams,
         units.append(unit)
         scales.append(norm)
         grew.append(any(int(t.num_leaves) > 1 for t in unit[0]))
+        if callbacks:
+            host += [to_host(t) for t in unit[0]]
+            for cb in callbacks:
+                cb(it, host)
     return [t for u in units for t in u[0]], scales, grew, scores
+
+
+def _chunk_size(params: TrainParams, T: int, has_val: bool,
+                callbacks: bool, use_bag: bool, use_mesh: bool,
+                ckpt: str) -> int:
+    """Iterations a chunk of the boosting loop runs: the reference's
+    bounds, in its order for the path (``_train_impl``'s serial scan,
+    ``_train_distributed`` on a mesh), so both packages save at the same
+    boundaries.  A validation set bounds the chunk to ``max(min(esr, 64),
+    8)`` under early stopping, else 64; callbacks to 8 (serially only
+    without a validation set); bagging to 64; retries to 32; then
+    ``checkpoint_chunk`` when checkpointing."""
+    esr = params.early_stopping_round
+    val_chunk = max(min(esr, 64), 8) if esr > 0 else 64
+    if use_mesh:
+        chunk = min(T, 64) if use_bag else T
+        if has_val:
+            chunk = min(chunk, val_chunk)
+        if callbacks:
+            chunk = min(chunk, 8)
+    else:
+        chunk = (min(T, val_chunk) if has_val
+                 else min(T, 8) if callbacks else T)
+        if use_bag:
+            chunk = min(chunk, 64)
+    if params.fault_tolerant_retries > 0:
+        chunk = min(chunk, 32)
+    if ckpt:
+        chunk = min(chunk, max(1, params.checkpoint_chunk))
+    return max(chunk, 1)
+
+
+def _draw_bag_row(bag_rng: np.random.Generator, n: int,
+                  fraction: float) -> np.ndarray:
+    """One bag over the source rows: exactly ``n`` randoms, so that the
+    stream is a serial fit's on every mesh."""
+    return (bag_rng.random(n) < fraction).astype(np.float32)
+
+
+def _bag_on_devices(arrays: ShardArrays, row: np.ndarray,
+                    devices) -> list:
+    """A host bag row laid into the padded layout (pad rows 0), one slice
+    on each device."""
+    return arrays.split(arrays.scatter(row), devices)
+
+
+class _BoostFit:
+    """A gbdt / goss / rf fit's boosting loop: its settings and host
+    inputs, and what it holds on the devices, which :meth:`upload` puts
+    there and each chunk (:func:`_boost_chunk`) reads and advances:
+    ``arrays`` (:class:`.distributed.ShardArrays`: bins, labels, weights,
+    ``real``, scores and the EFB maps), ``ones`` (the bag without
+    bagging), ``goss_keys`` and ``full_bins`` (GOSS), ``val_bins`` and
+    ``val_scores`` (on the first device), and ``grad_src`` (lambdarank).
+    """
+
+    def __init__(self, **settings):
+        self.__dict__.update(settings)
+        self.arrays = self.ones = self.goss_keys = self.full_bins = None
+        self.val_bins = self.val_scores = self.grad_src = None
+
+    def upload(self, bins: torch.Tensor, val_bins=None) -> None:
+        """Lay every device input out from ``bins`` and ``val_bins``
+        (device tensors, or the host copies a replay re-uploads), with the
+        scores and validation scores at their start.  Anything that held
+        the old buffers (the mesh's ring workspaces included) is rebound
+        to the new ones."""
+        if self.mesh is not None:
+            self.mesh.scratch.clear()
+        self.arrays = prepare_arrays(
+            bins.to(self.dev), self.labels, self.w, self.devices, self.init,
+            self.F, self.K, self.perm, self.efb_maps, self.init_scores)
+        self.ones = [torch.ones(self.arrays.rows_per_shard,
+                                dtype=torch.float32, device=d)
+                     for d in self.devices]
+        if self.goss is not None:
+            self.goss_keys = split(prng_key(self.params.bagging_seed,
+                                            self.dev), self.T)
+            self.full_bins = shard_full_bins(self.arrays)
+        if self.has_val:
+            self.val_bins = val_bins.to(self.dev)
+            self.val_scores = torch.tensor(self.vs0, device=self.dev)
+        if self.ranking is not None:
+            self.grad_src = self.ranking()
+
+    def restore(self, scores: Sequence[np.ndarray],
+                val_scores: Optional[np.ndarray]) -> None:
+        """Set every device's scores (and the validation scores) from host
+        copies, each copied onto its device."""
+        if any(tuple(s.shape) != tuple(t.shape)
+               for s, t in zip(scores, self.arrays.scores)):
+            raise ValueError("restored scores do not match the fit's layout")
+        self.arrays.scores = [torch.tensor(s, device=d)
+                              for s, d in zip(scores, self.devices)]
+        if self.has_val:
+            self.val_scores = torch.tensor(val_scores, device=self.dev)
+
+    def host_state(self):
+        """Host copies of every device's scores and of the validation
+        scores: a chunk's replay snapshot."""
+        return ([_host(s) for s in self.arrays.scores],
+                _host(self.val_scores) if self.has_val else None)
+
+    def synchronize(self) -> None:
+        """Wait for every card of the fit, so that a failure of this
+        chunk's work surfaces while the chunk can still be replayed."""
+        for d in set(self.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def drop_device_arrays(self) -> None:
+        """Forget every device buffer, as a device loss does (the chaos
+        injector's hook): a chunk that runs without :meth:`upload` first
+        fails."""
+        self.arrays = self.ones = self.goss_keys = self.full_bins = None
+        self.val_bins = self.val_scores = self.grad_src = None
+        if self.mesh is not None:
+            self.mesh.scratch.clear()
+
+
+@dataclass
+class _ChunkOut:
+    """One chunk's result: its host trees (iteration-major), whether each
+    iteration split, the validation metric of each iteration, the
+    early-stopping bests after it, the validation seconds, the stop
+    iteration when early stopping fired (the trees kept), and whether an
+    iteration without a split ended the fit."""
+    trees: list
+    grew: List[bool]
+    metrics: List[float]
+    best: tuple
+    val_seconds: float = 0.0
+    stop_iter: Optional[int] = None
+    no_growth: bool = False
+
+
+def _boost_chunk(fit: _BoostFit, it0: int, bag_rows, fis, best
+                 ) -> _ChunkOut:
+    """Iterations ``it0 … it0 + len(fis) − 1`` of a gbdt / goss / rf fit
+    (the reference's ``_boost_scan`` / ``run_chunk``): per iteration the
+    bag (``bag_rows[j]``, a host row over the source rows, None without
+    bagging), the feature-fraction draw ``fis[j]``, one tree per class
+    grown and the scores updated, then the validation walk and metric
+    against the early-stopping bests ``best`` = ``(metric, iteration)``.
+    It reads only ``fit``'s device state and these host inputs, so a
+    replay from the same inputs and restored scores repeats it."""
+    p, K = fit.params, fit.K
+    best_metric, best_iter = best
+    out = _ChunkOut([], [], [], best)
+    bag, prev = fit.ones, None
+    for j, fi in enumerate(fis):
+        it = it0 + j
+        row = None if bag_rows is None else bag_rows[j]
+        if row is not None and row is not prev:
+            bag = _bag_on_devices(fit.arrays, row, fit.devices)
+            prev = row
+        grads = None if fit.grad_src is None else fit.grad_src(fit.arrays,
+                                                               bag)
+        if fit.goss is None:
+            grown = boost_iteration(
+                fit.arrays, bag, fi, fit.objective, fit.cfg,
+                p.learning_rate, fit.mesh, fit.use_rf, grads, fit.fused)
+        else:
+            grown = goss_iteration(
+                fit.arrays, fit.goss_keys[it], fi, fit.objective, fit.cfg,
+                p.learning_rate, fit.mesh, *fit.goss, fit.full_bins, grads,
+                fit.fused)
+        # rf keeps its trees unshrunk: the export averages them
+        done = grown if fit.use_rf else [
+            apply_shrinkage(t, p.learning_rate) for t in grown]
+        out.trees += [host_tree_from_arrays(t, fit.mapper) for t in done]
+        out.grew.append(any(int(t.num_leaves) > 1 for t in grown))
+        if fit.has_val:
+            t0 = time.perf_counter()
+            # the trees are shrunk already: the walk adds them at lr = 1
+            for c, t in enumerate(done):
+                add = predict_tree_binned(t, fit.val_bins, p.num_leaves)
+                if K == 1:
+                    fit.val_scores = fit.val_scores + add
+                else:
+                    fit.val_scores[:, c] += add
+            margins = fit.val_scores.cpu().numpy()
+            if fit.use_rf:
+                margins = _rf_margins(fit.init, margins, it)
+            metric = float(fit.val_metric(margins, fit.val_labels,
+                                          fit.val_weights))
+            out.metrics.append(metric)
+            out.val_seconds += time.perf_counter() - t0
+            if metric < best_metric - 1e-12:
+                best_metric, best_iter = metric, it
+            elif p.early_stopping_round > 0 \
+                    and it - best_iter >= p.early_stopping_round:
+                if p.verbosity > 0:
+                    log.info("Early stopping at iteration %d (best %d, "
+                             "metric %.6f)", it, best_iter, best_metric)
+                out.stop_iter = best_iter + 1
+                break
+        elif not out.grew[-1]:
+            # no validation to stop on: the first iteration in which no
+            # class's tree can split ends the fit (_truncate records it)
+            out.no_growth = True
+            break
+    out.best = (best_metric, best_iter)
+    return out
 
 
 def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
@@ -551,7 +805,8 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
           val_metric: Optional[Callable] = None,
           ranking_info: Optional[Dict] = None,
           init_scores: Optional[np.ndarray] = None,
-          val_init_scores: Optional[np.ndarray] = None) -> Booster:
+          val_init_scores: Optional[np.ndarray] = None,
+          callbacks: Optional[Sequence[Callable]] = None) -> Booster:
     """Train a forest.  ``bins``: ``(n, f)`` bin codes — a tensor or a
     numpy array.  Without a mesh the fit runs on the tensor's device (an
     array moves to ``device``).  With a mesh of more than one device the
@@ -571,7 +826,18 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     ``init_scores`` (``(n,)`` or ``(n, K)``): per-row margin offsets the
     scores start from (LightGBM's init score; the margins of the model a
     continuation extends), in place of boost-from-average;
-    ``val_init_scores`` offsets the validation rows alike."""
+    ``val_init_scores`` offsets the validation rows alike.
+
+    ``callbacks``: each called as ``cb(it, trees)`` after every iteration,
+    in order, with the host trees grown so far (iteration-major, shrunk
+    but for rf; DART's before its rescale).  The gbdt / goss / rf loop
+    calls them after each chunk (:func:`_chunk_size`) for its
+    iterations, as the reference does; a fit resumed from a checkpoint
+    calls them for the remaining iterations only.
+
+    ``params.checkpoint_dir`` and ``params.fault_tolerant_retries``: the
+    chunk-boundary checkpoints and the in-process chunk replay (the
+    module's docstring)."""
     check_parallelism(params.parallelism)
     if params.boosting not in ("gbdt", "goss", "dart", "rf"):
         raise NotImplementedError(
@@ -589,6 +855,7 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
             "boostingType='dart' does not support early stopping "
             "(dropped-tree rescaling is not invertible by truncation); "
             "unset earlyStoppingRound")
+    callbacks = list(callbacks or ())
     if mesh is not None:
         dev = mesh.devices[0]
     elif isinstance(bins, torch.Tensor):
@@ -639,8 +906,22 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                          f"feature axis; got {mesh.shape}")
     F = cfg.feature_axis_size
     K = objective.num_model_per_iteration
-    grad_src = None
-    perm = None
+    T = params.num_iterations
+    ckpt = params.checkpoint_dir
+    if ckpt and (use_dart or ranking):
+        log.warning(
+            "checkpoint_dir is inert for %s (per-iteration host "
+            "bookkeeping, as in the reference; restart a killed fit from "
+            "initModelPath)", "boostingType='dart'" if use_dart
+            else "lambdarank")
+        ckpt = ""
+    if ckpt:
+        # the fingerprint of the inputs as given, before EFB rebinds bins
+        fp = (_ckpt_fingerprint_mesh(n, f, K, params, labels, bins, w,
+                                     init_scores, mesh) if use_mesh
+              else _ckpt_fingerprint(n, f, K, params, labels, bins, w,
+                                     init_scores))
+    perm = ranking_src = None
     if ranking:
         # ranking.py holds the ranker estimator, which imports this module
         from .ranking import LambdarankGradient, shard_queries
@@ -660,13 +941,16 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         perm, _, qt = shard_queries(labels, ranking_info["query_ids"],
                                     cfg.data_axis_size,
                                     ranking_info["truncation_level"])
-        grad_src = LambdarankGradient.sharded(
-            qt, cfg.data_axis_size, devices, F, ranking_info["sigma"],
-            ranking_info["truncation_level"])
+
+        def ranking_src():
+            return LambdarankGradient.sharded(
+                qt, cfg.data_axis_size, devices, F, ranking_info["sigma"],
+                ranking_info["truncation_level"])
     elif ranking:
-        grad_src = LambdarankGradient.serial(
-            labels, ranking_info["query_ids"], ranking_info["sigma"],
-            ranking_info["truncation_level"], dev, weights)
+        def ranking_src():
+            return LambdarankGradient.serial(
+                labels, ranking_info["query_ids"], ranking_info["sigma"],
+                ranking_info["truncation_level"], dev, weights)
     efb_gate = _efb_gate(params, mapper, ranking, shard_mesh, n)
     efb_maps = None
     if efb_gate == "none":
@@ -682,8 +966,37 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                     0 if efb_maps is None else bins.shape[1],
                     0 if val_bins is None else len(val_bins), ranking_info),
         dev, cfg.data_axis_size, params.verbosity)
-    arrays = prepare_arrays(bins, labels, w, devices, init, F, K, perm,
-                            efb_maps, init_scores)
+    goss = None
+    if params.boosting == "goss":
+        D = cfg.data_axis_size
+        goss = _goss_sizes(params, (pad_to_multiple(n, D) if perm is None
+                                    else len(perm)) // D)
+    has_val = val_bins is not None and val_metric is not None \
+        and len(val_bins) > 0
+    vs0 = None
+    if has_val:
+        if not isinstance(val_bins, torch.Tensor):
+            val_bins = torch.as_tensor(np.asarray(val_bins),
+                                       dtype=mapper.bin_dtype)
+        val_bins = val_bins.to(dev).contiguous()
+        nv = val_bins.shape[0]
+        vs0 = np.full((nv,) if K == 1 else (nv, K), init, np.float32)
+        if val_init_scores is not None:
+            vsc = np.asarray(val_init_scores, np.float32)
+            vs0 = vs0 + (vsc if vs0.ndim == vsc.ndim else vsc[:, None])
+        val_labels = np.asarray(val_labels)
+    fit = _BoostFit(
+        params=params, objective=objective, cfg=cfg, mapper=mapper,
+        mesh=shard_mesh, dev=dev, devices=devices, labels=labels, w=w,
+        init=init, init_scores=init_scores, F=F, K=K, T=T, perm=perm,
+        efb_maps=efb_maps, ranking=ranking_src, goss=goss, use_rf=use_rf,
+        has_val=has_val, vs0=vs0, val_labels=val_labels,
+        val_weights=val_weights, val_metric=val_metric,
+        # the serial lambdarank loop rounds the score update's product
+        # and sum apart, as the reference's eager host loop does
+        fused=not (ranking and not use_mesh))
+    fit.upload(bins, val_bins)
+    arrays = fit.arrays
     _record_fit_resolution(
         cfg, collective, downgrade,
         collective_schedule(cfg, f, n_rows_local=arrays.rows_per_shard),
@@ -693,41 +1006,40 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         efb_gate=efb_gate)
     last_fit_budget.clear()
     last_fit_budget.update(budget)
+    last_validation.clear()
+    last_checkpoint.clear()
     # pad features (to a multiple of the feature axis) stay masked out
     fi_base = np.zeros((pad_to_multiple(f, F), 3), np.float32)
     fi_base[:f] = _feat_info_from_mapper(mapper, f)
     use_ff = params.feature_fraction < 1.0
-    T = params.num_iterations
-    # the serial lambdarank loop rounds the score update's product and
-    # sum apart, as the reference's eager host loop does
-    fused = not (ranking and not use_mesh)
-    bag = [torch.ones(arrays.rows_per_shard, dtype=torch.float32, device=d)
-           for d in devices]
-
-    def bag_draw(it):
-        nonlocal bag
-        if use_bag and it % params.bagging_freq == 0:
-            # exactly n randoms over the source rows, laid into the padded
-            # layout (pad rows stay 0), so the stream matches a serial
-            # fit's
-            bag = arrays.split(arrays.scatter(
-                bag_rng.random(n) < params.bagging_fraction), devices)
-        return bag
 
     def fi_draw(_it):
         return (_draw_feature_fraction(rng, fi_base, f,
                                        params.feature_fraction)
                 if use_ff else fi_base)
 
-    def grads_at(scores, bag):
-        if grad_src is not None:
-            return grad_src(arrays, bag, scores)
-        return objective_grads(arrays, bag, objective, scores)
-
-    last_validation.clear()
     if use_dart:
+        if params.fault_tolerant_retries > 0:
+            log.warning("faultTolerantRetries is inert for "
+                        "boostingType='dart' (per-iteration host loop; no "
+                        "chunk snapshots)")
+        bag = fit.ones
+
+        def bag_draw(it):
+            nonlocal bag
+            if use_bag and it % params.bagging_freq == 0:
+                bag = _bag_on_devices(arrays, _draw_bag_row(
+                    bag_rng, n, params.bagging_fraction), devices)
+            return bag
+
+        def grads_at(scores, bag):
+            if fit.grad_src is not None:
+                return fit.grad_src(arrays, bag, scores)
+            return objective_grads(arrays, bag, objective, scores)
+
         trees_dev, scales, grew, _ = _dart_fit(
-            arrays, grads_at, cfg, params, shard_mesh, K, bag_draw, fi_draw)
+            arrays, grads_at, cfg, params, shard_mesh, K, bag_draw, fi_draw,
+            callbacks, lambda t: host_tree_from_arrays(t, mapper))
         trees, stop_iter = _truncate(
             [host_tree_from_arrays(t, mapper) for t in trees_dev], grew, K,
             T, params.verbosity)
@@ -739,78 +1051,123 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         return _finalize(trees, K, init, params, objective, mapper,
                          feature_names, f, stop_iter, dev)
 
-    goss = None
-    if params.boosting == "goss":
-        goss = _goss_sizes(params, arrays.rows_per_shard)
-    if goss is not None:
-        goss_keys = split(prng_key(params.bagging_seed, dev), T)
-        full_bins = shard_full_bins(arrays)
-
-    has_val = val_bins is not None and val_metric is not None \
-        and len(val_bins) > 0
     if has_val:
-        if not isinstance(val_bins, torch.Tensor):
-            val_bins = torch.as_tensor(np.asarray(val_bins),
-                                       dtype=mapper.bin_dtype)
-        val_bins = val_bins.to(dev).contiguous()
-        nv = val_bins.shape[0]
-        vs0 = np.full((nv,) if K == 1 else (nv, K), init, np.float32)
-        if val_init_scores is not None:
-            vsc = np.asarray(val_init_scores, np.float32)
-            vs0 = vs0 + (vsc if vs0.ndim == vsc.ndim else vsc[:, None])
-        val_scores = torch.as_tensor(vs0, device=dev)
-        val_labels = np.asarray(val_labels)
         last_validation.update(metrics=[], seconds=0.0)
+    ftr = params.fault_tolerant_retries
+    chunk = _chunk_size(params, T, has_val, bool(callbacks), use_bag,
+                        use_mesh, ckpt)
+    if ftr > 0:
+        # host copies of the device inputs a replay uploads again
+        host_inputs = (bins.cpu(), val_bins.cpu() if has_val else None)
+    cur_bag = np.ones(n, np.float32)
     best_metric, best_iter = np.inf, -1
-    esr = params.early_stopping_round
-
-    trees, grew = [], []
+    trees_chunks: List[TreeChunk] = []
     stop_iter = T
-    for it in range(T):
-        bag = bag_draw(it)
-        fi = fi_draw(it)
-        if goss is None:
-            grown = boost_iteration(
-                arrays, bag, fi, objective, cfg, params.learning_rate,
-                shard_mesh, use_rf,
-                None if grad_src is None else grad_src(arrays, bag), fused)
+    it = 0
+    if ckpt:
+        last_checkpoint.update(saves=0, save_seconds=0.0, bytes=[],
+                               resumed_from=None)
+        snap = (_ckpt_load_mesh(ckpt, fp, arrays.scores,
+                                fit.val_scores if has_val
+                                else np.zeros(0, np.float32), F)
+                if use_mesh else _ckpt_load(ckpt, fp))
+        if snap is None:
+            # stale chunk files of an abandoned fit must not be skipped
+            # over by this fit's saves and stitched into its meta
+            _ckpt_clear(ckpt)
         else:
-            grown = goss_iteration(
-                arrays, goss_keys[it], fi, objective, cfg,
-                params.learning_rate, shard_mesh, *goss, full_bins,
-                None if grad_src is None else grad_src(arrays, bag), fused)
-        # rf keeps its trees unshrunk: the export averages them
-        done = grown if use_rf else [
-            apply_shrinkage(t, params.learning_rate) for t in grown]
-        trees += [host_tree_from_arrays(t, mapper) for t in done]
-        grew.append(any(int(t.num_leaves) > 1 for t in grown))
-        if has_val:
-            t0 = time.perf_counter()
-            # the trees are shrunk already: the walk adds them at lr = 1
-            for c, t in enumerate(done):
-                add = predict_tree_binned(t, val_bins, params.num_leaves)
-                if K == 1:
-                    val_scores = val_scores + add
-                else:
-                    val_scores[:, c] += add
-            margins = val_scores.cpu().numpy()
-            if use_rf:
-                margins = _rf_margins(init, margins, it)
-            metric = float(val_metric(margins, val_labels, val_weights))
-            last_validation["metrics"].append(metric)
-            last_validation["seconds"] += time.perf_counter() - t0
-            if metric < best_metric - 1e-12:
-                best_metric, best_iter = metric, it
-            elif esr > 0 and it - best_iter >= esr:
-                if params.verbosity > 0:
-                    log.info("Early stopping at iteration %d (best %d, "
-                             "metric %.6f)", it, best_iter, best_metric)
-                stop_iter = best_iter + 1
+            _ckpt_event("ckpt_resumed", it=int(snap["it"]))
+            it = snap["it"]
+            trees_chunks = list(snap["trees_chunks"])
+            fit.restore(snap["scores"] if use_mesh else [snap["scores"]],
+                        snap["val_scores"])
+            cur_bag = np.asarray(snap["cur_bag"], np.float32)
+            rng.bit_generator.state = snap["rng_state"]
+            bag_rng.bit_generator.state = snap["bag_rng_state"]
+            best_metric, best_iter = snap["best_metric"], snap["best_iter"]
+            last_checkpoint["resumed_from"] = it
+            if callbacks:
+                log.warning("resuming from checkpoint at iteration %d: "
+                            "callbacks replay only for the remaining "
+                            "iterations", it)
+            elif params.verbosity > 0:
+                log.info("resuming from checkpoint at iteration %d", it)
+    trees = [t for ch in trees_chunks for t in ch.trees]
+    grew = [g for ch in trees_chunks for g in ch.grew]
+    while it < T:
+        C = min(chunk, T - it)
+        rows = None
+        if use_bag:
+            rows = []
+            for j in range(C):
+                if (it + j) % params.bagging_freq == 0:
+                    cur_bag = _draw_bag_row(bag_rng, n,
+                                            params.bagging_fraction)
+                rows.append(cur_bag)
+        fis = [fi_draw(it + j) for j in range(C)]
+        snapshot = fit.host_state() if ftr > 0 else None
+        for attempt in range(ftr + 1):
+            try:
+                if attempt > 0:
+                    # inside the try: a failed upload spends an attempt
+                    fit.upload(*host_inputs)
+                    fit.restore(*snapshot)
+                out = _boost_chunk(fit, it, rows, fis,
+                                   (best_metric, best_iter))
+                if ftr > 0:
+                    fit.synchronize()
                 break
-        elif not grew[-1]:
-            # no validation to stop on: the first iteration in which no
-            # class's tree can split ends the fit (_truncate records it)
+            except Exception as e:  # noqa: BLE001 - a lost device
+                if attempt >= ftr:
+                    raise
+                _ckpt_event("chunk_replayed", it=int(it),
+                            attempt=attempt + 1)
+                log.warning("chunk at iteration %d failed (attempt %d/%d: "
+                            "%s: %s); uploading the inputs again and "
+                            "replaying", it, attempt + 1, ftr,
+                            type(e).__name__, e)
+                # free the failed attempt's buffers before the upload
+                # (after an out-of-memory error they would hold a copy)
+                fit.drop_device_arrays()
+        trees_chunks.append(TreeChunk(out.trees, out.grew))
+        trees += out.trees
+        grew += out.grew
+        best_metric, best_iter = out.best
+        if has_val:
+            last_validation["metrics"] += out.metrics
+            last_validation["seconds"] += out.val_seconds
+        if out.stop_iter is not None:
+            stop_iter = out.stop_iter
+        if callbacks:
+            upto = stop_iter if out.stop_iter is not None \
+                else it + len(out.grew)
+            for j in range(it, upto):
+                for cb in callbacks:
+                    cb(j, trees[:(j + 1) * K])
+        if out.stop_iter is not None or out.no_growth:
             break
+        it += C
+        if ckpt and it < T:
+            # it == T would save what the clear below deletes
+            t0 = time.perf_counter()
+            if use_mesh:
+                _ckpt_save_mesh(ckpt, fp, it, trees_chunks,
+                                fit.arrays.scores, fit.val_scores
+                                if has_val else np.zeros(0, np.float32),
+                                cur_bag, rng, bag_rng, best_metric,
+                                best_iter, F)
+            else:
+                _ckpt_save(ckpt, fp, it, trees_chunks, fit.arrays.scores[0],
+                           fit.val_scores if has_val
+                           else np.zeros(0, np.float32), cur_bag, rng,
+                           bag_rng, best_metric, best_iter)
+            last_checkpoint["save_seconds"] += time.perf_counter() - t0
+            last_checkpoint["saves"] += 1
+            last_checkpoint["bytes"].append(sum(
+                os.path.getsize(p) for p in glob.glob(
+                    os.path.join(ckpt, "*.npz"))))
+    if ckpt:
+        _ckpt_clear(ckpt)
 
     trees, stop_iter = _truncate(trees, grew, K, stop_iter,
                                  params.verbosity)
@@ -883,13 +1240,17 @@ def train_incremental(bins, labels: np.ndarray, mapper: BinMapper, *,
                       params: TrainParams,
                       weights: Optional[np.ndarray] = None,
                       feature_names: Optional[List[str]] = None,
-                      device: DeviceLike = "cuda") -> Booster:
+                      device: DeviceLike = "cuda",
+                      callbacks: Optional[Sequence[Callable]] = None
+                      ) -> Booster:
     """Continued training from rows already binned by ``mapper``: the
     init margins come from walking ``init_booster`` over each bin's
     representative value (:func:`_bin_representatives`), which reach the
     leaves the raw rows would, so they equal the margins of the raw rows.
     The new trees boost from them on ``device``, and the result is
     ``init_booster.extended(new)``, the forest ``initModelPath`` gives.
+    ``callbacks`` and ``params.checkpoint_dir`` work as in :func:`train`
+    (the fingerprint covers the init margins).
 
     The reference also captures a drift-monitoring profile of the merged
     model here; that belongs to the serving plane, which the port has
@@ -919,5 +1280,6 @@ def train_incremental(bins, labels: np.ndarray, mapper: BinMapper, *,
     margins = init_booster.predict_margin(Xr, device=device)
     booster = train(bins, labels, weights, mapper, objective, params,
                     feature_names, device=device,
-                    init_scores=margins.cpu().numpy().astype(np.float64))
+                    init_scores=margins.cpu().numpy().astype(np.float64),
+                    callbacks=callbacks)
     return init_booster.extended(booster)

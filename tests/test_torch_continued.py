@@ -13,9 +13,13 @@ a 5-iteration base model).
   bins' representative values) likewise.
 * The refusals are the reference's: DART and rf continuations (also DART
   asked for through ``passThroughArgs``), a base model of another class
-  count or feature count, a mesh ranker with init scores, and the still
-  unported ``checkpointDir``.
+  count or feature count, and a mesh ranker with init scores.
+  ``checkpointDir``, refused by the first slices, is accepted, set
+  directly or through ``passThroughArgs``, and writes the model text of
+  the same fit without it.
 """
+
+import os
 
 import jax
 import numpy as np
@@ -225,9 +229,17 @@ def test_a_mesh_ranker_with_init_scores_is_refused():
 
 
 def test_checkpoint_dir_is_still_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="checkpointDir"):
-        LightGBMClassifier(device="cpu", checkpointDir=str(tmp_path),
-                           **KW).fit(_table("binary"))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        LightGBMClassifier(device="cpu", passThroughArgs="checkpoint_dir=x",
-                           **KW).fit(_table("binary"))
+    """``checkpointDir`` is no longer refused (the name is from when it
+    was): set directly or through
+    ``passThroughArgs`` it fits, leaves its directory empty, and writes
+    the plain fit's model text."""
+    plain = LightGBMClassifier(device="cpu", **KW).fit(
+        _table("binary")).getNativeModel()
+    for kw in (dict(checkpointDir=str(tmp_path / "a")),
+               dict(passThroughArgs=f"checkpoint_dir={tmp_path / 'b'} "
+                                    "checkpoint_chunk=2")):
+        got = LightGBMClassifier(device="cpu", **kw, **KW).fit(
+            _table("binary")).getNativeModel()
+        assert got == plain
+    assert not os.path.exists(tmp_path / "a")      # one chunk: no save
+    assert os.listdir(tmp_path / "b") == []

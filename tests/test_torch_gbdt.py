@@ -130,8 +130,9 @@ def test_estimators_default_to_cuda():
             {"features": X, "label": (X[:, 0] > 0).astype(float)})
 
 
-#: features not ported yet (continued training, initModelPath, was ported
-#: later and is tested in tests/test_torch_continued.py)
+#: features the first slices refused, each ported since (continued
+#: training, initModelPath, is tested in tests/test_torch_continued.py;
+#: checkpoints in tests/test_torch_checkpoint.py): they fit now
 ASKS = [dict(passThroughArgs="checkpoint_dir=ckpt"),
         dict(checkpointDir="ckpt")]
 #: features a later slice ported: they fit now, on both estimators
@@ -145,12 +146,19 @@ LIFTED = [
 
 @pytest.mark.parametrize("ask", ASKS, ids=lambda a: next(iter(a.items()))[0]
                          + "=" + str(next(iter(a.values()))))
-def test_unported_features_refuse(ask):
+def test_unported_features_refuse(ask, tmp_path, monkeypatch):
+    """The asks the first slices refused (the name is from then) fit
+    now, and checkpointing leaves its directory (``ckpt`` under the
+    working directory) empty."""
+    monkeypatch.chdir(tmp_path)
     rng = np.random.default_rng(0)
     X = rng.normal(size=(200, 3))
     table = {"features": X, "label": X[:, 0], "val": X[:, 1] > 0}
-    with pytest.raises(NotImplementedError):
-        LightGBMRegressor(numIterations=2, device="cpu", **ask).fit(table)
+    model = LightGBMRegressor(numIterations=2, device="cpu", **ask).fit(
+        table)
+    assert len(model.getModel().trees) == 2
+    assert not (tmp_path / "ckpt").exists() or \
+        not list((tmp_path / "ckpt").iterdir())
 
 
 @pytest.mark.parametrize("ask", LIFTED, ids=lambda a: next(iter(
