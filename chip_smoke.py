@@ -139,10 +139,10 @@ Phases, each printing one JSON line:
    timed serial fit (fit, transform and host seconds; ``hist_full`` once
    a tree and ``hist_segment`` once a split; at least one categorical
    split; train AUC ≥ 0.955 and above the same fit with the columns left
-   numeric; ``same_model_text``); a 10-iteration data-ring fit and
+   numeric; ``same_model_text``); a 5-iteration data-ring fit and
    voting fit (``topK`` 5) on four virtual shards of the card
    (``ring_allreduce`` / ``ring_allreduce_select`` once a tree and split,
-   AUC within 0.01 of the serial fit's first 10 iterations); a
+   AUC within 0.01 of the serial fit's first 5 iterations); a
    20,000-row, 5-iteration card-vs-CPU check from the
    init score 0, where the first tree's sums are exact, serially and at
    D = 4 (data ring, voting, feature 1 × 4, ``pallas_ring``, the last
@@ -163,14 +163,14 @@ Phases, each printing one JSON line:
    a warm-up and a timed serial fit (the stop fires early, the model text
    records ``best_iter + 1`` iterations and the forest holds as many
    trees, one model text), the device time of one validation walk, a D =
-   4 data-ring fit under the same rule, and a 20,000-row, 10-iteration
+   4 data-ring fit under the same rule, and a 20,000-row, 5-iteration
    card-vs-CPU check (``earlyStoppingRound`` 3): the same stop iteration,
    validation metrics within 1e-5 relative.
 13. goss_path — the flagship under ``boostingType="goss"`` (``topRate``
    0.2, ``otherRate`` 0.1, 50 iterations): a warm-up and a timed serial
    fit (``hist_full`` 50 times on the 120,000 sampled rows, train AUC ≥
    0.955, one model text), the device time of one iteration's sampling, a
-   10-iteration D = 4 data-ring fit (20,000 + 10,000 rows a shard), and a
+   5-iteration D = 4 data-ring fit (20,000 + 10,000 rows a shard), and a
    20,000-row, 5-iteration card-vs-CPU check: the first tree identical and
    iteration 0's sampled rows equal (``torch.equal``).
 14. quantized_path — ``quantizedGrad`` "16" (max_code 5,368) and "8"
@@ -205,18 +205,18 @@ Phases, each printing one JSON line:
    training scores equal to the exported model's margins walked over the
    bins within 1e-5 of their largest magnitude (the baked scales; the
    rows where the float thresholds route a row apart from its bin are
-   counted, ``rows_where_thresholds_route_apart``); a 10-iteration D = 4
+   counted, ``rows_where_thresholds_route_apart``); a 5-iteration D = 4
    fit asking for the ring, which keeps psum with the downgrade
    ``"dart"``; a 20,000-row,
    5-iteration card-vs-CPU check with drops in every iteration: the
    first tree identical, the same drops and scales, AUCs within 0.002.
 17. rf_path — the flagship under ``boostingType="rf"`` (``baggingFraction``
    0.8, ``baggingFreq`` 1, ``featureFraction`` 0.8), 50 iterations: fit
-   seconds and AUC; then 10-iteration D = 4 fits under the data ring
+   seconds and AUC; then 5-iteration D = 4 fits under the data ring
    (``ring_allreduce`` once per tree and split), ``pallas_ring``
    (``fused_hist_ring`` once per split) and voting with the ring (``topK``
    5, ``ring_allreduce_select`` once per tree and split), each AUC within
-   0.01 of the serial fit's first 10 iterations; a 20,000-row card-vs-CPU
+   0.01 of the serial fit's first 5 iterations; a 20,000-row card-vs-CPU
    check.
 18. ranking_path — the slice's main path: ``LightGBMRanker`` on data of
    MSLR-WEB30K's shape (``ranking_data``: 3,000 queries of 20–230
@@ -228,7 +228,7 @@ Phases, each printing one JSON line:
    and ``hist_segment`` once a split; a fit with 20% of the queries held
    out and ``earlyStoppingRound`` 10 on the negative NDCG@10 (learning
    rate 0.5; the stop rule must hold whether or not it fires); a
-   10-iteration D = 4 data fit (each query on one shard); a 200-query,
+   5-iteration D = 4 data fit (each query on one shard); a 200-query,
    5-iteration card-vs-CPU check: the first tree identical, NDCG@10
    within 0.002.
 19. efb_path — Exclusive Feature Bundling on ``flight_data`` (the Flight
@@ -237,7 +237,7 @@ Phases, each printing one JSON line:
    DepTime and Distance, 674 features, about 19% delayed), 50 iterations,
    31 leaves, 255 bins: a warm-up and a timed fit with ``enableBundle``
    (G bundle columns; ``same_model_text``), the unbundled fit, and
-   10-iteration bundled GOSS and DART fits and D = 4 data-ring fits under
+   5-iteration bundled GOSS and DART fits and D = 4 data-ring fits under
    ``auto`` and ``pallas_ring``; each with fit and transform seconds, AUC
    and launches.  Every histogram call of a bundled fit must be at the G
    columns (the unbundled at 674), the timed bundled fit must launch
@@ -250,10 +250,10 @@ Phases, each printing one JSON line:
    and 512, int32 codes): a warm-up and a timed serial fit each, 50
    iterations (``hist_full`` once a tree and ``hist_segment`` once a
    split, every call at B int32 codes, AUC >= 0.955, one model text);
-   10-iteration D = 4 data-ring fits at 1023 under ``auto`` and
+   5-iteration D = 4 data-ring fits at 1023 under ``auto`` and
    ``pallas_ring``: above 256 bins ``fused_hist_ring`` is not launched,
    each shard's ``hist_segment`` runs and ``ring_allreduce`` reduces
-   once per tree and split, AUC within 0.01 of the serial fit's first 10
+   once per tree and split, AUC within 0.01 of the serial fit's first 5
    iterations; a 20,000-row card-vs-CPU check at 1023.
 21. native_path — the reference's native host paths
    (``mmlspark_tpu_torch/native``): the codes of ``transform_packed``
@@ -290,6 +290,31 @@ Phases, each printing one JSON line:
    split), replayed.  Every recovered fit must write the uninterrupted
    fit's model text byte for byte, and the phase's fits must launch both
    histogram kernels and the ring.
+22b. multicontroller_path — sharded ingestion and a gang of two
+   controller processes on the one card (``python -m
+   mmlspark_tpu_torch.gbdt.elastic --device cuda``, gloo, the gathers
+   staged through host memory): the flagship table (400,000 × 50, 255
+   bins, from the script's seed, ``gang_table``), which each controller
+   regenerates with the shared bin mapper and bins only its own rows, cut
+   unequally at row 190,000 into two shards; fault_tolerance_path's fit
+   settings (20 iterations, 31 leaves, bagging 0.8 every 3rd iteration,
+   feature fraction 0.8, boundaries every 5).  The in-process
+   one-controller fit of the same two shards on ``[cuda:0] * 2``, then a
+   gang run without checkpoints, which must write its text byte for
+   byte, then the chaos drill (``mmlspark_tpu_torch.tools.
+   chaos_training``) with that run as its baseline: controller 1
+   SIGKILLed at boundary 5 and the gang resumed (one restart,
+   ``ckpt_resumed`` 1 in each controller), the same kill with the meta
+   bit-flipped before the respawn (``ckpt_discarded``), and a second
+   uninterrupted gang run, checkpointed, under a heartbeat stall
+   (``heartbeat_stalls``, no restart, the directory cleared), each ending
+   in that text.  A round lost to a rendezvous port taken in between
+   does not count as a restart.  Then ``hist_full`` at controller 1's
+   shard (the 210,000 rows from the cut on × 50) and ``hist_segment`` at
+   half of it, against their twins, timed.  Reported: the gang's fit
+   seconds per controller beside the in-process fit's, the backend, each
+   controller's gathers (count, bytes, host seconds) and ``hist_full`` /
+   ``hist_segment`` launches.
 23. collectives_cross_card — phase 7's checks with one shard per card,
    D = min(cards, 4), where the host has at least two cards; elsewhere it
    prints ``"ran": false`` (not a failure).
@@ -319,8 +344,11 @@ the histogram kernels at the ranking shapes, launches from
 ``efb_path``, their wide modes at B = 1,024 and 512, launches from
 ``wide_bins_path``, and the flagship rows again with the launches of
 ``continued_path``'s serial and D = 4 continuations, mode
-``continued``, and with the launches of ``fault_tolerance_path``'s fits,
-mode ``fault_tolerance``), the card line, and last the ``{"ok": true, ...}``
+``continued``, and with the launches of ``fault_tolerance_path``'s
+fits, mode ``fault_tolerance``; the two histogram kernels at a gang
+controller's shapes, with the launches of ``multicontroller_path``'s
+gang summed over its controllers, mode ``multicontroller``), the card
+line, and last the ``{"ok": true, ...}``
 line.  Any failed phase makes the script exit 1 without that last line.
 
     python3 chip_smoke.py --phases kernels,main_path
@@ -397,8 +425,8 @@ SOURCES = {
 CAT_COLUMNS = tuple(range(40, 50))
 CAT_CARDINALITIES = (2, 3, 4, 12, 24, 64, 200, 254, 1000, 10_000)
 #: iterations of its two fits on four virtual shards (the serial fit's
-#: 50 cut, to hold the phase's time)
-CAT_MESH_ITERATIONS = 10
+#: 50 cut, to hold the phase's time; 10 until PR 15)
+CAT_MESH_ITERATIONS = 5
 #: the multiclass configuration: classes and iterations (the mesh fit's
 #: too; cut from 20 and then 10 to hold the script's time)
 NUM_CLASSES, MULTICLASS_ITERATIONS = 5, 5
@@ -408,9 +436,10 @@ NUM_CLASSES, MULTICLASS_ITERATIONS = 5, 5
 #: early-stopping round
 VAL_FRACTION, VAL_SEED = 0.2, 3
 VAL_ITERATIONS, VAL_LR, VAL_ESR = 300, 0.5, 10
-#: GOSS on the flagship: rates, iterations (D = 4 fit: 10)
+#: GOSS on the flagship: rates, iterations (D = 4 fit: 5; 10 until PR
+#: 15, cut with every D = 4 variant fit to hold the script's time)
 GOSS_TOP_RATE, GOSS_OTHER_RATE = 0.2, 0.1
-GOSS_ITERATIONS, GOSS_MESH_ITERATIONS = 50, 10
+GOSS_ITERATIONS, GOSS_MESH_ITERATIONS = 50, 5
 #: quantized flagship iterations (cut from 50 to hold the script's time;
 #: the AUC is held against main_path's fit at as many iterations)
 QUANT_ITERATIONS = 25
@@ -422,19 +451,19 @@ OBJECTIVES = ("regression_l1", "huber", "fair", "poisson", "quantile",
 OBJ_ITERATIONS = 5
 #: DART with LightGBM's default drops, rf with its bagging; iterations of
 #: the serial fits and of the D = 4 fits
-DART_ITERATIONS, DART_MESH_ITERATIONS = 50, 10
+DART_ITERATIONS, DART_MESH_ITERATIONS = 50, 5
 #: DART's train AUC floor on the flagship: each new iteration joins at
 #: 1/(k+1) and the dropped ones shrink, so at learning rate 0.1 the
 #: 50-iteration fit reaches 0.9448 (PR 9, chip call 1), below gbdt's
 #: 0.955 floor; the CPU fits equal the reference's byte for byte
 DART_MIN_AUC = 0.94
-RF_ITERATIONS, RF_MESH_ITERATIONS, RF_TOP_K = 50, 10, 5
+RF_ITERATIONS, RF_MESH_ITERATIONS, RF_TOP_K = 50, 5, 5
 #: the ranking configuration, MSLR-WEB30K's shape: queries, documents a
 #: query (uniform), features, the quantiles the grades 0-4 are cut at
-#: (numpy default_rng(5)), iterations (D = 4 fit: 10), NDCG positions
+#: (numpy default_rng(5)), iterations (D = 4 fit: 5), NDCG positions
 RANK_QUERIES, RANK_DOCS, RANK_FEATURES = 3000, (20, 230), 136
 RANK_CUTS = (0.50, 0.82, 0.95, 0.985)
-RANK_ITERATIONS, RANK_MESH_ITERATIONS = 15, 10
+RANK_ITERATIONS, RANK_MESH_ITERATIONS = 15, 5
 RANK_EVAL_AT = (1, 3, 5, 10)
 #: the held-out fit's learning rate (its validation NDCG turns sooner)
 RANK_ES_LR = 0.5
@@ -445,7 +474,7 @@ PROFILE_ITERATIONS = 5
 #: 2017, Table 1; szilard/benchm-ml's one-hot airline columns): rows, the
 #: one-hot blocks (name, categories), the Zipf-distributed ones, the two
 #: dense columns' count, the positive share, iterations (the bundled
-#: GOSS and DART fits and the D = 4 fits: 10).  Rows cut from 400,000 to
+#: GOSS and DART fits and the D = 4 fits: 5).  Rows cut from 400,000 to
 #: hold the script's time: each fit bins and bundles the 674 columns on
 #: the host, ~9 s a fit at 400,000 rows on an H100's host
 FLIGHT_ROWS = 100_000
@@ -454,12 +483,12 @@ FLIGHT_ONEHOT = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
 FLIGHT_ZIPF = ("UniqueCarrier", "Origin", "Dest")
 FLIGHT_FEATURES = sum(k for _, k in FLIGHT_ONEHOT) + 2
 FLIGHT_POSITIVE = 0.19
-FLIGHT_ITERATIONS, FLIGHT_MESH_ITERATIONS = 50, 10
+FLIGHT_ITERATIONS, FLIGHT_MESH_ITERATIONS = 50, 5
 #: wide bins: the flagship's maxBin values (B = 1,024 and 512), the D = 4
 #: fits' iterations, and the bin counts the kernels phase runs the wide
 #: modes at
 WIDE_MAX_BINS = (1023, 511)
-WIDE_MESH_ITERATIONS = 10
+WIDE_MESH_ITERATIONS = 5
 WIDE_KERNEL_BINS = (257, 512, 1024, 4096)
 #: continued training on the flagship: the base and the continuation's
 #: iterations, the D = 4 continuations' iterations, the row counts the
@@ -684,7 +713,9 @@ def device_ms(fn, kernel, reps=20):
     """Mean device time per call of the kernels whose name holds
     ``kernel``, over ``reps`` calls of ``fn`` under ``torch.profiler``.
     Unlike ``median_ms`` it leaves out the host's enqueue time, which
-    bounds a call whose kernel is shorter than its wrapper."""
+    bounds a call whose kernel is shorter than its wrapper.  None (not
+    measured) when the profiler recorded no such kernel on the card, as
+    late in a whole run it has (the gang's rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -693,8 +724,9 @@ def device_ms(fn, kernel, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(ms for name, (ms, _) in device_events(prof).items()
-               if kernel in name) / reps
+    times = [ms for name, (ms, _) in device_events(prof).items()
+             if kernel in name]
+    return sum(times) / reps if times else None
 
 
 def device_events(prof):
@@ -3949,6 +3981,133 @@ def phase_fault_tolerance_path(state):
     return res
 
 
+#: multicontroller_path: the row at which the flagship is cut into its
+#: two shards, the controllers, and the drill's heartbeat stall
+GANG_CUT, GANG_PROCESSES = 190_000, 2
+GANG_STALL = "2.0:1.5"
+
+
+def gang_table(seed, rows, features, num_class=2):
+    """The gang's table for ``elastic --table chip_smoke:gang_table``: the
+    flagship (``bench_data``, numpy default_rng(0)), which every
+    controller regenerates."""
+    if seed != 0 or num_class != 2:
+        raise ValueError("the flagship table is binary, from seed 0")
+    return bench_data(rows, features)
+
+
+def _gang_args():
+    """The controllers' fit: fault_tolerance_path's settings on the
+    flagship, cut at GANG_CUT."""
+    return ["--table", "chip_smoke:gang_table", "--rows", str(N_ROWS),
+            "--features", str(N_FEATURES), "--max-bin", "255",
+            "--cuts", str(GANG_CUT), "--iterations", str(FT_ITERATIONS),
+            "--num-leaves", "31", "--learning-rate", "0.1",
+            "--bagging-fraction", "0.8", "--bagging-freq", "3",
+            "--feature-fraction", "0.8", "--straggler-age", "0.6",
+            "--lease-timeout", "5"]
+
+
+def phase_multicontroller_path(state):
+    """Sharded ingestion and the gang of controllers on the card (the
+    module's docstring, 22b): the in-process one-controller fit, a gang
+    run without checkpoints, and the chaos drill's kill, corrupt and stall
+    phases, every model text held to the first."""
+    import shutil
+    import tempfile
+    import torch
+    from mmlspark_tpu_torch.gbdt import elastic
+    from mmlspark_tpu_torch.tools import chaos_training as ct
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    worker = _gang_args() + ["--device", DEV]
+    counters = _counters()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    try:
+        args = elastic.parse_args(worker + [
+            "--num-processes", str(GANG_PROCESSES), "--heartbeat-dir", tmp])
+        for fn in counters.values():
+            fn.launches = 0
+        booster, one_s, one_prep_s = elastic.sharded_fit(
+            args, None, torch.device("cuda", 0) if DEV == "cuda"
+            else torch.device(DEV))
+        one_text = booster.save_native_model_string()
+        one_launches = {k: fn.launches for k, fn in counters.items()}
+        kw = dict(checkpoint_chunk=FT_CHUNK, phase_timeout=300.0, env=env)
+        plain = ct.run_phase("plain", tmp, worker, checkpoint=False, **kw)
+        # the drill's baseline is that gang run; its stall phase is a
+        # second uninterrupted gang run, with checkpoints
+        drill = ct.drill(tmp, worker, stall=GANG_STALL, base=plain, **kw)
+        texts = {name: open(os.path.join(tmp, f"model_{name}.txt")).read()
+                 for name in ("kill", "corrupt", "stall")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats = plain["stats"]["0"]
+    per = [stats.get(str(p), {}) for p in range(GANG_PROCESSES)]
+    launches = [s.get("launches", {}) for s in per]
+    res = {"rows": N_ROWS, "features": N_FEATURES, "shards":
+           [GANG_CUT, N_ROWS - GANG_CUT], "processes": GANG_PROCESSES,
+           "iterations": FT_ITERATIONS, "checkpoint_chunk": FT_CHUNK,
+           "one_controller_fit_s": one_s,
+           "one_controller_prep_s": one_prep_s,
+           "one_controller_launches": one_launches,
+           "gang_fit_s": [s.get("fit_s") for s in per],
+           "gang_worker_s": [{k: s.get(k) for k in ("setup_s",
+                                                    "rendezvous_s",
+                                                    "prep_s", "fit_s")}
+                             for s in per],
+           "gang_round_s": plain["seconds"],
+           "backend": [s.get("backend") for s in per],
+           "gathers": [s.get("gathers") for s in per],
+           "launches_per_controller": launches,
+           "gang_same_model_text": plain["model"] == one_text,
+           "drill": {name: {k: v for k, v in r.items() if k != "stats"}
+                     for name, r in drill.items() if name != "verdicts"},
+           "drill_stats": {name: r["stats"] for name, r in drill.items()
+                           if name != "verdicts"},
+           "verdicts": drill["verdicts"],
+           "drill_same_model_text": {name: t == one_text
+                                     for name, t in texts.items()}}
+    # both kernels at the shapes a controller gives them: controller 1's
+    # shard (the flagship's rows from GANG_CUT on, binned by the shared
+    # mapper) and half of it as the segment, against their twins
+    inputs = kernel_inputs()
+    shard = tuple(x[GANG_CUT:].contiguous() if torch.is_tensor(x) else x
+                  for x in inputs)
+    n1 = N_ROWS - GANG_CUT
+    order = torch.randperm(n1, generator=torch.Generator().manual_seed(
+        0)).to(torch.int32).to(DEV)
+    krows = [{**_full_row(shard, "float32"), "path": "multicontroller_path"},
+             {**_segment_row(shard, order, n1 // 2, "float32"),
+              "path": "multicontroller_path"}]
+    state["kernel_rows"] = state.get("kernel_rows", []) + krows
+    res["kernel_rows"] = krows
+    state["gang_launches"] = {k: sum(n.get(k, 0) for n in launches)
+                              for k in ("hist_full", "hist_segment")}
+    state["gang_controllers"] = {k: [n.get(k, 0) for n in launches]
+                                 for k in ("hist_full", "hist_segment")}
+    bad = []
+    if not res["gang_same_model_text"]:
+        bad.append("the gang's text differs from the one-controller fit's")
+    if not all(res["drill_same_model_text"].values()):
+        bad.append("a drill phase's text differs")
+    if not all(drill["verdicts"].values()):
+        bad.append("a drill verdict failed")
+    if not all(r["match"] for r in krows):
+        bad.append("a kernel disagrees with its twin at a controller's "
+                   "shapes")
+    if any(b != "gloo" for b in res["backend"]):
+        bad.append("the backend is not gloo on one card")
+    if not all(n.get(k) for n in launches
+               for k in ("hist_full", "hist_segment")):
+        bad.append("a controller launched no histogram kernel")
+    if bad:
+        raise AssertionError(f"multicontroller_path: {'; '.join(bad)}: "
+                             f"{res}")
+    return res
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r["accum"] == "float32" and "path" not in r
@@ -3998,6 +4157,10 @@ def kernels_line(state):
                     b + 1 for b in WIDE_MAX_BINS):
                 extra.append((k, r, state.get("wide_launches", {}).get(
                     r["bins"] - 1, {}).get(k, 0), f"wide_{r['bins']}"))
+    # the histogram kernels at a gang controller's shapes, their launches
+    # summed over multicontroller_path's controllers
+    gang = {r["kernel"]: r for r in state.get("kernel_rows", [])
+            if r.get("path") == "multicontroller_path"}
     out = []
     for name, r, n_launch, mode in (
             [(k, rows.get(k, {}), launches.get(k, 0), "float32")
@@ -4014,7 +4177,9 @@ def kernels_line(state):
                                        "fused_segment_hist_ring")]
             + [(k, rows.get(k, {}), state.get("ft_launches", {}).get(k, 0),
                 "fault_tolerance") for k in ("hist_full", "hist_segment",
-                                             "ring_allreduce")]):
+                                             "ring_allreduce")]
+            + [(k, gang.get(k, {}), state.get("gang_launches", {}).get(k, 0),
+                "multicontroller") for k in ("hist_full", "hist_segment")]):
         out.append({"name": name if mode == "float32" else f"{name}_{mode}",
                     "mode": "int32" if mode == "int32" else "float32",
                     "route": "cuda", "source": SOURCES[name],
@@ -4028,6 +4193,9 @@ def kernels_line(state):
                     "rows": r.get("rows"), "features": r.get("features"),
                     "bins": r.get("bins", 256),
                     "shards": r.get("shards", 1)})
+        if mode == "multicontroller":
+            out[-1]["launches_per_controller"] = state.get(
+                "gang_controllers", {}).get(name)
     return {"kernels": out}
 
 
@@ -4078,6 +4246,8 @@ def main(argv) -> int:
               ("native_path", lambda: phase_native_path(state)),
               ("fault_tolerance_path",
                lambda: phase_fault_tolerance_path(state)),
+              ("multicontroller_path",
+               lambda: phase_multicontroller_path(state)),
               ("collectives_cross_card", phase_collectives_cross_card),
               ("kernels_flagship", lambda: phase_kernels_flagship(state))]
     if only is not None:

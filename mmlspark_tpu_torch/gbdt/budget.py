@@ -10,7 +10,9 @@ allocations:
 * ``codes`` — the binned matrix: the fit's input on its device
   (``engine.train``), on a mesh the row-padded copy and each shard's
   slice (``distributed.prepare_arrays``), under EFB the bundled matrix
-  beside the unbundled one it was planned from;
+  beside the unbundled one it was planned from; under sharded ingestion
+  only each shard's slice (``distributed.prepare_arrays_from_shards``:
+  no device holds the whole matrix);
 * ``binning`` — above 256 bins (int32 codes) the estimator bins on the
   device (``BinMapper.transform``): the transposed float64 copy of X, the
   int64 search result and its NaN mask and select, ``BINNING_CELL_BYTES``
@@ -88,8 +90,8 @@ def estimate_fit_bytes(n_rows: int, num_features: int, num_bins: int,
                        histogram_holders: int = 1, bundles: int = 0,
                        quantized: bool = False, walks: bool = False,
                        n_val: int = 0, kernel_workspace: int = 0,
-                       query_slots: int = 0, query_pairs: int = 0
-                       ) -> Dict[str, int]:
+                       query_slots: int = 0, query_pairs: int = 0,
+                       sharded_input: bool = False) -> Dict[str, int]:
     """Bytes the port's fit of ``n_rows`` × ``num_features`` holds on its
     busiest device, by term (the module docstring), plus ``"total"``.
 
@@ -101,7 +103,10 @@ def estimate_fit_bytes(n_rows: int, num_features: int, num_bins: int,
     bundle columns (0 without EFB); ``walks``: GOSS or DART; ``n_val``:
     validation rows; ``kernel_workspace``: the CUDA kernels' merge
     workspace; ``query_slots`` and ``query_pairs``: a ranking fit's padded
-    (query, document) slots and the pairs of its largest chunk."""
+    (query, document) slots and the pairs of its largest chunk;
+    ``sharded_input``: sharded ingestion, ``n_rows`` the padded layout
+    (the data axis times the largest shard), each device holding its
+    shard's slice alone."""
     n, f, B, L, K = (n_rows, num_features, num_bins, num_leaves,
                      num_class)
     D, F, k = data_shards, feature_shards, shards_on_device
@@ -111,11 +116,14 @@ def estimate_fit_bytes(n_rows: int, num_features: int, num_bins: int,
     item = bin_itemsize
     mesh = D * F > 1
     costs: Dict[str, int] = {}
-    codes = n * f * item
-    if bundles:
-        codes += n * bundles * item
-    if mesh:
-        codes += S * D * f * item + k * S * cols * item
+    if sharded_input:
+        codes = k * S * cols * item
+    else:
+        codes = n * f * item
+        if bundles:
+            codes += n * bundles * item
+        if mesh:
+            codes += S * D * f * item + k * S * cols * item
     costs["codes"] = codes
     costs["binning"] = (BINNING_CELL_BYTES * max(n, n_val) * f
                         if item == 4 else 0)

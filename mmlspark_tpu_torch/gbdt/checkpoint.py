@@ -21,14 +21,25 @@ names, its file names and its crash-consistency order:
   it loads as None, with a warning and the ``ckpt_discarded`` counter.
   ``checkpoint_dir`` and ``checkpoint_chunk`` decide where and how often
   snapshots land, never the forest, and stay out of the fingerprint.
-* **The mesh form.**  The port's mesh has one controller holding every
-  shard (:class:`.distributed.ShardArrays`), so the reference's barriers
-  have nothing to wait for: one state file a boundary,
-  ``mesh_state_p000_it{:06d}.npz``, holds every data shard's scores once
-  (a feature axis's replicas once when they are equal, else each
-  device's own) and the validation scores; the meta, written after it,
-  names its boundary, and older state files go after the meta.  The
-  fingerprint adds the topology (:func:`_ckpt_fingerprint_mesh`).
+* **The mesh form** (the reference's, ``engine.py:766-1031``).  Each
+  process of the mesh (one, or a gang of controllers) writes its own
+  state file a boundary, ``mesh_state_p{pid:03d}_it{:06d}.npz``: its
+  data shards' scores once (a feature axis's replicas once when they are
+  equal, else each device's own), the validation scores and the carried
+  bag row; process 0 alone writes the chunk files.  Then every process
+  waits (a barrier), process 0 alone writes the meta naming the
+  boundary, every process waits again, and each removes its own older
+  state files: a crash
+  anywhere leaves the meta naming a complete generation.  The
+  fingerprint adds the topology, the process count included
+  (:func:`_ckpt_fingerprint_mesh`); under sharded ingestion it covers
+  the metadata every process holds (sizes, labels, weights), and each
+  process's own codes and init scores are covered by its
+  :func:`_local_bins_digest`, kept in its state file.  A load checks
+  every process's state file against the meta and its own digest, and
+  :func:`_ckpt_unanimous` makes the verdict the gang's: one process
+  rejecting the snapshot starts the whole gang fresh.  Process 0 alone
+  clears a stale generation, behind a barrier.
 
 :data:`train_stats` counts the events over every fit of the process
 (:func:`_ckpt_event`); the reference's telemetry journal belongs to the
@@ -50,6 +61,7 @@ import numpy as np
 import torch
 
 from ..core.profiling import StageStats
+from ..ops.collectives import gang_barrier, gang_gather, is_gang
 from .booster import HostTree
 
 log = logging.getLogger("mmlspark_tpu_torch.gbdt")
@@ -162,15 +174,58 @@ def _ckpt_fingerprint(n, f, K, params, labels, bins, weights,
 
 
 def _ckpt_fingerprint_mesh(n, f, K, params, labels, bins, w, init_scores,
-                           mesh) -> str:
+                           mesh, shards=None) -> str:
     """A mesh fit's fingerprint: the serial one plus the topology (the
-    ``data × feature`` shape, the one controller, the learner and the
-    collective), so that a resume under another layout starts fresh."""
-    base = _ckpt_fingerprint(n, f, K, params, labels, bins, w, init_scores)
-    topo = (f"|mesh={mesh.data}x{mesh.feature}|procs=1"
+    ``data × feature`` shape, the process count, the learner and the
+    collective), so that a resume under another layout starts fresh.
+    Under sharded ingestion (``shards``, a
+    :class:`.distributed.ShardedInput`) the digest covers only what every
+    process holds — the parameters, the labels, weights and init scores
+    in shard order (the init scores only where every slot has them) and
+    the shard sizes — so the fingerprint is the same in every process
+    with no round of messages; each process's own codes are covered by
+    :func:`_local_bins_digest`."""
+    if shards is not None:
+        iss = shards.init_scores
+        is_cat = (None if iss is None or any(s is None for s in iss)
+                  else np.concatenate([np.asarray(s) for s in iss]))
+        base = _ckpt_fingerprint(
+            n, f, K, params, np.concatenate(
+                [np.asarray(y) for y in shards.labels]),
+            np.zeros((0, f), np.uint8), np.concatenate(
+                [np.asarray(x) for x in shards.weights]), is_cat)
+        base = hashlib.sha256(
+            (base + "|sizes=" + ",".join(map(str, shards.sizes))
+             ).encode("utf-8")).hexdigest()
+    else:
+        base = _ckpt_fingerprint(n, f, K, params, labels, bins, w,
+                                 init_scores)
+    topo = (f"|mesh={mesh.data}x{mesh.feature}|procs={mesh.process_count}"
             f"|parallelism={params.parallelism}"
             f"|collective={params.collective}")
     return hashlib.sha256((base + topo).encode("utf-8")).hexdigest()
+
+
+def _local_bins_digest(shards) -> str:
+    """The digest of what this process alone contributes under sharded
+    ingestion: its shards' codes and init scores (each init-score slot
+    tagged with its index).  Without it a re-run on other feature values,
+    or a continuation on another base model's margins, would resume and
+    blend two fits.  "" without sharded ingestion (the fingerprint covers
+    the inputs then)."""
+    if shards is None:
+        return ""
+    h = hashlib.sha256()
+    for b in shards.bins:
+        if b is not None:
+            h.update(np.ascontiguousarray(_host(b)).tobytes())
+    if shards.init_scores is not None:
+        for i, s in enumerate(shards.init_scores):
+            if s is not None:
+                h.update(f"|is{i}|".encode("utf-8"))
+                h.update(np.ascontiguousarray(
+                    np.asarray(s, np.float32)).tobytes())
+    return h.hexdigest()
 
 
 def _ckpt_tree_count(trees_chunks: Sequence[TreeChunk]) -> int:
@@ -311,29 +366,42 @@ def _ckpt_shard_bounds(index, shape) -> List[List[int]]:
     return [list(s.indices(dim)[:2]) for s, dim in zip(index, shape)]
 
 
-def _score_layout(scores: Sequence, feature: int):
-    """``[(device, bounds)]`` of per-device scores in the global padded
-    layout: device k holds data shard ``k // feature``'s rows."""
+def _score_layout(scores: Sequence, feature: int, shard0: int = 0,
+                  data: int = 0):
+    """``[(device, bounds)]`` of this process's per-device scores in the
+    global padded layout of ``data`` shards (0: its own): local device k
+    holds data shard ``shard0 + k // feature``'s rows."""
     S = scores[0].shape[0]
-    shape = (len(scores) // feature * S,) + tuple(scores[0].shape[1:])
+    shape = ((data or len(scores) // feature) * S,) \
+        + tuple(scores[0].shape[1:])
     rest = (slice(None),) * (len(shape) - 1)
     return [(k, _ckpt_shard_bounds(
-        (slice(k // feature * S, (k // feature + 1) * S),) + rest, shape))
+        (slice((shard0 + k // feature) * S,
+               (shard0 + k // feature + 1) * S),) + rest, shape))
         for k in range(len(scores))]
 
 
 def _ckpt_save_mesh(ckpt_dir, fp, it, trees_chunks, scores, val_scores,
                     cur_bag, rng, bag_rng, best_metric, best_iter,
-                    feature: int = 1) -> None:
+                    feature: int = 1, mesh=None,
+                    local_digest: str = "") -> None:
     """Persist a mesh fit's boundary ``it`` in the reference's order:
-    the chunk files, the it-stamped state file (every data shard's scores
-    from its first device, a feature axis's other replicas only where
-    they differ from it, the validation scores and the carried bag row),
-    then the meta, then older state files removed."""
+    process 0's chunk files, this process's it-stamped state file (its
+    data shards' scores from their first devices, a feature axis's other
+    replicas only where they differ from it, the validation scores, the
+    carried bag row and its ``local_digest``), a barrier, process 0's
+    meta, a barrier, then this process's older state files removed.
+    ``mesh`` (None: one process) names the process and its shards."""
+    pid = mesh.process_index if is_gang(mesh) else 0
+    nproc = mesh.process_count if is_gang(mesh) else 1
     os.makedirs(ckpt_dir, exist_ok=True)
-    _ckpt_write_chunks(ckpt_dir, trees_chunks)
+    if pid == 0:
+        # write-once and shared: the trees are the same in every process
+        _ckpt_write_chunks(ckpt_dir, trees_chunks)
     host = [_host(s) for s in scores]
-    layout = _score_layout(host, feature)
+    layout = _score_layout(host, feature,
+                           mesh.data_offset if nproc > 1 else 0,
+                           mesh.data if nproc > 1 else 0)
     arrays = {"cur_bag": _host(cur_bag)}
     shards_meta = []
     for k, bounds in layout:
@@ -347,36 +415,48 @@ def _ckpt_save_mesh(ckpt_dir, fp, it, trees_chunks, scores, val_scores,
     arrays[f"shard_{len(shards_meta)}"] = vs
     shards_meta.append({"name": "val_scores",
                         "bounds": [[0, d] for d in vs.shape], "device": 0})
-    pmeta = {"fingerprint": fp, "it": int(it), "pid": 0,
-             "shards": shards_meta}
-    spath = os.path.join(ckpt_dir, _CKPT_MESH_STATE.format(0, int(it)))
+    pmeta = {"fingerprint": fp, "it": int(it), "pid": pid,
+             "local_digest": local_digest, "shards": shards_meta}
+    spath = os.path.join(ckpt_dir, _CKPT_MESH_STATE.format(pid, int(it)))
     _write_atomic(spath, {"__meta__": _meta_array(pmeta), **arrays})
     _fsync_dir(ckpt_dir)
-    _ckpt_write_meta(ckpt_dir, fp, it, len(trees_chunks), rng, bag_rng,
-                     best_metric, best_iter, arrays={},
-                     extra_meta={"nproc": 1, "mesh": True,
-                                 "n_trees": _ckpt_tree_count(trees_chunks)})
+    # the meta must never name a boundary some process has not persisted
+    gang_barrier(mesh)
+    if pid == 0:
+        _ckpt_write_meta(ckpt_dir, fp, it, len(trees_chunks), rng, bag_rng,
+                         best_metric, best_iter, arrays={},
+                         extra_meta={"nproc": nproc, "mesh": True,
+                                     "n_trees": _ckpt_tree_count(
+                                         trees_chunks)})
+    # and no process may remove its previous generation before the meta
+    # naming the new one is durable
+    gang_barrier(mesh)
     for p in glob.glob(os.path.join(
-            ckpt_dir, _CKPT_MESH_PREFIX.format(0) + "*")):
+            ckpt_dir, _CKPT_MESH_PREFIX.format(pid) + "*")):
         if p != spath:
             try:
                 os.remove(p)
             except OSError:
                 pass
     _ckpt_event("ckpt_saved", it=int(it), n_chunks=len(trees_chunks),
-                mesh=True)
+                pid=pid, mesh=True)
 
 
 def _ckpt_load_mesh(ckpt_dir, fp, scores_like, val_scores_like,
-                    feature: int = 1) -> Optional[dict]:
-    """A mesh snapshot, or None when absent, unusable or of another fit.
-    ``scores`` comes back as one host array per device of
-    ``scores_like`` (each device its own replica where one was written,
-    else its data shard's), each checked against the like's shape;
-    ``val_scores`` as one host array."""
+                    feature: int = 1, mesh=None,
+                    local_digest: str = "") -> Optional[dict]:
+    """This process's part of a mesh snapshot, or None when absent,
+    unusable, of another fit or written against other local inputs
+    (``local_digest``).  Every process's state file must match the meta;
+    only this process's own is read whole.  ``scores`` comes back as one
+    host array per device of ``scores_like`` (each device its own replica
+    where one was written, else its data shard's), each checked against
+    the like's shape; ``val_scores`` as one host array.  On a gang the
+    caller makes the verdict unanimous (:func:`_ckpt_unanimous`)."""
     path = os.path.join(ckpt_dir, _CKPT_FILE)
     if not os.path.exists(path):
         return None
+    pid = mesh.process_index if is_gang(mesh) else 0
     try:
         with np.load(path) as z:
             meta = _read_meta(z)
@@ -388,13 +468,26 @@ def _ckpt_load_mesh(ckpt_dir, fp, scores_like, val_scores_like,
                         mesh=True)
             return None
         it = meta["it"]
-        spath = os.path.join(ckpt_dir, _CKPT_MESH_STATE.format(0, it))
-        with np.load(spath) as sz:
-            pmeta = _read_meta(sz)
-            if pmeta["fingerprint"] != fp or pmeta["it"] != it:
-                raise ValueError(f"state file does not match the "
-                                 f"checkpoint meta (boundary {it})")
-            own = {k: sz[k] for k in sz.files if k != "__meta__"}
+        pmeta = own = None
+        for p in range(meta.get("nproc", 1)):
+            spath = os.path.join(ckpt_dir, _CKPT_MESH_STATE.format(p, it))
+            # each peer's file is opened for its meta alone, and closed
+            with np.load(spath) as sz:
+                m = _read_meta(sz)
+                if m["fingerprint"] != fp or m["it"] != it:
+                    raise ValueError(
+                        f"state file for process {p} does not match the "
+                        f"checkpoint meta (boundary {it})")
+                if p == pid:
+                    pmeta = m
+                    own = {k: sz[k] for k in sz.files if k != "__meta__"}
+        if pmeta is None:
+            raise ValueError(f"no state file for process {pid}")
+        if pmeta.get("local_digest", "") != local_digest:
+            log.warning("mesh checkpoint state for process %d was written "
+                        "against other local inputs; starting fresh", pid)
+            _ckpt_event("ckpt_discarded", reason="local_digest", mesh=True)
+            return None
         chunks = _ckpt_read_chunks(ckpt_dir, meta["n_chunks"],
                                    meta.get("n_trees"))
         by_device, val = {}, None
@@ -426,3 +519,20 @@ def _ckpt_load_mesh(ckpt_dir, fp, scores_like, val_scores_like,
         _ckpt_event("ckpt_discarded", reason=type(e).__name__,
                     mesh=True)
         return None
+
+
+def _ckpt_unanimous(snap: Optional[dict], mesh) -> Optional[dict]:
+    """The gang's verdict on a mesh snapshot: ``snap`` when every process
+    loaded its part, else None for every process (a gang in which one
+    controller resumes while another starts fresh would sum unlike
+    partials).  Off a gang the verdict is this process's own."""
+    if not is_gang(mesh):
+        return snap
+    peers_ok = [int(x) for x in gang_gather(
+        [torch.tensor(int(snap is not None), device=mesh.devices[0])], mesh)]
+    if snap is not None and not all(peers_ok):
+        log.warning("a peer controller rejected the mesh checkpoint; "
+                    "starting fresh gang-wide")
+        _ckpt_event("ckpt_discarded", reason="peer_rejected", mesh=True)
+        return None
+    return snap

@@ -25,6 +25,15 @@ host loop:
   train the iteration's trees, and every row's score moves by a binned
   walk of each tree.
 
+Sharded ingestion (:func:`prepare_arrays_from_shards`, the engine's
+``train`` given per-shard lists): each data shard's rows come from its
+own matrix, padded to the largest shard, and no piece is built from more
+than one shard.  On a gang of controllers (a mesh over several
+processes) each process lays out only its own shards and passes None in
+the others' slots; the host draws (bagging, feature fraction) are made
+over the global rows in every process, and each process takes its own
+slice (:meth:`ShardArrays.split`).
+
 Under Exclusive Feature Bundling the engine hands :func:`prepare_arrays`
 the bundled matrix and its maps: each shard holds its rows' G bundle
 columns and its device's :class:`.grower.EFBArrays` (``ShardArrays.efb``),
@@ -99,7 +108,12 @@ class ShardArrays:
     layout, :func:`.ranking.shard_queries`) maps each padded slot to its
     source row, −1 on a pad; without it the ``n`` real rows come first.
     ``efb``: under Exclusive Feature Bundling, each device's EFB maps
-    (``bins`` then holds bundle columns); None otherwise."""
+    (``bins`` then holds bundle columns); None otherwise.
+
+    ``shards`` (the global data axis; 0: the local shards are all of
+    them) and ``shard0`` (the global index of the first local shard): on
+    a gang of controllers the lists hold this process's devices only,
+    data shards ``shard0 … shard0 + len(bins) // feature − 1``."""
     bins: List[torch.Tensor]
     labels: List[torch.Tensor]
     weights: List[torch.Tensor]
@@ -110,17 +124,28 @@ class ShardArrays:
     feature: int = 1            # size of the feature axis
     perm: Optional[np.ndarray] = None
     efb: Optional[List[EFBArrays]] = None
+    shards: int = 0
+    shard0: int = 0
+
+    @property
+    def data_shards(self) -> int:
+        """The global data axis."""
+        return self.shards or len(self.bins) // self.feature
 
     @property
     def n_padded(self) -> int:
-        return self.rows_per_shard * (len(self.bins) // self.feature)
+        return self.rows_per_shard * self.data_shards
+
+    def shard_of(self, k: int) -> int:
+        """The global data shard of local device k."""
+        return self.shard0 + k // self.feature
 
     def split(self, row: np.ndarray, devices) -> List[torch.Tensor]:
         """A host ``(n_padded,)`` row vector cut into per-device tensors
         (device k gets its data shard's rows)."""
         S = self.rows_per_shard
-        return [torch.as_tensor(row[k // self.feature * S:
-                                    (k // self.feature + 1) * S], device=dev)
+        return [torch.as_tensor(row[self.shard_of(k) * S:
+                                    (self.shard_of(k) + 1) * S], device=dev)
                 for k, dev in enumerate(devices)]
 
     def scatter(self, values: np.ndarray) -> np.ndarray:
@@ -211,6 +236,145 @@ def prepare_arrays(bins: torch.Tensor, labels: np.ndarray,
             if d not in built:
                 built[d] = EFBArrays.from_maps(efb_maps, d)
         arrays.efb = [built[torch.device(d)] for d in devices]
+    return arrays
+
+
+@dataclass
+class ShardedInput:
+    """Sharded ingestion's inputs, one slot per data shard in global
+    order: its codes (None in the slot of a shard another process of a
+    gang holds), labels and weights (complete in every process: 1-D
+    metadata), init scores (None: none) and query ids (a ranking fit),
+    and every shard's row count."""
+    bins: list
+    labels: list
+    weights: list
+    sizes: List[int]
+    init_scores: Optional[list] = None
+    qids: Optional[list] = None
+
+    @property
+    def n(self) -> int:
+        return int(sum(self.sizes))
+
+    @property
+    def num_features(self) -> int:
+        return next(b.shape[1] for b in self.bins if b is not None)
+
+
+def prepare_arrays_from_shards(bins_shards, label_shards, weight_shards,
+                               mesh: Mesh, init: float, num_class: int = 1,
+                               shard_rows: Optional[Sequence[int]] = None,
+                               init_score_shards=None,
+                               perm: Optional[np.ndarray] = None,
+                               offsets: Optional[Sequence[int]] = None,
+                               piece_spy=None) -> ShardArrays:
+    """Sharded ingestion (the reference's ``prepare_arrays_from_shards``):
+    lay this process's data shards out on its devices of ``mesh`` from
+    per-shard inputs, without ever joining the shards into one matrix.
+
+    ``bins_shards[d]`` (``(n_d, f)`` codes, a numpy array or a tensor),
+    ``label_shards[d]`` and ``weight_shards[d]`` are data shard d's; on a
+    gang of controllers the slots of other processes' shards are None,
+    and ``shard_rows`` (every shard's row count, metadata each process
+    knows) sizes them.  Shards are padded at their end to the largest
+    shard with zero bins, labels and weights and ``real = 0``; scores
+    start at ``init`` (plus ``init_score_shards[d]``, each shard's
+    offsets, in float32; pad rows at the plain ``init``).  With ``perm``
+    (:func:`.ranking.shard_queries_from_shards`: each padded slot's row
+    in shard-concatenation order, −1 on a pad) and ``offsets`` (each
+    shard's first row in that order) shard d's slots take its rows in the
+    query-packed order instead.  Each device piece is built from its own
+    shard alone (``piece_spy(shape)`` sees each piece's shape); the
+    returned arrays' ``perm`` maps the padded layout to the
+    shard-concatenation rows."""
+    D, F = mesh.data, mesh.feature
+    if len(bins_shards) != D:
+        raise ValueError(
+            f"need exactly one shard slot per data-mesh slice: got "
+            f"{len(bins_shards)} slots for data={D}")
+    local = [d for d in range(D) if bins_shards[d] is not None]
+    if not local:
+        raise ValueError("no local shards (every slot is None)")
+    own = range(mesh.data_offset, mesh.data_offset + mesh.local_data)
+    missing = [d for d in own if bins_shards[d] is None]
+    if missing:
+        raise ValueError(
+            f"process {mesh.process_index} holds data shards {own.start}.."
+            f"{own.stop - 1} of the mesh, but slots {missing} are None")
+    f = bins_shards[local[0]].shape[1]
+    for d in local:
+        if bins_shards[d].shape[1] != f:
+            raise ValueError(
+                f"shard {d} has {bins_shards[d].shape[1]} features, "
+                f"shard {local[0]} has {f}: all shards must agree")
+        nl = len(label_shards[d])
+        nw = len(weight_shards[d]) if weight_shards[d] is not None else nl
+        if not bins_shards[d].shape[0] == nl == nw:
+            raise ValueError(
+                f"shard {d}: bins rows {bins_shards[d].shape[0]}, labels "
+                f"{nl}, weights {nw} must all match")
+    if shard_rows is not None:
+        sizes = [int(s) for s in shard_rows]
+        if len(sizes) != D:
+            raise ValueError(f"shard_rows has {len(sizes)} counts for "
+                             f"data={D}")
+        for d in local:
+            if sizes[d] != bins_shards[d].shape[0]:
+                raise ValueError(
+                    f"shard_rows[{d}]={sizes[d]} does not match the local "
+                    f"shard's {bins_shards[d].shape[0]} rows")
+    elif len(local) == D:
+        sizes = [b.shape[0] for b in bins_shards]
+    else:
+        raise ValueError("shard_rows is required when some shard slots "
+                         "are None (multi-controller)")
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    if perm is None:
+        S = max(sizes)
+        perm = np.full((D, S), -1, np.int64)
+        for d, s in enumerate(sizes):
+            perm[d, :s] = offs[d] + np.arange(s)
+        perm = perm.reshape(-1)
+    else:
+        S = len(perm) // D
+        offs = np.asarray(offsets, np.int64)
+    f_loc = pad_to_multiple(f, F) // F
+    n = int(sum(sizes))
+    arrays = ShardArrays(bins=[], labels=[], weights=[], real=[], scores=[],
+                         rows_per_shard=S, n=n, feature=F, perm=perm,
+                         shards=D, shard0=mesh.data_offset)
+    for k, dev in enumerate(mesh.devices):
+        d, j = arrays.shard_of(k), k % F
+        slot = perm[d * S:(d + 1) * S]
+        valid = slot >= 0
+        rows = (slot - offs[d])[valid]
+        src = torch.as_tensor(bins_shards[d])
+        c0, c1 = j * f_loc, min((j + 1) * f_loc, f)
+        piece = src.new_zeros((S, f_loc), device=dev)
+        if c1 > c0:
+            piece[torch.as_tensor(valid, device=dev), :c1 - c0] = \
+                src[torch.as_tensor(rows, device=src.device), c0:c1].to(dev)
+        arrays.bins.append(piece)
+        if piece_spy is not None:
+            piece_spy(tuple(piece.shape))
+        lab = np.zeros(S, np.float32)
+        w = np.zeros(S, np.float32)
+        lab[valid] = np.asarray(label_shards[d], np.float32)[rows]
+        w[valid] = (1.0 if weight_shards[d] is None else np.asarray(
+            weight_shards[d], np.float32)[rows])
+        base = np.full(S, init, np.float32)
+        if init_score_shards is not None and \
+                init_score_shards[d] is not None:
+            base[valid] = init + np.asarray(init_score_shards[d],
+                                            np.float32)[rows]
+        for name, host in (("labels", lab), ("weights", w),
+                           ("real", valid.astype(np.float32)),
+                           ("scores", base if num_class == 1 else
+                            np.repeat(base[:, None], num_class, 1))):
+            getattr(arrays, name).append(torch.tensor(host, device=dev))
+            if piece_spy is not None:
+                piece_spy(host.shape)
     return arrays
 
 
@@ -360,7 +524,6 @@ def goss_iteration(arrays: ShardArrays, key: torch.Tensor,
     ``arrays.efb``) reaches.  One sample feeds all K class trees.  Returns the K unshrunk trees; updates ``arrays.scores``."""
     K = objective.num_model_per_iteration
     F = arrays.feature
-    data = len(arrays.bins) // F
     if grads is None:
         grads = objective_grads(arrays, arrays.real, objective)
     masked, samples = [], []
@@ -368,8 +531,8 @@ def goss_iteration(arrays: ShardArrays, key: torch.Tensor,
         mask = m if K == 1 else m[:, None]
         g, h = g * mask, h * mask
         kd = key.to(g.device)
-        if data > 1:
-            kd = fold_in(kd, k // F)
+        if arrays.data_shards > 1:
+            kd = fold_in(kd, arrays.shard_of(k))
         idx, w = goss_sample(g, h, kd, k1, k2, amp)
         masked.append((g[idx], h[idx]))
         samples.append((idx, w, cnt[idx]))

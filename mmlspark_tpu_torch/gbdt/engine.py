@@ -88,6 +88,23 @@ decides between the data (or voting), feature and data+feature learners.
   (a warning says so), and DART does not replay.  ``callbacks`` are
   called as ``cb(it, trees)`` after each chunk for its iterations, in
   order.
+* **Sharded ingestion** (``train`` given per-shard lists,
+  :func:`_train_distributed_sharded`, the reference's function of that
+  name): each data shard's rows are laid out on its mesh slice from its
+  own matrix (:func:`.distributed.prepare_arrays_from_shards`), padded
+  to the largest shard, and never joined into one matrix; a ranking
+  fit's queries stay on the shards that hold them
+  (:func:`.ranking.shard_queries_from_shards`).  On a **gang of
+  controllers** (a mesh over the processes of a ``torch.distributed``
+  group, :class:`..core.mesh.Mesh`) each process passes None in the
+  slots of the others' shards and ``shard_rows``; labels and weights are
+  complete everywhere.  Every process draws the same host streams over
+  the global rows and takes its own slice, the grower gathers every
+  cross-shard partial in shard order, and so each process grows the
+  one-controller fit's trees.  A gang saves one state file per process
+  behind two barriers (:mod:`.checkpoint`), and a resume needs every
+  process's consent.  The rings, voting, DART and lambdarank do not run
+  on a gang (they raise).
 """
 
 from __future__ import annotations
@@ -105,7 +122,7 @@ import torch
 
 from ..core.mesh import Mesh, pad_to_multiple
 from ..device import DeviceLike, resolve_device
-from ..ops.collectives import resolve_collective
+from ..ops.collectives import gang_barrier, is_gang, resolve_collective
 from ..ops.threefry import prng_key, split
 from .binning import BinMapper
 from .booster import Booster, host_tree_from_arrays
@@ -114,12 +131,14 @@ from .budget import (check_fit_budget, estimate_fit_bytes,
 from .checkpoint import (TreeChunk, _ckpt_clear, _ckpt_event,
                          _ckpt_fingerprint, _ckpt_fingerprint_mesh,
                          _ckpt_load, _ckpt_load_mesh, _ckpt_save,
-                         _ckpt_save_mesh, _host,
+                         _ckpt_save_mesh, _ckpt_unanimous, _host,
+                         _local_bins_digest,
                          train_stats)  # noqa: F401 - engine.train_stats
-from .distributed import (ShardArrays, boost_iteration, check_parallelism,
-                          dart_grow, goss_iteration, objective_grads,
-                          prepare_arrays, shard_full_bins, sharded_cfg,
-                          unit_margin)
+from .distributed import (ShardArrays, ShardedInput, boost_iteration,
+                          check_parallelism, dart_grow, goss_iteration,
+                          objective_grads, prepare_arrays,
+                          prepare_arrays_from_shards, shard_full_bins,
+                          sharded_cfg, unit_margin)
 from .efb import bundle_matrix, expansion_arrays, find_bundles
 from .grower import (GrowerConfig, apply_shrinkage, collective_schedule,
                      predict_tree_binned)
@@ -271,6 +290,14 @@ class TrainParams:
                 "valid: off, 16, 8")
 
 
+#: why a gang of controllers refuses the ring collectives
+_GANG_RING = (
+    "collective='ring' and histogramMethod='pallas_ring' reduce within one "
+    "process: the port's ring kernels do not cross processes (ROADMAP.md, "
+    "Queue B items 3-5); a gang of controllers takes collective='psum' "
+    "or 'auto'")
+
+
 def _resolve_collective_cfg(params: TrainParams, mesh: Optional[Mesh],
                             ranking: bool = False):
     """``params.collective`` → ``(collective, downgrade reason)``.  ``auto``
@@ -280,7 +307,12 @@ def _resolve_collective_cfg(params: TrainParams, mesh: Optional[Mesh],
     ``ranking``) or DART (else ``dart``), and otherwise keeps psum, as the
     reference does.  Voting rides the ring on a data-only mesh.  There is
     no compile-probe downgrade: on the card a ring kernel that does not
-    build or launch raises."""
+    build or launch raises.  On a gang of controllers ``ring`` and
+    ``histogram_method="pallas_ring"`` raise ``NotImplementedError``: the
+    port's rings reduce within one process."""
+    if is_gang(mesh) and (params.collective == "ring"
+                          or params.histogram_method == "pallas_ring"):
+        raise NotImplementedError(_GANG_RING)
     shards = 1 if mesh is None else mesh.data
     collective = resolve_collective(params.collective, shards)
     if params.collective != "ring":
@@ -362,44 +394,55 @@ def _record_fit_resolution(cfg: GrowerConfig, collective: str,
             sched["quantized_scale_bytes"])
 
 
-def _fit_budget(cfg: GrowerConfig, params: TrainParams, bins: torch.Tensor,
-                f: int, K: int, devices, bundles: int, n_val: int,
-                ranking_info: Optional[Dict]) -> dict:
+def _fit_budget(cfg: GrowerConfig, params: TrainParams, n: int,
+                itemsize: int, f: int, K: int, devices, bundles: int,
+                n_val: int, qids: Optional[np.ndarray],
+                shard_rows: int = 0) -> dict:
     """:func:`.budget.estimate_fit_bytes` of this fit on its busiest
-    device: ``bins`` the (bundled) codes on the first device, ``devices``
-    the mesh's (one device serially)."""
+    device: ``n`` rows of ``itemsize``-byte (bundled) codes, ``devices``
+    this process's devices of the mesh (one device serially), ``qids``
+    a ranking fit's query ids.  Under sharded ingestion ``shard_rows`` is
+    the padded shard (the reference's second budget call, ``n_local =
+    max(sizes)``): no device holds more than its shards' rows."""
     D, F = cfg.data_axis_size, cfg.feature_axis_size
     devs = [torch.device(d) for d in devices]
-    H = D if cfg.voting_k > 0 and D > 1 else F
-    S = -(-bins.shape[0] // D)
+    H = len(devs) if cfg.voting_k > 0 and D > 1 else F
+    S = shard_rows or -(-n // D)
     cols = bundles or -(-f // F)
     slots = pairs = 0
-    if ranking_info is not None:
+    if qids is not None:
         from .ranking import CHUNK_PAIRS
-        docs = np.unique(ranking_info["query_ids"], return_counts=True)[1]
+        docs = np.unique(qids, return_counts=True)[1]
         G = int(docs.max())
         chunk = max(1, min(len(docs), CHUNK_PAIRS // (G * G)))
         slots, pairs = (-(-len(docs) // chunk) * chunk * G, chunk * G * G)
     return estimate_fit_bytes(
-        bins.shape[0], f, cfg.num_bins, cfg.num_leaves, K,
-        bins.element_size(), D, F, max(Counter(devs).values()),
+        S * D if shard_rows else n, f, cfg.num_bins, cfg.num_leaves, K,
+        itemsize, D, F, max(Counter(devs).values()),
         max(Counter(devs[:H]).values()), bundles, cfg.quantized_bits > 0,
         params.boosting in ("goss", "dart"), n_val,
         kernel_workspace_bytes(S, cols, cfg.num_bins, cfg.quantized_bits > 0,
-                               devs[0]), slots, pairs)
+                               devs[0]), slots, pairs,
+        sharded_input=bool(shard_rows))
 
 
 def _efb_gate(params: TrainParams, mapper: BinMapper, ranking: bool,
-              mesh: Optional[Mesh], n: int) -> str:
+              mesh: Optional[Mesh], n: int, sharded: bool = False) -> str:
     """Why EFB stays off for this fit of ``n`` rows ("off" when not
     asked), or "none" when it may bundle: the reference's serial gate (no
     categorical feature, at most 256 bins, no lambdarank) and, on a mesh,
     its mesh gate as well (no feature axis, no voting, no GOSS that
     samples — a GOSS sample covering a whole shard trains as gbdt and
     bundles; a mesh DART fit runs the reference's dart scan, which never
-    bundles)."""
+    bundles).  Sharded ingestion (``sharded``) never bundles, as in the
+    reference: a plan needs the whole matrix on one host."""
     if not params.enable_bundle:
         return "off"
+    if sharded:
+        if params.verbosity > 0:
+            log.info("enableBundle: sharded ingestion runs unbundled, as "
+                     "the reference's does (sharded)")
+        return "sharded"
     reason = ("categorical" if mapper.has_categorical
               else "wide_bins" if mapper.num_total_bins > 256
               else "ranking" if ranking else "none")
@@ -651,17 +694,25 @@ class _BoostFit:
         self.arrays = self.ones = self.goss_keys = self.full_bins = None
         self.val_bins = self.val_scores = self.grad_src = None
 
-    def upload(self, bins: torch.Tensor, val_bins=None) -> None:
+    def upload(self, bins, val_bins=None) -> None:
         """Lay every device input out from ``bins`` and ``val_bins``
-        (device tensors, or the host copies a replay re-uploads), with the
-        scores and validation scores at their start.  Anything that held
-        the old buffers (the mesh's ring workspaces included) is rebound
-        to the new ones."""
+        (device tensors, or the host copies a replay re-uploads; ``bins``
+        a :class:`.distributed.ShardedInput` under sharded ingestion),
+        with the scores and validation scores at their start.  Anything
+        that held the old buffers (the mesh's ring workspaces included)
+        is rebound to the new ones."""
         if self.mesh is not None:
             self.mesh.scratch.clear()
-        self.arrays = prepare_arrays(
-            bins.to(self.dev), self.labels, self.w, self.devices, self.init,
-            self.F, self.K, self.perm, self.efb_maps, self.init_scores)
+        if isinstance(bins, ShardedInput):
+            self.arrays = prepare_arrays_from_shards(
+                bins.bins, bins.labels, bins.weights, self.mesh, self.init,
+                self.K, bins.sizes, bins.init_scores, self.perm,
+                self.offsets)
+        else:
+            self.arrays = prepare_arrays(
+                bins.to(self.dev), self.labels, self.w, self.devices,
+                self.init, self.F, self.K, self.perm, self.efb_maps,
+                self.init_scores)
         self.ones = [torch.ones(self.arrays.rows_per_shard,
                                 dtype=torch.float32, device=d)
                      for d in self.devices]
@@ -796,23 +847,31 @@ def _boost_chunk(fit: _BoostFit, it0: int, bag_rows, fis, best
     return out
 
 
-def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
-          mapper: BinMapper, objective: Objective, params: TrainParams,
-          feature_names: Optional[List[str]] = None,
+def train(bins, labels, weights, mapper: BinMapper, objective: Objective,
+          params: TrainParams, feature_names: Optional[List[str]] = None,
           device: DeviceLike = "cuda", mesh: Optional[Mesh] = None,
           val_bins=None, val_labels: Optional[np.ndarray] = None,
           val_weights: Optional[np.ndarray] = None,
           val_metric: Optional[Callable] = None,
           ranking_info: Optional[Dict] = None,
-          init_scores: Optional[np.ndarray] = None,
+          init_scores=None,
           val_init_scores: Optional[np.ndarray] = None,
-          callbacks: Optional[Sequence[Callable]] = None) -> Booster:
+          callbacks: Optional[Sequence[Callable]] = None,
+          shard_rows: Optional[Sequence[int]] = None,
+          grad_fn_override: Optional[Callable] = None) -> Booster:
     """Train a forest.  ``bins``: ``(n, f)`` bin codes — a tensor or a
     numpy array.  Without a mesh the fit runs on the tensor's device (an
     array moves to ``device``).  With a mesh of more than one device the
     rows are sharded over its data axis and the features over its feature
     axis (``params.parallelism="voting"`` selects PV-Tree voting on the
     data axis); a one-device mesh fits serially on its device.
+
+    ``bins`` may also be a list of per-shard code matrices, one per data
+    shard of ``mesh``, with ``labels`` and ``weights`` lists to match:
+    sharded ingestion (:func:`_train_distributed_sharded`), where no
+    matrix of every shard's rows is ever made.  On a gang of controllers
+    each process passes None in the slots of the shards it does not hold,
+    with ``shard_rows`` (every shard's row count).
 
     ``val_bins`` (binned by the same mapper) with ``val_labels``,
     ``val_weights`` and ``val_metric(margins, labels, weights)`` (lower
@@ -837,7 +896,147 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
 
     ``params.checkpoint_dir`` and ``params.fault_tolerant_retries``: the
     chunk-boundary checkpoints and the in-process chunk replay (the
-    module's docstring)."""
+    module's docstring).
+
+    ``grad_fn_override`` (the reference's custom ``(scores) -> (g, h)``)
+    is not ported: a fit given one raises ``NotImplementedError``."""
+    if isinstance(bins, (list, tuple)):
+        return _train_distributed_sharded(
+            bins, labels, weights, mapper, objective, params, mesh,
+            feature_names, val_bins=val_bins, val_labels=val_labels,
+            val_weights=val_weights, val_metric=val_metric,
+            callbacks=callbacks, grad_fn_override=grad_fn_override,
+            init_scores=init_scores, val_init_scores=val_init_scores,
+            ranking_info=ranking_info, shard_rows=shard_rows)
+    if grad_fn_override is not None:
+        raise NotImplementedError(
+            "grad_fn_override (a custom gradient) is not ported; the ranker "
+            "passes ranking_info instead")
+    if is_gang(mesh):
+        raise ValueError(
+            "a gang of controllers trains from per-shard lists (sharded "
+            "ingestion): pass each process's shards, None in the others' "
+            "slots, and shard_rows")
+    return _train_impl(bins, labels, weights, mapper, objective, params,
+                       feature_names, device, mesh, val_bins, val_labels,
+                       val_weights, val_metric, ranking_info, init_scores,
+                       val_init_scores, callbacks)
+
+
+def _gang_refusal(params: TrainParams, ranking: bool) -> Optional[str]:
+    """What a gang of controllers does not run yet, or None."""
+    if params.fault_tolerant_retries > 0:
+        # A replay in one process would send its chunk's gathers again
+        # while its peers move on, and gloo pairs gathers by order alone.
+        return ("faultTolerantRetries on a gang of controllers is not "
+                "ported (ROADMAP.md, Queue A item 10): a gang recovers "
+                "through supervise and checkpointDir")
+    what = ("parallelism='voting'" if params.parallelism == "voting"
+            else "boostingType='dart'" if params.boosting == "dart"
+            else "a ranking objective" if ranking else None)
+    return None if what is None else (
+        f"{what} on a gang of controllers is not ported (ROADMAP.md, "
+        "Queue A item 10); it runs on a one-controller mesh")
+
+
+def _train_distributed_sharded(bins_shards, label_shards, weight_shards,
+                               mapper: BinMapper, objective: Objective,
+                               params: TrainParams, mesh: Optional[Mesh],
+                               feature_names=None, val_bins=None,
+                               val_labels=None, val_weights=None,
+                               val_metric=None, callbacks=None,
+                               grad_fn_override=None, init_scores=None,
+                               val_init_scores=None, ranking_info=None,
+                               shard_rows=None) -> Booster:
+    """Training from per-shard inputs (the reference's function of this
+    name): each data shard's rows go to its own mesh slice, and no matrix
+    of every shard's rows exists anywhere.  Supports what the mesh loop
+    does — validation and early stopping (the validation set arrives
+    whole), bagging, feature fraction, callbacks, per-shard init scores
+    (a list, or one array in shard order), GOSS, rf, DART and lambdarank
+    (``ranking_info["query_ids"]`` a list per shard or one array in shard
+    order; each query must live on one shard), DART × ranking included —
+    and on a gang of controllers everything but voting, DART,
+    lambdarank and ``fault_tolerant_retries``.  Labels and weights must
+    be complete on every controller; a custom gradient is refused."""
+    if mesh is None:
+        raise ValueError("sharded input requires a mesh (setMesh or "
+                         "build_mesh)")
+    if grad_fn_override is not None:
+        raise NotImplementedError(
+            "custom gradient overrides are not supported with sharded "
+            "ingestion (the override closes over monolithic rows); "
+            "rankers pass structured ranking_info instead")
+    D = mesh.data
+    if not len(bins_shards) == len(label_shards) == D:
+        raise ValueError(
+            f"need exactly one shard slot per data-mesh slice: got "
+            f"{len(bins_shards)} bins and {len(label_shards)} label slots "
+            f"for data={D}")
+    if any(b is None for b in bins_shards):
+        if shard_rows is None:
+            raise ValueError(
+                "multi-controller sharded training (None bins slots) "
+                "requires shard_rows — the global per-shard row counts")
+        if any(y is None for y in label_shards):
+            raise ValueError(
+                "label_shards must be complete on every controller "
+                "(labels are 1-D metadata; all-gather them first)")
+    if weight_shards is None:
+        weight_shards = [None if y is None else np.ones(len(y), np.float64)
+                         for y in label_shards]
+    if any(w is None for w in weight_shards):
+        raise ValueError("weight_shards must be complete on every "
+                         "controller (1-D metadata, like labels)")
+    sizes = (list(shard_rows) if shard_rows is not None
+             else [b.shape[0] for b in bins_shards])
+    if len(sizes) != D:
+        raise ValueError(f"shard_rows has {len(sizes)} counts for "
+                         f"data={D}")
+    for d, y in enumerate(label_shards):
+        if len(y) != sizes[d]:
+            raise ValueError(f"shard {d}: {len(y)} labels for "
+                             f"{sizes[d]} rows")
+
+    def per_shard(x):
+        if x is None or isinstance(x, (list, tuple)):
+            return None if x is None else list(x)
+        offs = np.cumsum([0] + sizes)
+        return [np.asarray(x)[offs[d]:offs[d + 1]] for d in range(len(sizes))]
+
+    ranking = ranking_info is not None
+    shards = ShardedInput(list(bins_shards), list(label_shards),
+                          list(weight_shards), sizes,
+                          per_shard(init_scores),
+                          per_shard(ranking_info["query_ids"]) if ranking
+                          else None)
+    if ranking and any(q is None for q in shards.qids):
+        raise ValueError("qid shards must be complete on every controller "
+                         "(1-D metadata, like labels)")
+    if mesh.is_gang:
+        refusal = _gang_refusal(params, ranking)
+        if refusal:
+            raise NotImplementedError(refusal)
+    labels = np.concatenate([np.asarray(y) for y in label_shards])
+    w = np.concatenate([np.asarray(x, np.float64) for x in weight_shards])
+    return _train_impl(None, labels, w, mapper, objective, params,
+                       feature_names, mesh.devices[0], mesh, val_bins,
+                       val_labels, val_weights, val_metric, ranking_info,
+                       shards.init_scores, val_init_scores, callbacks,
+                       shards=shards)
+
+
+def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
+                mapper: BinMapper, objective: Objective,
+                params: TrainParams, feature_names=None,
+                device: DeviceLike = "cuda", mesh: Optional[Mesh] = None,
+                val_bins=None, val_labels=None, val_weights=None,
+                val_metric=None, ranking_info=None, init_scores=None,
+                val_init_scores=None, callbacks=None,
+                shards: Optional[ShardedInput] = None) -> Booster:
+    """:func:`train`'s fit, from one matrix ``bins`` or, under sharded
+    ingestion, from ``shards`` (``bins`` None, ``labels`` and ``weights``
+    every shard's in shard order)."""
     check_parallelism(params.parallelism)
     if params.boosting not in ("gbdt", "goss", "dart", "rf"):
         raise NotImplementedError(
@@ -862,12 +1061,16 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         dev = resolve_device(bins.device)
     else:
         dev = resolve_device(device)
-    if not isinstance(bins, torch.Tensor):
-        bins = torch.as_tensor(np.asarray(bins), dtype=mapper.bin_dtype)
-    use_mesh = mesh is not None and len(mesh) > 1
+    # sharded ingestion always runs the mesh loop, as in the reference
+    use_mesh = mesh is not None and (len(mesh) > 1 or shards is not None)
     devices = mesh.devices if use_mesh else (dev,)
-    bins = bins.to(dev).contiguous()
-    n, f = bins.shape
+    if shards is None:
+        if not isinstance(bins, torch.Tensor):
+            bins = torch.as_tensor(np.asarray(bins), dtype=mapper.bin_dtype)
+        bins = bins.to(dev).contiguous()
+        n, f = bins.shape
+    else:
+        n, f = shards.n, shards.num_features
     labels = np.asarray(labels)
     rng = np.random.default_rng(params.seed)
     bag_rng = np.random.default_rng(params.bagging_seed)
@@ -918,13 +1121,15 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     if ckpt:
         # the fingerprint of the inputs as given, before EFB rebinds bins
         fp = (_ckpt_fingerprint_mesh(n, f, K, params, labels, bins, w,
-                                     init_scores, mesh) if use_mesh
+                                     init_scores, mesh, shards) if use_mesh
               else _ckpt_fingerprint(n, f, K, params, labels, bins, w,
                                      init_scores))
-    perm = ranking_src = None
+        local_digest = _local_bins_digest(shards)
+    perm = offsets = ranking_src = None
     if ranking:
         # ranking.py holds the ranker estimator, which imports this module
-        from .ranking import LambdarankGradient, shard_queries
+        from .ranking import (LambdarankGradient, shard_queries,
+                              shard_queries_from_shards)
     if ranking and use_mesh:
         if init_scores is not None:
             raise NotImplementedError(
@@ -938,20 +1143,26 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                 f"boostingType={params.boosting!r} with a ranking objective "
                 "requires a data-only mesh; use parallelism='data' / "
                 "feature=1")
-        perm, _, qt = shard_queries(labels, ranking_info["query_ids"],
-                                    cfg.data_axis_size,
-                                    ranking_info["truncation_level"])
+        if shards is None:
+            perm, _, qt = shard_queries(labels, ranking_info["query_ids"],
+                                        cfg.data_axis_size,
+                                        ranking_info["truncation_level"])
+        else:
+            perm, _, qt, offsets = shard_queries_from_shards(
+                shards.labels, shards.qids,
+                ranking_info["truncation_level"])
 
         def ranking_src():
             return LambdarankGradient.sharded(
                 qt, cfg.data_axis_size, devices, F, ranking_info["sigma"],
-                ranking_info["truncation_level"])
+                ranking_info["truncation_level"], mesh.data_offset)
     elif ranking:
         def ranking_src():
             return LambdarankGradient.serial(
                 labels, ranking_info["query_ids"], ranking_info["sigma"],
                 ranking_info["truncation_level"], dev, weights)
-    efb_gate = _efb_gate(params, mapper, ranking, shard_mesh, n)
+    efb_gate = _efb_gate(params, mapper, ranking, shard_mesh, n,
+                         shards is not None)
     efb_maps = None
     if efb_gate == "none":
         efb_maps, bundled = _build_efb(bins.cpu().numpy(), mapper, params,
@@ -961,16 +1172,38 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         else:
             bins = torch.as_tensor(bundled, device=dev)
     # the memory guard, before anything of the fit's own is on the device
+    D = cfg.data_axis_size
+    qids = None if not ranking else (
+        np.concatenate([np.asarray(q) for q in shards.qids])
+        if shards is not None else ranking_info["query_ids"])
+    if shards is None:
+        itemsize, shard_rows = bins.element_size(), 0
+    else:
+        itemsize = mapper.bin_dtype.itemsize
+        shard_rows = (len(perm) if perm is not None
+                      else D * max(shards.sizes)) // D
     budget = check_fit_budget(
-        _fit_budget(cfg, params, bins, f, K, devices,
+        _fit_budget(cfg, params, n, itemsize, f, K, devices,
                     0 if efb_maps is None else bins.shape[1],
-                    0 if val_bins is None else len(val_bins), ranking_info),
-        dev, cfg.data_axis_size, params.verbosity)
+                    0 if val_bins is None else len(val_bins), qids,
+                    shard_rows),
+        dev, D, params.verbosity)
     goss = None
     if params.boosting == "goss":
-        D = cfg.data_axis_size
-        goss = _goss_sizes(params, (pad_to_multiple(n, D) if perm is None
-                                    else len(perm)) // D)
+        if perm is not None:
+            goss_rows = len(perm) // D
+        elif shards is not None:
+            # the reference sizes every shard's sample from the mean shard
+            goss_rows = max(1, int(np.ceil(n / D)))
+            if max(shards.sizes) > 2 * min(shards.sizes) \
+                    and params.verbosity >= 0:
+                log.warning("GOSS with sharded ingestion: shard sizes %s "
+                            "are imbalanced; per-shard sample fractions "
+                            "will differ (small shards train closer to "
+                            "full)", shards.sizes)
+        else:
+            goss_rows = pad_to_multiple(n, D) // D
+        goss = _goss_sizes(params, goss_rows)
     has_val = val_bins is not None and val_metric is not None \
         and len(val_bins) > 0
     vs0 = None
@@ -989,18 +1222,26 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         params=params, objective=objective, cfg=cfg, mapper=mapper,
         mesh=shard_mesh, dev=dev, devices=devices, labels=labels, w=w,
         init=init, init_scores=init_scores, F=F, K=K, T=T, perm=perm,
+        offsets=offsets,
         efb_maps=efb_maps, ranking=ranking_src, goss=goss, use_rf=use_rf,
         has_val=has_val, vs0=vs0, val_labels=val_labels,
         val_weights=val_weights, val_metric=val_metric,
         # the serial lambdarank loop rounds the score update's product
         # and sum apart, as the reference's eager host loop does
         fused=not (ranking and not use_mesh))
-    fit.upload(bins, val_bins)
+    source = bins if shards is None else shards
+    fit.upload(source, val_bins)
     arrays = fit.arrays
     _record_fit_resolution(
         cfg, collective, downgrade,
         collective_schedule(cfg, f, n_rows_local=arrays.rows_per_shard),
         dev.type, qdown)
+    if shards is not None:
+        last_fit_info.update(sharded_input="true",
+                             processes=str(mesh.process_count))
+        if mesh.is_gang:
+            import torch.distributed as dist
+            last_fit_info["gang_backend"] = str(dist.get_backend())
     last_fit_info.update(
         efb_bundles=str(0 if efb_maps is None else bins.shape[1]),
         efb_gate=efb_gate)
@@ -1057,8 +1298,10 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     chunk = _chunk_size(params, T, has_val, bool(callbacks), use_bag,
                         use_mesh, ckpt)
     if ftr > 0:
-        # host copies of the device inputs a replay uploads again
-        host_inputs = (bins.cpu(), val_bins.cpu() if has_val else None)
+        # host copies of the device inputs a replay uploads again (the
+        # shards' own matrices under sharded ingestion)
+        host_inputs = (bins.cpu() if shards is None else shards,
+                       val_bins.cpu() if has_val else None)
     cur_bag = np.ones(n, np.float32)
     best_metric, best_iter = np.inf, -1
     trees_chunks: List[TreeChunk] = []
@@ -1069,12 +1312,20 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                                resumed_from=None)
         snap = (_ckpt_load_mesh(ckpt, fp, arrays.scores,
                                 fit.val_scores if has_val
-                                else np.zeros(0, np.float32), F)
+                                else np.zeros(0, np.float32), F, mesh,
+                                local_digest)
                 if use_mesh else _ckpt_load(ckpt, fp))
+        # one verdict for the gang: a process whose own inputs changed
+        # starts every process fresh
+        snap = _ckpt_unanimous(snap, shard_mesh)
         if snap is None:
             # stale chunk files of an abandoned fit must not be skipped
-            # over by this fit's saves and stitched into its meta
-            _ckpt_clear(ckpt)
+            # over by this fit's saves and stitched into its meta; the
+            # verdict is the gang's, so process 0 alone deletes, and the
+            # barrier keeps peers' first saves behind the purge
+            if not is_gang(shard_mesh) or mesh.process_index == 0:
+                _ckpt_clear(ckpt)
+            gang_barrier(shard_mesh)
         else:
             _ckpt_event("ckpt_resumed", it=int(snap["it"]))
             it = snap["it"]
@@ -1155,7 +1406,7 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                                 fit.arrays.scores, fit.val_scores
                                 if has_val else np.zeros(0, np.float32),
                                 cur_bag, rng, bag_rng, best_metric,
-                                best_iter, F)
+                                best_iter, F, shard_mesh, local_digest)
             else:
                 _ckpt_save(ckpt, fp, it, trees_chunks, fit.arrays.scores[0],
                            fit.val_scores if has_val
@@ -1163,11 +1414,13 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                            bag_rng, best_metric, best_iter)
             last_checkpoint["save_seconds"] += time.perf_counter() - t0
             last_checkpoint["saves"] += 1
-            last_checkpoint["bytes"].append(sum(
-                os.path.getsize(p) for p in glob.glob(
-                    os.path.join(ckpt, "*.npz"))))
+            last_checkpoint["bytes"].append(_npz_bytes(ckpt))
     if ckpt:
-        _ckpt_clear(ckpt)
+        # every process must be past its last read of the snapshot
+        # before process 0 deletes it
+        gang_barrier(shard_mesh)
+        if not is_gang(shard_mesh) or mesh.process_index == 0:
+            _ckpt_clear(ckpt)
 
     trees, stop_iter = _truncate(trees, grew, K, stop_iter,
                                  params.verbosity)
@@ -1179,6 +1432,18 @@ def train(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         _rf_average_trees(trees, K)
     return _finalize(trees, K, init, params, objective, mapper,
                      feature_names, f, stop_iter, dev)
+
+
+def _npz_bytes(ckpt_dir: str) -> int:
+    """The snapshot files' bytes on disk; a file that goes while it is
+    counted (a peer of a gang removing its older state file) counts 0."""
+    total = 0
+    for p in glob.glob(os.path.join(ckpt_dir, "*.npz")):
+        try:
+            total += os.path.getsize(p)
+        except FileNotFoundError:
+            pass
+    return total
 
 
 def _finalize(trees: list, K: int, init: float, params: TrainParams,

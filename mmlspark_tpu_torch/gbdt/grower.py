@@ -26,6 +26,14 @@ and the leaf histograms stay on the devices:
   shard histograms the same side.  Totals, best splits and the leaf
   histograms are global and live on the first shard's device, where the
   split search runs once (the reference replicates it on every shard).
+* **A gang of controllers** (``mesh.is_gang``: each process holds its own
+  data shards).  Every cross-shard read goes through
+  :func:`..ops.collectives.gang_gather`: the histogram partials (summed
+  by every process in shard order, so the sum is the one-controller
+  mesh's), the partition counts behind the smaller-side choice and the
+  quantizer's grid peaks.  Every process then makes the same decisions
+  from the same totals, and no tree is broadcast.  Voting and the rings
+  do not run on a gang (the engine refuses them).
 * **Voting** (``cfg.voting_k``, PV-Tree).  Leaf histograms stay local,
   one store per shard, and the sibling is subtracted per shard.  Each
   shard votes its top features on its local histogram and local totals;
@@ -92,9 +100,9 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.collectives import (fused_segment_hist_ring, gather_cand,
-                               psum_plain, ring_allreduce,
-                               ring_allreduce_select)
+from ..ops.collectives import (fused_segment_hist_ring, gang_gather,
+                               gather_cand, is_gang, psum_plain,
+                               ring_allreduce, ring_allreduce_select)
 from ..ops.cuda_ring import FUSED_MAX_BINS
 from ..ops.histogram import (accum_mode, compute_histogram, native_applies,
                              native_find_split, native_gh, native_partition,
@@ -621,13 +629,14 @@ def is_quantized(cfg: GrowerConfig) -> bool:
     return cfg.quantized_bits > 0 and cfg.quantized_max_code > 0
 
 
-def quantize_gh(gh: Sequence[torch.Tensor], cfg: GrowerConfig
+def quantize_gh(gh: Sequence[torch.Tensor], cfg: GrowerConfig, mesh=None
                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Each device's ``(n, 3)`` float gh → ``(codes (n, 3) int32, scale
     (3,) f32)``, with ``codes · scale`` the dequantization (the
     reference's ``_quantize_gh``).  The grid scale of (grad, hess) is the
     largest |value| over the data shards of the device's feature slice
-    (the reference's ``pmax`` over the data axis) times ``1 / max_code``;
+    (the reference's ``pmax`` over the data axis, every process's
+    shards on a gang) times ``1 / max_code``;
     stochastic rounding ``floor(x) + (u < frac(x))`` draws ``u =
     uniform(fold_in(PRNGKey(seed), bits(g-max)), (n, 2))``, the same key
     on every shard; codes clip to ±``max_code``; the count channel (the
@@ -638,6 +647,9 @@ def quantize_gh(gh: Sequence[torch.Tensor], cfg: GrowerConfig
                                       p[:, 1].abs().amax()]).to(gh[j].device)
                          for p in gh[j::F]]).amax(0)
             for j in range(F)]
+    if is_gang(mesh):
+        # the peaks of every process's shards: a max, in any order
+        peak = [torch.stack(gang_gather([p], mesh)).amax(0) for p in peak]
     codes, scales = [], []
     for k, x in enumerate(gh):
         dev = x.device
@@ -722,7 +734,10 @@ def _reduce_hist(parts: Sequence[torch.Tensor], cfg: GrowerConfig,
     """Cross-shard sum of local histograms, on the first shard's device:
     the ``ring_allreduce`` kernel under ``collective="ring"``, else the
     shard-order sum (the reference's ``psum``; integer slabs at the wire
-    width, :func:`wire_psum`)."""
+    width, :func:`wire_psum`).  On a gang: the shard-order sum of every
+    process's parts (:func:`..ops.collectives.gang_gather`)."""
+    if is_gang(mesh):
+        return wire_psum(gang_gather(parts, mesh), cfg)
     if len(parts) == 1:
         return parts[0]
     if cfg.collective == "ring":
@@ -818,10 +833,15 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     first feature, as every device of the reference does, and the tree
     carries slice 0's."""
     K = len(bins)
-    Dd, F = cfg.data_axis_size, cfg.feature_axis_size
-    if K != Dd * F:
-        raise ValueError(f"{K} devices for a {Dd} x {F} (data x feature) "
-                         "grid")
+    F = cfg.feature_axis_size
+    procs = mesh.process_count if is_gang(mesh) else 1
+    # this process's data shards (all of them off a gang)
+    Dd = K // F
+    if K % F or Dd * procs != cfg.data_axis_size:
+        raise ValueError(f"{K} devices for a {cfg.data_axis_size} x {F} "
+                         "(data x feature) grid"
+                         + (f" over {procs} processes" if procs > 1
+                            else ""))
     if K > 1 and (mesh is None or len(mesh) != K):
         raise ValueError(f"{K} devices need a mesh of {K}")
     voting = _is_voting(cfg)
@@ -849,7 +869,7 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     # (device k < H) dequantizes its histograms and totals with
     scale = [None] * H
     if is_quantized(cfg):
-        gh, scales = quantize_gh(gh, cfg)
+        gh, scales = quantize_gh(gh, cfg, mesh)
         scale = scales[:H]
     # the native host kernels (a CPU device under "auto" / "native", at
     # most 256 bins) read f32 or int16 codes: converted once a tree
@@ -858,7 +878,8 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     # the native split scan: a serial fit without categorical features,
     # and not the degenerate min_sum_hessian = lambda_l2 = 0, whose
     # empty-side gains go NaN (the reference's gate)
-    native_split = (native[0] and K == 1 and not cfg.use_categorical
+    native_split = (native[0] and K * procs == 1
+                    and not cfg.use_categorical
                     and (cfg.min_sum_hessian_in_leaf > 0
                          or cfg.lambda_l2 > 0))
 
@@ -1016,7 +1037,13 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
         cnt_l = _fetch(torch.cat([c.to(dev) for c in n_l[::F]])
                        ).astype(np.int64)
         cnt_r = cnt - cnt_l
-        use_right = cnt_r.sum() <= cnt_l.sum()
+        sides = np.asarray([cnt_l.sum(), cnt_r.sum()])
+        if procs > 1:
+            # the gang's sides: every process picks the same one
+            sides = torch.stack(gang_gather(
+                [torch.as_tensor(sides, device=dev)], mesh)).sum(0).cpu(
+                ).numpy()
+        use_right = sides[1] <= sides[0]
         small = _segment_hists(
             bins, gh, row_order, off + cnt_l if use_right else off,
             cnt_r if use_right else cnt_l, cfg, mesh, holders, expand)

@@ -229,13 +229,15 @@ class LambdarankGradient:
 
     @classmethod
     def sharded(cls, qt, n_shards: int, devices: Sequence[torch.device],
-                feature: int, sigma: float, truncation_level: int):
+                feature: int, sigma: float, truncation_level: int,
+                shard0: int = 0):
         """From :func:`shard_queries`'s chunked tensors ``qt``: device k
-        takes data shard ``k // feature``'s chunks."""
+        takes data shard ``shard0 + k // feature``'s chunks (``shard0``:
+        the first data shard of this process's ``devices``)."""
         per = qt[0].shape[0] // n_shards
         qts = []
         for k, dev in enumerate(devices):
-            d = k // feature
+            d = shard0 + k // feature
             part = [a[d * per:(d + 1) * per] for a in qt]
             chunk = part[0].shape[1]
             qts.append(_chunked(*part, chunk=chunk, device=dev))
@@ -343,6 +345,43 @@ def shard_queries(labels: np.ndarray, query_ids: np.ndarray, n_shards: int,
           gains.reshape(nc, chunk, G), labq.reshape(nc, chunk, G),
           invmax.reshape(nc, chunk))
     return perm.reshape(-1), real, qt
+
+
+def shard_queries_from_shards(label_shards, qid_shards,
+                              truncation_level: int, max_label: int = 31,
+                              query_chunk_pairs: int = CHUNK_PAIRS):
+    """Query packing for sharded ingestion (the reference's function of
+    the same name): each query stays on the shard that holds its rows.
+    ``label_shards`` / ``qid_shards``: every shard's labels and query ids
+    (complete on every controller, metadata like the labels).  A query
+    whose id appears in two shards raises.  Returns :func:`shard_queries`'
+    ``(perm, real, qt)`` (``perm`` in shard-concatenation row order) and
+    each shard's first row in that order."""
+    D = len(qid_shards)
+    sizes = np.array([len(np.asarray(q)) for q in qid_shards], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    qids = np.concatenate([np.asarray(q) for q in qid_shards])
+    labels = np.concatenate([np.asarray(l, np.float32)
+                             for l in label_shards])
+    if len(labels) != len(qids):
+        raise ValueError(
+            f"labels ({len(labels)}) and query ids ({len(qids)}) differ")
+    shard_of_row = np.repeat(np.arange(D, dtype=np.int32), sizes)
+    uq, inv = np.unique(qids, return_inverse=True)
+    lo = np.full(len(uq), D, np.int32)
+    hi = np.full(len(uq), -1, np.int32)
+    np.minimum.at(lo, inv, shard_of_row)
+    np.maximum.at(hi, inv, shard_of_row)
+    spans = np.nonzero(lo != hi)[0]
+    if len(spans):
+        raise ValueError(
+            f"query {uq[spans[0]]!r} spans shards {lo[spans[0]]} and "
+            f"{hi[spans[0]]}: sharded lambdarank requires every query's "
+            "rows on ONE shard (group-contiguous ingestion)")
+    perm, real, qt = shard_queries(
+        labels, qids, D, truncation_level, max_label=max_label,
+        query_chunk_pairs=query_chunk_pairs, assign=lo)
+    return perm, real, qt, offsets
 
 
 def ndcg_at_k(scores: np.ndarray, labels: np.ndarray, query_ids: np.ndarray,

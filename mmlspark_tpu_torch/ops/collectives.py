@@ -40,6 +40,16 @@ and are cast back, as the reference's ``_ring_flat`` does: the kernels
 and the twins add float32, which is exact while every sum stays below
 2**24 (the engine's ``_resolve_quantized`` keeps a ring fit there).
 
+**A gang of controllers** (a mesh over several processes,
+:class:`..core.mesh.Mesh` ``is_gang``): :func:`gang_gather` all-gathers
+every process's local parts over ``torch.distributed``, so that each
+process holds all D parts in shard order and sums them with the same
+:func:`psum_plain`; the sum is then the one-controller mesh's bit for bit,
+at any D and any number of processes.  ``all_reduce`` would add in the
+backend's order instead.  Under gloo, CUDA parts are staged through host
+memory.  The rings reduce within one process only; a gang refuses them
+(the engine raises).
+
 On a CUDA tensor the ring entries launch their kernels or raise: there is
 no fallback to a twin or to a library collective.  The reference's TPU
 VMEM gates (``RING_MAX_BYTES``, ``FUSED_RING_MAX_BINST_BYTES``) are
@@ -48,6 +58,7 @@ dropped: on the card both kernels work from device memory.
 
 from __future__ import annotations
 
+import time
 from typing import List, Sequence
 
 import torch
@@ -64,6 +75,48 @@ def psum_plain(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     for p in parts[1:]:
         acc = acc + p.to(dev)
     return acc
+
+
+#: This process's all-gathers across a gang: how many, the bytes of
+#: every part they delivered (its own included), and the host seconds
+#: they took (staging through host memory included).
+gang_stats = {"gathers": 0, "bytes": 0, "seconds": 0.0}
+
+
+def is_gang(mesh) -> bool:
+    """Whether ``mesh`` spans more than one process."""
+    return mesh is not None and getattr(mesh, "process_count", 1) > 1
+
+
+def gang_gather(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Every process's ``parts`` (its local shards' tensors, all of one
+    shape and dtype, the same in every process) in global shard order —
+    process-major, as the gang's mesh numbers its data shards — on
+    ``parts[0]``'s device.  One ``torch.distributed.all_gather`` of the
+    stacked parts; under a backend other than nccl, CUDA parts travel
+    through host memory.  Off a gang: ``parts`` as they are."""
+    if not is_gang(mesh):
+        return list(parts)
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dev = parts[0].device
+    x = torch.stack([p.to(dev) for p in parts])
+    if x.is_cuda and dist.get_backend() != "nccl":
+        x = x.cpu()
+    out = [torch.empty_like(x) for _ in range(mesh.process_count)]
+    dist.all_gather(out, x.contiguous())
+    full = torch.cat(out).to(dev)
+    gang_stats["gathers"] += 1
+    gang_stats["bytes"] += full.numel() * full.element_size()
+    gang_stats["seconds"] += time.perf_counter() - t0
+    return list(full.unbind(0))
+
+
+def gang_barrier(mesh) -> None:
+    """Wait for every process of ``mesh``'s gang (nothing off a gang)."""
+    if is_gang(mesh):
+        import torch.distributed as dist
+        dist.barrier()
 
 
 def _f32_lanes(parts: Sequence[torch.Tensor]):

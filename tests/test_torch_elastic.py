@@ -30,6 +30,7 @@ import torch
 
 from mmlspark_tpu.io.chaos import ChaosPlan as RefChaosPlan
 from mmlspark_tpu_torch.gbdt import checkpoint as ck_mod
+from mmlspark_tpu_torch.gbdt import elastic
 from mmlspark_tpu_torch.gbdt.elastic import (RESTART_EXIT_CODE,
                                              ElasticConfig,
                                              HeartbeatWatchdog,
@@ -211,7 +212,16 @@ def test_restart_exit_code_and_transport_mode():
 
 # -- the rendezvous --------------------------------------------------------
 
-def test_transient_failures_back_off_then_succeed(monkeypatch):
+#: the rendezvous store the tests below hand out in place of a TCPStore
+STORE = object()
+
+
+@pytest.fixture
+def fake_store(monkeypatch):
+    monkeypatch.setattr(elastic, "_rendezvous_store", lambda *a: STORE)
+
+
+def test_transient_failures_back_off_then_succeed(monkeypatch, fake_store):
     calls, naps = [], []
 
     def flaky(**kw):
@@ -224,12 +234,12 @@ def test_transient_failures_back_off_then_succeed(monkeypatch):
                                  backoff_s=0.1, sleep=naps.append)
     assert used == 2
     assert naps == [0.1, 0.2]
-    assert calls[-1] == dict(backend="gloo", init_method="tcp://127.0.0.1:1",
-                             world_size=2, rank=0)
+    assert calls[-1] == dict(backend="gloo", store=STORE, world_size=2,
+                             rank=0)
 
 
 @pytest.mark.parametrize("error", [ValueError, TypeError])
-def test_parameter_errors_not_retried(error, monkeypatch):
+def test_parameter_errors_not_retried(error, monkeypatch, fake_store):
     calls = []
 
     def bad(**kw):
@@ -243,7 +253,7 @@ def test_parameter_errors_not_retried(error, monkeypatch):
     assert len(calls) == 1
 
 
-def test_exhausted_retries_raise(monkeypatch):
+def test_exhausted_retries_raise(monkeypatch, fake_store):
     naps = []
     monkeypatch.setattr(
         torch.distributed, "init_process_group",
