@@ -318,6 +318,35 @@ Phases, each printing one JSON line:
 23. collectives_cross_card — phase 7's checks with one shard per card,
    D = min(cards, 4), where the host has at least two cards; elsewhere it
    prints ``"ran": false`` (not a failure).
+24. observability_path — the observability core (``core/telemetry.py``,
+   ``profiler.py``, ``sketch.py``, ``debug.py``) on main_path's flagship
+   (400,000 × 50, 50 iterations, serial): three fits with everything on
+   and three with the profiler off and ``MMLSPARK_TPU_REF_PROFILE=0``, in
+   turns (on, off, off, on, on, off), must write the same model text;
+   each fit's seconds, the grower's host syncs and every synchronizing
+   call (``torch.cuda.synchronize`` and ``Tensor.cpu`` of a card tensor)
+   are printed, with each pair's difference as a share and their median
+   (the reference's contract is < 3%; printed, not held), and the
+   reference profile's capture ms by step.  The
+   instrumented fit's journal holds one span: ``fit_begin``, then
+   ``boost_chunk`` events whose ``[it_start, it_end)`` tile [0, 50), then
+   ``fit_end`` with the booster's trees; it is mirrored to a file, read
+   back by ``read_journal`` and turned into a fit timeline by
+   ``mmlspark_tpu_torch/tools/trace_report.py``.  The profiler's
+   ``train.boost_chunk.dispatch_host`` / ``device_wait`` counts equal the
+   ``boost_chunk`` events; the ``cuda:0`` watermarks hold
+   ``bytes_in_use <= peak_bytes_in_use <= bytes_limit`` with the peak at
+   least the 20 MB of codes; ``tools/perf_report.py`` parses the
+   registry's render.  The booster's reference profile (captured on the
+   host) equals the one ``build_reference_profile`` builds from the same
+   codes and the booster's CPU margins, its feature sketches exact counts
+   (its capture's ms printed by step).  A fit with
+   ``io.chaos.ChaosBoostStep`` failing its first chunk and no retries
+   raises, journals ``fit_failed`` under its span and leaves a flight
+   record with the journal tail, the profiler snapshot and the card's
+   watermarks.  In debug mode a fit whose ``grad_fn_override`` returns a
+   NaN raises ``DebugCheckError`` before its first tree.  The kernels'
+   launches of the instrumented fit must equal its trees and splits.
 
 The kernels phase also runs the wide modes (``WIDE_KERNEL_BINS``: B =
 257, 512, 1,024 and 4,096, int32 codes from the flagship binned at
@@ -347,7 +376,9 @@ the histogram kernels at the ranking shapes, launches from
 ``continued``, and with the launches of ``fault_tolerance_path``'s
 fits, mode ``fault_tolerance``; the two histogram kernels at a gang
 controller's shapes, with the launches of ``multicontroller_path``'s
-gang summed over its controllers, mode ``multicontroller``), the card
+gang summed over its controllers, mode ``multicontroller``; the two
+histogram kernels with the launches of ``observability_path``'s
+instrumented fit, mode ``observability``), the card
 line, and last the ``{"ok": true, ...}``
 line.  Any failed phase makes the script exit 1 without that last line.
 
@@ -3724,9 +3755,12 @@ def phase_native_path(state):
                              f"transform on {bad}: {res}")
     if nat.mode != "native" or not all(same.values()):
         raise AssertionError(f"the native scorer's margins differ: {res}")
+    # both fits bin natively, and score their reference profile's margins
+    # with the native forest walk (a CPU booster); only the histogram,
+    # partition and split kernels tell the routes apart
     if fits["auto"]["native_calls"]["split"] < 1 or any(
             v for k, v in fits["segment"]["native_calls"].items()
-            if k != "bin_columns"):
+            if k not in ("bin_columns", "predict_forest")):
         raise AssertionError(f"the CPU auto fit did not take the native "
                              f"kernels, or the segment fit did: {res}")
     if not first_same:
@@ -4108,6 +4142,290 @@ def phase_multicontroller_path(state):
     return res
 
 
+class sync_count:
+    """Every synchronizing call inside the block: ``torch.cuda.synchronize``
+    and ``Tensor.cpu`` of a card tensor (the grower's fetches, the
+    profiler's dispatch bracket, the train-loss copy and the reference
+    profile's copies all go through one of them)."""
+
+    def __enter__(self):
+        import torch
+        self.n = 0
+        self.saved = (torch.cuda.synchronize, torch.Tensor.cpu)
+        sync, cpu = self.saved
+
+        def counted_sync(*a, **k):
+            self.n += 1
+            return sync(*a, **k)
+
+        def counted_cpu(t, *a, **k):
+            self.n += t.is_cuda
+            return cpu(t, *a, **k)
+
+        torch.cuda.synchronize, torch.Tensor.cpu = counted_sync, counted_cpu
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.synchronize, torch.Tensor.cpu = self.saved
+
+
+def _observed_fit(est, table, counters):
+    """One fit of ``est`` with the kernels' launch counts, the grower's
+    host syncs and the profiler's chunk phases read from 0 just before
+    it: ``(model, fit_s, launches, grower host syncs, synchronizing
+    calls, span events, dispatch_host and device_wait counts)``."""
+    import torch
+    from mmlspark_tpu_torch.core import telemetry as tm
+    from mmlspark_tpu_torch.core.profiler import get_profiler
+    from mmlspark_tpu_torch.gbdt.grower import grow_tree
+
+    def phase_counts():
+        st = get_profiler().stats.snapshot()["stages"]
+        return [st.get(f"train.boost_chunk.{k}", {}).get("count", 0)
+                for k in ("dispatch_host", "device_wait")]
+
+    before = phase_counts()
+    seq0 = tm.get_journal().events()[-1]["seq"] \
+        if tm.get_journal().events() else 0
+    for fn in counters.values():
+        fn.launches = 0
+    grow_tree.host_syncs = 0
+    torch.cuda.synchronize()
+    with sync_count() as syncs:
+        t0 = time.perf_counter()
+        model = est.fit(table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    events = [e for e in tm.get_journal().events() if e["seq"] > seq0]
+    return (model, fit_s, {k: fn.launches for k, fn in counters.items()},
+            grow_tree.host_syncs, syncs.n - 1, events,
+            [a - b for a, b in zip(phase_counts(), before)])
+
+
+def phase_observability_path(state):
+    """Phase 24 (module docstring): the observability core on the
+    flagship fit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core import debug
+    from mmlspark_tpu_torch.core import telemetry as tm
+    from mmlspark_tpu_torch.core.profiler import get_profiler
+    from mmlspark_tpu_torch.core.sketch import build_reference_profile
+    from mmlspark_tpu_torch.gbdt import engine, get_objective
+    from mmlspark_tpu_torch.io.chaos import ChaosBoostStep, ChaosPlan
+    from mmlspark_tpu_torch.tools import perf_report, trace_report
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    table = {"features": X, "label": y}
+    est = _classifier(numIterations=50, device=DEV, parallelism="serial")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    jpath = os.path.join(tmp, "journal.jsonl")
+    frdir = os.path.join(tmp, "flightrec")
+    tm.configure_flight_recorder(directory=frdir, min_interval_s=0.0)
+    prof = get_profiler()
+    counters = _counters()
+    # the warm-up (standalone the phase builds and loads the kernels)
+    est.copy({"numIterations": WARM_ITERATIONS}).fit(table)
+    captured = {}
+    capture = engine._capture_reference_profile
+
+    def spy(booster, bins, mapper, feature_names):
+        # a reference only: the copy is made after the timed fits
+        captured.update(bins=bins, mapper=mapper,
+                        feature_names=feature_names)
+        return capture(booster, bins, mapper, feature_names)
+
+    def plain_fit():
+        prof.configure(enabled=False)
+        os.environ[engine.REF_PROFILE_ENV] = "0"
+        try:
+            return _observed_fit(est, table, counters)
+        finally:
+            prof.configure(enabled=True)
+            os.environ.pop(engine.REF_PROFILE_ENV, None)
+
+    # on, off, off, on, on, off: the first fit of each side is checked,
+    # all are timed
+    tm.get_journal().configure(jpath)
+    engine._capture_reference_profile = spy
+    try:
+        on = _observed_fit(est, table, counters)
+    finally:
+        engine._capture_reference_profile = capture
+        tm.get_journal().configure(None)
+    capture_s = dict(engine.last_ref_profile)
+    off = plain_fit()
+    off2 = plain_fit()
+    on2 = _observed_fit(est, table, counters)
+    on3 = _observed_fit(est, table, counters)
+    off3 = plain_fit()
+    model = on[0]
+    booster = model.getModel()
+    trees = booster.trees
+    splits = sum(t.num_leaves - 1 for t in trees)
+    launches = {k: on[2][k] for k in ("hist_full", "hist_segment")}
+    state["obs_launches"] = launches
+    bad = []
+    same = len({f[0].getNativeModel()
+                for f in (on, off, off2, on2, on3, off3)}) == 1
+    if not same:
+        bad.append("the instrumented and plain fits wrote different text")
+    if launches["hist_full"] != len(trees) or \
+            launches["hist_segment"] != splits:
+        bad.append(f"launches {launches} against {len(trees)} trees and "
+                   f"{splits} splits")
+    # the journal: one span, its chunks tiling the iterations
+    events = on[5]
+    spans = {e.get("fit") for e in events}
+    kinds = [e["ev"] for e in events]
+    chunks = [(e["it_start"], e["it_end"]) for e in events
+              if e["ev"] == "boost_chunk"]
+    tiled = bool(chunks) and chunks[0][0] == 0 \
+        and chunks[-1][1] == 50 \
+        and all(b == a2 for (_, b), (a2, _) in zip(chunks, chunks[1:]))
+    if len(spans) != 1 or kinds[0] != "fit_begin" \
+            or kinds[-1] != "fit_end" or not tiled \
+            or events[-1].get("trees") != len(trees) \
+            or kinds.count("fit_begin") != 1:
+        bad.append(f"the journal is not one span of tiling chunks: {kinds} "
+                   f"{chunks}")
+    span = events[0].get("fit")
+    mirrored = tm.read_journal(jpath)
+    timeline = trace_report.timeline_report(
+        trace_report.load_events([jpath]), fit=span)["fit"]
+    if [e["ev"] for e in mirrored if e.get("fit") == span] != kinds \
+            or not timeline["complete"]:
+        bad.append("the mirrored journal does not read back as the fit's "
+                   "timeline")
+    # the profiler: one bracket per chunk; the card's watermarks
+    if on[6] != [len(chunks)] * 2 or off[6] != [0, 0]:
+        bad.append(f"dispatch phases {on[6]} / {off[6]} against "
+                   f"{len(chunks)} chunks")
+    prof.sample_memory(min_interval_s=0.0)
+    mem = {k.split("/")[1]: v for k, v in
+           prof.snapshot()["memory_bytes"].items() if k.startswith("cuda:0/")}
+    codes_bytes = N_ROWS * N_FEATURES
+    if not (mem.get("bytes_in_use", -1) <= mem.get("peak_bytes_in_use", -2)
+            <= mem.get("bytes_limit", -3)
+            and mem["peak_bytes_in_use"] >= codes_bytes):
+        bad.append(f"cuda:0 watermarks {mem}")
+    render = tm.get_registry().render_prometheus()
+    totals = perf_report.parse_stage_totals(render)
+    report = perf_report.build_report(
+        {"telemetry": {"profile": prof.snapshot(),
+                       "metrics_exposition": render}}, [jpath])
+    if totals.get("train.boost_chunk.device_wait", {}).get("count", 0) \
+            < len(chunks) or not report["compile_ledger"]["sites"]:
+        bad.append("perf_report did not parse the profile families")
+    # the reference profile against the CPU's from the same codes
+    t0 = time.perf_counter()
+    codes, mapper = captured["bins"].cpu().numpy(), captured["mapper"]
+    sample = codes
+    if len(codes) > engine._REF_PROFILE_MARGIN_ROWS:
+        idx = np.random.default_rng(0).choice(
+            len(codes), size=engine._REF_PROFILE_MARGIN_ROWS, replace=False)
+        idx.sort()
+        sample = codes[idx]
+    Xr = np.empty(sample.shape, np.float32)
+    for j, rep in enumerate(engine._bin_representatives(mapper)):
+        Xr[:, j] = rep[sample[:, j].astype(np.int64)]
+    meta = json.loads(booster.reference_profile.to_json())["meta"]
+    cpu_profile = build_reference_profile(
+        codes, mapper, booster.predict_margin(Xr, device="cpu").numpy(),
+        feature_names=captured["feature_names"],
+        meta={k: meta[k] for k in ("trees", "num_class", "fit_span",
+                                   "created")})
+    cpu_profile_s = time.perf_counter() - t0
+    if booster.reference_profile.to_json() != cpu_profile.to_json():
+        bad.append("the card fit's reference profile differs from the "
+                   "CPU's")
+    # the feature sketches are exact counts: each sums to the rows, and
+    # its buckets to the codes' bincount rolled up by its ladder
+    for j, sk in enumerate(json.loads(cpu_profile.to_json())[
+            "feature_sketches"]):
+        if sk["n"] + sk["nan"] != N_ROWS or \
+                sum(sk["buckets"].values()) != sk["n"] or \
+                sk["nan"] != int((codes[:, j] == mapper.missing_bin).sum()):
+            bad.append(f"feature {j}'s sketch does not count every row")
+            break
+    # a failing fit: fit_failed under its span and a flight record
+    step = ChaosBoostStep(engine._boost_chunk, ChaosPlan(seed=0),
+                          fail_on_calls=[1])
+    saved = engine._boost_chunk
+    engine._boost_chunk = step
+    seq0 = tm.get_journal().events()[-1]["seq"]
+    try:
+        est.fit(table)
+        bad.append("the injected fit did not raise")
+    except RuntimeError:
+        pass
+    finally:
+        engine._boost_chunk = saved
+    failed = [e for e in tm.get_journal().events() if e["seq"] > seq0]
+    records = sorted(os.listdir(frdir)) if os.path.isdir(frdir) else []
+    record = {}
+    if records:
+        with open(os.path.join(frdir, records[-1])) as fh:
+            record = json.load(fh)
+    fspan = failed[0].get("fit") if failed else None
+    if [e["ev"] for e in failed] != ["fit_begin", "fit_failed"] \
+            or failed[-1].get("fit") != fspan \
+            or record.get("context", {}).get("fit") != fspan \
+            or not record.get("journal_tail") \
+            or "cuda:0/peak_bytes_in_use" not in (
+                record.get("profile") or {}).get("memory_bytes", {}):
+        bad.append(f"the failing fit left {[e['ev'] for e in failed]} and "
+                   f"flight records {records}")
+    # debug mode: a NaN gradient stops the fit before its first tree
+    nan_calls = []
+
+    def nan_grad(scores):
+        nan_calls.append(1)
+        g = torch.zeros_like(scores)
+        g[123] = float("nan")
+        return g, torch.ones_like(scores)
+
+    codes_dev = torch.as_tensor(codes, device=DEV)
+    debug.debug_mode(True)
+    debug_error = None
+    try:
+        engine.train(codes_dev, y, None, mapper, get_objective("binary"),
+                     engine.TrainParams(num_iterations=5, verbosity=-1),
+                     grad_fn_override=nan_grad)
+    except debug.DebugCheckError as e:
+        debug_error = str(e)
+    finally:
+        debug.debug_mode(False)
+    if debug_error is None or nan_calls != [1]:
+        bad.append(f"debug mode did not stop the NaN fit ({debug_error}, "
+                   f"{len(nan_calls)} gradient calls)")
+    pairs = ((on, off), (on2, off2), (on3, off3))
+    shares = [(a[1] - b[1]) / b[1] for a, b in pairs]
+    res = {"rows": N_ROWS, "features": N_FEATURES, "iterations": 50,
+           "fit_s_on": [a[1] for a, _ in pairs],
+           "fit_s_off": [b[1] for _, b in pairs],
+           "overhead_shares": shares,
+           "overhead_share": statistics.median(shares),
+           "host_syncs_on": on[3], "host_syncs_off": off[3],
+           "sync_calls_on": [a[4] for a, _ in pairs],
+           "sync_calls_off": [b[4] for _, b in pairs],
+           "ref_profile_ms": {k: v * 1e3 for k, v in capture_s.items()
+                              if k != "rows"},
+           "ref_profile_rows": capture_s.get("rows"),
+           "cpu_profile_check_s": cpu_profile_s,
+           "boost_chunks": len(chunks), "journal_events": kinds,
+           "same_model_text": same, "launches": launches,
+           "trees": len(trees), "splits": splits, "memory_bytes": mem,
+           "build_events": prof.snapshot()["build_events"],
+           "flight_record": records[-1] if records else None,
+           "debug_error": debug_error}
+    if bad:
+        raise AssertionError(f"observability_path: {'; '.join(bad)}: {res}")
+    return res
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r["accum"] == "float32" and "path" not in r
@@ -4179,7 +4497,9 @@ def kernels_line(state):
                 "fault_tolerance") for k in ("hist_full", "hist_segment",
                                              "ring_allreduce")]
             + [(k, gang.get(k, {}), state.get("gang_launches", {}).get(k, 0),
-                "multicontroller") for k in ("hist_full", "hist_segment")]):
+                "multicontroller") for k in ("hist_full", "hist_segment")]
+            + [(k, rows.get(k, {}), state.get("obs_launches", {}).get(k, 0),
+                "observability") for k in ("hist_full", "hist_segment")]):
         out.append({"name": name if mode == "float32" else f"{name}_{mode}",
                     "mode": "int32" if mode == "int32" else "float32",
                     "route": "cuda", "source": SOURCES[name],
@@ -4219,6 +4539,12 @@ def main(argv) -> int:
         print(f"chip_smoke: cannot import mmlspark_tpu_torch ({e}); run "
               "it from the root of the repository", file=sys.stderr)
         return 2
+    # a fit that fails (the budget's refusal, the injected failures)
+    # leaves its flight record in a temporary directory, not the checkout
+    if "MMLSPARK_TPU_FLIGHTREC_DIR" not in os.environ:
+        import tempfile
+        os.environ["MMLSPARK_TPU_FLIGHTREC_DIR"] = tempfile.mkdtemp(
+            prefix="chip_smoke_flightrec_")
     state = {}
     failed = []
     env = None
@@ -4249,6 +4575,8 @@ def main(argv) -> int:
               ("multicontroller_path",
                lambda: phase_multicontroller_path(state)),
               ("collectives_cross_card", phase_collectives_cross_card),
+              ("observability_path",
+               lambda: phase_observability_path(state)),
               ("kernels_flagship", lambda: phase_kernels_flagship(state))]
     if only is not None:
         unknown = only - {name for name, _ in phases}

@@ -220,6 +220,11 @@ class Booster:
         # CompiledPredictor keeps the token it was built with and refuses
         # to score a forest that changed under it
         self._cache_token = 0
+        #: the fit-time data-quality baseline
+        #: (:class:`..core.sketch.ReferenceProfile`) the engine attaches
+        #: after training; None for a loaded or extended model, as in the
+        #: reference (stage persistence does not write it)
+        self.reference_profile = None
 
     def extended(self, continuation: "Booster") -> "Booster":
         """The merged model of continued training (LightGBM's

@@ -11,8 +11,9 @@ names, its file names and its crash-consistency order:
   its trees as its own array, and each iteration's ``grew`` flag: loading
   gives back trees whose model text is byte-equal.
 * **The meta is written last**, ``boost_checkpoint.npz``: the fit's
-  fingerprint, the boundary iteration, the chunk and tree counts, both
-  numpy streams' states and the early-stopping bests (serially also the
+  fingerprint, the boundary iteration, the chunk and tree counts, the
+  fit span (:func:`..core.telemetry.current_fit_span`), both numpy
+  streams' states and the early-stopping bests (serially also the
   scores, the validation scores and the carried bag row), to a temporary
   file, fsynced, ``os.replace``\\ d, then the directory fsynced.  A torn
   save leaves the previous boundary loadable.
@@ -41,9 +42,9 @@ names, its file names and its crash-consistency order:
   rejecting the snapshot starts the whole gang fresh.  Process 0 alone
   clears a stale generation, behind a barrier.
 
-:data:`train_stats` counts the events over every fit of the process
-(:func:`_ckpt_event`); the reference's telemetry journal belongs to the
-serving plane.
+:data:`train_stats` counts the events over every fit of the process and
+the telemetry journal records each, stamped with the fit span
+(:func:`_ckpt_event`), as the reference's do.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import telemetry as _tm
 from ..core.profiling import StageStats
 from ..ops.collectives import gang_barrier, gang_gather, is_gang
 from .booster import HostTree
@@ -75,11 +77,14 @@ _CKPT_CHUNK = "boost_chunk_{:06d}.npz"
 _CKPT_MESH_PREFIX = "mesh_state_p{:03d}_it"
 _CKPT_MESH_STATE = _CKPT_MESH_PREFIX + "{:06d}.npz"
 
-#: Recovery counters over every fit of this process, seeded at 0 so that
-#: "no recovery happened" reads as an explicit zero.
+#: Training counters over every fit of this process (recovery, boost
+#: chunks, reference profiles, collectives), seeded at 0 so that "no
+#: recovery happened" reads as an explicit zero; the engine registers it
+#: under ``"train"`` in the process registry.
 train_stats = StageStats()
 for _k in ("chunks_replayed", "ckpt_saved", "ckpt_resumed",
-           "ckpt_discarded"):
+           "ckpt_discarded", "boost_chunks", "ref_profiles",
+           "collective_count", "collective_payload_bytes"):
     train_stats.incr(_k, 0)
 del _k
 
@@ -99,9 +104,10 @@ class TreeChunk(NamedTuple):
 def _ckpt_event(name: str, **fields) -> None:
     """Count a checkpoint event into :data:`train_stats` (``ckpt_saved``,
     ``ckpt_resumed``, ``ckpt_discarded``; ``chunk_replayed`` counts
-    ``chunks_replayed``) and log it."""
+    ``chunks_replayed``) and journal it, stamped with the current fit
+    span so ``tools/trace_report.py`` places it on the fit's timeline."""
     train_stats.incr(_EVENT_COUNTERS.get(name, name))
-    log.debug("checkpoint event %s %s", name, fields)
+    _tm.get_journal().emit(name, fit=_tm.current_fit_span(), **fields)
 
 
 def _host(x) -> np.ndarray:
@@ -310,7 +316,8 @@ def _ckpt_save(ckpt_dir, fp, it, trees_chunks, scores, val_scores,
         best_iter,
         arrays={"scores": _host(scores), "val_scores": _host(val_scores),
                 "cur_bag": _host(cur_bag)},
-        extra_meta={"n_trees": _ckpt_tree_count(trees_chunks)})
+        extra_meta={"n_trees": _ckpt_tree_count(trees_chunks),
+                    "fit_span": _tm.current_fit_span()})
     _ckpt_event("ckpt_saved", it=int(it), n_chunks=len(trees_chunks))
 
 
@@ -427,7 +434,8 @@ def _ckpt_save_mesh(ckpt_dir, fp, it, trees_chunks, scores, val_scores,
                          best_metric, best_iter, arrays={},
                          extra_meta={"nproc": nproc, "mesh": True,
                                      "n_trees": _ckpt_tree_count(
-                                         trees_chunks)})
+                                         trees_chunks),
+                                     "fit_span": _tm.current_fit_span()})
     # and no process may remove its previous generation before the meta
     # naming the new one is durable
     gang_barrier(mesh)

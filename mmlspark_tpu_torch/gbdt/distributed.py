@@ -55,6 +55,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import debug as _debug
 from ..core.mesh import Mesh, build_mesh, pad_to_multiple
 from ..ops.threefry import fold_in, uniform
 from .grower import (EFBArrays, GrowerConfig, TreeArrays, apply_shrinkage,
@@ -528,6 +529,10 @@ def goss_iteration(arrays: ShardArrays, key: torch.Tensor,
         grads = objective_grads(arrays, arrays.real, objective)
     masked, samples = [], []
     for k, (g, h, m, cnt) in enumerate(grads):
+        # debug mode: the sample sees only its rows, so the full inputs
+        # are checked here (the reference's pre-gather checks)
+        _debug.check_bins_in_range(full_bins[k // F], cfg.num_bins)
+        _debug.check_finite("gradients/hessians", g, h)
         mask = m if K == 1 else m[:, None]
         g, h = g * mask, h * mask
         kd = key.to(g.device)

@@ -36,10 +36,14 @@ and writes the same forest.
   only its own rows.
 
 The reference's ``enable_cpu_collectives`` is a jax setting with no
-counterpart: ``torch.distributed`` has gloo on the CPU already.  Still to
-come (ROADMAP.md, Queue A item 11): the lease beacons over the
-reference's transport (``transport_address``, ``HeartbeatHub``) and the
-telemetry journal's tail in the stats dump.
+counterpart: ``torch.distributed`` has gloo on the CPU already.  The
+telemetry is the reference's: the watchdog's ``stats`` join the process
+registry as ``"elastic"``, a lease file carries the fit span, a peer
+turning straggler or lost journals ``peer_stalled`` / ``peer_lost``, an
+abandoning controller writes a ``peer_lost_abandon`` flight record, and
+:func:`run_worker`'s stats dump carries the journal's tail.  Still to come
+(ROADMAP.md, Queue A item 11): the lease beacons over the reference's
+transport (``transport_address``, ``HeartbeatHub``).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
+from ..core import telemetry as _tm
 from ..core.profiling import StageStats
 
 log = logging.getLogger("mmlspark_tpu_torch.gbdt.elastic")
@@ -133,8 +138,9 @@ class HeartbeatWatchdog:
         return os.path.join(self.cfg.heartbeat_dir, _HB_FILE.format(pid))
 
     def _touch(self) -> None:
+        """Write this process's lease: the time and the fit span."""
         with open(self.path_for(self.cfg.process_id), "w") as fh:
-            fh.write(f"{time.time()}\n")
+            fh.write(f"{time.time()} {_tm.current_fit_span() or ''}\n")
 
     def peer_ages(self) -> Dict[int, float]:
         """Seconds since each peer's lease was last seen to change (inf:
@@ -158,6 +164,9 @@ class HeartbeatWatchdog:
     def start(self) -> "HeartbeatWatchdog":
         os.makedirs(self.cfg.heartbeat_dir, exist_ok=True)
         self.stats.set_gauge("heartbeat_age_ms", 0.0)
+        # the watchdog's gauges join the process registry (a controller's
+        # /metrics or stats dump carries them)
+        _tm.get_registry().register("elastic", self.stats)
         self._t0 = time.time()
         self._touch()
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -185,6 +194,10 @@ class HeartbeatWatchdog:
             stalled = age > cfg.straggler_age_s
             if stalled and not self._stalled.get(p):
                 self.stats.incr("heartbeat_stalls")
+                _tm.get_journal().emit(
+                    "peer_stalled", fit=_tm.current_fit_span(), peer=p,
+                    age_s=round(age, 3) if age != float("inf")
+                    else "inf")
                 log.warning("peer %d heartbeat is %.2fs stale "
                             "(straggler threshold %.2fs)", p, age,
                             cfg.straggler_age_s)
@@ -192,6 +205,10 @@ class HeartbeatWatchdog:
             if age > cfg.lease_timeout_s and not self._lost.get(p):
                 self._lost[p] = True
                 self.stats.incr("peer_lost")
+                _tm.get_journal().emit(
+                    "peer_lost", fit=_tm.current_fit_span(), peer=p,
+                    age_s=round(age, 3) if age != float("inf")
+                    else "inf")
                 self._handle_lost(p, age)
         self.stats.set_gauge("heartbeat_age_ms", round(worst * 1e3, 3))
 
@@ -203,6 +220,11 @@ class HeartbeatWatchdog:
                   "abandoning the gang with RESTART_EXIT_CODE=%d: the "
                   "chunk checkpoint resumes it", pid, age,
                   self.cfg.lease_timeout_s, RESTART_EXIT_CODE)
+        # os._exit runs no cleanup: the flight record is what this process
+        # leaves behind about why it abandoned
+        _tm.record_flight("peer_lost_abandon",
+                          {"peer": pid, "age_s": round(age, 3),
+                           "process_id": self.cfg.process_id})
         os._exit(RESTART_EXIT_CODE)
 
     def _loop(self) -> None:
@@ -485,8 +507,8 @@ def run_worker(args) -> int:
     """One elastic controller: the rendezvous (retried, on the backend
     the ranks' devices call for), the watchdog, :func:`sharded_fit` over
     this process's shards with ``checkpoint_dir`` live, and the stats
-    dump (the recovery counters, the watchdog's, the backend, the fit's
-    seconds, its gathers and its kernels' launches).  Process 0 writes
+    dump (the recovery counters, the watchdog's, the journal's tail, the
+    backend, the fit's seconds, its gathers and its kernels' launches).  Process 0 writes
     the model text."""
     t_start = time.perf_counter()
     import torch
@@ -532,12 +554,20 @@ def run_worker(args) -> int:
                 "rendezvous_retries": retry_used,
                 "backend": dist.get_backend(), "device": str(device),
                 "train": train_stats.snapshot(),
-                "watchdog": wd_stats.snapshot(), **fit}, indent=1))
+                "watchdog": wd_stats.snapshot(),
+                # the journal's tail (fit span, boost_chunk, ckpt_* and
+                # peer_* events), so the stats dump carries a trace
+                # excerpt that tools/trace_report.py turns into a timeline
+                "journal_tail": _tm.get_journal().tail(80), **fit},
+                indent=1))
 
     def on_lost(pid, age):
         log.error("controller %d lease expired (%.2fs); abandoning with "
                   "RESTART_EXIT_CODE", pid, age)
         dump_stats()
+        _tm.record_flight("peer_lost_abandon",
+                          {"peer": pid, "age_s": round(age, 3),
+                           "process_id": args.process_id})
         os._exit(RESTART_EXIT_CODE)
 
     wd = HeartbeatWatchdog(cfg, stats=wd_stats, on_peer_lost=on_lost,

@@ -105,6 +105,16 @@ decides between the data (or voting), feature and data+feature learners.
   behind two barriers (:mod:`.checkpoint`), and a resume needs every
   process's consent.  The rings, voting, DART and lambdarank do not run
   on a gang (they raise).
+* **Telemetry** (:mod:`..core.telemetry`, :mod:`..core.profiler`), where
+  the reference has it: :func:`train` wraps each fit in a fit span
+  (``fit_begin`` / ``fit_end`` / ``fit_failed`` with a flight record),
+  each chunk journals a ``boost_chunk`` event and sets the ``train_loss``
+  gauge (:func:`_monitor_chunk`), the profiler brackets the chunk into
+  its host and device-wait phases, :data:`train_stats` and two info
+  gauges join the process registry, every fit's booster gets a reference
+  profile for drift monitoring (:func:`_capture_reference_profile`), and
+  debug mode (:mod:`..core.debug`) checks the codes and gradients the
+  grower takes.  None of it changes a forest.
 """
 
 from __future__ import annotations
@@ -120,7 +130,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import telemetry as _tm
 from ..core.mesh import Mesh, pad_to_multiple
+from ..core.profiler import device_wait, get_profiler
 from ..device import DeviceLike, resolve_device
 from ..ops.collectives import gang_barrier, is_gang, resolve_collective
 from ..ops.threefry import prng_key, split
@@ -169,6 +181,131 @@ last_checkpoint: Dict[str, object] = {}
 #: reference, so the model text does not record it either.  The packed
 #: gather layout does not change a forest.
 REFERENCE_ONLY_PARAMS = {"packed_gather": False}
+
+# the training counters join the process registry, as the reference's do:
+# a process that trains exposes them on /metrics under ns="train"
+_tm.get_registry().register("train", train_stats)
+
+
+def _fit_resolution_exposition() -> str:
+    """Prometheus info gauge naming the resolved histogram kernel and
+    collective of the last fit in this process (the reference's
+    ``train_histogram_method`` exposition)."""
+    if not last_fit_info:
+        return ""
+    labels = ",".join(f'{k}="{v}"' for k, v in sorted(
+        last_fit_info.items()))
+    name = "mmlspark_tpu_train_histogram_method_info"
+    return (f"# HELP {name} Resolved histogram kernel/collective of the "
+            "last fit\n"
+            f"# TYPE {name} gauge\n"
+            f"{name}{{{labels}}} 1\n")
+
+
+_tm.get_registry().register_exposition("train_histogram_method",
+                                       _fit_resolution_exposition)
+
+
+def _quantized_exposition() -> str:
+    """Prometheus info gauge naming the quantized-gradient resolution of
+    the last fit: grid bits, max code, wire dtype and downgrade (the
+    reference's ``train_quantized`` exposition)."""
+    if not last_fit_info:
+        return ""
+    keys = ("quantized_bits", "quantized_max_code", "quantized_wire",
+            "quantized_downgrade")
+    labels = ",".join(
+        f'{k[len("quantized_"):]}="{last_fit_info[k]}"'
+        for k in keys if k in last_fit_info)
+    if not labels:
+        return ""
+    name = "mmlspark_tpu_train_quantized_info"
+    return (f"# HELP {name} Quantized-gradient resolution of the last "
+            "fit\n"
+            f"# TYPE {name} gauge\n"
+            f"{name}{{{labels}}} 1\n")
+
+
+_tm.get_registry().register_exposition("train_quantized",
+                                       _quantized_exposition)
+
+#: cap on rows copied to the host per chunk boundary for the train-loss
+#: gauge; larger fits are sampled with a stride, sliced on the device
+_MONITOR_LOSS_MAX_ROWS = 65536
+
+
+def _monitor_chunk(it0: int, it1: int, dt_s: float, n_rows: int, K: int,
+                   hist_method: str, objective=None, scores=None,
+                   labels=None, weights=None,
+                   collective: str = "none",
+                   coll_sched: Optional[dict] = None) -> None:
+    """Per-boost-chunk training telemetry (the reference's function of
+    this name): ``ms_per_tree``, ``train_rows_per_s`` and
+    ``last_iteration`` gauges and the ``boost_chunks`` counter on
+    :data:`train_stats`, the chunk's collectives (``coll_sched`` times its
+    trees) in ``collective_count`` / ``collective_payload_bytes``, the
+    ``train_loss`` gauge when ``objective`` is given, and one
+    ``boost_chunk`` journal event.
+
+    ``scores`` (a tensor, on the card or not) is copied to the host for
+    the loss only: beyond ``_MONITOR_LOSS_MAX_ROWS`` rows a strided sample
+    is sliced on the device first, so the copy stays bounded.  A failing
+    loss leaves the gauge unset; it never fails the fit."""
+    iters = max(1, it1 - it0)
+    trees = iters * max(1, K)
+    ms_per_tree = dt_s * 1e3 / trees
+    rows_per_s = n_rows * iters / dt_s if dt_s > 0 else 0.0
+    train_stats.set_gauge("ms_per_tree", round(ms_per_tree, 3))
+    train_stats.set_gauge("train_rows_per_s", round(rows_per_s, 1))
+    train_stats.set_gauge("last_iteration", float(it1))
+    train_stats.incr("boost_chunks")
+    coll_count = coll_bytes = None
+    if coll_sched is not None:
+        coll_count = coll_sched["count"] * trees
+        coll_bytes = coll_sched["payload_bytes"] * trees
+        train_stats.incr("collective_count", coll_count)
+        train_stats.incr("collective_payload_bytes", coll_bytes)
+    loss = None
+    if objective is not None and scores is not None and labels is not None:
+        try:
+            labels_np = np.asarray(labels)
+            stride = max(1, len(labels_np) // _MONITOR_LOSS_MAX_ROWS)
+            if stride > 1:
+                scores = scores[::stride]       # sliced on the device:
+                labels_np = labels_np[::stride]  # the copy stays bounded
+                weights = (None if weights is None
+                           else np.asarray(weights)[::stride])
+            host = (scores.cpu().numpy() if isinstance(scores, torch.Tensor)
+                    else np.asarray(scores))
+            loss = objective.train_loss(host, labels_np, weights)
+        except Exception:  # noqa: BLE001 - telemetry must never kill
+            loss = None    # the fit it observes
+    if loss is not None:
+        train_stats.set_gauge("train_loss", round(float(loss), 6))
+    ev = {"fit": _tm.current_fit_span(), "it_start": int(it0),
+          "it_end": int(it1), "ms_per_tree": round(ms_per_tree, 3),
+          "rows_per_s": round(rows_per_s, 1),
+          "hist_method": hist_method, "collective": collective}
+    if coll_count is not None:
+        ev["collective_count"] = int(coll_count)
+        ev["collective_payload_bytes"] = int(coll_bytes)
+    if loss is not None:
+        ev["train_loss"] = round(float(loss), 6)
+    _tm.get_journal().emit("boost_chunk", **ev)
+
+
+#: set to "0" to skip the fit-time reference-profile capture (e.g. a run
+#: that fits many throwaway models)
+REF_PROFILE_ENV = "MMLSPARK_TPU_REF_PROFILE"
+
+#: rows fed to the margin sketch's representative-predict pass; the
+#: per-feature sketches always count the full binned matrix
+_REF_PROFILE_MARGIN_ROWS = 32768
+
+#: the last reference-profile capture: its seconds, split into the codes'
+#: copy and sample (``codes_s``), the margins' predict (``predict_s``) and
+#: the sketches (``sketch_s``), and the rows predicted
+last_ref_profile: Dict[str, float] = {}
 
 
 def _coerce(key: str, value, like):
@@ -847,19 +984,107 @@ def _boost_chunk(fit: _BoostFit, it0: int, bag_rows, fis, best
     return out
 
 
-def train(bins, labels, weights, mapper: BinMapper, objective: Objective,
-          params: TrainParams, feature_names: Optional[List[str]] = None,
-          device: DeviceLike = "cuda", mesh: Optional[Mesh] = None,
-          val_bins=None, val_labels: Optional[np.ndarray] = None,
-          val_weights: Optional[np.ndarray] = None,
-          val_metric: Optional[Callable] = None,
-          ranking_info: Optional[Dict] = None,
-          init_scores=None,
-          val_init_scores: Optional[np.ndarray] = None,
-          callbacks: Optional[Sequence[Callable]] = None,
-          shard_rows: Optional[Sequence[int]] = None,
-          grad_fn_override: Optional[Callable] = None) -> Booster:
-    """Train a forest.  ``bins``: ``(n, f)`` bin codes — a tensor or a
+def _observe_chunk(fit: _BoostFit, prof, it: int, C: int, t_chunk: float,
+                   seq0: int, host_loop: bool, ranking: bool,
+                   use_mesh: bool, n: int, coll_sched: dict) -> None:
+    """A chunk's telemetry, where the reference's loops put it.  The host
+    loop (the serial ranker, a custom gradient: one iteration a chunk)
+    records ``train.host_iter`` and journals the iteration with no loss.
+    The gbdt / goss / rf chunk, without replay, is one bracketed dispatch
+    ``train.boost_chunk`` when the profiler is on: the host's time until
+    :func:`_boost_chunk` returned, then one wait for the card
+    (:func:`..core.profiler.device_wait`), with its ``profile_span``
+    journal event; then :func:`_monitor_chunk`, with the training loss
+    serially (one strided copy to the host) and the collective on a mesh.
+    A mesh ranking fit journals no chunk, as the reference's does not."""
+    p, K = fit.params, fit.K
+    if host_loop:
+        dt = time.perf_counter() - t_chunk
+        prof.record_phase("train.host_iter", dt)
+        _monitor_chunk(it, it + C, dt, n, K, fit.cfg.hist_method,
+                       coll_sched=coll_sched)
+        return
+    if ranking:
+        return
+    if p.fault_tolerant_retries == 0 and prof.enabled:
+        t_host = time.perf_counter()
+        device_wait(fit.devices)
+        t_done = time.perf_counter()
+        prof.dispatch("train.boost_chunk", t_host - t_chunk,
+                      t_done - t_host, prof.compile_seq() - seq0)
+        prof.span("train.boost_chunk", t_done - t_chunk, journal=True,
+                  it=int(it), **({"mesh": True} if use_mesh else {}),
+                  host_ms=round((t_host - t_chunk) * 1e3, 3),
+                  device_ms=round((t_done - t_host) * 1e3, 3))
+    dt = time.perf_counter() - t_chunk
+    if use_mesh:
+        _monitor_chunk(it, it + C, dt, n, K, fit.cfg.hist_method,
+                       collective=fit.cfg.collective, coll_sched=coll_sched)
+    else:
+        _monitor_chunk(it, it + C, dt, n, K, fit.cfg.hist_method,
+                       fit.objective, fit.arrays.scores[0], fit.labels,
+                       fit.w, coll_sched=coll_sched)
+
+
+def train(*args, **kwargs) -> Booster:
+    """Train a forest — the public entry point (:func:`_train_entry` holds
+    the parameter contract).
+
+    Wraps the fit in a telemetry *fit span*, as the reference does: a span
+    id is minted per fit and published process-wide
+    (:func:`..core.telemetry.current_fit_span`), so the checkpoint events
+    and the elastic lease files carry it; ``fit_begin`` / ``fit_end`` (or
+    ``fit_failed``, with a flight record) journal events bracket every
+    ``boost_chunk`` / ``ckpt_*`` event in between, which is what
+    ``tools/trace_report.py`` turns into a fit timeline.  After the fit
+    the booster gets its reference profile
+    (:func:`_capture_reference_profile`).  A nested call joins the
+    enclosing span instead of minting its own."""
+    if _tm.current_fit_span() is not None:
+        return _train_entry(*args, **kwargs)
+    span = _tm.new_trace_id()
+    _tm.set_current_fit_span(span)
+    t0 = time.perf_counter()
+    _tm.get_journal().emit("fit_begin", fit=span)
+    try:
+        booster = _train_entry(*args, **kwargs)
+    except BaseException as e:
+        _tm.get_journal().emit("fit_failed", fit=span,
+                               error=type(e).__name__)
+        if not isinstance(e, KeyboardInterrupt):
+            # the journal tail, the metrics, the profile (with the card's
+            # watermarks) and the thread stacks at the moment the fit died
+            _tm.record_flight("fit_failed",
+                              {"fit": span, "error": repr(e)})
+        _tm.set_current_fit_span(None)
+        raise
+
+    def _arg(i: int, name: str):
+        return args[i] if len(args) > i else kwargs.get(name)
+
+    _capture_reference_profile(booster, _arg(0, "bins"), _arg(3, "mapper"),
+                               _arg(6, "feature_names"))
+    _tm.get_journal().emit(
+        "fit_end", fit=span, dur_s=round(time.perf_counter() - t0, 3),
+        trees=len(booster.trees))
+    _tm.set_current_fit_span(None)
+    return booster
+
+
+def _train_entry(bins, labels, weights, mapper: BinMapper,
+                 objective: Objective, params: TrainParams,
+                 feature_names: Optional[List[str]] = None,
+                 device: DeviceLike = "cuda", mesh: Optional[Mesh] = None,
+                 val_bins=None, val_labels: Optional[np.ndarray] = None,
+                 val_weights: Optional[np.ndarray] = None,
+                 val_metric: Optional[Callable] = None,
+                 ranking_info: Optional[Dict] = None,
+                 init_scores=None,
+                 val_init_scores: Optional[np.ndarray] = None,
+                 callbacks: Optional[Sequence[Callable]] = None,
+                 shard_rows: Optional[Sequence[int]] = None,
+                 grad_fn_override: Optional[Callable] = None) -> Booster:
+    """:func:`train`'s fit.  ``bins``: ``(n, f)`` bin codes — a tensor or a
     numpy array.  Without a mesh the fit runs on the tensor's device (an
     array moves to ``device``).  With a mesh of more than one device the
     rows are sharded over its data axis and the features over its feature
@@ -898,8 +1123,12 @@ def train(bins, labels, weights, mapper: BinMapper, objective: Objective,
     chunk-boundary checkpoints and the in-process chunk replay (the
     module's docstring).
 
-    ``grad_fn_override`` (the reference's custom ``(scores) -> (g, h)``)
-    is not ported: a fit given one raises ``NotImplementedError``."""
+    ``grad_fn_override``: the reference's custom gradient, ``(scores) ->
+    (g, h)``, called every iteration with the ``(n,)`` scores in place of
+    the objective's gradient (a single-model objective, no mesh, as in the
+    reference).  The loop is the reference's host loop: bagging, GOSS, rf
+    and DART as for any objective, the score update rounded as the
+    serial ranker's, no EFB and no checkpoints."""
     if isinstance(bins, (list, tuple)):
         return _train_distributed_sharded(
             bins, labels, weights, mapper, objective, params, mesh,
@@ -908,10 +1137,6 @@ def train(bins, labels, weights, mapper: BinMapper, objective: Objective,
             callbacks=callbacks, grad_fn_override=grad_fn_override,
             init_scores=init_scores, val_init_scores=val_init_scores,
             ranking_info=ranking_info, shard_rows=shard_rows)
-    if grad_fn_override is not None:
-        raise NotImplementedError(
-            "grad_fn_override (a custom gradient) is not ported; the ranker "
-            "passes ranking_info instead")
     if is_gang(mesh):
         raise ValueError(
             "a gang of controllers trains from per-shard lists (sharded "
@@ -920,7 +1145,25 @@ def train(bins, labels, weights, mapper: BinMapper, objective: Objective,
     return _train_impl(bins, labels, weights, mapper, objective, params,
                        feature_names, device, mesh, val_bins, val_labels,
                        val_weights, val_metric, ranking_info, init_scores,
-                       val_init_scores, callbacks)
+                       val_init_scores, callbacks,
+                       grad_fn_override=grad_fn_override)
+
+
+class _GradOverride:
+    """A custom gradient ``fn(scores) -> (g, h)`` as a serial fit's
+    gradient source (the form :class:`.ranking.LambdarankGradient`
+    takes): per call ``[(g, h, bag, bag)]``, so the grower's channels are
+    ``(g·bag, h·bag, bag)``, the reference's host loop's."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+
+    def __call__(self, arrays, bag, scores=None):
+        s = (arrays.scores if scores is None else scores)[0]
+        g, h = self.fn(s)
+        g, h = (torch.as_tensor(x, dtype=torch.float32, device=s.device)
+                for x in (g, h))
+        return [(g, h, bag[0], bag[0])]
 
 
 def _gang_refusal(params: TrainParams, ranking: bool) -> Optional[str]:
@@ -1033,7 +1276,8 @@ def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                 val_bins=None, val_labels=None, val_weights=None,
                 val_metric=None, ranking_info=None, init_scores=None,
                 val_init_scores=None, callbacks=None,
-                shards: Optional[ShardedInput] = None) -> Booster:
+                shards: Optional[ShardedInput] = None,
+                grad_fn_override: Optional[Callable] = None) -> Booster:
     """:func:`train`'s fit, from one matrix ``bins`` or, under sharded
     ingestion, from ``shards`` (``bins`` None, ``labels`` and ``weights``
     every shard's in shard order)."""
@@ -1075,6 +1319,14 @@ def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     rng = np.random.default_rng(params.seed)
     bag_rng = np.random.default_rng(params.bagging_seed)
     ranking = ranking_info is not None
+    override = grad_fn_override is not None
+    if override and use_mesh:
+        raise NotImplementedError(
+            "custom gradient overrides are not supported with a mesh (only "
+            "lambdarank, which provides ranking_info)")
+    # the reference's per-iteration host loop: the serial ranker and a
+    # custom gradient (a chunk an iteration, journaled as such)
+    host_loop = override or (ranking and not use_mesh)
 
     w = np.ones(n) if weights is None else np.asarray(weights, np.float64)
     objective.prepare(labels, w)
@@ -1110,13 +1362,17 @@ def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     F = cfg.feature_axis_size
     K = objective.num_model_per_iteration
     T = params.num_iterations
+    if override and K > 1:
+        raise NotImplementedError(
+            "a custom gradient override trains a single-model objective; "
+            f"this one grows {K} trees an iteration")
     ckpt = params.checkpoint_dir
-    if ckpt and (use_dart or ranking):
+    if ckpt and (use_dart or ranking or override):
         log.warning(
             "checkpoint_dir is inert for %s (per-iteration host "
             "bookkeeping, as in the reference; restart a killed fit from "
             "initModelPath)", "boostingType='dart'" if use_dart
-            else "lambdarank")
+            else "lambdarank" if ranking else "a custom gradient")
         ckpt = ""
     if ckpt:
         # the fingerprint of the inputs as given, before EFB rebinds bins
@@ -1155,14 +1411,21 @@ def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         def ranking_src():
             return LambdarankGradient.sharded(
                 qt, cfg.data_axis_size, devices, F, ranking_info["sigma"],
-                ranking_info["truncation_level"], mesh.data_offset)
+                ranking_info["truncation_level"], mesh.data_offset,
+                dart=params.boosting == "dart")
     elif ranking:
         def ranking_src():
             return LambdarankGradient.serial(
                 labels, ranking_info["query_ids"], ranking_info["sigma"],
                 ranking_info["truncation_level"], dev, weights)
-    efb_gate = _efb_gate(params, mapper, ranking, shard_mesh, n,
-                         shards is not None)
+    elif override:
+        def ranking_src():
+            return _GradOverride(grad_fn_override)
+    # the host loop of a custom gradient stays unbundled, as in the
+    # reference
+    efb_gate = ("custom_gradient" if override and params.enable_bundle
+                else _efb_gate(params, mapper, ranking, shard_mesh, n,
+                               shards is not None))
     efb_maps = None
     if efb_gate == "none":
         efb_maps, bundled = _build_efb(bins.cpu().numpy(), mapper, params,
@@ -1226,16 +1489,17 @@ def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
         efb_maps=efb_maps, ranking=ranking_src, goss=goss, use_rf=use_rf,
         has_val=has_val, vs0=vs0, val_labels=val_labels,
         val_weights=val_weights, val_metric=val_metric,
-        # the serial lambdarank loop rounds the score update's product
-        # and sum apart, as the reference's eager host loop does
-        fused=not (ranking and not use_mesh))
+        # the serial lambdarank loop and a custom gradient round the score
+        # update's product and sum apart, as the reference's eager host
+        # loop does
+        fused=not host_loop)
     source = bins if shards is None else shards
     fit.upload(source, val_bins)
     arrays = fit.arrays
-    _record_fit_resolution(
-        cfg, collective, downgrade,
-        collective_schedule(cfg, f, n_rows_local=arrays.rows_per_shard),
-        dev.type, qdown)
+    coll_sched = collective_schedule(cfg, f,
+                                     n_rows_local=arrays.rows_per_shard)
+    _record_fit_resolution(cfg, collective, downgrade, coll_sched, dev.type,
+                           qdown)
     if shards is not None:
         last_fit_info.update(sharded_input="true",
                              processes=str(mesh.process_count))
@@ -1295,8 +1559,9 @@ def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
     if has_val:
         last_validation.update(metrics=[], seconds=0.0)
     ftr = params.fault_tolerant_retries
-    chunk = _chunk_size(params, T, has_val, bool(callbacks), use_bag,
-                        use_mesh, ckpt)
+    chunk = 1 if host_loop else _chunk_size(
+        params, T, has_val, bool(callbacks), use_bag, use_mesh, ckpt)
+    prof = get_profiler()
     if ftr > 0:
         # host copies of the device inputs a replay uploads again (the
         # shards' own matrices under sharded ingestion)
@@ -1327,7 +1592,8 @@ def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                 _ckpt_clear(ckpt)
             gang_barrier(shard_mesh)
         else:
-            _ckpt_event("ckpt_resumed", it=int(snap["it"]))
+            _ckpt_event("ckpt_resumed", it=int(snap["it"]),
+                        **({"mesh": True} if use_mesh else {}))
             it = snap["it"]
             trees_chunks = list(snap["trees_chunks"])
             fit.restore(snap["scores"] if use_mesh else [snap["scores"]],
@@ -1357,6 +1623,8 @@ def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                 rows.append(cur_bag)
         fis = [fi_draw(it + j) for j in range(C)]
         snapshot = fit.host_state() if ftr > 0 else None
+        t_chunk = time.perf_counter()
+        seq0 = prof.compile_seq()
         for attempt in range(ftr + 1):
             try:
                 if attempt > 0:
@@ -1372,7 +1640,8 @@ def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                 if attempt >= ftr:
                     raise
                 _ckpt_event("chunk_replayed", it=int(it),
-                            attempt=attempt + 1)
+                            attempt=attempt + 1,
+                            **({"mesh": True} if use_mesh else {}))
                 log.warning("chunk at iteration %d failed (attempt %d/%d: "
                             "%s: %s); uploading the inputs again and "
                             "replaying", it, attempt + 1, ftr,
@@ -1380,6 +1649,8 @@ def _train_impl(bins, labels: np.ndarray, weights: Optional[np.ndarray],
                 # free the failed attempt's buffers before the upload
                 # (after an out-of-memory error they would hold a copy)
                 fit.drop_device_arrays()
+        _observe_chunk(fit, prof, it, C, t_chunk, seq0, host_loop, ranking,
+                       use_mesh, n, coll_sched)
         trees_chunks.append(TreeChunk(out.trees, out.grew))
         trees += out.trees
         grew += out.grew
@@ -1500,6 +1771,72 @@ def _bin_representatives(mapper: BinMapper) -> List[np.ndarray]:
     return reps
 
 
+def _host_codes(bins) -> Optional[np.ndarray]:
+    """The fit's bin codes as one host matrix: a tensor copied to the
+    host, per-shard matrices joined in shard order; None when a shard is
+    not held here (a gang's other processes' slots)."""
+    if isinstance(bins, (list, tuple)):
+        if any(b is None for b in bins):
+            return None
+        return np.concatenate([_host_codes(b) for b in bins], axis=0)
+    if isinstance(bins, torch.Tensor):
+        return bins.cpu().numpy()
+    return np.asarray(bins)
+
+
+def _capture_reference_profile(booster: Booster, bins, mapper,
+                               feature_names) -> None:
+    """Attach the fit-time data-quality baseline (the reference's function
+    of this name): per-feature sketches over the full binned training
+    matrix plus a prediction-margin sketch from predicting at most
+    ``_REF_PROFILE_MARGIN_ROWS`` rows of bin representatives
+    (:func:`_bin_representatives`; a seeded sample of the rows beyond
+    that).  The capture runs on the host: the native scorer's margins
+    are the card walk's bits, and the card walk would add its stacked
+    forest and per-tree buffers to the fit's device-memory peak, which
+    the fit budget does not cover.  Advisory — a capture failure logs and leaves
+    ``booster.reference_profile`` None; it never fails the fit.
+    ``MMLSPARK_TPU_REF_PROFILE=0`` skips it.  :data:`last_ref_profile`
+    keeps its seconds by step and its rows."""
+    if os.environ.get(REF_PROFILE_ENV, "1") == "0" or mapper is None:
+        return
+    t0 = time.perf_counter()
+    try:
+        from ..core.sketch import build_reference_profile
+        bins = _host_codes(bins)
+        if bins is None or bins.ndim != 2 \
+                or bins.shape[1] != mapper.num_features:
+            return
+        sample = bins
+        if sample.shape[0] > _REF_PROFILE_MARGIN_ROWS:
+            idx = np.random.default_rng(0).choice(
+                sample.shape[0], size=_REF_PROFILE_MARGIN_ROWS,
+                replace=False)
+            idx.sort()
+            sample = sample[idx]
+        reps = _bin_representatives(mapper)
+        Xr = np.empty(sample.shape, np.float32)
+        for j, rep in enumerate(reps):
+            Xr[:, j] = rep[sample[:, j].astype(np.int64)]
+        t1 = time.perf_counter()
+        margins = booster.predict_margin(Xr, device="cpu").numpy()
+        t2 = time.perf_counter()
+        booster.reference_profile = build_reference_profile(
+            bins, mapper, margins, feature_names=feature_names,
+            meta={"trees": len(booster.trees),
+                  "num_class": booster.num_class,
+                  "fit_span": _tm.current_fit_span()})
+        train_stats.incr("ref_profiles")
+        last_ref_profile.clear()
+        t3 = time.perf_counter()
+        last_ref_profile.update(seconds=t3 - t0, codes_s=t1 - t0,
+                                predict_s=t2 - t1, sketch_s=t3 - t2,
+                                rows=float(len(sample)))
+    except Exception:  # noqa: BLE001 - the profile is advisory
+        log.exception("reference-profile capture failed; drift "
+                      "monitoring will be unavailable for this model")
+
+
 def train_incremental(bins, labels: np.ndarray, mapper: BinMapper, *,
                       init_booster: Booster, objective: Objective,
                       params: TrainParams,
@@ -1515,11 +1852,10 @@ def train_incremental(bins, labels: np.ndarray, mapper: BinMapper, *,
     The new trees boost from them on ``device``, and the result is
     ``init_booster.extended(new)``, the forest ``initModelPath`` gives.
     ``callbacks`` and ``params.checkpoint_dir`` work as in :func:`train`
-    (the fingerprint covers the init margins).
-
-    The reference also captures a drift-monitoring profile of the merged
-    model here; that belongs to the serving plane, which the port has
-    not reached yet (ROADMAP.md, Queue A item 11)."""
+    (the fingerprint covers the init margins).  The merged booster gets
+    its own reference profile (:func:`_capture_reference_profile`): the
+    one a drift monitor compares live margins against must describe the
+    merged forest."""
     if params.boosting not in ("gbdt", "goss"):
         raise ValueError(
             "incremental training requires boosting gbdt or goss: "
@@ -1547,4 +1883,6 @@ def train_incremental(bins, labels: np.ndarray, mapper: BinMapper, *,
                     feature_names, device=device,
                     init_scores=margins.cpu().numpy().astype(np.float64),
                     callbacks=callbacks)
-    return init_booster.extended(booster)
+    merged = init_booster.extended(booster)
+    _capture_reference_profile(merged, host, mapper, feature_names)
+    return merged

@@ -100,6 +100,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import debug as _debug
 from ..ops.collectives import (fused_segment_hist_ring, gang_gather,
                                gather_cand, is_gang, psum_plain,
                                ring_allreduce, ring_allreduce_select)
@@ -851,6 +852,11 @@ def grow_tree_sharded(bins: Sequence[torch.Tensor],
     if efb is not None and (F > 1 or voting):
         raise ValueError("EFB runs serially or on a data-only mesh without "
                          "voting")
+    # debug mode: every training path grows through here, so corrupt
+    # codes and non-finite gradients are caught whatever the entry
+    for b, g in zip(bins, gh):
+        _debug.check_bins_in_range(b, cfg.num_bins)
+        _debug.check_finite("gradients/hessians", g)
     devs = [b.device for b in bins]
     dev = devs[0]
     f_loc = bins[0].shape[1] if efb is None else efb[0].num_features

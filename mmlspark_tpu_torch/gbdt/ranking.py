@@ -132,12 +132,32 @@ def query_tensors(labels_sorted: np.ndarray, qidx: np.ndarray,
             inv_max_dcg.astype(np.float32))
 
 
+def _dart_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (G terms) as the reference's compiled mesh
+    DART step adds the hessian's rows.  The HLO holds a plain reduce; its
+    order is LLVM's, chosen by G.  Up to 11 terms and from 33 on it is
+    the ranking scan's (:func:`..grower.sum_bins`).  At G = 12 groups of
+    four terms go alternately into two four-lane accumulators, the second
+    added to the first, and the lanes are reduced by halves
+    (``(l0 + l2) + (l1 + l3)``).  From 13 to 32 the vectorizer picks
+    other trees, not reproduced here (ROADMAP.md, Queue C 3): those widths
+    keep the scan's order and may part in the last bit."""
+    G = x.shape[-1]
+    if G != 12:
+        return sum_bins(x.unsqueeze(-1)).squeeze(-1)
+    acc = [x[..., 0:4] + x[..., 8:12], x[..., 4:8]]
+    lanes = acc[0] + acc[1]
+    return (lanes[..., 0] + lanes[..., 2]) + (lanes[..., 1] + lanes[..., 3])
+
+
 def lambda_grad_sorted(s_sorted: torch.Tensor, qt, sigma: float,
-                       trunc: int, n: int):
+                       trunc: int, n: int, dart: bool = False):
     """``(n,)`` lambdarank (grad, hess) of scores sorted by query.  ``qt``
     holds the chunked query tensors ``(qidx, qmask, gains, labq)``, each
     ``(n_chunks, chunk, G)``, and ``invmax`` ``(n_chunks, chunk)``, on the
-    scores' device; a row no query covers gets 0."""
+    scores' device; a row no query covers gets 0.  ``dart`` adds the
+    hessian's sum over j in the mesh DART step's order
+    (:func:`_dart_row_sum`); every other sum keeps the ranking scan's."""
     neg_sig = float(np.float32(-sigma))
     sig2 = float(np.float32(sigma * sigma))
     g_acc = torch.zeros(n, dtype=torch.float32, device=s_sorted.device)
@@ -158,7 +178,8 @@ def lambda_grad_sorted(s_sorted: torch.Tensor, qt, sigma: float,
         hes = sig2 * p * (1.0 - p) * delta * pair
         # sum over j (axis 2) and over i (axis 1), each in XLA's order
         g_q = sum_bins(lam.transpose(1, 2)) - sum_bins(lam)
-        h_q = sum_bins(hes.transpose(1, 2)) + sum_bins(hes)
+        h_j = _dart_row_sum(hes) if dart else sum_bins(hes.transpose(1, 2))
+        h_q = h_j + sum_bins(hes)
         real = qm > 0
         rows = qi[real]
         g_acc.index_add_(0, rows, (g_q * qm)[real])
@@ -195,12 +216,14 @@ class LambdarankGradient:
 
     def __init__(self, qts: List[tuple], sigma: float, trunc: int,
                  order: Optional[torch.Tensor] = None,
-                 weights: Optional[torch.Tensor] = None):
+                 weights: Optional[torch.Tensor] = None,
+                 dart: bool = False):
         self.qts = qts
         self.sigma = float(sigma)
         self.trunc = int(trunc)
         self.order = order
         self.weights = weights
+        self.dart = dart
 
     @classmethod
     def serial(cls, labels: np.ndarray, query_ids: np.ndarray,
@@ -230,10 +253,11 @@ class LambdarankGradient:
     @classmethod
     def sharded(cls, qt, n_shards: int, devices: Sequence[torch.device],
                 feature: int, sigma: float, truncation_level: int,
-                shard0: int = 0):
+                shard0: int = 0, dart: bool = False):
         """From :func:`shard_queries`'s chunked tensors ``qt``: device k
         takes data shard ``shard0 + k // feature``'s chunks (``shard0``:
-        the first data shard of this process's ``devices``)."""
+        the first data shard of this process's ``devices``).  ``dart``:
+        the mesh DART step's hessian order (:func:`lambda_grad_sorted`)."""
         per = qt[0].shape[0] // n_shards
         qts = []
         for k, dev in enumerate(devices):
@@ -241,14 +265,14 @@ class LambdarankGradient:
             part = [a[d * per:(d + 1) * per] for a in qt]
             chunk = part[0].shape[1]
             qts.append(_chunked(*part, chunk=chunk, device=dev))
-        return cls(qts, sigma, truncation_level)
+        return cls(qts, sigma, truncation_level, dart=dart)
 
     def grad_hess(self, k: int, scores: torch.Tensor):
         """Device k's (grad, hess) at its scores."""
         n = scores.shape[0]
         if self.order is None:
             g, h = lambda_grad_sorted(scores, self.qts[k], self.sigma,
-                                      self.trunc, n)
+                                      self.trunc, n, self.dart)
             return g, torch.clamp(h, min=1e-9)
         g_s, h_s = lambda_grad_sorted(scores[self.order], self.qts[k],
                                       self.sigma, self.trunc, n)

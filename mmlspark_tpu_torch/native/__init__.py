@@ -24,6 +24,8 @@ beside this package (listed in ``.gitignore``), under a file name hashed
 from the source, the compiler and the flags, so an edited source is
 rebuilt and an unchanged one loaded as it is.  A failed build or load
 raises ``RuntimeError`` with the compiler's log: there is no fallback.
+Each build (``native_build``) and load (``native_load``) joins the
+profiler's build ledger (:mod:`..core.profiler`).
 The plain paths are reached only by naming them
 (``histogram_method="segment"``, ``CompiledPredictor(backend="jit")``,
 ``BinMapper.transform``).
@@ -47,6 +49,8 @@ from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..core.profiler import get_profiler
 
 #: the compiler and the reference's flags (mmlspark_tpu/native/__init__.py)
 CXX = "g++"
@@ -121,7 +125,9 @@ def build_all(names=SOURCES) -> Dict[str, Tuple[Path, float]]:
                           f"{log}")
             continue
         os.replace(tmp, lib)
-        out[name] = (lib, time.perf_counter() - t0)
+        secs = time.perf_counter() - t0
+        get_profiler().record_build("native_build", secs)
+        out[name] = (lib, secs)
     if failed:
         raise RuntimeError("the native build failed: " + "\n".join(failed))
     return out
@@ -132,10 +138,12 @@ def load(name: str) -> ctypes.CDLL:
     """The library of ``<name>.cc``, built first if needed, with every
     entry's argument types declared.  Loaded once per process."""
     path = build_all([name])[name][0]
+    t0 = time.perf_counter()
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:
         raise RuntimeError(f"cannot load {path}: {e}") from e
+    get_profiler().record_build("native_load", time.perf_counter() - t0)
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int

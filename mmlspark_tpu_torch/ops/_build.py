@@ -5,7 +5,9 @@ library with a plain C interface, at first use, into ``_build/`` beside
 this package (listed in ``.gitignore``).  The library's file name carries a
 hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.  A
-failed build raises.
+failed build raises.  Each build (``nvcc_build``) and each load
+(``cuda_load``) joins the profiler's build ledger
+(:meth:`..core.profiler.Profiler.record_build`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List, Tuple
+
+from ..core.profiler import get_profiler
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -72,6 +76,7 @@ def build_all(names: List[str]) -> Dict[str, Tuple[Path, float, str]]:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, lib)
+        get_profiler().record_build("nvcc_build", secs)
         out[name] = (lib, secs, log)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -83,4 +88,7 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it first if
     needed.  Loaded once per process."""
     lib_path, _, _ = build_all([name])[name]
-    return ctypes.CDLL(str(lib_path))
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(lib_path))
+    get_profiler().record_build("cuda_load", time.perf_counter() - t0)
+    return lib

@@ -1309,3 +1309,63 @@ def test_compiled_predictor_equals_predict_margin(cuda_device, objective):
     torch.testing.assert_close(lo + hi, full, rtol=1e-5, atol=1e-5)
     assert torch.equal(booster.predict_leaf_index(Xd).cpu(),
                        booster.predict_leaf_index(X, device="cpu"))
+
+
+# -- the observability core on the card ----------------------------------------
+
+
+@pytest.mark.cuda
+def test_profiler_watermarks_and_dispatch_bracket_on_a_card_fit(cuda_device,
+                                                                  tmp_path):
+    """A small card fit: the profiler's ``cuda:0`` watermarks hold
+    ``bytes_in_use <= peak_bytes_in_use <= bytes_limit`` (the peak at
+    least the codes), the ``train.boost_chunk`` dispatch bracket records
+    one host and one device-wait phase per ``boost_chunk`` event, and the
+    fit writes the same forest with the profiler and the profile capture
+    off."""
+    import os
+
+    from mmlspark_tpu_torch.core import telemetry as tm
+    from mmlspark_tpu_torch.core.profiler import get_profiler
+    from mmlspark_tpu_torch.gbdt import (engine, fit_bin_mapper,
+                                         get_objective)
+    tm.configure_flight_recorder(directory=str(tmp_path))
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(50_000, 20)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(np.float64)
+    mapper = fit_bin_mapper(X, max_bin=63)
+    bins = torch.as_tensor(mapper.transform_packed(X), device=cuda_device)
+    params = engine.TrainParams(num_iterations=8, num_leaves=15,
+                                verbosity=-1)
+    prof = get_profiler()
+    texts = []
+    for on in (True, False):
+        prof.configure(enabled=on)
+        os.environ[engine.REF_PROFILE_ENV] = "1" if on else "0"
+        try:
+            st = prof.stats.snapshot()["stages"]
+            n0 = st.get("train.boost_chunk.device_wait", {}).get("count", 0)
+            seq0 = tm.get_journal().events()[-1]["seq"] \
+                if tm.get_journal().events() else 0
+            b = engine.train(bins, y, None, mapper,
+                             get_objective("binary"), params)
+            texts.append(b.save_native_model_string())
+            chunks = [e for e in tm.get_journal().events()
+                      if e["seq"] > seq0 and e["ev"] == "boost_chunk"]
+            st = prof.stats.snapshot()["stages"]
+            waits = st.get("train.boost_chunk.device_wait",
+                           {}).get("count", 0) - n0
+            assert waits == (len(chunks) if on else 0)
+            assert (b.reference_profile is not None) == on
+        finally:
+            prof.configure(enabled=True)
+            os.environ.pop(engine.REF_PROFILE_ENV, None)
+    assert texts[0] == texts[1]
+    prof.sample_memory(min_interval_s=0.0)
+    mem = prof.snapshot()["memory_bytes"]
+    used, peak, limit = (mem[f"cuda:0/{k}"] for k in (
+        "bytes_in_use", "peak_bytes_in_use", "bytes_limit"))
+    assert used <= peak <= limit
+    assert peak >= bins.numel()
+    assert prof.snapshot()["build_events"].get("cuda_load", {}).get(
+        "count", 0) >= 1

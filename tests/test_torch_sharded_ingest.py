@@ -216,22 +216,15 @@ def test_sharded_ranking_equals_reference(case, reference_ranking):
         == reference_ranking[case]
 
 
-def test_sharded_ranking_dart_within_tolerance(reference_ranking):
-    """DART × lambdarank is not exact, sharded or not: the port computes
-    the lambda hessian's pairwise sums in the order the reference's
-    compiled ranking scan uses, and the reference's mesh DART step is
-    another compiled program that adds them in another order (a last-bit
-    difference in the hessians: the monolithic mesh DART ranker parts
-    from the reference alike on this table; ROADMAP.md, Queue C 3).
+def test_sharded_ranking_dart_equals_reference(reference_ranking):
+    """DART × lambdarank on the mesh, sharded, equals the reference byte
+    for byte.  The mesh DART step is another compiled program than the
+    ranking scan, and at this table's 12 documents a query it adds the
+    lambda hessian's rows in another order (``ranking._dart_row_sum``,
+    read from the reference's XLA CPU program; ROADMAP.md, Queue C 3).
     Iterations 2 and 4 drop tree 0 (``drop_seed`` 4, ``skip_drop`` 0.5),
-    so tree 0's final leaves carry both renormalisations.  Held: the same
-    number of trees; trees 0 and 1 exact in structure; tree 0's leaf
-    values and weights exactly (the drops and the k/(k+1) shrink under
-    the ranking gradient); tree 1's within rtol 1e-6 (the hessian's last
-    bits); and the training NDCG@5 within 0.01.  From tree 2 on, the
-    first grown at dropped-out scores, near-tied scores reorder and the
-    trees part (NDCG@5 0.9270 against 0.9234 on this table)."""
-    from mmlspark_tpu_torch.gbdt.booster import Booster
+    so the text holds both renormalisations and trees grown at
+    dropped-out scores."""
     from mmlspark_tpu_torch.gbdt.engine import _dart_draw_drops
     seed, params = RANK_CASES["dart_bagging"]
     full = TrainParams(**{**BASE, **params})
@@ -239,24 +232,8 @@ def test_sharded_ranking_dart_within_tolerance(reference_ranking):
     drops = [list(_dart_draw_drops(rng, it, full))
              for it in range(full.num_iterations)]
     assert [it for it, d in enumerate(drops) if 0 in d] == [2, 4]
-    fit = _port_ranking("dart_bagging")
-    port, ref = (Booster.load_native_model_string(t) for t in (
-        fit.save_native_model_string(), reference_ranking["dart_bagging"]))
-    assert len(port.trees) == len(ref.trees)
-    for t in (0, 1):
-        a, b = port.trees[t], ref.trees[t]
-        for key in ("split_feature", "threshold", "left_child",
-                    "right_child"):
-            np.testing.assert_array_equal(getattr(a, key), getattr(b, key))
-        check = (np.testing.assert_array_equal if t == 0 else
-                 lambda x, y: np.testing.assert_allclose(x, y, rtol=1e-6))
-        check(a.leaf_value, b.leaf_value)
-        check(a.leaf_weight, b.leaf_weight)
-    X, y, q = _rank_table(seed)
-    ndcg = [float(np.mean(ndcg_at_k(
-        m.predict_margin(X, device="cpu").numpy(), y, q, 5)))
-        for m in (port, ref)]
-    assert abs(ndcg[0] - ndcg[1]) <= 0.01, ndcg
+    assert _port_ranking("dart_bagging").save_native_model_string() \
+        == reference_ranking["dart_bagging"]
 
 
 def test_global_qid_array_equals_per_shard_lists():
