@@ -234,7 +234,7 @@ Phases, each printing one JSON line:
 19. efb_path — Exclusive Feature Bundling on ``flight_data`` (the Flight
    Delay set's shape: 100,000 rows, one-hot Month, DayofMonth, DayOfWeek,
    UniqueCarrier, Origin and Dest with Zipf carriers and airports, dense
-   DepTime and Distance, 674 features, about 19% delayed), 50 iterations,
+   DepTime and Distance, 674 features, about 19% delayed), 25 iterations,
    31 leaves, 255 bins: a warm-up and a timed fit with ``enableBundle``
    (G bundle columns; ``same_model_text``), the unbundled fit, and
    5-iteration bundled GOSS and DART fits and D = 4 data-ring fits under
@@ -274,13 +274,13 @@ Phases, each printing one JSON line:
 22. fault_tolerance_path — chunk-boundary checkpoints, kill and resume,
    and chunk replay through ``engine.train`` on the flagship (400,000 ×
    50, the main path's settings, bagging every 3rd iteration at 0.8,
-   feature fraction 0.8, 20 iterations, boundaries every 5): after a
+   feature fraction 0.8, 10 iterations, boundaries every 5): after a
    5-iteration warm-up, the fit without and with ``checkpoint_dir`` in
    turns (plain, checkpointed, checkpointed, plain: seconds, the saves'
    seconds, the snapshot's bytes on disk after each boundary, one model
    text); the same fit in a subprocess (``chip_smoke.py
    --fault-tolerance-worker DIR``) that exits in its callback at
-   iteration 10, after boundary 10 is durable, resumed here
+   iteration 5, after boundary 5 is durable, resumed here
    (``ckpt_resumed`` = 1, the directory cleared); the fit with
    ``fault_tolerant_retries=1`` whose chunk 2 fails once after
    ``ChaosBoostStep`` drops its device arrays (``chunks_replayed`` = 1);
@@ -297,7 +297,7 @@ Phases, each printing one JSON line:
    bins, from the script's seed, ``gang_table``), which each controller
    regenerates with the shared bin mapper and bins only its own rows, cut
    unequally at row 190,000 into two shards; fault_tolerance_path's fit
-   settings (20 iterations, 31 leaves, bagging 0.8 every 3rd iteration,
+   settings at 10 iterations (31 leaves, bagging 0.8 every 3rd iteration,
    feature fraction 0.8, boundaries every 5).  The in-process
    one-controller fit of the same two shards on ``[cuda:0] * 2``, then a
    gang run without checkpoints, which must write its text byte for
@@ -320,8 +320,8 @@ Phases, each printing one JSON line:
    prints ``"ran": false`` (not a failure).
 24. observability_path — the observability core (``core/telemetry.py``,
    ``profiler.py``, ``sketch.py``, ``debug.py``) on main_path's flagship
-   (400,000 × 50, 50 iterations, serial): three fits with everything on
-   and three with the profiler off and ``MMLSPARK_TPU_REF_PROFILE=0``, in
+   (400,000 × 50, serial) at 25 iterations (``OBS_ITERATIONS``): three
+   fits with everything on and three with the profiler off and ``MMLSPARK_TPU_REF_PROFILE=0``, in
    turns (on, off, off, on, on, off), must write the same model text;
    each fit's seconds, the grower's host syncs and every synchronizing
    call (``torch.cuda.synchronize`` and ``Tensor.cpu`` of a card tensor)
@@ -329,7 +329,7 @@ Phases, each printing one JSON line:
    (the reference's contract is < 3%; printed, not held), and the
    reference profile's capture ms by step.  The
    instrumented fit's journal holds one span: ``fit_begin``, then
-   ``boost_chunk`` events whose ``[it_start, it_end)`` tile [0, 50), then
+   ``boost_chunk`` events whose ``[it_start, it_end)`` tile [0, 25), then
    ``fit_end`` with the booster's trees; it is mirrored to a file, read
    back by ``read_journal`` and turned into a fit timeline by
    ``mmlspark_tpu_torch/tools/trace_report.py``.  The profiler's
@@ -347,6 +347,31 @@ Phases, each printing one JSON line:
    watermarks.  In debug mode a fit whose ``grad_fn_override`` returns a
    NaN raises ``DebugCheckError`` before its first tree.  The kernels'
    launches of the instrumented fit must equal its trees and splits.
+25. serving_path — the serving plane (``mmlspark_tpu_torch/io``) on
+   main_path's flagship model (400,000 × 50, 50 iterations, 31 leaves,
+   255 bins; standalone the phase fits it), exported as LightGBM text and
+   reloaded on the card, as ``samples/train_export_serve.py`` serves its
+   model.  ``HTTPServer`` + ``ScoringEngine`` on ``predictor(backend=
+   "jit")`` (2 scorers, ``max_rows`` 256, ``latency_budget_ms`` 2):
+   ``SERVE_CLIENTS`` threads post ``SERVE_REQUESTS`` one-row JSON
+   requests drawn from the flagship rows (numpy seed ``SERVE_SEED``);
+   every reply must equal ``predict_margin`` of its row on the card bit
+   for bit after float32 → JSON → float32.  Printed: rows/s, end-to-end
+   p50 / p99 at the client, the engine's ``stats_snapshot`` stage p50s
+   (batch forming, decode, score, reply, and the dispatch split into
+   ``dispatch_host`` and ``device_wait``), its mean batch rows, and the
+   same engine on a CPU booster's native scorer (its replies equal the
+   card's).  Then ``serve_forever`` on the same server with the reloaded
+   model's ``transform``, whose reply must equal the batch transform's
+   probability; the raw-float32 wire through the exchange (a transport
+   client holding the worker slot of a ``MultiprocessHTTPServer``,
+   ``wire.pack_matrix`` rows, reply blocks) and ``MultiprocessHTTPServer``
+   with two spawned worker processes (no worker death), both bit-equal;
+   ``PredictorFleet`` with two spawned workers that load the model on
+   the card, ``routing="shard"`` equal to the port's ``ShardedPredictor``
+   on the card and ``"replica"`` to the full predictor, with the fleet's
+   ms a call at ``FLEET_ROWS`` rows against the in-process predictor's.
+   No number in the phase is a claim.
 
 The kernels phase also runs the wide modes (``WIDE_KERNEL_BINS``: B =
 257, 512, 1,024 and 4,096, int32 codes from the flagship binned at
@@ -514,7 +539,7 @@ FLIGHT_ONEHOT = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
 FLIGHT_ZIPF = ("UniqueCarrier", "Origin", "Dest")
 FLIGHT_FEATURES = sum(k for _, k in FLIGHT_ONEHOT) + 2
 FLIGHT_POSITIVE = 0.19
-FLIGHT_ITERATIONS, FLIGHT_MESH_ITERATIONS = 50, 5
+FLIGHT_ITERATIONS, FLIGHT_MESH_ITERATIONS = 25, 5
 #: wide bins: the flagship's maxBin values (B = 1,024 and 512), the D = 4
 #: fits' iterations, and the bin counts the kernels phase runs the wide
 #: modes at
@@ -872,15 +897,24 @@ def host_cpu():
     return None
 
 
+def card_line():
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except OSError as e:
+        return f"nvidia-smi failed: {e}"
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
 def phase_environment():
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else f"nvidia-smi failed: {smi.stderr.strip()}"
-    return {"nvidia_smi": card, "device": torch.cuda.get_device_name(0),
+    return {"nvidia_smi": card_line(),
+            "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "host_cpu": host_cpu(),
             "host_threads": os.cpu_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3776,7 +3810,7 @@ def phase_native_path(state):
 #: cadence, the iteration after whose chunk the worker dies (boundary
 #: FT_KILL_AT is durable then), the worker's exit code, the D = 4 mesh
 #: fit's validation rows (the flagship's last rows) and the chaos seed
-FT_ITERATIONS, FT_CHUNK, FT_KILL_AT, FT_KILL_CODE = 20, 5, 10, 37
+FT_ITERATIONS, FT_CHUNK, FT_KILL_AT, FT_KILL_CODE = 10, 5, 5, 37
 FT_VAL_ROWS = 40_000
 FT_SEED = 14
 _FT = {}
@@ -4016,9 +4050,11 @@ def phase_fault_tolerance_path(state):
 
 
 #: multicontroller_path: the row at which the flagship is cut into its
-#: two shards, the controllers, and the drill's heartbeat stall
+#: two shards, the controllers, the drill's heartbeat stall and the
+#: gang's iterations (boundaries every FT_CHUNK)
 GANG_CUT, GANG_PROCESSES = 190_000, 2
 GANG_STALL = "2.0:1.5"
+GANG_ITERATIONS = 10
 
 
 def gang_table(seed, rows, features, num_class=2):
@@ -4032,10 +4068,10 @@ def gang_table(seed, rows, features, num_class=2):
 
 def _gang_args():
     """The controllers' fit: fault_tolerance_path's settings on the
-    flagship, cut at GANG_CUT."""
+    flagship, cut at GANG_CUT, for GANG_ITERATIONS iterations."""
     return ["--table", "chip_smoke:gang_table", "--rows", str(N_ROWS),
             "--features", str(N_FEATURES), "--max-bin", "255",
-            "--cuts", str(GANG_CUT), "--iterations", str(FT_ITERATIONS),
+            "--cuts", str(GANG_CUT), "--iterations", str(GANG_ITERATIONS),
             "--num-leaves", "31", "--learning-rate", "0.1",
             "--bagging-fraction", "0.8", "--bagging-freq", "3",
             "--feature-fraction", "0.8", "--straggler-age", "0.6",
@@ -4082,7 +4118,7 @@ def phase_multicontroller_path(state):
     launches = [s.get("launches", {}) for s in per]
     res = {"rows": N_ROWS, "features": N_FEATURES, "shards":
            [GANG_CUT, N_ROWS - GANG_CUT], "processes": GANG_PROCESSES,
-           "iterations": FT_ITERATIONS, "checkpoint_chunk": FT_CHUNK,
+           "iterations": GANG_ITERATIONS, "checkpoint_chunk": FT_CHUNK,
            "one_controller_fit_s": one_s,
            "one_controller_prep_s": one_prep_s,
            "one_controller_launches": one_launches,
@@ -4203,6 +4239,10 @@ def _observed_fit(est, table, counters):
             [a - b for a, b in zip(phase_counts(), before)])
 
 
+#: observability_path: the iterations of each of its six flagship fits
+OBS_ITERATIONS = 25
+
+
 def phase_observability_path(state):
     """Phase 24 (module docstring): the observability core on the
     flagship fit."""
@@ -4219,7 +4259,8 @@ def phase_observability_path(state):
     from mmlspark_tpu_torch.tools import perf_report, trace_report
     X, y = bench_data(N_ROWS, N_FEATURES)
     table = {"features": X, "label": y}
-    est = _classifier(numIterations=50, device=DEV, parallelism="serial")
+    est = _classifier(numIterations=OBS_ITERATIONS, device=DEV,
+                      parallelism="serial")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
     jpath = os.path.join(tmp, "journal.jsonl")
     frdir = os.path.join(tmp, "flightrec")
@@ -4283,7 +4324,7 @@ def phase_observability_path(state):
     chunks = [(e["it_start"], e["it_end"]) for e in events
               if e["ev"] == "boost_chunk"]
     tiled = bool(chunks) and chunks[0][0] == 0 \
-        and chunks[-1][1] == 50 \
+        and chunks[-1][1] == OBS_ITERATIONS \
         and all(b == a2 for (_, b), (a2, _) in zip(chunks, chunks[1:]))
     if len(spans) != 1 or kinds[0] != "fit_begin" \
             or kinds[-1] != "fit_end" or not tiled \
@@ -4403,7 +4444,8 @@ def phase_observability_path(state):
                    f"{len(nan_calls)} gradient calls)")
     pairs = ((on, off), (on2, off2), (on3, off3))
     shares = [(a[1] - b[1]) / b[1] for a, b in pairs]
-    res = {"rows": N_ROWS, "features": N_FEATURES, "iterations": 50,
+    res = {"rows": N_ROWS, "features": N_FEATURES,
+           "iterations": OBS_ITERATIONS,
            "fit_s_on": [a[1] for a, _ in pairs],
            "fit_s_off": [b[1] for _, b in pairs],
            "overhead_shares": shares,
@@ -4423,6 +4465,391 @@ def phase_observability_path(state):
            "debug_error": debug_error}
     if bad:
         raise AssertionError(f"observability_path: {'; '.join(bad)}: {res}")
+    return res
+
+
+#: serving_path: the one-row JSON requests and the client threads posting
+#: them, the engine's batching, the requests of the binary-wire and
+#: multiprocess checks and of the CPU engine, the fleet's timed sizes and
+#: the seed drawing the rows
+SERVE_REQUESTS, SERVE_CLIENTS = 4000, 8
+SERVE_MAX_ROWS, SERVE_BUDGET_MS = 256, 2.0
+SERVE_SIDE_REQUESTS = 1000
+FLEET_ROWS = (1, 64, 4096)
+SERVE_SEED = 17
+
+
+def _client_run(addrs, bodies, clients):
+    """The clients of serving_path, run in a process of their own:
+    ``clients`` threads, each on one keep-alive HTTP connection to its
+    address (``addrs`` round-robin), post ``bodies`` (request j by thread
+    j % clients).  Returns ``(replies, each request's seconds, wall
+    seconds, errors)``."""
+    import http.client
+    import json
+    import threading
+    from urllib.parse import urlsplit
+    out = [0.0] * len(bodies)
+    lat = [0.0] * len(bodies)
+    errors = []
+
+    def client(k):
+        u = urlsplit(addrs[k % len(addrs)])
+        conn = http.client.HTTPConnection(u.hostname, u.port, timeout=60)
+        for j in range(k, len(bodies), clients):
+            t0 = time.perf_counter()
+            try:
+                conn.request("POST", u.path or "/", body=bodies[j],
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                if resp.status != 200:
+                    raise RuntimeError(f"HTTP {resp.status}: {data[:200]}")
+                out[j] = json.loads(data)
+            except Exception as e:  # noqa: BLE001 - reported by the caller
+                errors.append(f"request {j}: {e!r}")
+                conn.close()
+                conn = http.client.HTTPConnection(u.hostname, u.port,
+                                                  timeout=60)
+            lat[j] = time.perf_counter() - t0
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, lat, time.perf_counter() - t0, errors
+
+
+def _serve_posts(pool, addrs, X, idx, clients=SERVE_CLIENTS):
+    """POST rows ``idx`` of ``X`` as one-row JSON requests from
+    ``clients`` threads of the client process ``pool`` (thread k keeps
+    one connection to ``addrs[k % len(addrs)]``): ``(replies as float32
+    in idx order, each request's seconds, wall seconds)``."""
+    import json
+    import numpy as np
+    bodies = [json.dumps({"features": X[i].tolist()}).encode() for i in idx]
+    out, lat, wall, errors = pool.submit(_client_run, list(addrs), bodies,
+                                         clients).result()
+    if errors:
+        raise AssertionError(f"{len(errors)} requests failed: {errors[:3]}")
+    return np.asarray(out, np.float32), np.asarray(lat), wall
+
+
+def _engine_run(pool, predictor, X, idx, server=None):
+    """``predictor`` behind an ``HTTPServer`` (or ``server``) and a
+    ``ScoringEngine`` at the phase's batching, ``_serve_posts`` of rows
+    ``idx`` from the client process ``pool``: ``(replies, summary)``; the
+    engine is stopped, the server left running."""
+    import numpy as np
+    from mmlspark_tpu_torch.io import HTTPServer, ScoringEngine
+    srv = server or HTTPServer().start()
+    eng = ScoringEngine(srv, predictor=predictor, max_rows=SERVE_MAX_ROWS,
+                        latency_budget_ms=SERVE_BUDGET_MS,
+                        num_scorers=2).start()
+    try:
+        got, lat, wall = _serve_posts(pool, [srv.address], X, idx)
+    finally:
+        eng.stop()
+    snap = eng.stats_snapshot()
+    st = snap["stages"]
+    batches = st["e2e"]["count"]
+    return got, {
+        "requests": len(idx), "wall_s": wall, "rows_per_s": len(idx) / wall,
+        "client_p50_ms": float(np.percentile(lat, 50) * 1e3),
+        "client_p99_ms": float(np.percentile(lat, 99) * 1e3),
+        "stage_p50_ms": {k: st[k]["p50_ms"] for k in (
+            "batch_form", "queue_wait", "decode", "score", "reply", "e2e",
+            "dispatch_host", "device_wait") if k in st},
+        "dispatch_calls": st.get("dispatch_host", {}).get("count", 0),
+        "batches": batches, "mean_batch_rows": snap["rows"] / max(1,
+                                                                 batches),
+        "counters": snap["counters"]}
+
+
+def _wire_scores(X, rows, predictor):
+    """The raw-float32 wire through the exchange, as the reference's
+    ``tools/bench_serving.py`` drives it: a transport client holds the
+    worker slot of a ``MultiprocessHTTPServer`` (``spawn_workers``
+    False), parks each row as a ``wire.pack_matrix`` block, reads the
+    raw-float32 reply blocks and acks them from a thread of its own (an
+    ack sent from the read pump's callback could wait for send credits
+    that only that pump can read).  Returns the margins in row order and
+    the seconds."""
+    import queue
+    import threading
+    import numpy as np
+    from mmlspark_tpu_torch.io import (MultiprocessHTTPServer,
+                                       ScoringEngine, TransportClient,
+                                       TransportConfig)
+    from mmlspark_tpu_torch.io import wire
+    from mmlspark_tpu_torch.io.transport import CH_CONTROL, CH_SCORING
+    srv = MultiprocessHTTPServer(num_workers=1, spawn_workers=False,
+                                 join_timeout=30.0)
+    got, cv, holder = {}, threading.Condition(), {}
+    acks: "queue.Queue" = queue.Queue()
+
+    def on_msg(session, channel, msg, dl):
+        if not isinstance(msg, (bytes, memoryview)):
+            return
+        entries = wire.unpack_replies(msg)
+        with cv:
+            for rid, v in entries:
+                got[rid] = np.float32(np.asarray(v).reshape(()))
+            cv.notify_all()
+        acks.put([rid for rid, _ in entries])
+
+    def ack_loop():
+        for rids in iter(acks.get, None):
+            holder["c"].send(CH_SCORING, {"op": "ack_many", "rids": rids,
+                                          "delivered": [True] * len(rids)},
+                             timeout=30.0)
+
+    def dial():
+        h, p = srv._ts.address
+        c = TransportClient((h, p), token=srv.token,
+                            cfg=TransportConfig(initial_credits=2048,
+                                                credit_batch=64),
+                            on_message=on_msg, name="wire-client")
+        for _ in range(400):
+            try:
+                c.connect(retries=0)
+                break
+            except OSError:
+                time.sleep(0.05)
+        c.send(CH_CONTROL, {"op": "hello", "worker": 0,
+                            "host": "127.0.0.1", "port": 1})
+        holder["c"] = c
+
+    t = threading.Thread(target=dial, daemon=True)
+    t.start()
+    srv.start()
+    t.join(30)
+    acker = threading.Thread(target=ack_loop, daemon=True)
+    acker.start()
+    eng = ScoringEngine(srv, predictor=predictor, max_rows=SERVE_MAX_ROWS,
+                        latency_budget_ms=SERVE_BUDGET_MS,
+                        num_scorers=2).start()
+    try:
+        if not holder["c"].session.peer_binary:
+            raise AssertionError("the exchange did not negotiate the "
+                                 "binary wire")
+        t0 = time.perf_counter()
+        for k, i in enumerate(rows):
+            holder["c"].send_bytes(CH_SCORING,
+                                   wire.pack_matrix(f"w{k}", X[i:i + 1]),
+                                   timeout=30.0)
+        with cv:
+            cv.wait_for(lambda: len(got) == len(rows), 60)
+        secs = time.perf_counter() - t0
+    finally:
+        eng.stop()
+        acks.put(None)
+        acker.join(30)
+        holder["c"].close()
+        srv.stop()
+    if len(got) != len(rows):
+        raise AssertionError(f"binary wire: {len(got)} of {len(rows)} "
+                             "replies")
+    return np.asarray([got[f"w{k}"] for k in range(len(rows))]), secs
+
+
+def phase_serving_path(state):
+    """Phase 25 (module docstring): the serving plane on the flagship
+    model.  The clients run in a process of their own.  The spawned
+    workers of the multiprocess server and of the two fleets start after
+    the binary wire's run and while the card's engine, ``serve_forever``
+    and the CPU engine run."""
+    import json
+    import multiprocessing
+    import threading
+    import urllib.request
+    from concurrent.futures import ProcessPoolExecutor
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.gbdt import (Booster,
+                                         LightGBMClassificationModel)
+    from mmlspark_tpu_torch.io import (HTTPServer, MultiprocessHTTPServer,
+                                       PredictorFleet, ScoringEngine,
+                                       ShardedPredictor, serve_forever)
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    model = state.get("main_model")
+    if model is None:
+        model = _classifier(numIterations=50, device=DEV,
+                            parallelism="serial").fit(
+            {"features": X, "label": y})
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+    t0 = time.perf_counter()
+    text = model.getModel().save_native_model_string()
+    card = Booster.load_native_model_string(text, device=DEV)
+    reload_s = time.perf_counter() - t0
+    pred = card.predictor(backend="jit")
+    rng = np.random.default_rng(SERVE_SEED)
+    idx = rng.integers(0, N_ROWS, SERVE_REQUESTS)
+    side = idx[:SERVE_SIDE_REQUESTS]
+    # every reply against predict_margin of its row on the card
+    want = card.predict_margin(torch.as_tensor(X[idx], device=DEV))
+    want = want.cpu().numpy()
+    bad = []
+    res = {"rows": N_ROWS, "features": N_FEATURES,
+           "trees": len(card.trees), "reload_s": reload_s,
+           "predictor_mode": pred.mode, "nvidia_smi": card_line()}
+    workers, started = {}, {}
+    starters = []
+    try:
+        # the raw-float32 wire through the exchange
+        got, secs = _wire_scores(X, side, pred)
+        res["binary_wire"] = {"requests": len(side), "seconds": secs,
+                              "replies_equal": bool(np.array_equal(
+                                  got, want[:len(side)]))}
+        if not res["binary_wire"]["replies_equal"]:
+            bad.append("binary-wire replies differ")
+
+        # the spawned workers start from here on
+        def start(name, make):
+            t1 = time.perf_counter()
+            try:
+                workers[name] = make()
+            except Exception as e:  # noqa: BLE001 - reported below
+                workers[name] = e
+            started[name] = time.perf_counter() - t1
+
+        for name, make in (
+                ("fleet_shard", lambda: PredictorFleet(
+                    card, num_shards=2, routing="shard", spawn=True,
+                    join_timeout=120.0).start()),
+                ("fleet_replica", lambda: PredictorFleet(
+                    card, num_shards=2, routing="replica", spawn=True,
+                    join_timeout=120.0).start()),
+                ("multiprocess",
+                 lambda: MultiprocessHTTPServer(num_workers=2).start())):
+            starters.append(threading.Thread(target=start,
+                                             args=(name, make)))
+            starters[-1].start()
+        # HTTPServer + ScoringEngine on the card predictor
+        srv = HTTPServer().start()
+        try:
+            got, res["http_card"] = _engine_run(pool, pred, X, idx,
+                                                server=srv)
+            res["http_card"]["replies_equal"] = bool(
+                np.array_equal(got, want))
+            if not res["http_card"]["replies_equal"]:
+                bad.append(f"{int((got != want).sum())} card replies "
+                           "differ from predict_margin")
+            if res["http_card"]["dispatch_calls"] < 1:
+                bad.append("the engine recorded no dispatch bracket")
+            # ... then serve_forever on the same server, as the sample
+            reloaded = LightGBMClassificationModel.loadNativeModelFromString(
+                text, device=DEV)
+
+            def transform(t):
+                feats = np.asarray(t["features"], np.float32)
+                out = reloaded.transform({"features": feats})
+                return t.withColumn("reply", np.asarray([
+                    {"probability": float(p[1])}
+                    for p in np.asarray(out["probability"])], dtype=object))
+
+            stop = threading.Event()
+            loop = threading.Thread(target=serve_forever,
+                                    args=(srv, transform, "reply"),
+                                    kwargs={"max_rows": 32,
+                                            "stop_event": stop},
+                                    daemon=True)
+            loop.start()
+            row = int(idx[0])
+            req = urllib.request.Request(
+                srv.address, data=json.dumps(
+                    {"features": X[row].tolist()}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                answer = json.loads(resp.read())
+            stop.set()
+            loop.join(30)
+            expect = float(np.asarray(reloaded.transform(
+                {"features": X[row:row + 1]})["probability"])[0, 1])
+            res["serve_forever"] = {"probability": answer["probability"],
+                                    "batch_transform": expect,
+                                    "equal": answer["probability"]
+                                    == expect}
+            if not res["serve_forever"]["equal"]:
+                bad.append("serve_forever's reply differs from the batch "
+                           "transform")
+        finally:
+            srv.stop()
+        # the same engine on a CPU booster's native scorer
+        cpu_pred = Booster.load_native_model_string(
+            text, device="cpu").predictor()
+        got, res["http_cpu_native"] = _engine_run(pool, cpu_pred, X, side)
+        res["http_cpu_native"]["predictor_mode"] = cpu_pred.mode
+        res["http_cpu_native"]["replies_equal_card"] = bool(
+            np.array_equal(got, want[:len(side)]))
+        if not res["http_cpu_native"]["replies_equal_card"]:
+            bad.append("the CPU native scorer's replies differ from the "
+                       "card's")
+        t_join = time.perf_counter()
+        for t in starters:
+            t.join()
+        failed = {k: f"{type(v).__name__}: {v}" for k, v in workers.items()
+                  if isinstance(v, Exception)}
+        if failed:
+            raise AssertionError(f"spawned workers failed to start: "
+                                 f"{failed}")
+        res["spawn_start_s"] = started
+        res["spawn_wait_s"] = time.perf_counter() - t_join
+        # two spawned worker processes in front of the card's engine
+        mp = workers["multiprocess"]
+        eng = ScoringEngine(mp, predictor=pred, max_rows=SERVE_MAX_ROWS,
+                            latency_budget_ms=SERVE_BUDGET_MS,
+                            num_scorers=2).start()
+        try:
+            got, lat, wall = _serve_posts(pool, mp.addresses, X, side)
+        finally:
+            eng.stop()
+        deaths = mp.counters["worker_deaths"]
+        res["multiprocess"] = {
+            "workers": 2, "requests": len(side),
+            "rows_per_s": len(side) / wall,
+            "client_p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "client_p99_ms": float(np.percentile(lat, 99) * 1e3),
+            "worker_deaths": deaths,
+            "replies_equal": bool(np.array_equal(got, want[:len(side)]))}
+        if not res["multiprocess"]["replies_equal"] or deaths:
+            bad.append(f"multiprocess: replies equal "
+                       f"{res['multiprocess']['replies_equal']}, worker "
+                       f"deaths {deaths}")
+        # the fleets: two spawned workers each, on the card
+        shard, replica = workers["fleet_shard"], workers["fleet_replica"]
+        Xq = X[idx[:max(FLEET_ROWS)]]
+        eq = {"shard": bool(np.array_equal(
+                  shard(Xq), ShardedPredictor(card, num_shards=2)(Xq))),
+              "replica": bool(np.array_equal(
+                  replica(Xq), pred(Xq).cpu().numpy()))}
+        res["fleet"] = {"workers": 2, "device": shard._device, "equal": eq}
+        if not all(eq.values()):
+            bad.append(f"fleet margins differ: {eq}")
+        if not shard._device.startswith("cuda"):
+            bad.append("the fleet's workers do not score on the card")
+        res["fleet"]["ms"] = {
+            n: {"shard": host_median_ms(lambda: shard(Xq[:n]), reps=3,
+                                        warm=1),
+                "replica": host_median_ms(lambda: replica(Xq[:n]), reps=3,
+                                          warm=1),
+                "in_process": host_median_ms(lambda: pred(Xq[:n]).cpu(),
+                                             reps=3, warm=1)}
+            for n in FLEET_ROWS}
+    finally:
+        for t in starters:
+            t.join()
+        for w in workers.values():
+            if not isinstance(w, Exception):
+                w.stop()
+        pool.shutdown()
+    if bad:
+        raise AssertionError(f"serving_path: {'; '.join(bad)}: {res}")
     return res
 
 
@@ -4577,6 +5004,7 @@ def main(argv) -> int:
               ("collectives_cross_card", phase_collectives_cross_card),
               ("observability_path",
                lambda: phase_observability_path(state)),
+              ("serving_path", lambda: phase_serving_path(state)),
               ("kernels_flagship", lambda: phase_kernels_flagship(state))]
     if only is not None:
         unknown = only - {name for name, _ in phases}

@@ -4,8 +4,11 @@ LightGBM fit → transform (:class:`LightGBMClassifier`,
 :class:`LightGBMRegressor`, :class:`LightGBMRanker`) on one device, or data-parallel over the
 shards of a :class:`Mesh` (:func:`build_mesh`, pinned with ``setMesh``),
 with the gradient-histogram kernels (``csrc/histogram.cu``) and the ring
-collectives (``csrc/ring.cu``) written by hand in CUDA for Hopper.  Entry
-points run on ``"cuda"`` unless the caller asks for ``"cpu"``.  The
+collectives (``csrc/ring.cu``) written by hand in CUDA for Hopper; the
+serving plane (:mod:`.io`: HTTP servers, the micro-batch scoring engine,
+the framed transport, the predictor fleet) puts a booster's predictor
+behind requests.  Entry points run on ``"cuda"`` unless the caller asks
+for ``"cpu"``.  The
 package imports torch and numpy, never jax and nothing of
 ``mmlspark_tpu``.
 """

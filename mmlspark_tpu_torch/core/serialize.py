@@ -11,7 +11,7 @@ Stages holding non-Param state override ``_save_extra``/``_load_extra``.
 A class resolves by its bare name in the port's registry: the port never
 imports a module outside ``mmlspark_tpu_torch``, so a directory written
 by the reference (its metadata names ``mmlspark_tpu.…`` modules, which
-import jax) loads into the port's class of the same name.
+need jax) loads into the port's class of the same name.
 """
 
 from __future__ import annotations

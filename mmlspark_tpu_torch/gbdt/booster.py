@@ -645,6 +645,9 @@ class CompiledPredictor:
                 f"Model uses feature index {self.num_features - 1} but "
                 f"input has shape {shape}; expected (n, >= "
                 f"{self.num_features})")
+        if isinstance(X, np.ndarray) and not X.flags.writeable:
+            X = X.copy()    # a wire block's view: torch shares only
+            # writable arrays
         X = torch.as_tensor(X, device=self._device).to(torch.float32)
         if self._mode == "native":
             return _native_margins(self._forest, X, self._K,

@@ -42,7 +42,7 @@ registry as ``"elastic"``, a lease file carries the fit span, a peer
 turning straggler or lost journals ``peer_stalled`` / ``peer_lost``, an
 abandoning controller writes a ``peer_lost_abandon`` flight record, and
 :func:`run_worker`'s stats dump carries the journal's tail.  Still to come
-(ROADMAP.md, Queue A item 11): the lease beacons over the reference's
+(ROADMAP.md, Queue A item 11, slice 11c): the lease beacons over the
 transport (``transport_address``, ``HeartbeatHub``).
 """
 

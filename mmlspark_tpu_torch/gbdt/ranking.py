@@ -132,22 +132,73 @@ def query_tensors(labels_sorted: np.ndarray, qidx: np.ndarray,
             inv_max_dcg.astype(np.float32))
 
 
-def _dart_row_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis (G terms) as the reference's compiled mesh
-    DART step adds the hessian's rows.  The HLO holds a plain reduce; its
-    order is LLVM's, chosen by G.  Up to 11 terms and from 33 on it is
-    the ranking scan's (:func:`..grower.sum_bins`).  At G = 12 groups of
-    four terms go alternately into two four-lane accumulators, the second
-    added to the first, and the lanes are reduced by halves
-    (``(l0 + l2) + (l1 + l3)``).  From 13 to 32 the vectorizer picks
-    other trees, not reproduced here (ROADMAP.md, Queue C 3): those widths
-    keep the scan's order and may part in the last bit."""
+# The mesh DART step's sums over a query's G documents, as the reference's
+# compiled program adds them on the CPU (ROADMAP.md, Queue C 3).  XLA
+# writes each sum as a loop; from G = 12 to 32 LLVM vectorises it on 8
+# lanes and the x86 backend splits the 8-lane adds into 4-lane halves and
+# folds some of them into FMA chains.  Each order is a tree over the
+# 4-term quarters q_k = x[4k : 4k + 4] (nested pairs: (a, b) is a + b),
+# then the 4 lanes reduced by halves, ((l0 + l2) + (l1 + l3)), then the
+# terms past the covered span added one by one.  Read from the optimised
+# IR (``--xla_dump_to``'s ``*.ir-with-opt.ll``), the object code of the
+# fusions and the per-row (g, h) of the reference's step.
+_Q16 = ((0, 2), (1, 3))                     # 8 lanes: v0 + v1
+_Q16_FMA = (((0, 2), 3), 1)                 # folded into one chain
+_Q24 = (((0, 2), 4), ((1, 3), 5))           # 8 lanes: (v0 + v1) + v2
+_Q24_FMA = (((((0, 2), 4), 3), 1), 5)
+_Q32 = (((0, 4), (2, 6)), ((1, 5), (3, 7)))         # (v0 + v2) + (v1 + v3)
+_Q32_FMA = ((((0, 4), 6), 2), (((1, 5), 7), 3))     # ((v0 + v2) + v3) + v1
+
+#: G -> {sum: quarter tree}; the sums are "grad_j" / "hess_j" (over the
+#: documents j of row i) and "grad_i" / "hess_i" (over i); a sum or a
+#: width not named keeps the ranking scan's order (sequential up to 32)
+DART_ORDERS = {
+    12: {"hess_j": _Q16},
+    **{G: {"grad_j": _Q16, "hess_j": _Q16} for G in range(13, 16)},
+    **{G: dict.fromkeys(("grad_j", "hess_j", "grad_i", "hess_i"), _Q16)
+       for G in range(16, 20)},
+    **{G: {"grad_j": _Q16, "grad_i": _Q16, "hess_j": _Q16_FMA,
+           "hess_i": _Q16_FMA} for G in range(20, 24)},
+    **{G: dict.fromkeys(("grad_j", "hess_j", "grad_i", "hess_i"), _Q24)
+       for G in range(24, 28)},
+    **{G: {"grad_j": _Q24, "grad_i": _Q24, "hess_j": _Q24_FMA,
+           "hess_i": _Q24} for G in range(28, 32)},
+    32: {"grad_j": _Q32, "grad_i": _Q32, "hess_j": _Q32_FMA,
+         "hess_i": _Q32_FMA},
+}
+
+
+def _quarter_sum(x: torch.Tensor, tree) -> torch.Tensor:
+    """Sum over the last axis in the order of a quarter ``tree`` (see
+    :data:`DART_ORDERS`).  The vector loop covers every term up to 16
+    (its second 8-lane vector masked: those lanes are absent, not zero),
+    else the whole 8-term vectors."""
     G = x.shape[-1]
-    if G != 12:
-        return sum_bins(x.unsqueeze(-1)).squeeze(-1)
-    acc = [x[..., 0:4] + x[..., 8:12], x[..., 4:8]]
-    lanes = acc[0] + acc[1]
-    return (lanes[..., 0] + lanes[..., 2]) + (lanes[..., 1] + lanes[..., 3])
+    covered = G if G <= 16 else 8 * (G // 8)
+
+    def lanes(t):
+        if isinstance(t, int):
+            return [x[..., 4 * t + k] if 4 * t + k < covered else None
+                    for k in range(4)]
+        a, b = lanes(t[0]), lanes(t[1])
+        return [u if w is None else w if u is None else u + w
+                for u, w in zip(a, b)]
+
+    l0, l1, l2, l3 = lanes(tree)
+    out = (l0 + l2) + (l1 + l3)
+    for k in range(covered, G):
+        out = out + x[..., k]
+    return out
+
+
+def _dart_sum(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """Sum over the last axis (G terms) as the reference's compiled mesh
+    DART step adds the sum ``kind`` (:data:`DART_ORDERS`), else in the
+    ranking scan's order (:func:`..grower.sum_bins`)."""
+    tree = DART_ORDERS.get(x.shape[-1], {}).get(kind)
+    if tree is not None:
+        return _quarter_sum(x, tree)
+    return sum_bins(x.unsqueeze(-1)).squeeze(-1)
 
 
 def lambda_grad_sorted(s_sorted: torch.Tensor, qt, sigma: float,
@@ -155,9 +206,9 @@ def lambda_grad_sorted(s_sorted: torch.Tensor, qt, sigma: float,
     """``(n,)`` lambdarank (grad, hess) of scores sorted by query.  ``qt``
     holds the chunked query tensors ``(qidx, qmask, gains, labq)``, each
     ``(n_chunks, chunk, G)``, and ``invmax`` ``(n_chunks, chunk)``, on the
-    scores' device; a row no query covers gets 0.  ``dart`` adds the
-    hessian's sum over j in the mesh DART step's order
-    (:func:`_dart_row_sum`); every other sum keeps the ranking scan's."""
+    scores' device; a row no query covers gets 0.  ``dart`` adds the sums
+    over j and over i in the mesh DART step's order (:func:`_dart_sum`);
+    without it every sum keeps the ranking scan's."""
     neg_sig = float(np.float32(-sigma))
     sig2 = float(np.float32(sigma * sigma))
     g_acc = torch.zeros(n, dtype=torch.float32, device=s_sorted.device)
@@ -177,9 +228,14 @@ def lambda_grad_sorted(s_sorted: torch.Tensor, qt, sigma: float,
         lam = neg_sig * p * delta * pair
         hes = sig2 * p * (1.0 - p) * delta * pair
         # sum over j (axis 2) and over i (axis 1), each in XLA's order
-        g_q = sum_bins(lam.transpose(1, 2)) - sum_bins(lam)
-        h_j = _dart_row_sum(hes) if dart else sum_bins(hes.transpose(1, 2))
-        h_q = h_j + sum_bins(hes)
+        if dart:
+            g_q = _dart_sum(lam, "grad_j") \
+                - _dart_sum(lam.transpose(1, 2), "grad_i")
+            h_q = _dart_sum(hes, "hess_j") \
+                + _dart_sum(hes.transpose(1, 2), "hess_i")
+        else:
+            g_q = sum_bins(lam.transpose(1, 2)) - sum_bins(lam)
+            h_q = sum_bins(hes.transpose(1, 2)) + sum_bins(hes)
         real = qm > 0
         rows = qi[real]
         g_acc.index_add_(0, rows, (g_q * qm)[real])

@@ -14,7 +14,11 @@ sources, each with a plain C interface over pointers and sizes:
   and segment histograms in f32 (:func:`hist`, :func:`seg_hist`) and on
   quantized int16 codes (:func:`qhist`, :func:`seg_qhist`), the in-place
   DataPartition split (:func:`partition`) and the numeric split scan
-  (:func:`split`).
+  (:func:`split`);
+* ``fastio.cc`` — the binary datasource's directory scan
+  (:func:`scan_dir`), thread-pool bulk read (:func:`read_files`,
+  :func:`read_file`) and Spark-compatible murmur3 (:func:`murmur3_batch`),
+  which ``io/binary.py`` reads through.
 
 The loop bodies are the reference's, so the floats are its floats.  Each
 source is compiled with the reference's flags (``CXX_FLAGS``: no
@@ -42,10 +46,11 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,7 +60,7 @@ from ..core.profiler import get_profiler
 #: the compiler and the reference's flags (mmlspark_tpu/native/__init__.py)
 CXX = "g++"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
-SOURCES = ("fastbin", "fastforest", "fasthist")
+SOURCES = ("fastbin", "fastforest", "fasthist", "fastio")
 NATIVE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = NATIVE_DIR.parent / "_build"
 
@@ -78,7 +83,17 @@ _SIGNATURES = {
         "mmlspark_qhist": [_P, _P, _I64, _I64, _I64, _I, _I64, _P],
         "mmlspark_seg_qhist": [_P, _P, _I64, _I64, _P, _I64, _I64, _I64,
                                _I64, _I, _I64, _P]},
+    "fastio": {
+        "mmlspark_io_free": [_P],
+        "mmlspark_scan_dir": [ctypes.c_char_p, ctypes.c_char_p, _I, _P,
+                              _P, _P],
+        "mmlspark_file_sizes": [_P, _I64, _P],
+        "mmlspark_read_files": [_P, _I64, _P, _P, _I],
+        "mmlspark_murmur3_batch": [_P, _P, _I64, ctypes.c_uint32, _P]},
 }
+#: return types other than the status ``int``
+_RESTYPES = {"mmlspark_io_free": None, "mmlspark_file_sizes": None,
+             "mmlspark_read_files": _I64, "mmlspark_murmur3_batch": None}
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -146,7 +161,7 @@ def load(name: str) -> ctypes.CDLL:
     get_profiler().record_build("native_load", time.perf_counter() - t0)
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
     return lib
 
 
@@ -363,3 +378,87 @@ for _fn in (hist, seg_hist, qhist, seg_qhist, partition, split):
 COUNTED = {fn.__name__: fn for fn in (bin_columns, predict_forest, hist,
                                       seg_hist, qhist, seg_qhist, partition,
                                       split)}
+
+
+# -- fastio.cc ----------------------------------------------------------------
+
+def _c_strings(items) -> Tuple[ctypes.Array, list]:
+    """A ``char*`` array over the UTF-8 bytes of ``items`` (and the bytes
+    objects, which must outlive the call)."""
+    raw = [s.encode("utf-8") for s in items]
+    return (ctypes.c_char_p * max(len(raw), 1))(*raw), raw
+
+
+def scan_dir(root: str, pattern: Optional[str] = None,
+             recursive: bool = True) -> List[Tuple[str, int, float]]:
+    """``[(path, size, mtime)]`` of the regular files under ``root`` whose
+    name matches ``pattern`` (fnmatch; None: all): each directory's files
+    sorted, then its subdirectories sorted; directory symlinks are not
+    followed.  Raises ``OSError`` when a directory cannot be opened."""
+    out, out_len, count = ctypes.c_void_p(), ctypes.c_int64(), \
+        ctypes.c_int64()
+    lib = load("fastio")
+    rc = lib.mmlspark_scan_dir(
+        root.encode("utf-8"),
+        None if pattern is None else pattern.encode("utf-8"),
+        int(bool(recursive)), ctypes.byref(out), ctypes.byref(out_len),
+        ctypes.byref(count))
+    try:
+        buf = ctypes.string_at(out, out_len.value) if out.value else b""
+    finally:
+        lib.mmlspark_io_free(out)
+    if rc == 2:
+        raise OSError(buf.decode("utf-8", "replace"))
+    _check(rc, "mmlspark_scan_dir")
+    entries, off = [], 0
+    for _ in range(count.value):
+        (n,) = struct.unpack_from("<q", buf, off)
+        path = buf[off + 8:off + 8 + n].decode("utf-8")
+        size, mtime = struct.unpack_from("<qd", buf, off + 8 + n)
+        entries.append((path, int(size), float(mtime)))
+        off += 24 + n
+    return entries
+
+
+def read_files(paths: List[str], n_threads: int = 8) -> List[bytes]:
+    """The bytes of every file of ``paths``, read on ``n_threads`` threads
+    (a path that is not a regular file reads as ``b""``).  Raises
+    ``OSError`` when a file fails to read or changes size."""
+    paths = list(paths)
+    n = len(paths)
+    if n == 0:
+        return []
+    lib = load("fastio")
+    cpaths, _keep = _c_strings(paths)
+    sizes = np.zeros(n, np.int64)
+    lib.mmlspark_file_sizes(cpaths, n, sizes.ctypes.data)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    block = np.empty(max(int(offsets[-1]), 1), np.uint8)
+    bufs = (ctypes.c_void_p * n)(
+        *[block.ctypes.data + int(o) for o in offsets[:-1]])
+    if lib.mmlspark_read_files(cpaths, n, bufs, sizes.ctypes.data,
+                               int(n_threads)) != 0:
+        raise OSError("read_files: one or more files changed size or "
+                      "failed to read")
+    return [block[offsets[i]:offsets[i + 1]].tobytes() for i in range(n)]
+
+
+def read_file(path: str) -> bytes:
+    """The bytes of the regular file ``path``."""
+    if not os.path.isfile(path):
+        raise OSError(f"cannot stat {path}")
+    return read_files([path], 1)[0]
+
+
+def murmur3_batch(terms: List[str], seed: int = 42) -> List[int]:
+    """Spark-compatible Murmur3_x86_32 of each term's UTF-8 bytes, as
+    signed int32."""
+    raw = [t.encode("utf-8") for t in terms]
+    offsets = np.zeros(len(raw) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(r) for r in raw])
+    data = np.frombuffer(b"".join(raw) or b"\0", np.uint8)
+    out = np.zeros(len(raw), np.int32)
+    load("fastio").mmlspark_murmur3_batch(
+        data.ctypes.data, offsets.ctypes.data, len(raw),
+        int(seed) & 0xFFFFFFFF, out.ctypes.data)
+    return out.tolist()

@@ -20,7 +20,8 @@ the reference's ``tools/chaos_training.py``, phases 0–3:
 Every phase's model text must equal the baseline's byte for byte: a
 recovery path writes the forest an uninterrupted fit writes.  The
 reference's phase 4 (lease beacons over its transport) and its telemetry
-section wait for the port's serving plane (ROADMAP.md, Queue A item 11).
+section wait for the elastic transport (ROADMAP.md, Queue A item 11,
+slice 11c).
 
 Run: ``python -m mmlspark_tpu_torch.tools.chaos_training --device cpu``
 (~40 s on a CPU; any further arguments after ``--`` go to every

@@ -1369,3 +1369,103 @@ def test_profiler_watermarks_and_dispatch_bracket_on_a_card_fit(cuda_device,
     assert peak >= bins.numel()
     assert prof.snapshot()["build_events"].get("cuda_load", {}).get(
         "count", 0) >= 1
+
+
+# -- the serving plane on the card ---------------------------------------------
+
+
+def _card_booster(cuda_device, n=20_000, f=12, iterations=10):
+    """A small card booster reloaded from its model text on the card."""
+    from mmlspark_tpu_torch import LightGBMRegressor
+    from mmlspark_tpu_torch.gbdt import Booster
+    rng = np.random.default_rng(17)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2]).astype(np.float64)
+    m = LightGBMRegressor(numIterations=iterations, numLeaves=15,
+                          verbosity=0, device="cuda").fit(
+        {"features": X, "label": y})
+    text = m.getModel().save_native_model_string()
+    return Booster.load_native_model_string(text, device="cuda"), X
+
+
+@pytest.mark.cuda
+def test_scoring_engine_replies_equal_the_card_predictor(cuda_device):
+    """The engine on a card booster's predictor (the device walk): every
+    reply equals ``predict_margin`` on the card bit for bit, each batch
+    ends in one device→host copy of a CUDA tensor, and the profiler's
+    dispatch bracket records both halves."""
+    import queue
+    import threading
+    import time
+
+    from mmlspark_tpu_torch.core.profiler import get_profiler
+    from mmlspark_tpu_torch.io.scoring import ScoringEngine
+    b, X = _card_booster(cuda_device)
+    pred = b.predictor(backend="jit")
+    devices = []
+
+    class Spy:
+        num_features = pred.num_features
+        mode = pred.mode
+
+        def __call__(self, M):
+            out = pred(M)
+            devices.append(out.device.type)
+            return out
+
+    class Srv:
+        def __init__(self):
+            self.request_queue = queue.Queue()
+            self.got = {}
+            self.lock = threading.Lock()
+
+        def reply(self, rid, val, status=200):
+            with self.lock:
+                self.got[rid] = (val, status)
+            return True
+
+    prof = get_profiler()
+    prof.configure(enabled=True)
+    srv = Srv()
+    rows = X[:300]
+    for i in range(len(rows)):
+        srv.request_queue.put((str(i), {"features": rows[i].tolist()}))
+    eng = ScoringEngine(srv, predictor=Spy(), max_rows=64,
+                        latency_budget_ms=2.0, num_scorers=2).start()
+    try:
+        deadline = time.time() + 60
+        while len(srv.got) < len(rows) and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        eng.stop()
+    want = b.predict_margin(torch.as_tensor(rows, device=cuda_device))
+    want = want.cpu().numpy()
+    assert [srv.got[str(i)] for i in range(len(rows))] \
+        == [(v, 200) for v in want.tolist()]
+    assert devices and set(devices) == {"cuda"}
+    st = eng.stats_snapshot()["stages"]
+    assert st["device_wait"]["count"] == len(devices)
+    assert st["dispatch_host"]["count"] == len(devices)
+
+
+@pytest.mark.cuda
+def test_sharded_predictor_on_the_card_equals_the_fleet(cuda_device):
+    """``ShardedPredictor`` on a card booster equals the fleet's reduce of
+    its workers' partials (threads over real sockets, each scoring its
+    tree range on the card) and the replica pool equals the card's
+    margins."""
+    from mmlspark_tpu_torch.io.fleet import PredictorFleet, ShardedPredictor
+    b, X = _card_booster(cuda_device)
+    sp = ShardedPredictor(b, num_shards=3)
+    want = sp(X[:512])
+    assert isinstance(want, np.ndarray)
+    for routing, expect in (("shard", want),
+                            ("replica", b.predict_margin(
+                                X[:512]).cpu().numpy())):
+        fleet = PredictorFleet(b, num_shards=3, routing=routing,
+                               spawn=False, join_timeout=60.0).start()
+        try:
+            assert fleet._device.startswith("cuda")
+            assert np.array_equal(fleet(X[:512]), expect)
+        finally:
+            fleet.stop()

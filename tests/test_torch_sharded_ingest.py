@@ -8,9 +8,9 @@ byte: gbdt at D = 2 and 4, bagging with feature fraction, validation with
 early stopping, per-shard init scores, GOSS, rf, DART, and lambdarank
 (queries pinned to their shards) with bagging and with validation, and
 the multiclass GOSS quantized case the gang tests run.  Lambdarank with
-DART holds within a stated tolerance
-(:func:`test_sharded_ranking_dart_within_tolerance`).  The reference
-forests are fitted once per module.  Then the
+DART at every query width from 11 to 33 documents
+(:func:`test_sharded_ranking_dart_equals_reference`).  The reference
+forests are fitted once per module (DART's other widths once a test).  Then the
 reference's refusals (no mesh, a query spanning shards, mismatched rows,
 a custom gradient) and a spy on the layout: no device piece is larger
 than one shard.
@@ -135,12 +135,12 @@ def test_sharded_fit_equals_reference(case, binary, reference_binary):
 RANK_D, RANK_Q, RANK_G = 4, 24, 12
 
 
-def _rank_table(seed):
+def _rank_table(seed, G=RANK_G):
     rng = np.random.default_rng(seed)
-    n = RANK_Q * RANK_G
+    n = RANK_Q * G
     X = rng.normal(size=(n, 5)).astype(np.float32)
     util = X @ rng.normal(size=5) + rng.normal(size=n) * 0.5
-    q = np.repeat(np.arange(RANK_Q), RANK_G)
+    q = np.repeat(np.arange(RANK_Q), G)
     y = np.zeros(n)
     for qq in range(RANK_Q):
         m = q == qq
@@ -159,14 +159,14 @@ RANK_CASES = {
 RANK_EXACT = ("bagging", "validation")
 
 
-def _rank_inputs(seed, ref):
-    X, y, q = _rank_table(seed)
+def _rank_inputs(seed, ref, G=RANK_G):
+    X, y, q = _rank_table(seed, G)
     mapper = (ref_fit if ref else fit_bin_mapper)(X, max_bin=31)
     # shard d holds queries d, d + D, ...: whole queries, unequal rows
     idx = [np.nonzero(np.isin(q, np.arange(d, RANK_Q, RANK_D)))[0]
            for d in range(RANK_D)]
     idx[0] = idx[0][q[idx[0]] != 0]      # one shard a query short
-    Xv, yv, qv = _rank_table(seed + 1)
+    Xv, yv, qv = _rank_table(seed + 1, G)
     ndcg = ref_ndcg if ref else ndcg_at_k
 
     def neg_ndcg(scores, labels, weights):
@@ -186,23 +186,25 @@ def _rinfo(qids):
 
 @pytest.fixture(scope="module")
 def reference_ranking():
-    out = {}
-    for case, (seed, params) in RANK_CASES.items():
-        bs, ls, ws, qs, mapper, val = _rank_inputs(seed, ref=True)
-        out[case] = ref_train(
-            bs, ls, ws, mapper, ref_objective("lambdarank"),
-            RefParams(**{**BASE, **params}),
-            mesh=ref_build_mesh(data=RANK_D, feature=1,
-                                devices=jax.devices()[:RANK_D]),
-            ranking_info=_rinfo(qs),
-            **(val if case == "validation" else {})
-        ).save_native_model_string()
-    return out
+    return {case: _ref_ranking(case, RANK_G) for case in RANK_CASES}
 
 
-def _port_ranking(case):
+def _ref_ranking(case, G):
     seed, params = RANK_CASES[case]
-    bs, ls, ws, qs, mapper, val = _rank_inputs(seed, ref=False)
+    bs, ls, ws, qs, mapper, val = _rank_inputs(seed, True, G)
+    return ref_train(
+        bs, ls, ws, mapper, ref_objective("lambdarank"),
+        RefParams(**{**BASE, **params}),
+        mesh=ref_build_mesh(data=RANK_D, feature=1,
+                            devices=jax.devices()[:RANK_D]),
+        ranking_info=_rinfo(qs),
+        **(val if case == "validation" else {})
+    ).save_native_model_string()
+
+
+def _port_ranking(case, G=RANK_G):
+    seed, params = RANK_CASES[case]
+    bs, ls, ws, qs, mapper, val = _rank_inputs(seed, False, G)
     return train(bs, ls, ws, mapper, get_objective("lambdarank"),
                  TrainParams(**{**BASE, **params}),
                  mesh=build_mesh(RANK_D, devices=["cpu"] * RANK_D),
@@ -216,15 +218,22 @@ def test_sharded_ranking_equals_reference(case, reference_ranking):
         == reference_ranking[case]
 
 
-def test_sharded_ranking_dart_equals_reference(reference_ranking):
+#: the query widths of the DART case: from 12 to 32 documents the
+#: reference's compiled mesh DART step adds the lambda sums in an order
+#: chosen by the width (``ranking.DART_ORDERS``); 11 and 33 bound it
+DART_WIDTHS = tuple(range(11, 34))
+
+
+@pytest.mark.parametrize("G", DART_WIDTHS)
+def test_sharded_ranking_dart_equals_reference(G, reference_ranking):
     """DART × lambdarank on the mesh, sharded, equals the reference byte
-    for byte.  The mesh DART step is another compiled program than the
-    ranking scan, and at this table's 12 documents a query it adds the
-    lambda hessian's rows in another order (``ranking._dart_row_sum``,
-    read from the reference's XLA CPU program; ROADMAP.md, Queue C 3).
-    Iterations 2 and 4 drop tree 0 (``drop_seed`` 4, ``skip_drop`` 0.5),
-    so the text holds both renormalisations and trees grown at
-    dropped-out scores."""
+    for byte at every query width.  The mesh DART step is another
+    compiled program than the ranking scan: its sums over a query's
+    documents follow the vectorised, FMA-folded orders of
+    ``ranking.DART_ORDERS`` (read from the reference's XLA CPU program;
+    ROADMAP.md, Queue C 3).  Iterations 2 and 4 drop tree 0
+    (``drop_seed`` 4, ``skip_drop`` 0.5), so the text holds both
+    renormalisations and trees grown at dropped-out scores."""
     from mmlspark_tpu_torch.gbdt.engine import _dart_draw_drops
     seed, params = RANK_CASES["dart_bagging"]
     full = TrainParams(**{**BASE, **params})
@@ -232,8 +241,10 @@ def test_sharded_ranking_dart_equals_reference(reference_ranking):
     drops = [list(_dart_draw_drops(rng, it, full))
              for it in range(full.num_iterations)]
     assert [it for it, d in enumerate(drops) if 0 in d] == [2, 4]
-    assert _port_ranking("dart_bagging").save_native_model_string() \
-        == reference_ranking["dart_bagging"]
+    want = reference_ranking["dart_bagging"] if G == RANK_G \
+        else _ref_ranking("dart_bagging", G)
+    assert _port_ranking("dart_bagging", G).save_native_model_string() \
+        == want
 
 
 def test_global_qid_array_equals_per_shard_lists():
