@@ -113,8 +113,10 @@ Phases, each printing one JSON line:
    reports) and a timed fit: train AUC must
    reach 0.955, and the timed fit must launch ``ring_allreduce`` once per
    tree and split (auto) or once per tree with ``fused_segment_hist_ring``
-   once per split (pallas_ring); ``host_s`` and ``same_model_text`` as
-   in phase 4 (reported, not required).  Then a
+   once per split (pallas_ring); ``host_s`` as in phase 4;
+   ``same_model_text`` reported under ``auto`` and required under
+   ``pallas_ring`` (``fused_hist_ring`` merges its row tiles in a fixed
+   order).  Then a
    20,000 × 50, 5-iteration D = 4 fit on the card and on
    ``devices=["cpu"] * 4``: identical first tree, AUCs within 0.002.
 9. voting_path — the repo's wide configuration (``bench.py``'s wide-data
@@ -300,17 +302,20 @@ Phases, each printing one JSON line:
    settings at 10 iterations (31 leaves, bagging 0.8 every 3rd iteration,
    feature fraction 0.8, boundaries every 5).  The in-process
    one-controller fit of the same two shards on ``[cuda:0] * 2``, then a
-   gang run without checkpoints, which must write its text byte for
-   byte, then the chaos drill (``mmlspark_tpu_torch.tools.
-   chaos_training``) with that run as its baseline: controller 1
-   SIGKILLed at boundary 5 and the gang resumed (one restart,
-   ``ckpt_resumed`` 1 in each controller), the same kill with the meta
-   bit-flipped before the respawn (``ckpt_discarded``), and a second
-   uninterrupted gang run, checkpointed, under a heartbeat stall
-   (``heartbeat_stalls``, no restart, the directory cleared), each ending
-   in that text.  A round lost to a rendezvous port taken in between
-   does not count as a restart.  Then ``hist_full`` at controller 1's
-   shard (the 210,000 rows from the cut on × 50) and ``hist_segment`` at
+   gang run without checkpoints under a heartbeat stall, its leases
+   beaconed over the transport to a ``HeartbeatHub`` in the script's
+   process (``--heartbeat-transport``, in place of the lease files),
+   which must write its text byte for byte with ``heartbeat_stalls``,
+   no peer lost and no restart; then the chaos drill
+   (``mmlspark_tpu_torch.tools.chaos_training``) with that run as its
+   baseline and its stall phase: controller 1 SIGKILLed at boundary 5
+   and the gang resumed (one restart, ``ckpt_resumed`` 1 in each
+   controller, the directory cleared), and a fresh gang on a copy of
+   that kill's snapshot with its meta bit-flipped (``ckpt_discarded``),
+   each ending in that text (four gang rounds).  A round lost to a
+   rendezvous port taken in between does not count as a restart.  Then
+   ``hist_full`` at controller 1's shard (the 210,000 rows from the cut
+   on × 50) and ``hist_segment`` at
    half of it, against their twins, timed.  Reported: the gang's fit
    seconds per controller beside the in-process fit's, the backend, each
    controller's gathers (count, bytes, host seconds) and ``hist_full`` /
@@ -320,9 +325,10 @@ Phases, each printing one JSON line:
    prints ``"ran": false`` (not a failure).
 24. observability_path — the observability core (``core/telemetry.py``,
    ``profiler.py``, ``sketch.py``, ``debug.py``) on main_path's flagship
-   (400,000 × 50, serial) at 25 iterations (``OBS_ITERATIONS``): three
-   fits with everything on and three with the profiler off and ``MMLSPARK_TPU_REF_PROFILE=0``, in
-   turns (on, off, off, on, on, off), must write the same model text;
+   (400,000 × 50, serial) at 25 iterations (``OBS_ITERATIONS``): two
+   fits with everything on and two with the profiler off and
+   ``MMLSPARK_TPU_REF_PROFILE=0``, in turns (on, off, off, on), must
+   write the same model text;
    each fit's seconds, the grower's host syncs and every synchronizing
    call (``torch.cuda.synchronize`` and ``Tensor.cpu`` of a card tensor)
    are printed, with each pair's difference as a share and their median
@@ -372,6 +378,39 @@ Phases, each printing one JSON line:
    on the card and ``"replica"`` to the full predictor, with the fleet's
    ms a call at ``FLEET_ROWS`` rows against the in-process predictor's.
    No number in the phase is a claim.
+26. lifecycle_path — the model lifecycle (``mmlspark_tpu_torch/io``
+   ``registry``, ``rollout``, ``ingest``, ``refresh``), after
+   ``tools/chaos_online.py``'s scenarios A, C and D, on main_path's
+   flagship model (standalone the phase fits it): version 1 of a
+   ``ModelRegistry``, served through a ``RolloutController`` on the card
+   behind a ``ScoringEngine`` (2 scorers, ``max_rows`` 256) with a
+   ``DriftMonitor`` from the model's reference profile and an ingest tap
+   into an ``IngestBuffer`` (window 50,000, reservoir 1,500, segments
+   8,192) on the estimator's bin mapper.  Traffic: flagship rows (numpy
+   seed ``LIFE_SEED``) through a ``ChaosDrift`` ramp on one feature, in
+   bursts of 256 one-row requests whose payloads are float32 row views,
+   52,224 rows before the refresh (the detection latency in rows
+   printed).  The drift's SLO burn triggers a refresh in a trainer
+   process on the card (``tools.chaos_online``'s trainer: binary, 10
+   iterations, boundaries every 5, the flagship's fit settings) over
+   about 51,500 × 50 retained rows; it is SIGKILLed after its first
+   boundary and a fresh trainer resumes the episode and publishes
+   version 2, whose text must equal, byte for byte, an uninterrupted
+   ``train_incremental`` on the card over the same ``dataset.npz``
+   (its launches: ``hist_full`` once a tree, ``hist_segment`` once a
+   split).  Version 2 then canaries at fraction 0.5 and the gate must
+   promote it; every reply of both stages must equal, bit for bit,
+   ``predict_margin`` on the card of one version live at that moment
+   (none wrong, none dropped), and the merged journals of the three
+   processes must hold the episode's chain (triggered → dataset →
+   fit_begin → SIGKILL → recovered → candidate).  Then the lease beacons
+   (``tools.chaos_training.transport_heartbeat_drill``, in this
+   process): link cuts never fake a dead peer, the stall is counted, the
+   sessions resume.  Both histogram kernels at the refresh's shapes
+   against their twins.  Printed: the refresh fit's seconds, the resumed
+   fit's launches, each trainer's start seconds, the canary's rows/s and
+   ``dispatch_host`` / ``device_wait`` p50, the phase's seconds and the
+   card line.  No number in the phase is a claim.
 
 The kernels phase also runs the wide modes (``WIDE_KERNEL_BINS``: B =
 257, 512, 1,024 and 4,096, int32 codes from the flagship binned at
@@ -403,7 +442,9 @@ fits, mode ``fault_tolerance``; the two histogram kernels at a gang
 controller's shapes, with the launches of ``multicontroller_path``'s
 gang summed over its controllers, mode ``multicontroller``; the two
 histogram kernels with the launches of ``observability_path``'s
-instrumented fit, mode ``observability``), the card
+instrumented fit, mode ``observability``; the two histogram kernels at
+the refresh fit's shapes, with the launches of ``lifecycle_path``'s
+uninterrupted card fit, mode ``lifecycle``), the card
 line, and last the ``{"ok": true, ...}``
 line.  Any failed phase makes the script exit 1 without that last line.
 
@@ -940,10 +981,24 @@ def phase_build():
                                for k, v in host_res.items()}}
 
 
+_KERNEL_INPUTS = {}
+
+
 def kernel_inputs(n=None, f=None, rows=None, max_bin=255):
     """Binned n × f matrix and gradient triples of the main path's first
     tree (binary objective at the init score), on the card; ``rows``: only
-    the first ``rows`` of them (a shard), binned on all n."""
+    the first ``rows`` of them (a shard), binned on all n.  The flagship's
+    (no arguments) are made once a run: several phases read them, and
+    none writes them."""
+    key = (n, f, rows, max_bin)
+    if key == (None, None, None, 255):
+        if key not in _KERNEL_INPUTS:
+            _KERNEL_INPUTS[key] = _kernel_inputs(n, f, rows, max_bin)
+        return _KERNEL_INPUTS[key]
+    return _kernel_inputs(n, f, rows, max_bin)
+
+
+def _kernel_inputs(n, f, rows, max_bin):
     import numpy as np
     import torch
     from mmlspark_tpu_torch.gbdt import fit_bin_mapper, get_objective
@@ -1902,6 +1957,11 @@ def phase_mesh_path(state):
         if not res["train_auc"] >= 0.955:
             raise AssertionError(f"{method}: train AUC {res['train_auc']} "
                                  f"< 0.955: {res}")
+        # fused_hist_ring merges its row tiles in a fixed order: a
+        # pallas_ring fit is the same on every run
+        if method == "pallas_ring" and not res["same_model_text"]:
+            raise AssertionError(f"{method}: the warm-up and timed fits "
+                                 f"wrote different trees: {res}")
     state["mesh_launches"] = {
         "ring_allreduce": fits["auto"]["launches"]["ring_allreduce"],
         "fused_segment_hist_ring":
@@ -4105,12 +4165,14 @@ def phase_multicontroller_path(state):
         one_text = booster.save_native_model_string()
         one_launches = {k: fn.launches for k, fn in counters.items()}
         kw = dict(checkpoint_chunk=FT_CHUNK, phase_timeout=300.0, env=env)
-        plain = ct.run_phase("plain", tmp, worker, checkpoint=False, **kw)
-        # the drill's baseline is that gang run; its stall phase is a
-        # second uninterrupted gang run, with checkpoints
-        drill = ct.drill(tmp, worker, stall=GANG_STALL, base=plain, **kw)
+        # one uninterrupted gang run without checkpoints, under the
+        # heartbeat stall, its leases beaconed to a hub in this process
+        # (the transport mode): the drill's baseline and its stall phase
+        plain = ct.run_phase("plain", tmp, worker, checkpoint=False,
+                             stall=GANG_STALL, transport=True, **kw)
+        drill = ct.drill(tmp, worker, base=plain, stallp=plain, **kw)
         texts = {name: open(os.path.join(tmp, f"model_{name}.txt")).read()
-                 for name in ("kill", "corrupt", "stall")}
+                 for name in ("kill", "corrupt")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     stats = plain["stats"]["0"]
@@ -4287,8 +4349,8 @@ def phase_observability_path(state):
             prof.configure(enabled=True)
             os.environ.pop(engine.REF_PROFILE_ENV, None)
 
-    # on, off, off, on, on, off: the first fit of each side is checked,
-    # all are timed
+    # on, off, off, on: the first fit of each side is checked, all are
+    # timed
     tm.get_journal().configure(jpath)
     engine._capture_reference_profile = spy
     try:
@@ -4300,8 +4362,6 @@ def phase_observability_path(state):
     off = plain_fit()
     off2 = plain_fit()
     on2 = _observed_fit(est, table, counters)
-    on3 = _observed_fit(est, table, counters)
-    off3 = plain_fit()
     model = on[0]
     booster = model.getModel()
     trees = booster.trees
@@ -4310,7 +4370,7 @@ def phase_observability_path(state):
     state["obs_launches"] = launches
     bad = []
     same = len({f[0].getNativeModel()
-                for f in (on, off, off2, on2, on3, off3)}) == 1
+                for f in (on, off, off2, on2)}) == 1
     if not same:
         bad.append("the instrumented and plain fits wrote different text")
     if launches["hist_full"] != len(trees) or \
@@ -4442,7 +4502,7 @@ def phase_observability_path(state):
     if debug_error is None or nan_calls != [1]:
         bad.append(f"debug mode did not stop the NaN fit ({debug_error}, "
                    f"{len(nan_calls)} gradient calls)")
-    pairs = ((on, off), (on2, off2), (on3, off3))
+    pairs = ((on, off), (on2, off2))
     shares = [(a[1] - b[1]) / b[1] for a, b in pairs]
     res = {"rows": N_ROWS, "features": N_FEATURES,
            "iterations": OBS_ITERATIONS,
@@ -4853,6 +4913,314 @@ def phase_serving_path(state):
     return res
 
 
+#: lifecycle_path: the ingest buffer's window, reservoir and segment rows;
+#: the drifting feed before the refresh (a ChaosDrift ramp of LIFE_SHIFT
+#: on feature LIFE_FEATURE over LIFE_RAMP rows) in bursts of LIFE_BURST
+#: one-row requests; the canary's bursts at most; the refresh's
+#: iterations and checkpoint chunk; the traffic's seed
+LIFE_WINDOW, LIFE_RESERVOIR, LIFE_SEGMENT = 50_000, 1_500, 8_192
+LIFE_BURST, LIFE_FEED_BURSTS, LIFE_CANARY_BURSTS = 256, 204, 30
+LIFE_FEATURE, LIFE_SHIFT, LIFE_RAMP = 3, 2.0, 20_000
+LIFE_ITERATIONS, LIFE_CHUNK = 10, 5
+LIFE_SEED = 18
+#: the refresh fit: the flagship's settings
+LIFE_TRAIN = dict(num_leaves=31, learning_rate=0.1, max_bin=255,
+                  min_data_in_leaf=20, parallelism="serial", verbosity=0)
+#: the episode-1 chain the merged journals must hold, in order
+LIFE_CHAIN = ("refresh_triggered", "refresh_dataset", "refresh_fit_begin",
+              "trainer_sigkill", "refresh_recovered", "refresh_candidate")
+
+
+def life_labels(X):
+    """The flagship's label without its noise: the ground truth the
+    lifecycle's ingest tap joins to a scored row."""
+    import numpy as np
+    return (X[:, 0] * 1.5 + X[:, 1] * X[:, 2] + np.sin(X[:, 3] * 2)
+            > 0).astype(np.float64)
+
+
+class _Versions:
+    """The registry's boosters on the card, loaded once each, and the
+    replies' ledger (``tools.chaos_online.serve_batch``'s context)."""
+
+    def __init__(self, registry):
+        self.registry = registry
+        self._boosters = {}
+        self.led = {"total": 0, "wrong": 0, "dropped": 0, "by_version": {}}
+
+    def booster(self, v):
+        if v not in self._boosters:
+            self._boosters[v] = self.registry.load(v, device=DEV)
+        return self._boosters[v]
+
+
+def _journal_chain(root):
+    """The merged journals of the driver and both trainers: the first
+    event of each of LIFE_CHAIN (episode 1), their order, and whether the
+    fit began and recovered in different processes."""
+    import glob
+    from mmlspark_tpu_torch.core.telemetry import read_journal
+    evs = []
+    for path in sorted(glob.glob(os.path.join(root, "journal_*.jsonl"))):
+        evs += read_journal(path)
+    evs.sort(key=lambda e: (e["ts"], e["seq"]))
+    at = {}
+    for i, e in enumerate(evs):
+        if e["ev"] in LIFE_CHAIN and e["ev"] not in at and (
+                e["ev"] == "trainer_sigkill" or e.get("episode") == 1):
+            at[e["ev"]] = (i, e["pid"])
+    idx = [at.get(ev, (None, None))[0] for ev in LIFE_CHAIN]
+    ordered = None not in idx and idx == sorted(idx)
+    pids = (at.get("refresh_fit_begin", (0, None))[1],
+            at.get("refresh_recovered", (0, None))[1])
+    return {"events": dict(zip(LIFE_CHAIN, idx)), "ordered": ordered,
+            "recovered_in_another_process": None not in pids
+            and pids[0] != pids[1]}
+
+
+def phase_lifecycle_path(state):
+    """Phase 26 (module docstring): the model lifecycle on the flagship
+    model, after ``tools/chaos_online.py``'s scenarios A, C and D, and
+    the lease beacons over the transport."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mmlspark_tpu_torch.core.drift import (DriftConfig, DriftMonitor,
+                                               set_drift_monitor)
+    from mmlspark_tpu_torch.core.telemetry import get_journal
+    from mmlspark_tpu_torch.gbdt import fit_bin_mapper, get_objective
+    from mmlspark_tpu_torch.gbdt.booster import split_native_digest
+    from mmlspark_tpu_torch.gbdt.engine import TrainParams, train_incremental
+    from mmlspark_tpu_torch.io import (ChaosDrift, ChaosPlan, ColumnPlan,
+                                       IngestBuffer, ModelRegistry,
+                                       RefreshConfig, RefreshController,
+                                       RolloutConfig, RolloutController,
+                                       ScoringEngine)
+    from mmlspark_tpu_torch.tools import chaos_drift as cd
+    from mmlspark_tpu_torch.tools import chaos_online as co
+    from mmlspark_tpu_torch.tools.chaos_training import \
+        transport_heartbeat_drill
+    t_phase = time.perf_counter()
+    X, y = bench_data(N_ROWS, N_FEATURES)
+    model = state.get("main_model")
+    if model is None:
+        model = _classifier(numIterations=50, device=DEV,
+                            parallelism="serial").fit(
+            {"features": X, "label": y})
+    booster = model.getModel()
+    # the estimator's own mapper: fit on the same rows with its seed
+    mapper = fit_bin_mapper(X, max_bin=255,
+                            seed=_classifier().getOrDefault("seed"))
+    root = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    refresh_cfg = dict(hysteresis_evals=1, cooldown_s=5.0, min_fit_rows=400,
+                       num_iterations=LIFE_ITERATIONS,
+                       checkpoint_chunk=LIFE_CHUNK)
+    counters = _counters()
+    res = {"rows": N_ROWS, "features": N_FEATURES, "burst": LIFE_BURST,
+           "window_rows": LIFE_WINDOW, "reservoir_rows": LIFE_RESERVOIR,
+           "segment_rows": LIFE_SEGMENT, "iterations": LIFE_ITERATIONS,
+           "checkpoint_chunk": LIFE_CHUNK, "nvidia_smi": card_line()}
+    bad = []
+    get_journal().configure(os.path.join(root, "journal_driver.jsonl"),
+                            max_bytes=8 << 20)
+    try:
+        registry = ModelRegistry(os.path.join(root, "registry"))
+        registry.publish(booster, activate=True)
+        ingest = IngestBuffer(os.path.join(root, "ingest"), mapper,
+                              window_rows=LIFE_WINDOW,
+                              reservoir_rows=LIFE_RESERVOIR,
+                              segment_rows=LIFE_SEGMENT, seed=LIFE_SEED,
+                              register=False)
+        rollout = RolloutController(
+            registry, device=DEV, config=RolloutConfig(
+                canary_fraction=0.5, soak_s=0.3, min_canary_rows=200,
+                canary_deadline_ms=None, fast_window_s=1.0,
+                slow_window_s=2.0))
+        ctx = _Versions(registry)
+        mon = DriftMonitor(booster.reference_profile, DriftConfig(
+            duty=1.0, eval_interval_s=0.02, min_rows=200))
+        rng = np.random.default_rng(LIFE_SEED)
+        drift = ChaosDrift(ChaosPlan(LIFE_SEED), feature=LIFE_FEATURE,
+                           shift=LIFE_SHIFT, ramp_rows=LIFE_RAMP,
+                           name="lifecycle_feed")
+
+        def engine(monitor=None):
+            return ScoringEngine(
+                server, predictor=rollout,
+                plan=ColumnPlan("features", N_FEATURES),
+                max_rows=LIFE_BURST, latency_budget_ms=5.0, num_scorers=2,
+                num_repliers=0, drift_monitor=monitor,
+                ingest_tap=lambda rows, m: ingest.append(
+                    rows, life_labels(rows))).start()
+
+        # the drifting feed on version 1, tapped into the ingest buffer
+        server = cd._QueueServer()
+        eng = engine(mon)
+        served, tail, detect = 0, [], None
+        t0 = time.perf_counter()
+        try:
+            for i in range(LIFE_FEED_BURSTS):
+                batch = drift(X[rng.integers(0, N_ROWS, LIFE_BURST)])
+                served = co.serve_batch(ctx, server, served, batch, [1],
+                                        f"f{i}_", binary=True)
+                tail.append(batch)
+                if detect is None and i % 4 == 3 and \
+                        mon.report()["alerting"]:
+                    detect = served
+        finally:
+            eng.stop()
+            set_drift_monitor(None)
+        res["feed"] = {"rows": served,
+                       "seconds": time.perf_counter() - t0,
+                       "detection_rows": detect,
+                       "alerting": mon.report()["alerting"]}
+        ingest.flush()
+        res["ingest_rows_durable"] = ingest.rows_durable
+        np.savez(os.path.join(root, "drifted.npz"),
+                 X=np.concatenate(tail)[-4096:])
+        # the refresh: a trainer SIGKILLed after its first checkpoint, a
+        # fresh one resuming the episode
+        co.write_trainer_config(root, device=DEV, objective="binary",
+                                refresh=refresh_cfg, train=LIFE_TRAIN,
+                                kill_at=LIFE_CHUNK)
+        r1, _, start1 = co.run_trainer(root, "kill")
+        ck = os.path.join(root, "refresh", "ckpt_0001",
+                          "boost_checkpoint.npz")
+        with open(os.path.join(root, "refresh",
+                               "refresh_state.json")) as fh:
+            killed_state = json.load(fh)["state"]
+        durable = os.path.exists(ck)
+        r2, info2, start2 = co.run_trainer(root, "resume")
+        res["trainers"] = {
+            "start_s": [start1, start2],
+            "kill_returncode": r1.returncode,
+            "killed_state": killed_state, "checkpoint_durable": durable,
+            "resume_returncode": r2.returncode, "resumed": info2}
+        if r1.returncode != -9 or killed_state != "fitting" or not durable:
+            bad.append("the first trainer was not killed mid-fit")
+        if r2.returncode != 0 or not info2 or info2.get("candidate") != 2:
+            bad.append("the resumed trainer published no candidate")
+            res["trainer_stderr"] = r1.stderr[-1500:] + r2.stderr[-1500:]
+            raise AssertionError(f"lifecycle_path: {'; '.join(bad)}: "
+                                 f"{res}")
+        if not info2["launches"]["hist_full"] or \
+                not info2["launches"]["hist_segment"]:
+            bad.append("the resumed fit launched no histogram kernel")
+        registry.reload()
+        res["candidate_meta"] = registry.entry(2).get("meta")
+        # the uninterrupted fit of the same dataset on the card
+        with np.load(os.path.join(root, "refresh",
+                                  "dataset_0001.npz")) as ds:
+            bins, labels = ds["bins"], ds["labels"]
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clean = train_incremental(
+            bins, labels, mapper,
+            init_booster=registry.load(1, device=DEV),
+            objective=get_objective("binary"),
+            params=TrainParams(num_iterations=LIFE_ITERATIONS,
+                               checkpoint_chunk=LIFE_CHUNK,
+                               checkpoint_dir=os.path.join(root, "clean"),
+                               **LIFE_TRAIN), device=DEV)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        new = clean.trees[len(booster.trees):]
+        res["uninterrupted"] = {
+            "rows": len(bins), "fit_s": time.perf_counter() - t0,
+            "launches": launches,
+            "trees": len(new), "splits": sum(t.num_leaves - 1 for t in new),
+            "same_model_text": split_native_digest(registry.read_text(2))
+            == clean.save_native_model_string()}
+        state["life_launches"] = launches
+        if not res["uninterrupted"]["same_model_text"]:
+            bad.append("version 2's text differs from the uninterrupted fit's")
+        if launches["hist_full"] != len(new) or \
+                launches["hist_segment"] != res["uninterrupted"]["splits"]:
+            bad.append("the uninterrupted fit's launches do not match its "
+                       "trees and splits")
+        # the driver adopts the episode: canary, gate, promote
+        refresh = RefreshController(
+            os.path.join(root, "refresh"), registry=registry,
+            rollout=rollout, ingest=IngestBuffer(os.path.join(root,
+                                                              "ingest"),
+                                                 register=False),
+            monitor=None, config=RefreshConfig(**refresh_cfg),
+            register=False, device=DEV)
+        polls = [refresh.poll(now=50.0)]
+        server = cd._QueueServer()
+        eng = engine()
+        gate, served2, live = "soaking", 0, [1, 2]
+        t0 = time.perf_counter()
+        try:
+            for i in range(LIFE_CANARY_BURSTS):
+                batch = drift(X[rng.integers(0, N_ROWS, LIFE_BURST)])
+                served2 = co.serve_batch(ctx, server, served2, batch, live,
+                                         f"c{i}_", binary=True)
+                if gate != "promoted":
+                    time.sleep(0.02)        # the soak runs on the clock
+                    gate = rollout.tick()
+                if gate == "promoted":
+                    if live == [2]:
+                        break               # a burst on version 2 alone
+                    live = [2]
+        finally:
+            eng.stop()
+        wall = time.perf_counter() - t0
+        snap = eng.stats_snapshot()
+        st = snap["stages"]
+        polls.append(refresh.poll(now=60.0))
+        res["canary"] = {
+            "polls": polls, "gate": gate, "rows": served2, "wall_s": wall,
+            "rows_per_s": served2 / wall,
+            "stage_p50_ms": {k: st[k]["p50_ms"] for k in (
+                "dispatch_host", "device_wait", "score", "e2e") if k in st},
+            "active_version": registry.active_version()}
+        if polls != ["canary", "promoted"] or gate != "promoted" or \
+                registry.active_version() != 2:
+            bad.append("the candidate did not canary and promote")
+        res["replies"] = dict(ctx.led)
+        if ctx.led["wrong"] or ctx.led["dropped"] or \
+                ctx.led["total"] != served + served2 or \
+                sorted(ctx.led["by_version"]) != ["v1", "v2"]:
+            bad.append("a reply matches no live version, or was dropped")
+        res["journal"] = _journal_chain(root)
+        if not res["journal"]["ordered"] or \
+                not res["journal"]["recovered_in_another_process"]:
+            bad.append("the journals do not hold the episode's chain")
+    finally:
+        get_journal().configure(None)
+        shutil.rmtree(root, ignore_errors=True)
+    # the lease beacons over the transport, in this process
+    verdicts, detail = transport_heartbeat_drill()
+    res["beacons"] = {"verdicts": verdicts,
+                      **{k: detail[k] for k in ("link_kills", "peer_lost",
+                                                "injected_stalls")},
+                      "resumes": detail["counters_delta"].get("resumes")}
+    if not all(verdicts.values()):
+        bad.append("a beacon verdict failed")
+    # both kernels at the refresh fit's shapes: the dataset's rows of the
+    # flagship matrix, and half of them as the segment
+    n = res["uninterrupted"]["rows"]
+    fit_inputs = _cut(kernel_inputs(), n, N_FEATURES)
+    order = torch.randperm(n, generator=torch.Generator().manual_seed(
+        0)).to(torch.int32).to(DEV)
+    krows = [{**_full_row(fit_inputs, "float32"), "path": "lifecycle_path"},
+             {**_segment_row(fit_inputs, order, n // 2, "float32"),
+              "path": "lifecycle_path"}]
+    state["kernel_rows"] = state.get("kernel_rows", []) + krows
+    res["kernel_rows"] = krows
+    if not all(r["match"] for r in krows):
+        bad.append("a kernel disagrees with its twin at the refresh's "
+                   "shapes")
+    res["phase_s"] = time.perf_counter() - t_phase
+    if bad:
+        raise AssertionError(f"lifecycle_path: {'; '.join(bad)}: {res}")
+    return res
+
+
 def kernels_line(state):
     rows = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r["accum"] == "float32" and "path" not in r
@@ -4906,6 +5274,8 @@ def kernels_line(state):
     # summed over multicontroller_path's controllers
     gang = {r["kernel"]: r for r in state.get("kernel_rows", [])
             if r.get("path") == "multicontroller_path"}
+    life = {r["kernel"]: r for r in state.get("kernel_rows", [])
+            if r.get("path") == "lifecycle_path"}
     out = []
     for name, r, n_launch, mode in (
             [(k, rows.get(k, {}), launches.get(k, 0), "float32")
@@ -4926,7 +5296,9 @@ def kernels_line(state):
             + [(k, gang.get(k, {}), state.get("gang_launches", {}).get(k, 0),
                 "multicontroller") for k in ("hist_full", "hist_segment")]
             + [(k, rows.get(k, {}), state.get("obs_launches", {}).get(k, 0),
-                "observability") for k in ("hist_full", "hist_segment")]):
+                "observability") for k in ("hist_full", "hist_segment")]
+            + [(k, life.get(k, {}), state.get("life_launches", {}).get(k, 0),
+                "lifecycle") for k in ("hist_full", "hist_segment")]):
         out.append({"name": name if mode == "float32" else f"{name}_{mode}",
                     "mode": "int32" if mode == "int32" else "float32",
                     "route": "cuda", "source": SOURCES[name],
@@ -5005,6 +5377,7 @@ def main(argv) -> int:
               ("observability_path",
                lambda: phase_observability_path(state)),
               ("serving_path", lambda: phase_serving_path(state)),
+              ("lifecycle_path", lambda: phase_lifecycle_path(state)),
               ("kernels_flagship", lambda: phase_kernels_flagship(state))]
     if only is not None:
         unknown = only - {name for name, _ in phases}

@@ -102,20 +102,27 @@
 // only their own cells).  An item is (chunk, sub-group of at most `group`
 // features, row tile); its block adds the tile's rows into shared memory
 // with the block step of seg_hist.cuh (each row staged once, features
-// owned by warps, no float atomics), then adds the chunk's non-zero cells
-// into the rank's `work` buffer with global atomics and counts itself on
-// the chunk's readiness counter; the last item of a chunk resets the
-// counter and raises the chunk's flag to the launch's sequence number.
+// owned by warps, no float atomics), then stores the chunk's cells of its
+// sub-group, zeros included, into its tile's slot of the rank's `partial`
+// workspace (tiles x total words) and counts itself on the chunk's
+// readiness counter; the last item of a chunk resets the counter and
+// raises the chunk's flag to the launch's sequence number.  Every cell of
+// a slot has one writer, and no atomic adds into the histogram: the ring
+// reads element e as the sum of the tiles' partials in tile order (0, 1,
+// ..., tiles - 1; TileLoad), so the reduced sums, and a fit on the kernel,
+// are the same on every run, as hist_segment's cluster merge makes its
+// own (histogram.cu).  That merge is spread over the ring's blocks, each
+// summing the elements of its slice, and moves tiles x total words a rank
+// through L2.
 // Items are taken in the order the ring consumes the chunks (chunk rank
 // first, then rank - 1, ...), from the last block down, so the ring's
 // blocks (the first nb_ring) take the last items.  Phase 2 is the ring
-// above over `work`; before it loads chunk c a ring block waits for chunk
-// c's flag alone, so the first send overlaps the histogram of the later
-// chunks, and no barrier spans the rank's blocks.  Blocks with neither an
-// item nor a ring slice leave at once.  Each ring block then zeroes its
-// slice of `work`, so the buffer is zero for the next launch without a
-// memset.  Each rank takes its own exact `cnt` (no padding to a global
-// bucket).
+// above over the tiles' sums; before it loads chunk c a ring block waits
+// for chunk c's flag alone, so the first send overlaps the histogram of
+// the later chunks, and no barrier spans the rank's blocks.  Blocks with
+// neither an item nor a ring slice leave at once.  A rank with an empty
+// segment (no tiles) reads zeros.  Each rank takes its own exact `cnt`
+// (no padding to a global bucket).
 //
 // Scope.  The dense and select rings run only across cards, so their
 // handshakes use .sys scope (__threadfence_system, st.release.sys,
@@ -183,7 +190,7 @@ struct Rank {
   int64_t off;         //   segment row_order[off : off + cnt]
   int64_t cnt;
   int64_t tiles;       //   row tiles of the segment (0 when cnt == 0)
-  void* work;          //   local (f, B, 3) histogram, zero between launches
+  void* partial;       //   tiles x (f, B, 3): each row tile's histogram
   unsigned* ready;     //   per chunk: [kMaxRanks items counted, kMaxRanks flags]
 };
 
@@ -266,6 +273,21 @@ struct DenseLoad {
   __device__ __forceinline__ T operator()(int64_t e) const { return __ldcg(x + e); }
 };
 
+// Payload element e of the fused kernel's histogram: the row tiles'
+// partials of it summed in tile order (0 without tiles, an empty segment).
+template <typename T>
+struct TileLoad {
+  const T* part;
+  int64_t tiles, total;
+  __device__ __forceinline__ T operator()(int64_t e) const {
+    if (tiles == 0) return T(0);
+    T v = __ldcg(part + e);
+#pragma unroll 4
+    for (int64_t t = 1; t < tiles; ++t) v += __ldcg(part + t * total + e);
+    return v;
+  }
+};
+
 // Payload element e of the voted slab (m, k2, B, 3), read from the local
 // (m, f, B, 3) histogram through the candidate columns.
 struct SelectLoad {
@@ -287,10 +309,9 @@ struct Ready {
 
 // Block b (of nb) of `rank` runs its slice of the ring over the payload
 // that `load` reads; `ready(c)` returns once chunk c of it may be read.
-// kZeroX: zero x's slice once the reduce-scatter has read it (x is the
-// payload that `load` reads).  kSys: handshakes at system scope.
-template <typename T, bool kZeroX, bool kSys, typename Load, typename Wait>
-__device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& load, T* x,
+// kSys: handshakes at system scope.
+template <typename T, bool kSys, typename Load, typename Wait>
+__device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& load,
                            const Wait& ready) {
   const int D = a.ranks;
   const Rank& me = a.r[rank];
@@ -326,14 +347,6 @@ __device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& l
     }
     block_signal<kSys>(right.flags + static_cast<int64_t>(k) * kMaxBlocks + b, a.seq);
   }
-  if (kZeroX) {
-    for (int64_t i = i0; i < cs; i += stride) {
-      for (int c = 0; c < D; ++c) {
-        const int64_t e = static_cast<int64_t>(c) * cs + i;
-        if (e < total) x[e] = T(0);
-      }
-    }
-  }
   // all-gather: slot D-2+j brings the total of chunk rank + 1 - j
   for (int j = 1; j < D; ++j) {
     const int s = D - 2 + j;
@@ -354,16 +367,14 @@ __device__ void ring_phase(const Args& a, int rank, int b, int nb, const Load& l
 __global__ void __launch_bounds__(kThreads) ring_allreduce_kernel(const __grid_constant__ Args a) {
   const int rank = a.local[blockIdx.y];
   const DenseLoad<float> load{static_cast<const float*>(a.r[rank].x)};
-  ring_phase<float, false, true>(a, rank, blockIdx.x, gridDim.x, load,
-                                 static_cast<float*>(nullptr), Ready{});
+  ring_phase<float, true>(a, rank, blockIdx.x, gridDim.x, load, Ready{});
 }
 
 __global__ void __launch_bounds__(kThreads) ring_select_kernel(const __grid_constant__ Args a) {
   const int rank = a.local[blockIdx.y];
   const Rank& me = a.r[rank];
   const SelectLoad load{static_cast<const float*>(me.x), me.cand, a.f, a.k2, a.inner};
-  ring_phase<float, false, true>(a, rank, blockIdx.x, gridDim.x, load,
-                                 static_cast<float*>(nullptr), Ready{});
+  ring_phase<float, true>(a, rank, blockIdx.x, gridDim.x, load, Ready{});
 }
 
 // The direct kernels' arguments: rank r's input (dense: its partial;
@@ -526,7 +537,7 @@ __device__ __forceinline__ ChunkFeatures chunk_features(const Args& a, int c) {
   return {fa, fb, (fb - fa + a.group - 1) / a.group};
 }
 
-// Chunk c of the rank's `work` is complete once all its items have counted
+// Chunk c of the rank's partials is complete once all its items have counted
 // themselves: the last raises the chunk's flag (gpu scope: the readers are
 // the rank's own blocks, on its card).
 struct ChunkReady {
@@ -560,7 +571,7 @@ fused_hist_ring_kernel(const __grid_constant__ Args a) {
   const seg::Smem<T> sm = seg::carve<T>(smem_raw, a.group, a.num_bins);
   const int rank = a.local[blockIdx.y];
   const Rank& me = a.r[rank];
-  T* work = static_cast<T*>(me.work);
+  T* part = static_cast<T*>(me.partial);
   const int D = a.ranks;
   const int nb = gridDim.x;
 
@@ -596,20 +607,19 @@ fused_hist_ring_kernel(const __grid_constant__ Args a) {
       const int64_t g_lo = static_cast<int64_t>(f0) * inner;
       const int lo = static_cast<int>((c_lo > g_lo ? c_lo : g_lo) - g_lo);
       const int hi = static_cast<int>((c_hi < g_lo + fg * inner ? c_hi : g_lo + fg * inner) - g_lo);
-      T* dst = work + g_lo;
+      T* dst = part + t * a.total + g_lo;
       seg::for_cells(sm.hist, lo, hi, fg, inner, stride, a.replicas,
-                     [](int) -> const T* { return nullptr; }, 0, [&](int i, T v) {
-                       if (v != T(0)) atomicAdd(dst + i, v);
-                     });
+                     [](int) -> const T* { return nullptr; }, 0,
+                     [&](int i, T v) { __stcg(dst + i, v); });
       chunk_arrive(a, me, c, static_cast<unsigned>(cf.nsub * me.tiles));
     }
   }
 
-  // phase 2: ring-reduce `work` into every rank's `out`, each chunk once
-  // its items are in
+  // phase 2: ring-reduce the tiles' sums into every rank's `out`, each
+  // chunk once its items are in
   if (static_cast<int>(blockIdx.x) < a.nb_ring)
-    ring_phase<T, true, kSys>(a, rank, blockIdx.x, a.nb_ring, DenseLoad<T>{work}, work,
-                              ChunkReady{a, me});
+    ring_phase<T, kSys>(a, rank, blockIdx.x, a.nb_ring, TileLoad<T>{part, me.tiles, a.total},
+                        ChunkReady{a, me});
 }
 
 int sm_count() {
@@ -854,16 +864,17 @@ int direct_ring_select_launch(int ranks, void* const* hist, const void* cand, vo
 // mode: 0 = float32, 2 = int32 (seg_hist.cuh); sys: the mesh spans cards.
 // seg: 3 x ranks words, rank r's segment row_order[r][off : off + cnt] at
 // off = seg[r], cnt = seg[ranks + r], and its row tiles seg[2 * ranks + r]
-// (0 iff cnt == 0).  `work` and
-// `ready` are zero at the first launch; the kernel leaves them so (the
-// flags of `ready` carry sequence numbers).  group: features per phase-1
+// (0 iff cnt == 0).  partial[r]: at
+// least seg[2 * ranks + r] x f x num_bins x 3 words, any contents.
+// `ready` is zero at the first launch; the kernel leaves it so (its flags
+// carry sequence numbers).  group: features per phase-1
 // item, replicas: histogram copies per block; nb: blocks per rank of this
 // launch, at most what
 // fused_hist_ring_blocks reports; nb_ring: ring blocks per rank, at most
 // nb and the same on every card of the mesh.
 int fused_hist_ring_launch(int ranks, int n_local, const int* local, void* const* bins,
                            void* const* gh, void* const* row_order, const int64_t* seg,
-                           void* const* work,
+                           void* const* partial,
                            void* const* ready, void* const* out, void* const* slots,
                            void* const* flags, int f, int num_bins, int mode, int sys,
                            int group, int replicas, int64_t chunk, unsigned seq, int nb,
@@ -890,7 +901,7 @@ int fused_hist_ring_launch(int ranks, int n_local, const int* local, void* const
     a.r[r].off = off;
     a.r[r].cnt = cnt;
     a.r[r].tiles = tiles;
-    a.r[r].work = work[r];
+    a.r[r].partial = partial[r];
     a.r[r].ready = static_cast<unsigned*>(ready[r]);
   }
   const void* kernel = fused_kernel(mode, sys);

@@ -7,14 +7,20 @@ reference builds on its chunk checkpoints (``TrainParams.checkpoint_dir``,
 most one chunk, since the respawned gang resumes from the last boundary
 and writes the same forest.
 
-* :class:`HeartbeatWatchdog`: each controller touches its lease file in a
-  shared directory and ages its peers' leases.  A peer is as old as the
-  local monotonic time since its lease was last seen to change, never a
-  comparison with another host's clock, so clock skew against a shared
-  filesystem cannot age a healthy peer.  Beyond ``straggler_age_s`` a
-  peer is a straggler (counted, its age gauged); beyond
-  ``lease_timeout_s`` it is lost, and the default handler exits with
-  :data:`RESTART_EXIT_CODE`.
+* :class:`HeartbeatWatchdog`: each controller advertises a lease and
+  ages its peers'.  Two wire modes, one policy: lease files in a shared
+  directory (one host), or, with ``ElasticConfig.transport_address``
+  set, lease beacons over the framed transport
+  (:mod:`..io.transport`, channel ``CH_ELASTIC``) to a
+  :class:`HeartbeatHub` that relays each beacon to the other
+  controllers (several hosts; a link blip is absorbed by the session's
+  resume, so the beacon channel cannot fake a dead peer).  A peer is as
+  old as the local monotonic time since its lease was last seen to move
+  (a file's mtime changing, a beacon arriving), never a comparison with
+  another host's clock, so clock skew cannot age a healthy peer.  Beyond
+  ``straggler_age_s`` a peer is a straggler (counted, its age gauged);
+  beyond ``lease_timeout_s`` it is lost, and the default handler exits
+  with :data:`RESTART_EXIT_CODE`.
 * :func:`initialize_with_retry`: ``torch.distributed.init_process_group``
   under bounded exponential backoff, so that a rendezvous that fails for
   a moment (a port still in TIME_WAIT, a peer not bound yet) retries; a
@@ -41,9 +47,7 @@ telemetry is the reference's: the watchdog's ``stats`` join the process
 registry as ``"elastic"``, a lease file carries the fit span, a peer
 turning straggler or lost journals ``peer_stalled`` / ``peer_lost``, an
 abandoning controller writes a ``peer_lost_abandon`` flight record, and
-:func:`run_worker`'s stats dump carries the journal's tail.  Still to come
-(ROADMAP.md, Queue A item 11, slice 11c): the lease beacons over the
-transport (``transport_address``, ``HeartbeatHub``).
+:func:`run_worker`'s stats dump carries the journal's tail.
 """
 
 from __future__ import annotations
@@ -77,8 +81,12 @@ class ElasticConfig:
     heartbeat_dir: str
     process_id: int
     num_processes: int
-    #: lease beacons over a transport (``host:port``); not ported yet
+    #: when set (``host:port`` of a :class:`HeartbeatHub`), lease beacons
+    #: ride the framed transport instead of the lease files: the
+    #: several-host topology, where no shared directory exists
     transport_address: str = ""
+    #: the shared secret of the hub's transport handshake
+    transport_token: str = ""
     #: how often each controller touches its lease file
     heartbeat_interval_s: float = 0.25
     #: a peer's lease age beyond which it counts as a straggler
@@ -92,18 +100,12 @@ class ElasticConfig:
     init_retries: int = 4
     init_backoff_s: float = 0.5
 
-    def __post_init__(self):
-        if self.transport_address:
-            raise NotImplementedError(
-                "ElasticConfig.transport_address: lease beacons over the "
-                "transport are not ported yet (ROADMAP.md, Queue A item "
-                "11); use the shared heartbeat_dir")
-
 
 class HeartbeatWatchdog:
-    """A file-lease heartbeat: one thread per controller that, each tick,
-    runs ``write_hook`` (a chaos injector's stall), touches this
-    process's lease file and ages every peer's.  ``stats`` (a
+    """A lease heartbeat: one thread per controller that, each tick, runs
+    ``write_hook`` (a chaos injector's stall), renews this process's
+    lease (its file, or a beacon to the hub in transport mode) and ages
+    every peer's.  ``stats`` (a
     :class:`..core.profiling.StageStats`) counts ``heartbeat_stalls`` (a
     peer turning straggler) and ``peer_lost`` (a lease expiring) and
     gauges ``heartbeat_age_ms`` (the oldest peer at the latest tick).
@@ -133,22 +135,51 @@ class HeartbeatWatchdog:
         # was seen to change
         self._peer_mtime: Dict[int, float] = {}
         self._peer_seen: Dict[int, float] = {}
+        # transport mode: the hub link; peers are aged by the local
+        # monotonic instant their relayed beacon arrived
+        self._client = None
 
     def path_for(self, pid: int) -> str:
         return os.path.join(self.cfg.heartbeat_dir, _HB_FILE.format(pid))
 
     def _touch(self) -> None:
-        """Write this process's lease: the time and the fit span."""
+        """Renew this process's lease, carrying the fit span: a beacon to
+        the hub in transport mode, else the lease file (the time and the
+        span)."""
+        if self._client is not None:
+            from ..io.transport import CH_ELASTIC
+            try:
+                if self._client.closed:
+                    # the reconnect budget ran out (a hub outage longer
+                    # than its backoff): dial afresh each tick, so a hub
+                    # that comes back sees beacons at once
+                    self._client = self._make_client().connect(retries=0)
+                # a short send timeout: during an outage the queue fills,
+                # and a beacon waiting on back-pressure must not hold up
+                # the peers' check
+                self._client.send(
+                    CH_ELASTIC,
+                    {"op": "lease", "pid": self.cfg.process_id,
+                     "fit": _tm.current_fit_span() or ""},
+                    timeout=min(1.0, self.cfg.heartbeat_interval_s))
+            except OSError:
+                pass   # a blip: the transport reconnects and replays
+            return
         with open(self.path_for(self.cfg.process_id), "w") as fh:
             fh.write(f"{time.time()} {_tm.current_fit_span() or ''}\n")
 
     def peer_ages(self) -> Dict[int, float]:
-        """Seconds since each peer's lease was last seen to change (inf:
-        never seen)."""
+        """Seconds since each peer's lease was last seen to move (inf:
+        never seen): its file's mtime changing, or its relayed beacon
+        arriving in transport mode."""
         now = time.monotonic()
         ages: Dict[int, float] = {}
         for p in range(self.cfg.num_processes):
             if p == self.cfg.process_id:
+                continue
+            if self._client is not None:
+                seen = self._peer_seen.get(p)
+                ages[p] = now - seen if seen is not None else float("inf")
                 continue
             try:
                 mt = os.path.getmtime(self.path_for(p))
@@ -161,8 +192,28 @@ class HeartbeatWatchdog:
             ages[p] = now - self._peer_seen[p]
         return ages
 
+    def _on_transport_msg(self, session, channel, obj, deadline_ms):
+        """A relayed beacon: the peer is seen now."""
+        from ..io.transport import CH_ELASTIC
+        if channel != CH_ELASTIC or obj.get("op") != "lease":
+            return
+        p = obj.get("pid")
+        if isinstance(p, int) and p != self.cfg.process_id:
+            self._peer_seen[p] = time.monotonic()
+
+    def _make_client(self):
+        from ..io.transport import TransportClient
+        return TransportClient(
+            self.cfg.transport_address, token=self.cfg.transport_token,
+            on_message=self._on_transport_msg,
+            name=f"heartbeat-p{self.cfg.process_id}")
+
     def start(self) -> "HeartbeatWatchdog":
-        os.makedirs(self.cfg.heartbeat_dir, exist_ok=True)
+        if self.cfg.transport_address:
+            self._client = self._make_client()
+            self._client.connect()
+        else:
+            os.makedirs(self.cfg.heartbeat_dir, exist_ok=True)
         self.stats.set_gauge("heartbeat_age_ms", 0.0)
         # the watchdog's gauges join the process registry (a controller's
         # /metrics or stats dump carries them)
@@ -178,6 +229,8 @@ class HeartbeatWatchdog:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5.0)
+        if self._client is not None:
+            self._client.close()
 
     def _check_peers(self) -> None:
         cfg = self.cfg
@@ -237,6 +290,51 @@ class HeartbeatWatchdog:
             except Exception:  # noqa: BLE001 - the watchdog must outlive
                 # a passing filesystem error
                 log.exception("heartbeat tick failed; continuing")
+
+
+class HeartbeatHub:
+    """The lease-beacon relay of the transport mode: controllers dial in
+    over resumable :mod:`..io.transport` sessions, and each ``lease``
+    beacon on ``CH_ELASTIC`` goes on to every other connected controller.
+    The hub judges nothing (an authenticated relay, run by the supervisor
+    or controller 0's host): each watchdog still ages its peers by its
+    own observations.  A controller's link blip is absorbed by its
+    session's resume; only a peer that stops beaconing ages out."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0, *,
+                 token: str = "", cfg=None):
+        from ..io.transport import TransportServer
+        self._ts = TransportServer(host, port, token=token, cfg=cfg,
+                                   on_message=self._relay,
+                                   name="heartbeat-hub")
+
+    @property
+    def address(self) -> str:
+        h, p = self._ts.address
+        return f"{h}:{p}"
+
+    def start(self) -> "HeartbeatHub":
+        self._ts.start()
+        return self
+
+    def stop(self) -> None:
+        self._ts.stop()
+
+    def _relay(self, session, channel, obj, deadline_ms) -> None:
+        from ..io.transport import CH_ELASTIC
+        if channel != CH_ELASTIC or obj.get("op") != "lease":
+            return
+        for s in list(self._ts.sessions.values()):
+            if s.sid == session.sid or not s.connected:
+                continue
+            try:
+                # a near-zero timeout: the relay runs on the beaconing
+                # controller's read pump, so one peer that does not drain
+                # must not delay the others' leases (beacons are periodic:
+                # dropping one beats blocking)
+                s.send(CH_ELASTIC, obj, timeout=0.02)
+            except OSError:
+                pass   # that peer's link is dying; its resume catches up
 
 
 def select_backend(rank_devices: Optional[Sequence] = None) -> str:
@@ -523,7 +621,9 @@ def run_worker(args) -> int:
         heartbeat_interval_s=args.heartbeat_interval,
         straggler_age_s=args.straggler_age,
         lease_timeout_s=args.lease_timeout,
-        init_retries=args.init_retries, init_backoff_s=args.init_backoff)
+        init_retries=args.init_retries, init_backoff_s=args.init_backoff,
+        transport_address=args.heartbeat_transport,
+        transport_token=args.heartbeat_token)
     # the process's index on its host: LOCAL_RANK where a launcher sets
     # it, else the process id (every controller on one host)
     device = _rank_device(args.device, int(os.environ.get(
@@ -613,6 +713,12 @@ def parse_args(argv=None):
                     help="cpu, cuda (the card of the process's local rank "
                          "modulo the host's cards) or cuda:N")
     ap.add_argument("--heartbeat-dir", default="")
+    ap.add_argument("--heartbeat-transport", default="",
+                    help="HOST:PORT of a HeartbeatHub: lease beacons over "
+                         "the framed transport in place of the lease files "
+                         "(controllers on several hosts)")
+    ap.add_argument("--heartbeat-token", default="",
+                    help="the heartbeat hub's shared secret")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--out", default="",
                     help="native model text written by process 0")
@@ -656,8 +762,8 @@ def parse_args(argv=None):
                          "reaches this boundary (io.chaos."
                          "ChaosControllerKill; 0 disables)")
     args = ap.parse_args(argv)
-    if not args.heartbeat_dir:
-        ap.error("--heartbeat-dir is required")
+    if not args.heartbeat_dir and not args.heartbeat_transport:
+        ap.error("--heartbeat-dir or --heartbeat-transport is required")
     return args
 
 

@@ -34,8 +34,10 @@ The serving injectors:
   mid-frame kills and half-open silence, which the session resume must
   survive with no loss and no duplicate.
 
-The reference's drift injector waits for the port's model registry and
-rollout.
+* :class:`ChaosDrift` perturbs one feature column of the request
+  stream once a number of rows has flowed (a step, or a ramp over
+  ``ramp_rows``; NaN storms), the drift the monitor and the refresh
+  loop must catch: the reference's stream for the same seed.
 """
 
 from __future__ import annotations
@@ -49,11 +51,13 @@ import threading
 import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
+import numpy as np
+
 from .scoring import WorkerKilled
 from .transport import T_ACK as _T_ACK
 
 __all__ = [
-    "ChaosBoostStep", "ChaosChannel", "ChaosControllerKill",
+    "ChaosBoostStep", "ChaosChannel", "ChaosControllerKill", "ChaosDrift",
     "ChaosHeartbeat", "ChaosPlan", "ChaosPredictor", "ChaosQueue",
     "ChaosSocket", "ChaosTransport", "WorkerKilled", "corrupt_file",
     "kill_process", "read_ckpt_boundary",
@@ -371,6 +375,90 @@ class ChaosTransport:
         return getattr(self._sock, attr)
 
 
+class ChaosDrift:
+    """Seeded mid-traffic data-drift injector: perturb ONE
+    feature column of the request stream once a configured number of
+    rows has flowed — the upstream-pipeline-change / sensor-failure
+    event the drift monitor must detect.
+
+    Wrap the drill's payload generator (or a feature matrix producer):
+    ``drift(X)`` returns ``X`` untouched for the first ``after_rows``
+    rows of cumulative traffic, then applies, to rows past that
+    boundary (the cut can land mid-batch):
+
+    * ``scale``/``shift`` — ``x → x * scale + shift`` (a recalibrated
+      or re-unit'd upstream feature);
+    * ``nan_rate`` — per-row Bernoulli NaN injection drawn from the
+      plan's channel (the "feature went silently null" storm).
+
+    ``ramp_rows > 0`` selects ramp mode: instead of a step
+    change at the cut, the injected shift/scale interpolate linearly
+    from no-op to full strength over the ``ramp_rows`` rows following
+    ``after_rows`` — the slow upstream-degradation shape that must
+    still cross the burn threshold.  The per-row ramp fraction is a
+    pure function of the global row index, so the injected stream is
+    identical regardless of batch boundaries.
+
+    Deterministic like every injector: the NaN decision sequence is a
+    pure function of ``(seed, name)`` and the row index.  Counters:
+    ``rows_seen`` / ``rows_injected`` / ``nans_injected`` — the drill's
+    injection ledger.  The input is never mutated in place (clients
+    may reuse their row buffers)."""
+
+    def __init__(self, plan: ChaosPlan, *, feature: int,
+                 shift: float = 0.0, scale: float = 1.0,
+                 nan_rate: float = 0.0, after_rows: int = 0,
+                 ramp_rows: int = 0, name: str = "drift"):
+        self.feature = int(feature)
+        self.shift = float(shift)
+        self.scale = float(scale)
+        self.nan_rate = float(nan_rate)
+        self.after_rows = int(after_rows)
+        self.ramp_rows = int(ramp_rows)
+        self._chan = plan.channel(name)
+        self._lock = threading.Lock()
+        self.rows_seen = 0
+        self.rows_injected = 0
+        self.nans_injected = 0
+
+    def __call__(self, X):
+        X = np.asarray(X)
+        squeeze = X.ndim == 1
+        if squeeze:
+            X = X[None, :]
+        n = X.shape[0]
+        with self._lock:
+            start = self.rows_seen
+            self.rows_seen += n
+        k0 = max(0, self.after_rows - start)
+        if k0 >= n:
+            return X[0] if squeeze else X
+        X = X.astype(np.float32, copy=True)
+        if self.ramp_rows > 0:
+            # ramp fraction per global row index past the cut: row
+            # ``after_rows + j`` carries (j+1)/ramp_rows of the full
+            # perturbation, saturating at 1 — batch-boundary invariant
+            j = np.arange(start + k0, start + n) - self.after_rows
+            frac = np.minimum((j + 1) / self.ramp_rows, 1.0).astype(
+                np.float32)
+            eff_scale = 1.0 + (self.scale - 1.0) * frac
+            eff_shift = self.shift * frac
+            col = X[k0:, self.feature] * eff_scale + eff_shift
+        else:
+            col = X[k0:, self.feature] * self.scale + self.shift
+        if self.nan_rate > 0:
+            mask = np.fromiter(
+                (self._chan.fire(self.nan_rate)
+                 for _ in range(n - k0)), bool, count=n - k0)
+            col[mask] = np.nan
+            with self._lock:
+                self.nans_injected += int(mask.sum())
+        X[k0:, self.feature] = col
+        with self._lock:
+            self.rows_injected += n - k0
+        return X[0] if squeeze else X
+
+
 def kill_process(proc_or_pid) -> int:
     """SIGKILL a process (a ``Popen``/``multiprocessing.Process`` or a
     pid); returns the pid."""
@@ -454,8 +542,6 @@ def read_ckpt_boundary(ckpt_dir: str) -> Optional[int]:
     """The boundary iteration the durable checkpoint meta in ``ckpt_dir``
     names, or None (absent, or caught mid-replace)."""
     import json
-
-    import numpy as np
 
     # the file name lives with the writer
     from ..gbdt.checkpoint import _CKPT_FILE

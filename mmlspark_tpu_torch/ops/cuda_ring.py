@@ -202,8 +202,11 @@ class _Workspace:
         self.flags = [torch.zeros(steps * lib.ring_max_blocks(),
                                   dtype=torch.int32, device=d)
                       for d in mesh.devices] if ring else []
-        self.work = [torch.zeros(total, dtype=dtype, device=d)
-                     for d in mesh.devices] if fused else []
+        # fused: each row tile's partial histogram, summed in tile order
+        # by the ring (grown to the most tiles a launch has asked for)
+        self.devices, self.total, self.dtype = list(mesh.devices), total, dtype
+        self.partial: List[torch.Tensor] = []
+        self.partial_tiles = 0
         # per chunk: the items counted so far, then the chunk's flag
         self.ready = [torch.zeros(2 * lib.ring_max_ranks(), dtype=torch.int32,
                                   device=d)
@@ -216,11 +219,22 @@ class _Workspace:
         self.local = {d: (ctypes.c_int * len(r))(*r)
                       for d, r in self.cards.items()}
         self.slots_p, self.flags_p = _ptrs(self.slots), _ptrs(self.flags)
-        self.work_p, self.ready_p = _ptrs(self.work), _ptrs(self.ready)
+        self.ready_p = _ptrs(self.ready)
+        self.partial_p = (ctypes.c_void_p * D)()   # none allocated: null
         self._blocks = {}
         self.pointers = {}   # fused: the shards' key -> pointer arrays
         self.fused_geometry = {}
         self.smem_budget = None
+
+    def partials(self, tiles: int) -> ctypes.Array:
+        """The fused kernel's per-tile partials, at least ``tiles × total``
+        words on each rank's device."""
+        if tiles > self.partial_tiles:
+            self.partial = [torch.empty(tiles * self.total, dtype=self.dtype,
+                                        device=d) for d in self.devices]
+            self.partial_tiles = tiles
+            self.partial_p = _ptrs(self.partial)
+        return self.partial_p
 
     def next_seq(self) -> int:
         self.seq = self.seq % _SEQ_MAX + 1
@@ -536,7 +550,8 @@ def fused_segment_hist_ring_cuda(shards, num_bins: int, mesh,
            for d in mesh.devices]
     seq = ws.next_seq()
     args = (bins_p, gh_p, order_p, (ctypes.c_int64 * (3 * D))(
-        *offs, *cnts, *tiles), ws.work_p, ws.ready_p, _ptrs(out), ws.slots_p,
+        *offs, *cnts, *tiles), ws.partials(max(tiles)), ws.ready_p,
+        _ptrs(out), ws.slots_p,
         ws.flags_p, f, num_bins, mode, sys, group, reps, chunk, seq, nb,
         nb_ring)
     for dev, ranks in ws.cards.items():

@@ -358,12 +358,28 @@ def _check_fused(devices, accum, f=13):
         shards = _fused_shards(mesh.devices, accum, counts, seed=10 * k,
                                f=f)
         before = cr.fused_segment_hist_ring_cuda.launches
-        for _ in range(2):   # the kernel leaves its work buffers zeroed
+        for _ in range(2):   # a second launch reuses the workspace
             got = co.fused_segment_hist_ring(shards, 256, mesh, accum)
             want = co.fused_segment_hist_ring_plain(shards, 256, accum)
             for g in got:
                 _check(g.to(want.device), want, accum)
         assert cr.fused_segment_hist_ring_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 4])
+def test_fused_hist_ring_f32_is_the_same_on_every_launch(cuda_device, D):
+    """fused_hist_ring adds its row tiles' partials in tile order, with no
+    float atomic: 20 launches on the same shards give the same bits, on
+    every shard."""
+    mesh = build_mesh(devices=[cuda_device] * D)
+    shards = _fused_shards(mesh.devices, "float32", [5000] * D, seed=3)
+    first = co.fused_segment_hist_ring(shards, 256, mesh, "float32")
+    first = [g.clone() for g in first]
+    for _ in range(19):
+        got = co.fused_segment_hist_ring(shards, 256, mesh, "float32")
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+    assert all(torch.equal(first[0], g) for g in first[1:])
 
 
 @pytest.mark.cuda
@@ -1469,3 +1485,34 @@ def test_sharded_predictor_on_the_card_equals_the_fleet(cuda_device):
             assert np.array_equal(fleet(X[:512]), expect)
         finally:
             fleet.stop()
+
+
+@pytest.mark.cuda
+def test_registry_and_rollout_serve_from_the_card(cuda_device, tmp_path):
+    """A registry loads its versions on the card by default, and a
+    rollout canary there routes each row to an arm whose margins equal
+    that arm's card predictor bit for bit, brought to the host as an
+    ndarray."""
+    from mmlspark_tpu_torch.io import (ModelRegistry, RolloutConfig,
+                                       RolloutController)
+    b1, X = _card_booster(cuda_device)
+    b2, _ = _card_booster(cuda_device, iterations=14)
+    reg = ModelRegistry(str(tmp_path / "reg"))
+    reg.publish(b1, activate=True)
+    v2 = reg.publish(b2)
+    loaded = reg.load()
+    assert loaded.predict_margin(X[:64]).is_cuda
+    ctl = RolloutController(reg, config=RolloutConfig(
+        canary_fraction=0.5, soak_s=0.0, min_canary_rows=1,
+        canary_deadline_ms=None))
+    ctl.start_canary(v2)
+    rids = [f"r{i}" for i in range(1000)]
+    got = ctl.score_routed(X[:1000], rids)
+    assert isinstance(got, np.ndarray)
+    arms = {v: reg.load(v).predictor()(X[:1000]).cpu().numpy()
+            for v in (1, v2)}
+    canary = np.array([ctl.arm_for(r) == "canary" for r in rids])
+    assert 0 < canary.sum() < len(rids)
+    assert np.array_equal(got, np.where(canary, arms[v2], arms[1]))
+    assert ctl.tick() == "promoted"
+    assert np.array_equal(ctl(X[:1000]), arms[v2])

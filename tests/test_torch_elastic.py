@@ -12,6 +12,12 @@ supervisor classes).
   timeout counts a straggler and never a loss; a silent peer is lost
   once; ages come from local observation, so a lease file's mtime far
   in the past does not age a peer that keeps writing.
+* The lease beacons over the transport: two watchdogs beacon through a
+  ``HeartbeatHub`` whose links a ``ChaosTransport`` cuts mid-frame, and
+  neither loses the other (the sessions resume); a peer that stops
+  beaconing is lost; the training drill's phase 4
+  (``transport_heartbeat_drill``) passes every verdict; a gang
+  controller takes ``--heartbeat-transport``.
 * The rendezvous: transient failures back off and succeed, parameter
   errors are not retried, spent retries raise, and a real one-rank gloo
   rendezvous on localhost forms (in a subprocess).
@@ -33,13 +39,17 @@ from mmlspark_tpu_torch.gbdt import checkpoint as ck_mod
 from mmlspark_tpu_torch.gbdt import elastic
 from mmlspark_tpu_torch.gbdt.elastic import (RESTART_EXIT_CODE,
                                              ElasticConfig,
+                                             HeartbeatHub,
                                              HeartbeatWatchdog,
                                              initialize_with_retry,
                                              supervise)
 from mmlspark_tpu_torch.io import chaos
+from mmlspark_tpu_torch.io import transport as tp
 from mmlspark_tpu_torch.io.chaos import (ChaosControllerKill,
                                          ChaosHeartbeat, ChaosPlan,
-                                         corrupt_file, read_ckpt_boundary)
+                                         ChaosTransport, corrupt_file,
+                                         read_ckpt_boundary)
+from mmlspark_tpu_torch.tools import chaos_training
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -145,6 +155,7 @@ def _wait(cond, limit_s=5.0):
     deadline = time.time() + limit_s
     while not cond() and time.time() < deadline:
         time.sleep(0.02)
+    return cond()
 
 
 def test_stall_counts_a_straggler_not_a_loss(tmp_path):
@@ -206,8 +217,95 @@ def test_peer_age_is_local_observation_not_the_file_clock(tmp_path):
 def test_restart_exit_code_and_transport_mode():
     assert RESTART_EXIT_CODE == 76
     assert RESTART_EXIT_CODE not in (0, 1, -9)
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        ElasticConfig("/tmp/hb", 0, 2, transport_address="127.0.0.1:1")
+    cfg = ElasticConfig("", 0, 2, transport_address="127.0.0.1:1",
+                        transport_token="t")
+    assert (cfg.transport_address, cfg.transport_token) == \
+        ("127.0.0.1:1", "t")
+
+
+# -- lease beacons over the transport --------------------------------------
+
+def _beacon_cfg(hub, pid, **kw):
+    base = dict(heartbeat_dir="", process_id=pid, num_processes=2,
+                heartbeat_interval_s=0.05, straggler_age_s=1.0,
+                lease_timeout_s=3.0, startup_grace_s=5.0,
+                transport_address=hub.address, transport_token="tok")
+    base.update(kw)
+    return ElasticConfig(**base)
+
+
+def test_beacons_survive_cut_links_without_a_false_loss():
+    """The hub's side of every link is cut mid-frame at its 6th and 15th
+    send (``ChaosTransport``): each session resumes, beacons flow again,
+    and no watchdog declares its live peer lost or even a straggler."""
+    plan = ChaosPlan(seed=4)
+    wraps = []
+
+    def wrap(sock):
+        wraps.append(ChaosTransport(sock, plan, kill_on_sends={6, 15}))
+        return wraps[-1]
+
+    resumes0 = tp.transport_stats.counter("resumes")
+    hub = HeartbeatHub(token="tok",
+                       cfg=tp.TransportConfig(socket_wrap=wrap)).start()
+    lost, dogs = [], []
+    try:
+        for pid in range(2):
+            dogs.append(HeartbeatWatchdog(
+                _beacon_cfg(hub, pid),
+                on_peer_lost=lambda p, a: lost.append(p)).start())
+        assert _wait(lambda: sum(w.resets for w in wraps) >= 2
+                     and all(d.peer_ages()[1 - i] < 0.5
+                             for i, d in enumerate(dogs)))
+        time.sleep(0.5)
+        ages = [d.peer_ages()[1 - i] for i, d in enumerate(dogs)]
+    finally:
+        for d in dogs:
+            d.stop()
+        hub.stop()
+    assert lost == [] and max(ages) < 1.0
+    assert tp.transport_stats.counter("resumes") > resumes0
+    assert [d.stats.counter("heartbeat_stalls") for d in dogs] == [0, 0]
+
+
+def test_a_silent_beacon_peer_is_lost_once():
+    """Controller 1 stops beaconing (its watchdog stops): controller 0
+    ages it past the lease by its own clock and loses it once."""
+    hub = HeartbeatHub(token="tok").start()
+    lost = []
+    dogs = [HeartbeatWatchdog(
+        _beacon_cfg(hub, pid, straggler_age_s=0.2, lease_timeout_s=0.6),
+        on_peer_lost=lambda p, a: lost.append(p)).start()
+        for pid in range(2)]
+    try:
+        assert _wait(lambda: dogs[0].peer_ages()[1] < 0.2)
+        dogs[1].stop()
+        assert _wait(lambda: lost == [1])
+        time.sleep(0.3)
+    finally:
+        for d in dogs:
+            d.stop()
+        hub.stop()
+    assert lost == [1]
+    assert dogs[0].stats.counter("peer_lost") == 1
+
+
+def test_transport_heartbeat_drill_passes():
+    """The training drill's phase 4, shortened: the link cuts resume, the
+    injected stall is counted, no peer is lost."""
+    verdicts, detail = chaos_training.transport_heartbeat_drill(
+        runtime_s=2.0)
+    assert all(verdicts.values()), (verdicts, detail)
+    assert detail["injected_stalls"] == 1 and detail["link_kills"] == 2
+
+
+def test_controller_arguments_take_the_transport():
+    args = elastic.parse_args(["--heartbeat-transport", "127.0.0.1:9",
+                               "--heartbeat-token", "tok"])
+    assert (args.heartbeat_transport, args.heartbeat_token,
+            args.heartbeat_dir) == ("127.0.0.1:9", "tok", "")
+    with pytest.raises(SystemExit):
+        elastic.parse_args([])
 
 
 # -- the rendezvous --------------------------------------------------------
